@@ -7,11 +7,14 @@ it end to end.
 Phases:
 
 1. The card's name and power limit, the versions, and the build of the
-   two CUDA kernels (nvcc, sm_90a) and of the native host library from
-   the sources in this checkout.
-2. Each kernel against its plain PyTorch version on the card, for every
-   method, in float32 and float64, on windows with NaN, +-inf, zeros,
-   negative values, zero weights and more than 32 slots.
+   CUDA kernels (nvcc, sm_90a) and of the native host library from the
+   sources in this checkout.
+2. Each kernel against its plain PyTorch version on the card, in
+   float32 and float64: every method of window_reduce and window_select
+   on windows with NaN, +-inf, zeros, negative values, zero weights and
+   more than 32 slots; csr_matvec on ragged rows of 0-40 entries with
+   empty rows and negative and zero weights, at E = 1, 3 and 20.  And
+   ``cg_solve`` refuses a NaN or inf right-hand side.
 3. The main path at the 1M-face config of ``bench.py``: a jittered
    1000 x 1000 quad mesh regridded onto a 512 x 512 raster, 20 extra
    slices of float32, through ``OverlapRegridder`` (mean, median, mode)
@@ -22,8 +25,23 @@ Phases:
    percentiles and weighted modes on a sample of targets).
 4. Kernel, plain, full-apply and source-transpose times at E = 20 and
    E = 128 (CUDA events, median of passes after warm-up), with true
-   bytes per pass, GB/s and the share of the card's measured copy
-   bandwidth.
+   bytes per pass, GB/s, the share of the card's measured copy
+   bandwidth, the bound, and ``torch.sparse.mm`` on the same weights
+   as a yardstick for the sum-kind methods.
+5. The Laplace fill at ``scripts/laplace_scale_demo.py``'s 1M
+   configuration: a shuffled Delaunay mesh of 1,002,001 nodes, 2 %
+   known, unit weights, atol 1e-6, through ``laplace_interpolate`` at
+   precondition degree 1 and 4 and for a stack of 20 slices at degree
+   4.  csr_matvec's launches must equal 1 + (degree - 1) + iterations *
+   degree per solve; every column's residual in the unknown system,
+   computed on the host with scipy in float64, must be at most 10 *
+   atol.  Then the structured-derived 1000 x 1000 triangle mesh through
+   the same path and checks.
+6. csr_matvec's time on the 1M system (float64 and float32, E = 1 and
+   20) beside its plain version, ``torch.sparse.mm`` and its bound; the
+   solves' wall, device and host seconds, the host split by stage
+   (content hash, system preparation, right-hand sides, scatter); a
+   profiler trace of one degree-4 solve.
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
@@ -42,6 +60,11 @@ import numpy as np
 
 N_SIDE, T_SIDE, N_EXTRA = 1000, 512, 20
 TIMING_EXTRAS = (20, 128)
+LAPLACE_SIDE, LAPLACE_SLICES = 1000, 20
+LAPLACE_SOLVE = {"atol": 1e-6, "rtol": 0.0, "maxiter": 2000}
+#: Peak rates outside the tensor cores of an H100 SXM at 700 W (NVIDIA's
+#: data sheet): 67 TFLOP/s float32, 34 TFLOP/s float64.
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 def quad_mesh(nx, ny, dx=1.0):
@@ -73,6 +96,43 @@ def bench_meshes(n_side, t_side, rng):
     return (verts, faces), (tverts, tfaces)
 
 
+def delaunay_mesh(n_side, seed=11):
+    """(n_side + 1)^2 uniform random points on [0, 100)^2, triangulated
+    by scipy's Delaunay, with the node order shuffled so that no
+    incidental bandedness survives (``scripts/laplace_scale_demo.py``'s
+    ``LAPLACE_MESH=delaunay``).  Returns (nodes (n, 2), faces (f, 3))."""
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    n_pts = (n_side + 1) ** 2
+    pts = rng.uniform(0.0, 100.0, (n_pts, 2))
+    tri = Delaunay(pts)
+    perm = rng.permutation(n_pts)
+    inv = np.empty(n_pts, np.int64)
+    inv[perm] = np.arange(n_pts)
+    return pts[perm], inv[tri.simplices]
+
+
+def structured_triangle_mesh(n_side):
+    """An n_side x n_side quad raster over [0, 100]^2, each quad split
+    into two triangles fanned from its first node: a structured-derived
+    mesh, whose node graph is banded (the JAX package gives it its DIA
+    stencil solver)."""
+    verts, quads = quad_mesh(n_side, n_side, dx=100.0 / n_side)
+    faces = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+    return verts, faces
+
+
+def laplace_inputs(nodes, known_fraction=0.02, seed=7):
+    """The scale demo's fill problem: the truth field sin(x / 17) *
+    cos(y / 23) * 10 + 5, known at a random ``known_fraction`` of the
+    nodes.  Returns (truth, values with NaN at the unknowns)."""
+    rng = np.random.default_rng(seed)
+    truth = np.sin(nodes[:, 0] / 17.0) * np.cos(nodes[:, 1] / 23.0) * 10.0 + 5.0
+    known = rng.random(len(nodes)) < known_fraction
+    return truth, np.where(known, truth, np.nan)
+
+
 def synthetic_windows(rng, n=4000, m=3000, w=40, n_extra=6):
     """PaddedCSR-style windows and two sources for the kernel checks.
 
@@ -101,6 +161,21 @@ def synthetic_windows(rng, n=4000, m=3000, w=40, n_extra=6):
     source[(u >= 0.11) & (u < 0.12)] = -np.inf
     source[(u >= 0.12) & (u < 0.17)] = 0.0
     return indices, weights, source, np.abs(source)
+
+
+def synthetic_csr(rng, n=5000, m=4000, max_row=40):
+    """A CSR matrix for the matvec checks: rows of 0 to ``max_row``
+    entries, 10 % of them empty, normal weights (negative ones
+    included) with 10 % exact zeros.  Returns (indptr int32, indices
+    int32, data float64)."""
+    lengths = rng.integers(0, max_row + 1, n)
+    lengths[rng.random(n) < 0.10] = 0
+    indptr = np.zeros(n + 1, np.int32)
+    np.cumsum(lengths, out=indptr[1:])
+    indices = rng.integers(0, m, int(indptr[-1])).astype(np.int32)
+    data = rng.normal(size=int(indptr[-1]))
+    data[rng.random(len(data)) < 0.10] = 0.0
+    return indptr, indices, data
 
 
 def compare(got, want, exact, rtol, atol):
@@ -158,6 +233,18 @@ def summation_bound(sourceT, idx, w, fn):
     unit = 2.0**-24 if sourceT.dtype == torch.float32 else 2.0**-53
     magnitude = reduce.reduce_windows(sourceT.abs(), idx, w, fn)
     return idx.shape[1] * unit * magnitude
+
+
+def matvec_bound(indptr, indices, data, x):
+    """Order-independent error bound of csr_matvec: the widest row's
+    length * unit roundoff * (|A| @ |x|)."""
+    import torch
+
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec_plain
+
+    unit = 2.0**-24 if x.dtype == torch.float32 else 2.0**-53
+    widest = int((indptr[1:] - indptr[:-1]).max())
+    return widest * unit * csr_matvec_plain(indptr, indices, data.abs(), x.abs())
 
 
 def card_line():
@@ -233,6 +320,47 @@ def phase_kernel_checks(device):
     return max_err
 
 
+def phase_matvec_checks(device):
+    """Phase 2, csr_matvec: against its plain version on ragged CSR
+    rows; and cg_solve's refusal of non-finite right-hand sides."""
+    import torch
+
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain
+    from xugrid_tpu_torch.ugrid.interpolate import cg_solve
+
+    rng = np.random.default_rng(5)
+    indptr, indices, data = synthetic_csr(rng)
+    print(f"phase 2: csr_matvec rows n={len(indptr) - 1} nnz={len(data)}, widest {int(np.diff(indptr).max())}")
+    max_err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        tables = [torch.from_numpy(a).to(device) for a in (indptr, indices)]
+        d = torch.from_numpy(data).to(device=device, dtype=dtype)
+        for E in (1, 3, 20):
+            x = torch.from_numpy(rng.normal(size=(4000, E))).to(device=device, dtype=dtype)
+            got = csr_matvec(*tables, d, x)
+            want = csr_matvec_plain(*tables, d, x)
+            rtol, atol = tolerance(dtype, 1.0)
+            bound = torch.clamp(matvec_bound(*tables, d, x), min=atol)
+            torch.cuda.synchronize()
+            err = compare(got, want, False, rtol, bound)
+            max_err = max(max_err, err)
+            print(f"  csr_matvec {str(dtype)[6:]} E={E}: ok, max |diff| {err:.3e}")
+    n = 10
+    rows = np.concatenate([np.arange(1, n), np.arange(n - 1), np.arange(n)])
+    cols = np.concatenate([np.arange(n - 1), np.arange(1, n), np.arange(n)])
+    vals = np.concatenate([-np.ones(2 * n - 2), np.full(n, 3.0)])
+    for bad in (np.nan, np.inf):
+        b = np.ones(n)
+        b[4] = bad
+        try:
+            cg_solve(rows, cols, vals, np.full(n, 3.0), b, np.zeros(n), 0.0, 1e-8, 50)
+        except ValueError as e:
+            print(f"  cg_solve refuses b with {bad}: {e}")
+        else:
+            raise AssertionError(f"cg_solve accepted a right-hand side holding {bad}")
+    return max_err
+
+
 def reference_linear(csr, source, relative):
     """Independent host reference of mean (relative=False) and
     first_order_conservative (relative=True): scipy CSR products in
@@ -278,7 +406,7 @@ def phase_main_path(device):
 
     import xugrid_tpu_torch as xt
     from xugrid_tpu_torch.regrid import reduce
-    from xugrid_tpu_torch.regrid.aligned_apply import window_reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
     from xugrid_tpu_torch.regrid.apply import device_weights
     from xugrid_tpu_torch.regrid.select_apply import window_select
     from xugrid_tpu_torch.utils.profiling import timings
@@ -301,7 +429,7 @@ def phase_main_path(device):
         (xt.OverlapRegridder, "median", window_select),
         (xt.OverlapRegridder, "mode", window_select),
     ]
-    kernels = (window_reduce, window_select)
+    kernels = (window_reduce, window_select, csr_matvec)
     results = []
     timings.reset()
     for k in kernels:
@@ -374,11 +502,25 @@ def cuda_time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def bound_ms(true_bytes, operations, dtype_name, copy_gbps):
+    """The least time the card could take: the larger of the bytes over
+    this run's copy rate and the operations over the peak rate of their
+    type.  Returns (ms, "bytes" or "operations")."""
+    by_bytes = true_bytes / (copy_gbps * 1e9) * 1e3
+    by_ops = operations / PEAK_FLOPS[dtype_name] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def phase_timing(device, results, card):
     """Phase 4: kernel, plain, full-apply and transpose times at the 1M
     config.  The apply pass is the source's slice-minor transpose plus
-    the kernel; the output stays a transposed view."""
+    the kernel; the output stays a transposed view.  For the sum-kind
+    methods, ``torch.sparse.mm`` of the weight matrix with the staged
+    source computes the same sums (the yardstick ``library_ms``); no
+    library call computes a selection."""
     import torch
+
+    from xugrid_tpu_torch.regrid.aligned_apply import window_reduce
 
     from xugrid_tpu_torch.regrid import reduce
     from xugrid_tpu_torch.regrid.apply import apply_weights, device_weights
@@ -395,6 +537,12 @@ def phase_timing(device, results, card):
         csr = regridder._weights
         n, m = csr.n, csr.m
         idx, w = device_weights(regridder._padded, torch.float32, device, regridder._device_weights)
+        library = None
+        if kernel is window_reduce:
+            library = torch.sparse_csr_tensor(
+                *(torch.from_numpy(a.astype(np.int32)).to(device) for a in (csr.indptr, csr.indices)),
+                torch.from_numpy(csr.data.astype(np.float32)).to(device), size=(n, m),
+            )
         for n_extra in TIMING_EXTRAS:
             source = torch.from_numpy(rng.normal(size=(n_extra, m)).astype(np.float32)).to(device)
             sourceT = source.t().contiguous()
@@ -413,20 +561,273 @@ def phase_timing(device, results, card):
                 lambda: apply_weights(regridder._padded, source, red, n, cache=regridder._device_weights)
             )
             transpose_ms = cuda_time_ms(lambda: source.t().contiguous())
-            for label, ms in (
+            library_ms = None
+            if library is not None:
+                library_ms = cuda_time_ms(lambda: torch.sparse.mm(library, sourceT))
+            if kernel is window_reduce:
+                operations = 2 * csr.nnz * n_extra
+            else:
+                operations = csr.nnz * n_extra * int(np.ceil(np.log2(max(regridder._padded.w_max, 2))))
+            bound, bound_by = bound_ms(true_bytes, operations, "float32", copy_gbps)
+            print(
+                f"  {method} E={n_extra} bound ({kernel.__name__}): {bound:.6f} ms by {bound_by} "
+                f"({operations} operations), kernel at {100 * bound / kernel_ms:.2f} % of it [{card}]"
+            )
+            rows = [
                 ("kernel", kernel_ms), ("plain", plain_ms), ("apply pass", full_ms),
                 ("source transpose", transpose_ms),
-            ):
+            ]
+            if library_ms is not None:
+                rows.append(("torch.sparse.mm", library_ms))
+            for label, ms in rows:
                 gbps = true_bytes / (ms * 1e-3) / 1e9
                 print(
                     f"  {method} E={n_extra} {label} ({kernel.__name__}): {ms * 1e-3:.6f} s/pass, "
                     f"true bytes {true_bytes}, {gbps:.1f} GB/s, {100 * gbps / copy_gbps:.2f} % of copy "
                     f"[{card}]"
                 )
-            timed[(method, n_extra)] = (kernel_ms, plain_ms)
+            timed[(method, n_extra)] = {
+                "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound, "bound_by": bound_by,
+            }
             del source, sourceT
             torch.cuda.empty_cache()
+    return timed, copy_gbps
+
+
+def unknown_residuals(W, values, filled):
+    """Independent host check of a fill: per column, the norm of the
+    residual of the unknown system (D - W)_uu x_u - W_uk x_k, in float64
+    with scipy.  ``values`` (E, n) holds NaN at the unknowns."""
+    import scipy.sparse
+
+    unknown = np.isnan(values[0])
+    W = W.tocsr()
+    L = scipy.sparse.diags(np.asarray(W.sum(axis=1)).ravel()) - W
+    L_uu = L[unknown][:, unknown]
+    W_uk = W[unknown][:, ~unknown]
+    r = L_uu @ filled[:, unknown].T - W_uk @ values[:, ~unknown].T
+    return np.linalg.norm(r, axis=0)
+
+
+def host_stages(info):
+    """The host stages of a solve, from ``last_solve_info``."""
+    return ", ".join(f"{k} {info[k]:.4f}" for k in ("hash_s", "prep_s", "rhs_s", "scatter_s"))
+
+
+def laplace_run(label, W, labels, data, degree, truth):
+    """One laplace_interpolate call through the entry point, checked:
+    csr_matvec launches, shape, finiteness and the host residual.
+    Returns (filled, info, launches)."""
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec
+    from xugrid_tpu_torch.ugrid import interpolate
+
+    before = csr_matvec.launches
+    t0 = time.perf_counter()
+    filled = interpolate.laplace_interpolate(
+        data, W, components_labels=labels, precondition_degree=degree, **LAPLACE_SOLVE
+    )
+    wall = time.perf_counter() - t0
+    info = dict(interpolate.last_solve_info)
+    launches = csr_matvec.launches - before
+    expected = 1 + (degree - 1) + info["iterations"] * degree
+    if launches != expected:
+        raise AssertionError(
+            f"{label}: csr_matvec launches {launches} "
+            f"(expected {expected} for {info['iterations']} iterations at degree {degree})"
+        )
+    if filled.shape != data.shape or not np.isfinite(filled).all():
+        raise AssertionError(f"{label}: output {filled.shape}, finite {np.isfinite(filled).mean()}")
+    residual = unknown_residuals(W, np.atleast_2d(data), np.atleast_2d(filled))
+    if residual.max() > 10 * LAPLACE_SOLVE["atol"]:
+        raise AssertionError(f"{label}: host residual {residual.max():.3e} > 10 * atol")
+    # Each slice is a multiple of the truth field: compare with it.
+    data2 = np.atleast_2d(data)
+    k0 = np.flatnonzero(~np.isnan(data2[0]))[0]
+    scales = data2[:, k0] / truth[k0]
+    err = float(np.abs(np.atleast_2d(filled) - scales[:, None] * truth[None, :]).max())
+    print(
+        f"  {label}: {info['iterations']} iterations, csr_matvec launches "
+        f"+{launches}, host residual max {residual.max():.3e}, max |fill - truth| {err:.4f}, "
+        f"wall {wall:.3f} s (host {info['host_s']:.3f} s: {host_stages(info)}; device "
+        f"{info['device_s']:.3f} s), {info['n_unknown'] * data2.shape[0] / wall:.1f} unknown values/s"
+    )
+    return filled, info, launches
+
+
+def phase_laplace(device):
+    """Phase 5: the Laplace fill at the scale demo's 1M configuration,
+    through the entry point, on the card."""
+    from scipy.sparse.csgraph import connected_components
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.ugrid import interpolate
+
+    kernels = (window_reduce, window_select, csr_matvec)
+    meshes = {}
+    t0 = time.perf_counter()
+    nodes, faces = delaunay_mesh(LAPLACE_SIDE)
+    t1 = time.perf_counter()
+    grid = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, faces)
+    W = grid.get_connectivity_matrix(grid.node_dimension, xy_weights=False).astype(np.float64)
+    W.data = np.ones_like(W.data)
+    _, labels = connected_components(W)
+    t2 = time.perf_counter()
+    truth, values = laplace_inputs(nodes)
+    print(
+        f"phase 5: Delaunay mesh {len(nodes)} nodes, {len(faces)} faces in {t1 - t0:.3f} s; "
+        f"node connectivity nnz {W.nnz} and components in {t2 - t1:.3f} s; "
+        f"{int(np.isnan(values).sum())} unknowns"
+    )
+    meshes["delaunay"] = (W, labels, values, truth)
+    t0 = time.perf_counter()
+    snodes, sfaces = structured_triangle_mesh(LAPLACE_SIDE)
+    sgrid = xt.Ugrid2d(snodes[:, 0], snodes[:, 1], -1, sfaces)
+    SW = sgrid.get_connectivity_matrix(sgrid.node_dimension, xy_weights=False).astype(np.float64)
+    SW.data = np.ones_like(SW.data)
+    _, slabels = connected_components(SW)
+    struth, svalues = laplace_inputs(snodes)
+    print(f"  structured mesh {len(snodes)} nodes, {len(sfaces)} faces, connectivity in {time.perf_counter() - t0:.3f} s")
+    meshes["structured"] = (SW, slabels, svalues, struth)
+    stack = np.where(
+        np.isnan(values)[None, :], np.nan,
+        truth[None, :] * (1.0 + 0.05 * np.arange(LAPLACE_SLICES))[:, None],
+    )
+    for k in kernels:
+        k.launches = 0
+    runs = {}
+    for label, data, degree in (("degree 1", values, 1), ("degree 4", values, 4),
+                                (f"{LAPLACE_SLICES} slices, degree 4", stack, 4)):
+        runs[label] = laplace_run(label, W, labels, data, degree, truth)
+    # The Delaunay CG system as laplace_interpolate prepared it on the
+    # card, for phase 6.
+    (meshes["delaunay_prep"],) = (v for k, v in interpolate._SYSTEMS.items() if k[0] == "laplace")
+    runs["structured, degree 4"] = laplace_run("structured, degree 4", SW, slabels, svalues, 4, struth)
+    counts = {k.__name__: k.launches for k in kernels}
+    if counts["window_reduce"] or counts["window_select"] or not counts["csr_matvec"]:
+        raise AssertionError(f"Laplace fill launched {counts}")
+    return counts, runs, meshes
+
+
+def phase_laplace_timing(device, card, copy_gbps, meshes):
+    """Phase 6: csr_matvec on the 1M Delaunay CG system beside its plain
+    version, torch.sparse.mm and its bound; repeat solves; a profile."""
+    import torch
+
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain
+    from xugrid_tpu_torch.ugrid import interpolate
+
+    W, labels, values, truth = meshes["delaunay"]
+    # The CG system of the Delaunay fill, as laplace_interpolate cached
+    # it on the card (compacted to the unknowns, RCM-relabelled).
+    prep = meshes["delaunay_prep"]
+    indptr, indices, data64 = (prep["system"][k] for k in ("indptr", "indices", "data"))
+    n, nnz = indptr.numel() - 1, data64.numel()
+    print(f"phase 6 [{card}]: CG system n {n}, nnz {nnz}, widest row {int((indptr[1:] - indptr[:-1]).max())}")
+    rng = np.random.default_rng(1)
+    timed = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        data = data64.to(dtype)
+        size = data.element_size()
+        # The library yardstick (torch.sparse.mm); the port never calls it.
+        library = torch.sparse_csr_tensor(indptr, indices, data, size=(n, n))
+        for E in (1, LAPLACE_SLICES):
+            x = torch.from_numpy(rng.normal(size=(n, E))).to(device=device, dtype=dtype)
+            samples = {"kernel": [], "plain": []}
+            for which in ("plain", "kernel", "kernel", "plain"):
+                fn = csr_matvec if which == "kernel" else csr_matvec_plain
+                samples[which].append(cuda_time_ms(lambda: fn(indptr, indices, data, x), reps=20 if which == "kernel" else 3))
+            kernel_ms = statistics.median(samples["kernel"])
+            plain_ms = statistics.median(samples["plain"])
+            library_ms = cuda_time_ms(lambda: torch.sparse.mm(library, x), reps=20)
+            got = csr_matvec(indptr, indices, data, x)
+            rtol, atol = tolerance(dtype, 1.0)
+            err = compare(got, csr_matvec_plain(indptr, indices, data, x), False, rtol,
+                          torch.clamp(matvec_bound(indptr, indices, data, x), min=atol))
+            true_bytes = nnz * (4 + size) + (n + 1) * 4 + 2 * n * E * size
+            bound, bound_by = bound_ms(true_bytes, 2 * nnz * E, name, copy_gbps)
+            print(
+                f"  csr_matvec {name} E={E}: kernel {kernel_ms:.6f} ms, plain {plain_ms:.6f} ms, "
+                f"torch.sparse.mm {library_ms:.6f} ms; true bytes {true_bytes}, bound {bound:.6f} ms "
+                f"by {bound_by} (copy {copy_gbps:.1f} GB/s), kernel at {100 * bound / kernel_ms:.2f} % "
+                f"of the bound, {true_bytes / (kernel_ms * 1e-3) / 1e9:.1f} GB/s; vs plain max |diff| "
+                f"{err:.3e} [{card}]"
+            )
+            timed[(name, E)] = {
+                "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+            }
+            del x
+    stack = np.where(
+        np.isnan(values)[None, :], np.nan,
+        truth[None, :] * (1.0 + 0.05 * np.arange(LAPLACE_SLICES))[:, None],
+    )
+    for label, data, degree, mesh in (
+        ("degree 1", values, 1, "delaunay"), ("degree 4", values, 4, "delaunay"),
+        (f"{LAPLACE_SLICES} slices, degree 4", stack, 4, "delaunay"),
+        ("structured, degree 4", None, 4, "structured"),
+    ):
+        Wm, lm, vm, _ = meshes[mesh]
+        data = vm if data is None else data
+        infos = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            interpolate.laplace_interpolate(data, Wm, components_labels=lm, precondition_degree=degree, **LAPLACE_SOLVE)
+            infos.append(dict(interpolate.last_solve_info, wall=time.perf_counter() - t0))
+        info = {k: statistics.median(i[k] for i in infos) for k in infos[0] if k.endswith("_s") or k == "wall"}
+        wall, dev, iterations = info["wall"], info["device_s"], infos[-1]["iterations"]
+        print(
+            f"  solve {label} ({iterations} iterations), median of 3 warm: wall {wall:.4f} s, device "
+            f"{dev:.4f} s, host {info['host_s']:.4f} s ({host_stages(info)}), "
+            f"{infos[-1]['n_unknown'] / wall:.1f} nodes/s, {1e3 * dev / max(iterations, 1):.4f} ms per "
+            f"iteration [{card}]"
+        )
+    profile_solve(values, W, labels, card)
     return timed
+
+
+def profile_solve(values, W, labels, card):
+    """torch.profiler over one warm degree-4 solve: device time by kernel
+    (the profiler's table, printed), the device's busy share
+    of the wall time, csr_matvec's share of the busy time, the count of
+    device activities, and the host's own time in the operators that
+    issued them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from xugrid_tpu_torch.ugrid import interpolate
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        interpolate.laplace_interpolate(values, W, components_labels=labels, precondition_degree=4, **LAPLACE_SOLVE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # Kernels, copies and memsets are device events; an operator (CPU
+    # event) also reports its kernels' time, so only device events count.
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    if busy_us == 0:
+        print(f"  profile: the profiler recorded no device time; busy share not measured [{card}]")
+        return
+    host_us = sum(e.self_cpu_time_total for e in events if e.device_type == DeviceType.CPU)
+    matvec_us = sum(e.self_device_time_total for e in on_device if "csr_matvec" in e.key)
+    iterations = interpolate.last_solve_info["iterations"]
+    print(events.table(sort_by="self_cuda_time_total", row_limit=15))
+    top = sorted(on_device, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    print(
+        f"  profile of a warm degree-4 solve ({iterations} iterations): wall {wall:.4f} s (profiler on), "
+        f"device busy {busy_us * 1e-6:.4f} s = {100 * busy_us * 1e-6 / wall:.2f} % of the wall, "
+        f"{busy_us * 1e-3 / iterations:.4f} ms per iteration, csr_matvec {100 * matvec_us / busy_us:.2f} % "
+        f"of it; {sum(e.count for e in on_device)} device activities; host self time in operators "
+        f"{host_us * 1e-6:.4f} s; top: " + "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total * 1e-3:.3f} ms x{e.count}" for e in top
+        ) + f" [{card}]"
+    )
 
 
 def main() -> int:
@@ -440,10 +841,15 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     print(card)
+    t_start = time.perf_counter()
     phase_build()
     check_err = phase_kernel_checks(device)
+    check_err["csr_matvec"] = phase_matvec_checks(device)
     counts, main_err, results = phase_main_path(device)
-    timed = phase_timing(device, results, card)
+    timed, copy_gbps = phase_timing(device, results, card)
+    laplace_counts, _, meshes = phase_laplace(device)
+    matvec_timed = phase_laplace_timing(device, card, copy_gbps, meshes)
+    main_matvec = matvec_timed[("float64", 1)]
     kernels = [
         {
             "name": "window_reduce",
@@ -452,8 +858,7 @@ def main() -> int:
             "replaces": "xugrid_tpu/regrid/aligned_apply.py:1271",
             "launches": counts["window_reduce"],
             "max_abs_err": max(check_err["window_reduce"], main_err["window_reduce"]),
-            "ms": timed[("mean", N_EXTRA)][0],
-            "plain_ms": timed[("mean", N_EXTRA)][1],
+            **timed[("mean", N_EXTRA)],
         },
         {
             "name": "window_select",
@@ -462,10 +867,22 @@ def main() -> int:
             "replaces": "xugrid_tpu/regrid/select_apply.py:804",
             "launches": counts["window_select"],
             "max_abs_err": max(check_err["window_select"], main_err["window_select"]),
-            "ms": timed[("median", N_EXTRA)][0],
-            "plain_ms": timed[("median", N_EXTRA)][1],
+            **timed[("median", N_EXTRA)],
+        },
+        {
+            "name": "csr_matvec",
+            "route": "cuda",
+            "source": "xugrid_tpu_torch/csrc/window_reduce.cu",
+            "replaces": (
+                "xugrid_tpu/regrid/aligned_apply.py:1271 (matvec); "
+                "xugrid_tpu/regrid/gather_apply.py:1794, 1858, 1413, 975"
+            ),
+            "launches": laplace_counts["csr_matvec"],
+            **main_matvec,
+            "max_abs_err": max(check_err["csr_matvec"], *(t["max_abs_err"] for t in matvec_timed.values())),
         },
     ]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     device_info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device_info}))

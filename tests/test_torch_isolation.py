@@ -1,6 +1,7 @@
 """
-The port stands alone: in a fresh interpreter, ``import xugrid_tpu_torch``
-and a CPU regrid load neither jax nor xugrid_tpu, and launch no kernel.
+The port stands alone: in a fresh interpreter, ``import xugrid_tpu_torch``,
+a CPU regrid, a CPU Laplace fill and a CPU ``cg_solve`` load neither jax
+nor xugrid_tpu, and launch no kernel.
 A subprocess is needed because the test session itself imports jax.
 
 ``chip_smoke.py`` refuses to run without a CUDA device: exit code 2 and
@@ -24,8 +25,9 @@ REGRID_ON_CPU = textwrap.dedent(
     import torch
 
     import xugrid_tpu_torch as xt
-    from xugrid_tpu_torch.regrid.aligned_apply import window_reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
     from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.ugrid import interpolate
 
     def quad(n, dx):
         x = np.arange(n + 1.0) * dx
@@ -39,12 +41,23 @@ REGRID_ON_CPU = textwrap.dedent(
     data = torch.from_numpy(np.random.default_rng(0).normal(size=(2, source.n_face)))
     for cls, method in [(xt.OverlapRegridder, "mean"), (xt.OverlapRegridder, "median"),
                         (xt.RelativeOverlapRegridder, "first_order_conservative")]:
-        out = cls(source, target, method=method).regrid(data)
+        out = cls(source, target, method=method).regrid(data, device="cpu")
         assert out.shape == (2, target.n_face) and bool(torch.isfinite(out).all()), method
+    W = source.get_connectivity_matrix(source.node_dimension, xy_weights=True)
+    values = np.where(np.arange(source.n_node) % 7 == 0, 1.0 + np.arange(source.n_node), np.nan)
+    filled = interpolate.laplace_interpolate(values, W, device="cpu")
+    assert np.isfinite(filled).all() and interpolate.last_solve_info["mode"] == "cg"
+    n = 50
+    rows = np.concatenate([np.arange(1, n), np.arange(n - 1), np.arange(n)])
+    cols = np.concatenate([np.arange(n - 1), np.arange(1, n), np.arange(n)])
+    vals = np.concatenate([-np.ones(2 * n - 2), np.full(n, 3.0)])
+    x, _ = interpolate.cg_solve(rows, cols, vals, np.full(n, 3.0), np.ones(n), np.zeros(n),
+                                0.0, 1e-10, 200, device="cpu")
+    assert np.isfinite(x).all()
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "xugrid_tpu" or m.startswith("xugrid_tpu."))
     assert not loaded, loaded
-    assert window_reduce.launches == 0 and window_select.launches == 0
+    assert window_reduce.launches == 0 and window_select.launches == 0 and csr_matvec.launches == 0
     print("isolated")
     """
 )

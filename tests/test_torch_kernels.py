@@ -1,6 +1,7 @@
 """
-The two Hopper kernels (window_reduce, window_select) against their
-plain PyTorch version on a CUDA card, and the checks of their wrappers.
+The Hopper kernels (window_reduce, window_select, csr_matvec) against
+their plain PyTorch version on a CUDA card, the checks of their
+wrappers, and the entry points (regrid, laplace_interpolate) on the card.
 
 Every test here needs a card: marked ``cuda`` and skipped without one.
 This file imports no jax; where jax is not installed, skip the suite's
@@ -16,8 +17,9 @@ import torch
 import chip_smoke
 import xugrid_tpu_torch as xt
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, window_reduce
+from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, csr_matvec, csr_matvec_plain, window_reduce
 from xugrid_tpu_torch.regrid.select_apply import window_select
+from xugrid_tpu_torch.ugrid import interpolate
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +88,55 @@ def test_regrid_on_cuda_matches_cpu(device):
         on_card = regridder.regrid(data.to(device))
         assert on_card.device == device
         torch.testing.assert_close(on_card.cpu(), regridder.regrid(data), rtol=1e-12, atol=1e-12)
+        # A numpy source goes to the card by default.
+        assert regridder.regrid(data.numpy()).device == device
+
+
+@pytest.mark.parametrize("E", [1, 3, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_csr_matvec_matches_plain(device, dtype, E):
+    rng = np.random.default_rng(E)
+    indptr, indices, data = chip_smoke.synthetic_csr(rng)
+    x = rng.normal(size=(4000, E))
+    args = [torch.from_numpy(a).to(device) for a in (indptr, indices)] + [
+        torch.from_numpy(a).to(device=device, dtype=dtype) for a in (data, x)
+    ]
+    before = csr_matvec.launches
+    got = csr_matvec(*args)
+    assert csr_matvec.launches == before + 1
+    want = csr_matvec_plain(*args)
+    rtol, atol = chip_smoke.tolerance(dtype, 1.0)
+    chip_smoke.compare(got, want, False, rtol, chip_smoke.matvec_bound(*args))
+
+
+def test_csr_matvec_checks_its_tensors(device):
+    indptr = torch.tensor([0, 1, 2], dtype=torch.int32, device=device)
+    indices = torch.tensor([0, 1], dtype=torch.int32, device=device)
+    data = torch.ones(2, device=device)
+    x = torch.ones((2, 1), device=device)
+    with pytest.raises(TypeError, match="int32"):
+        csr_matvec(indptr.long(), indices, data, x)
+    with pytest.raises(TypeError, match="differs"):
+        csr_matvec(indptr, indices, data.double(), x)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        csr_matvec(indptr, indices, data.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        csr_matvec(indptr, indices, data, torch.ones((2, 2), device=device).t())
+    with pytest.raises(ValueError, match="CUDA device"):
+        csr_matvec(indptr.cpu(), indices, data, x)
+
+
+def test_laplace_on_cuda_matches_cpu(device):
+    nodes, faces = chip_smoke.delaunay_mesh(76)
+    grid = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, faces)
+    W = grid.get_connectivity_matrix(grid.node_dimension, xy_weights=True)
+    truth, values = chip_smoke.laplace_inputs(nodes, 0.05)
+    stack = np.stack([values, 2.0 * values])
+    before = csr_matvec.launches
+    on_card = interpolate.laplace_interpolate(stack, W, atol=1e-10, maxiter=2000)
+    info = dict(interpolate.last_solve_info)
+    assert csr_matvec.launches - before == 1 + 3 + 4 * info["iterations"]
+    on_cpu = interpolate.laplace_interpolate(stack, W, atol=1e-10, maxiter=2000, device="cpu")
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0.0, atol=1e-8)
+    with pytest.raises(ValueError, match="b holds NaN or inf"):
+        interpolate.laplace_interpolate(np.where(np.isnan(values), values, np.inf), W)

@@ -99,7 +99,7 @@ def test_regrid_matches_jax(meshes, cls, method):
     jr = getattr(xu, cls)(*meshes["jax"], method=method)
     tr = getattr(xt, cls)(*meshes["torch"], method=method)
     launches = (window_reduce.launches, window_select.launches)
-    got = tr.regrid(source)
+    got = tr.regrid(source, device="cpu")
     assert (window_reduce.launches, window_select.launches) == launches
     assert isinstance(got, torch.Tensor) and got.shape == (3, T_SIDE * T_SIDE)
     want = jax_regrid(jr, meshes["jax"][0], source)
@@ -110,7 +110,7 @@ def test_regrid_matches_jax(meshes, cls, method):
     carried = getattr(xt, cls).from_csr_arrays(
         w.data, w.indices, w.indptr, w.n, w.m, meshes["torch"][1], method
     )
-    torch.testing.assert_close(carried.regrid(source), got, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(carried.regrid(source, device="cpu"), got, rtol=0, atol=0, equal_nan=True)
 
 
 def test_regrid_keeps_leading_dims_and_chunks(meshes, monkeypatch):
@@ -130,11 +130,25 @@ def test_regrid_keeps_leading_dims_and_chunks(meshes, monkeypatch):
 def test_regrid_rejects_bad_input(meshes):
     tr = xt.OverlapRegridder(*meshes["torch"])
     with pytest.raises(ValueError, match="does not match"):
-        tr.regrid(np.zeros((2, 7)))
+        tr.regrid(np.zeros((2, 7)), device="cpu")
     with pytest.raises(ValueError, match="Invalid regridding method"):
         xt.OverlapRegridder(*meshes["torch"], method="first_order_conservative")
-    empty = tr.regrid(np.zeros((0, N_SIDE * N_SIDE)))
+    empty = tr.regrid(np.zeros((0, N_SIDE * N_SIDE)), device="cpu")
     assert empty.shape == (0, T_SIDE * T_SIDE)
+
+
+def test_regrid_runs_on_the_card_by_default(meshes):
+    """A numpy source goes to the CUDA card unless the caller asks for
+    the CPU; without a card that is an error, not a CPU fallback.  A CPU
+    tensor stays on the CPU."""
+    source = meshes["source"]
+    tr = xt.OverlapRegridder(*meshes["torch"], method="mean")
+    if torch.cuda.is_available():
+        assert tr.regrid(source).device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tr.regrid(source)
+    assert tr.regrid(torch.from_numpy(source)).device == torch.device("cpu")
 
 
 def test_custom_percentile_method(meshes):
@@ -146,7 +160,7 @@ def test_custom_percentile_method(meshes):
     )
     want = jax_regrid(jr, meshes["jax"][0], source)
     values, weights = gathered(tr._weights, source)
-    assert_matches(tr.regrid(source).numpy().T, want.T, "p33.3", values, weights)
+    assert_matches(tr.regrid(source, device="cpu").numpy().T, want.T, "p33.3", values, weights)
 
 
 def test_host_fallbacks_match_native(meshes, monkeypatch):

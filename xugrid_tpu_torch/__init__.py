@@ -2,10 +2,13 @@
 xugrid_tpu_torch: the PyTorch and CUDA port of xugrid_tpu, for one
 NVIDIA H100.
 
-This slice covers the overlap regrid: weights built on the host from
-the mesh geometry, applied on the device by two hand-written CUDA
-kernels (``csrc/window_reduce.cu``, ``csrc/window_select.cu``).  The
-package imports torch, numpy and scipy, and never jax or xugrid_tpu.
+It covers the overlap regrid (weights built on the host from the mesh
+geometry, applied on the device by two hand-written CUDA kernels,
+``csrc/window_reduce.cu`` and ``csrc/window_select.cu``) and the Laplace
+fill (``ugrid/interpolate.py``, a preconditioned CG whose SpMV is the
+CUDA kernel ``csr_matvec``).  Entry points run on the CUDA card unless
+the caller asks for the CPU.  The package imports torch, numpy and
+scipy, and never jax or xugrid_tpu.
 """
 
 from xugrid_tpu_torch.regrid.regridder import OverlapRegridder, RelativeOverlapRegridder

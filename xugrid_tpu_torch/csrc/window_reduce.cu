@@ -1,5 +1,6 @@
 // window_reduce: Hopper kernel #1 of xugrid_tpu_torch, the windowed
-// reductions of the regrid apply.
+// reductions of the regrid apply.  The file also holds csr_matvec, the
+// SpMV of the Laplace PCG (kernel #1's matvec mode), further down.
 //
 // Replaces xugrid_tpu/regrid/aligned_apply.py:gather_aligned_apply and,
 // by function, the stream, span, packet and pdot engines of
@@ -158,7 +159,69 @@ cudaError_t dispatch_reduce(int method, const void* srcT, const void* idx, const
   }
 }
 
+// csr_matvec: the SpMV of the Laplace PCG, y[t, e] = sum_k data[k] *
+// x[indices[k], e] over row t of a CSR matrix, for x of shape (m, E)
+// with the right-hand sides on the minor axis.
+//
+// Replaces gather_aligned_apply in method="matvec" mode
+// (xugrid_tpu/regrid/aligned_apply.py:1271) and, by function, the
+// stream, span, packet and pdot engines in the same mode
+// (gather_apply.py:1794, 1858, 1413, 975), the SpMV engines of
+// xugrid_tpu/ugrid/interpolate.py:cg_solve.
+//
+// What bounds it on the H100: device memory.  A matvec reads the matrix
+// once (nnz * (4 + sizeof(T)) + (n + 1) * 4 bytes), the iterate (m * E *
+// sizeof(T), which at 1M unknowns fits the 50 MB L2, so its ~7 gathers
+// per entry mostly hit there) and writes the output (n * E * sizeof(T)),
+// with 2 flops per entry and slice.  The design reads the CSR row
+// pointers, not a padded window table: the Laplacian's rows hold 2-20
+// entries, 6.9 on average at 1M nodes, so a table padded to the widest
+// row would read ~3x the bytes.  One thread per (row, slice), slice
+// fastest: the E threads of a row read the same entries (broadcast) and
+// gather one contiguous run of x per entry.  Each output has one owner
+// that sums its row in CSR order, so results do not depend on scheduling
+// and equal the plain version's, which sums in the same order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+csr_matvec_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
+                  const T* __restrict__ data, const T* __restrict__ x, T* __restrict__ y,
+                  int64_t n, int E) {
+  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n * E) return;
+  const int64_t t = gid / E;
+  const int e = (int)(gid - t * E);
+  const int32_t end = indptr[t + 1];
+  T acc = 0;
+  for (int32_t k = indptr[t]; k < end; ++k) {
+    acc += data[k] * x[(int64_t)indices[k] * E + e];
+  }
+  y[gid] = acc;
+}
+
+template <typename T>
+cudaError_t launch_matvec(const void* indptr, const void* indices, const void* data,
+                          const void* x, void* y, int64_t n, int E, cudaStream_t stream) {
+  unsigned blocks;
+  if (!grid_size(n, E, &blocks)) return cudaErrorInvalidConfiguration;
+  csr_matvec_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
+      static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), n, E);
+  return cudaGetLastError();
+}
+
 }  // namespace xt
+
+// dtype: 0 float32, 1 float64.  indptr (n + 1) and indices (nnz) int32,
+// data (nnz) and x (m, E) of dtype, y (n, E), all contiguous on the
+// current device.  Returns the launch's cudaGetLastError().
+extern "C" int xt_csr_matvec(int dtype, const void* indptr, const void* indices,
+                             const void* data, const void* x, void* y, int64_t n, int32_t E,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)xt::launch_matvec<float>(indptr, indices, data, x, y, n, E, s);
+  if (dtype == 1) return (int)xt::launch_matvec<double>(indptr, indices, data, x, y, n, E, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 float32, 1 float64.  method: xt::ReduceMethod.  srcT (m, E),
 // idx and wts (n, w), out (n, E), all contiguous on the current device.

@@ -19,6 +19,7 @@ from xugrid_tpu_torch.core.sparse import MatrixCSR, PaddedCSR
 from xugrid_tpu_torch.regrid import reduce
 from xugrid_tpu_torch.regrid.apply import apply_weights
 from xugrid_tpu_torch.regrid.unstructured import UnstructuredGrid2d
+from xugrid_tpu_torch.utils.device import resolve_device
 
 #: Working-set budget per apply chunk (bytes of source plus target):
 #: stacks of extra slices larger than this are applied in slabs.
@@ -73,8 +74,8 @@ class BaseRegridder(abc.ABC):
         instance._setup_regrid(method)
         return instance
 
-    def _regrid_array(self, source) -> torch.Tensor:
-        source = torch.as_tensor(source)
+    def _regrid_array(self, source, device=None) -> torch.Tensor:
+        source = torch.as_tensor(source).to(resolve_device(source, device))
         n, m = self._weights.n, self._weights.m
         first_dims_shape = tuple(source.shape[:-1])
         if 0 in first_dims_shape:
@@ -99,13 +100,16 @@ class BaseRegridder(abc.ABC):
         out = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
         return out.reshape(first_dims_shape + (n,))
 
-    def regrid(self, data) -> torch.Tensor:
+    def regrid(self, data, device=None) -> torch.Tensor:
         """
         Regrid a tensor or array whose last axis is the source face
         dimension; all leading axes (e.g. time, layer) are mapped.
-        Returns a tensor on the device of ``data``.
+
+        ``device``: where to compute, and where the result lies.  None
+        means the device of ``data`` for a tensor and the CUDA card for
+        anything else; without a card, pass ``device="cpu"``.
         """
-        return self._regrid_array(data)
+        return self._regrid_array(data, device)
 
 
 class BaseOverlapRegridder(BaseRegridder, abc.ABC):

@@ -1,15 +1,17 @@
 """
 Ugrid2d: topology of a 2D unstructured mesh (UGRID conventions),
-reduced to what the overlap regridders read.
+reduced to what the overlap regridders and the Laplace fill read.
 
 The canonical storage is a padded dense int64 ``face_node_connectivity``
-(fill -1, 0-based) plus float64 node x/y; face areas and the spatial
-index are computed on first use and cached.
+(fill -1, 0-based) plus float64 node x/y; face areas, centroids, the
+derived connectivities and the spatial index are computed on first use
+and cached.
 """
 
 from __future__ import annotations
 
 import numpy as np
+from scipy.sparse import csr_matrix
 
 from xugrid_tpu_torch.constants import FILL_VALUE, FloatDType, IntDType
 from xugrid_tpu_torch.ugrid import connectivity
@@ -25,13 +27,28 @@ class Ugrid2d:
     fill_value: int
         Fill value of the provided face_node_connectivity.
     face_node_connectivity: ndarray of integers
+    name: str, default "mesh2d"
+        Names the UGRID dimensions: ``{name}_nNodes``, ``{name}_nEdges``,
+        ``{name}_nFaces``.
+    edge_node_connectivity: ndarray of integers, optional
+        A prior edge numbering to keep.
     start_index: 0 or 1, default 0
     """
 
-    def __init__(self, node_x, node_y, fill_value: int, face_node_connectivity, start_index: int = 0):
+    def __init__(
+        self,
+        node_x,
+        node_y,
+        fill_value: int,
+        face_node_connectivity,
+        name: str = "mesh2d",
+        edge_node_connectivity=None,
+        start_index: int = 0,
+    ):
         self.node_x = np.ascontiguousarray(node_x, dtype=FloatDType)
         self.node_y = np.ascontiguousarray(node_y, dtype=FloatDType)
         self.fill_value = fill_value
+        self.name = name
         if not isinstance(face_node_connectivity, np.ndarray):
             raise TypeError(
                 "face_node_connectivity should be an array of integers, "
@@ -46,18 +63,129 @@ class Ugrid2d:
             if fill_value != FILL_VALUE:
                 conn[is_fill] = FILL_VALUE
         self.face_node_connectivity = conn.astype(IntDType, copy=False)
+        if edge_node_connectivity is not None:
+            edge_node_connectivity = np.asarray(edge_node_connectivity, dtype=IntDType) - start_index
+        self._edge_node_connectivity = edge_node_connectivity
+        self._face_edge_connectivity = None
+        self._edge_face_connectivity = None
+        self._face_face_connectivity = None
+        self._node_node_connectivity = None
         self._area = None
+        self._centroids = None
         self._celltree = None
+
+    # -- sizes and dimension names ---------------------------------------------
+    @property
+    def n_node(self) -> int:
+        return len(self.node_x)
+
+    @property
+    def n_edge(self) -> int:
+        return len(self.edge_node_connectivity)
 
     @property
     def n_face(self) -> int:
         return len(self.face_node_connectivity)
 
     @property
+    def node_dimension(self) -> str:
+        return f"{self.name}_nNodes"
+
+    @property
+    def edge_dimension(self) -> str:
+        return f"{self.name}_nEdges"
+
+    @property
+    def face_dimension(self) -> str:
+        return f"{self.name}_nFaces"
+
+    @property
     def node_coordinates(self) -> np.ndarray:
         """(n_node, 2) node x and y."""
         return np.column_stack([self.node_x, self.node_y])
 
+    # -- derived connectivity --------------------------------------------------
+    def _edge_connectivity(self):
+        (
+            self._edge_node_connectivity,
+            self._face_edge_connectivity,
+        ) = connectivity.edge_connectivity(
+            self.face_node_connectivity, self._edge_node_connectivity
+        )
+
+    @property
+    def edge_node_connectivity(self) -> np.ndarray:
+        """(n_edge, 2) node pair per edge."""
+        if self._edge_node_connectivity is None:
+            self._edge_connectivity()
+        return self._edge_node_connectivity
+
+    @property
+    def face_edge_connectivity(self) -> np.ndarray:
+        """(n_face, n_max) edge index per face (fill -1)."""
+        if self._face_edge_connectivity is None:
+            self._edge_connectivity()
+        return self._face_edge_connectivity
+
+    @property
+    def edge_face_connectivity(self) -> np.ndarray:
+        """(n_edge, 2) faces per edge; exterior edges have -1 second."""
+        if self._edge_face_connectivity is None:
+            inverted = connectivity.invert_dense(self.face_edge_connectivity)
+            # Where every edge borders one face the inversion has one
+            # column: pad the second.
+            if inverted.shape[1] == 1:
+                inverted = np.column_stack(
+                    [inverted[:, 0], np.full(len(inverted), FILL_VALUE)]
+                )
+            self._edge_face_connectivity = inverted
+        return self._edge_face_connectivity
+
+    @property
+    def face_face_connectivity(self) -> csr_matrix:
+        """Face adjacency (CSR); data holds the shared edge index."""
+        if self._face_face_connectivity is None:
+            self._face_face_connectivity = connectivity.face_face_connectivity(
+                self.edge_face_connectivity, self.n_face
+            )
+        return self._face_face_connectivity
+
+    @property
+    def node_node_connectivity(self) -> csr_matrix:
+        """Node adjacency (CSR); data holds the connecting edge index."""
+        if self._node_node_connectivity is None:
+            self._node_node_connectivity = connectivity.node_node_connectivity(
+                self.edge_node_connectivity
+            )
+        return self._node_node_connectivity
+
+    def get_connectivity_matrix(self, dim: str, xy_weights: bool) -> csr_matrix:
+        """Adjacency matrix (CSR) of the nodes or the faces.  With
+        ``xy_weights`` its data are normalized inverse distances between
+        the node coordinates or face centroids, else the connecting edge
+        index."""
+        if dim == self.node_dimension:
+            conn = self.node_node_connectivity.copy()
+            coordinates = self.node_coordinates
+        elif dim == self.face_dimension:
+            conn = self.face_face_connectivity.copy()
+            coordinates = self.centroids
+        else:
+            raise ValueError(
+                f"Expected {self.node_dimension} or {self.face_dimension}; got: {dim}"
+            )
+        if xy_weights:
+            conn.data = self._connectivity_weights(conn, coordinates)
+        return conn
+
+    @staticmethod
+    def _connectivity_weights(conn: csr_matrix, coordinates: np.ndarray) -> np.ndarray:
+        """Normalized inverse-distance weights for adjacency data."""
+        coo = conn.tocoo()
+        distance = np.linalg.norm(coordinates[coo.col] - coordinates[coo.row], axis=1)
+        return distance.mean() / distance
+
+    # -- geometry --------------------------------------------------------------
     @property
     def area(self) -> np.ndarray:
         """Area of every face."""
@@ -66,6 +194,15 @@ class Ugrid2d:
                 self.face_node_connectivity, self.node_x, self.node_y
             )
         return self._area
+
+    @property
+    def centroids(self) -> np.ndarray:
+        """(n_face, 2) area-weighted centroid per face."""
+        if self._centroids is None:
+            self._centroids = connectivity.centroids(
+                self.face_node_connectivity, self.node_x, self.node_y
+            )
+        return self._centroids
 
     @property
     def celltree(self):

@@ -2,7 +2,8 @@
 ctypes bindings for the repository's native host kernels
 (``csrc/host_kernels.cpp``), the same source ``xugrid_tpu`` builds.
 
-Only the entry points of the overlap-weight build are bound.  The
+Only the entry points of the overlap-weight build and the face
+centroids are bound.  The
 library is compiled with g++ into the port's build directory on first
 use.  Every binding returns None when the library is unavailable, and
 its caller then takes the numpy fallback, as in ``xugrid_tpu``.
@@ -56,6 +57,8 @@ def _bind(lib):
     lib.polygon_clip_areas_conn.restype = None
     lib.csr_from_triplet.argtypes = [_ip, _ip, _dp, _i64, _i64, _ip, _ip, _dp]
     lib.csr_from_triplet.restype = None
+    lib.face_centroids.argtypes = [_ip, _i64, _i64, _dp, _dp, _dp]
+    lib.face_centroids.restype = None
 
 
 def get_lib():
@@ -193,6 +196,24 @@ def polygon_clip_areas_conn_native(pair_q, pair_p, query_xy, tree_faces, x, y):
         _ptr(x, _dp), _ptr(y, _dp), _ptr(areas, _dp),
     )
     return areas
+
+
+def face_centroids_native(faces: np.ndarray, x: np.ndarray, y: np.ndarray):
+    """Area-weighted polygon centroids (n, 2), or None when the library
+    is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    # (n, 3) connectivities carrying fills would need numpy's
+    # negative-index wraparound; leave them to the fallback.
+    if faces.shape[1] == 3 and faces.min() < 0:
+        return None
+    faces = np.ascontiguousarray(faces, dtype=np.int64)
+    x = np.ascontiguousarray(x, dtype=np.float64)
+    y = np.ascontiguousarray(y, dtype=np.float64)
+    out = np.empty((len(faces), 2), dtype=np.float64)
+    lib.face_centroids(_ptr(faces, _ip), faces.shape[0], faces.shape[1], _ptr(x, _dp), _ptr(y, _dp), _ptr(out, _dp))
+    return out
 
 
 def csr_from_triplet_native(row, col, data, n: int):
