@@ -10,11 +10,17 @@ Phases:
    CUDA kernels (nvcc, sm_90a) and of the native host library from the
    sources in this checkout.
 2. Each kernel against its plain PyTorch version on the card, in
-   float32 and float64: every method of window_reduce and window_select
-   on windows with NaN, +-inf, zeros, negative values, zero weights and
-   more than 32 slots; csr_matvec on ragged rows of 0-40 entries with
-   empty rows and negative and zero weights, at E = 1, 3 and 20.  And
-   ``cg_solve`` refuses a NaN or inf right-hand side.
+   float32 and float64, at every lane mapping its wrapper picks: every
+   method of window_reduce on the slices-major (E, m) source at E = 1,
+   3, 20, 40, 128 and 200 (each slice-warp count and slice batch), on
+   windows with NaN, +-inf, zeros, negative values, zero weights, more
+   than 32 slots, all-pad rows and a target count that no tile divides,
+   and on windows of up to 400 slots (read in place); window_select's
+   methods; and csr_matvec on ragged rows (empty rows, rows of more than
+   32 entries, negative and zero weights) at E = 1, 2, 3, 4, 8 and 20,
+   with every lane count of the row mapping and the slice mapping, bit
+   for bit, two launches equal.  And ``cg_solve`` refuses a NaN or inf
+   right-hand side.
 3. The main path at the 1M-face config of ``bench.py``: a jittered
    1000 x 1000 quad mesh regridded onto a 512 x 512 raster, 20 extra
    slices of float32, through ``OverlapRegridder`` (mean, median, mode)
@@ -23,11 +29,16 @@ Phases:
    the plain version on the card and against an independent host
    reference (scipy CSR products for the linear methods, numpy
    percentiles and weighted modes on a sample of targets).
-4. Kernel, plain, full-apply and source-transpose times at E = 20 and
-   E = 128 (CUDA events, median of passes after warm-up), with true
+4. Kernel, plain and apply-pass times at E = 1, 20 and 128 (CUDA
+   events around back-to-back calls, median of passes after warm-up;
+   and one call from an idle card, as earlier runs timed), with true
    bytes per pass, GB/s, the share of the card's measured copy
-   bandwidth, the bound, and ``torch.sparse.mm`` on the same weights
-   as a yardstick for the sum-kind methods.
+   bandwidth, the bound, and ``torch.sparse.mm`` of the same weights
+   with the staged (m, E) copy as a yardstick for the sum-kind methods;
+   and window_reduce at each block shape (the sweep behind
+   ``reduce_lanes``).  window_reduce's pass is one launch on the (E, m)
+   source; window_select's adds the source's slice-minor transpose,
+   timed beside it.
 5. The Laplace fill at ``scripts/laplace_scale_demo.py``'s 1M
    configuration: a shuffled Delaunay mesh of 1,002,001 nodes, 2 %
    known, unit weights, atol 1e-6, through ``laplace_interpolate`` at
@@ -38,8 +49,11 @@ Phases:
    atol.  Then the structured-derived 1000 x 1000 triangle mesh through
    the same path and checks.
 6. csr_matvec's time on the 1M system (float64 and float32, E = 1 and
-   20) beside its plain version, ``torch.sparse.mm`` and its bound; the
-   solves' wall, device and host seconds, the host split by stage
+   20) beside its plain version, ``torch.sparse.mm`` and its bound,
+   warm and with a cold L2 (256 MB written between launches); each lane
+   mapping's time at E = 1 to 4, 8 and 20 on that system and at E = 1
+   and 2 on rows of 0-64 entries (the sweep behind ``matvec_lanes``);
+   the solves' wall, device and host seconds, the host split by stage
    (content hash, system preparation, right-hand sides, scatter); a
    profiler trace of one degree-4 solve.
 
@@ -59,7 +73,7 @@ import time
 import numpy as np
 
 N_SIDE, T_SIDE, N_EXTRA = 1000, 512, 20
-TIMING_EXTRAS = (20, 128)
+TIMING_EXTRAS = (1, 20, 128)
 LAPLACE_SIDE, LAPLACE_SLICES = 1000, 20
 LAPLACE_SOLVE = {"atol": 1e-6, "rtol": 0.0, "maxiter": 2000}
 #: Peak rates outside the tensor cores of an H100 SXM at 700 W (NVIDIA's
@@ -222,29 +236,18 @@ def tolerance(dtype, scale):
     return 1e-12, 1e-12 * scale
 
 
-def summation_bound(sourceT, idx, w, fn):
+def summation_bound(source, idx, w, fn):
     """Order-independent error bound of a window sum of up to w_max
-    terms: w_max * unit roundoff * (the same reduction of |source|).
-    Wide windows of mixed signs can cancel below the fixed atol."""
+    terms over the (E, m) source: w_max * unit roundoff * (the same
+    reduction of |source|), (E, n).  Wide windows of mixed signs can
+    cancel below the fixed atol."""
     import torch
 
     from xugrid_tpu_torch.regrid import reduce
 
-    unit = 2.0**-24 if sourceT.dtype == torch.float32 else 2.0**-53
-    magnitude = reduce.reduce_windows(sourceT.abs(), idx, w, fn)
+    unit = 2.0**-24 if source.dtype == torch.float32 else 2.0**-53
+    magnitude = reduce.reduce_windows(source.abs().t(), idx, w, fn).t()
     return idx.shape[1] * unit * magnitude
-
-
-def matvec_bound(indptr, indices, data, x):
-    """Order-independent error bound of csr_matvec: the widest row's
-    length * unit roundoff * (|A| @ |x|)."""
-    import torch
-
-    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec_plain
-
-    unit = 2.0**-24 if x.dtype == torch.float32 else 2.0**-53
-    widest = int((indptr[1:] - indptr[:-1]).max())
-    return widest * unit * csr_matvec_plain(indptr, indices, data.abs(), x.abs())
 
 
 def card_line():
@@ -274,12 +277,18 @@ def phase_build():
             print("  ptxas:", line.strip())
 
 
+#: Phase 2's window_reduce slice counts: each slice-warp count S of
+#: ``reduce_lanes`` (1, 1, 1, 2, 4, 8) and slice batch (1, 2, 4, 4, 4, 4).
+CHECK_EXTRAS = (1, 3, 20, 40, 128, 200)
+
+
 def phase_kernel_checks(device):
-    """Phase 2: every method of both kernels against the plain version."""
+    """Phase 2: every method of both window kernels against the plain
+    version, at each lane mapping window_reduce's wrapper picks."""
     import torch
 
     from xugrid_tpu_torch.regrid import reduce
-    from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, window_reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, reduce_lanes, window_reduce
     from xugrid_tpu_torch.regrid.select_apply import window_select
 
     percentiles = [reduce.Percentile(p) for p in (0, 5, 25, 50, 75, 95, 100, 33.3)]
@@ -290,61 +299,104 @@ def phase_kernel_checks(device):
     # order leaves alone.
     exact = {reduce.minimum, reduce.maximum, reduce.max_overlap, reduce.mode, *percentiles}
     linear = {reduce.mean, reduce.sum, reduce.first_order_conservative}
-    cases = [(fn, window_reduce) for fn in METHOD_CODES] + [
-        (fn, window_select) for fn in (reduce.mode, *percentiles)
-    ]
     rng = np.random.default_rng(7)
-    indices, weights, mixed, positive = synthetic_windows(rng)
-    print(f"phase 2: windows n={indices.shape[0]} w_max={indices.shape[1]}, sources (E, m)={mixed.shape}")
     max_err = {"window_reduce": 0.0, "window_select": 0.0}
-    for dtype in (torch.float32, torch.float64):
-        idx = torch.from_numpy(indices).to(device)
-        w = torch.from_numpy(weights).to(device=device, dtype=dtype)
-        for label, src in (("mixed", mixed), ("positive", positive)):
-            sourceT = torch.from_numpy(src.T.copy()).to(device=device, dtype=dtype)
-            scale = float(np.nanmax(np.abs(np.where(np.isfinite(src), src, np.nan))))
-            rtol, atol = tolerance(dtype, scale)
-            for fn, kernel in cases:
-                if fn is reduce.harmonic_mean and label == "mixed":
+    plans = set()
+    # n = 4001 is a multiple of no tile (32 to 256 targets); 2 % of the
+    # windows are all pad; the second set's windows of up to 400 slots
+    # fit no tile's shared memory, so they are read in place.
+    for n, w, extras in ((4001, 40, CHECK_EXTRAS), (300, 400, (1, 20))):
+        indices, weights, mixed, positive = synthetic_windows(rng, n=n, w=w, n_extra=max(extras))
+        print(f"phase 2: windows n={n} w_max={w}, sources (E, m)={mixed.shape}")
+        for dtype in (torch.float32, torch.float64):
+            idx = torch.from_numpy(indices).to(device)
+            wt = torch.from_numpy(weights).to(device=device, dtype=dtype)
+            for label, src in (("mixed", mixed), ("positive", positive)):
+                scale = float(np.nanmax(np.abs(np.where(np.isfinite(src), src, np.nan))))
+                rtol, atol = tolerance(dtype, scale)
+                for E in extras:
+                    source = torch.from_numpy(src[:E].copy()).to(device=device, dtype=dtype)
+                    plan = reduce_lanes(E, w, source.element_size())
+                    plans.add(plan)
+                    errs = []
+                    for fn in METHOD_CODES:
+                        if fn is reduce.harmonic_mean and label == "mixed":
+                            continue
+                        got = window_reduce(source, idx, wt, fn)
+                        want = reduce.reduce_windows(source.t(), idx, wt, fn).t()
+                        bound = atol
+                        if fn in linear:
+                            bound = torch.clamp(summation_bound(source, idx, wt, fn), min=atol)
+                        torch.cuda.synchronize()
+                        errs.append(compare(got, want, fn in exact, rtol, bound))
+                    max_err["window_reduce"] = max(max_err["window_reduce"], *errs)
+                    print(
+                        f"  window_reduce {label} {str(dtype)[6:]} E={E} (slice warps, target warps, "
+                        f"staged) {plan}: all methods ok, max |diff| {max(errs):.3e}"
+                    )
+                if w > 40:
                     continue
-                got = kernel(sourceT, idx, w, fn)
-                want = reduce.reduce_windows(sourceT, idx, w, fn)
-                bound = atol
-                if fn in linear:
-                    bound = torch.clamp(summation_bound(sourceT, idx, w, fn), min=atol)
-                torch.cuda.synchronize()
-                err = compare(got, want, fn in exact, rtol, bound)
-                max_err[kernel.__name__] = max(max_err[kernel.__name__], err)
-                name = getattr(fn, "__name__", "")
-                print(f"  {kernel.__name__} {name} {label} {str(dtype)[6:]}: ok, max |diff| {err:.3e}")
+                sourceT = torch.from_numpy(src[:6].T.copy()).to(device=device, dtype=dtype)
+                for fn in (reduce.mode, *percentiles):
+                    got = window_select(sourceT, idx, wt, fn)
+                    want = reduce.reduce_windows(sourceT, idx, wt, fn)
+                    torch.cuda.synchronize()
+                    err = compare(got, want, True, rtol, atol)
+                    max_err["window_select"] = max(max_err["window_select"], err)
+                    print(f"  window_select {fn.__name__} {label} {str(dtype)[6:]} E=6: ok, max |diff| {err:.3e}")
+    print(f"  window_reduce mappings checked: {sorted(plans)}")
     return max_err
 
 
+#: Phase 2's csr_matvec right-hand-side counts: each compiled slice
+#: count of the row mapping (E <= 4) and the slice mapping.
+MATVEC_EXTRAS = (1, 2, 3, 4, 8, 20)
+
+
 def phase_matvec_checks(device):
-    """Phase 2, csr_matvec: against its plain version on ragged CSR
-    rows; and cg_solve's refusal of non-finite right-hand sides."""
+    """Phase 2, csr_matvec: against its plain version, bit for bit, on
+    ragged CSR rows whose mean lengths give every row-lane group, and
+    the mappings the wrapper does not pick for a shape; two launches
+    compared bit for bit; and cg_solve's refusal of non-finite
+    right-hand sides."""
     import torch
 
-    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain
+    from xugrid_tpu_torch.regrid.aligned_apply import (
+        _launch_matvec, csr_matvec, csr_matvec_plain, matvec_lanes,
+    )
     from xugrid_tpu_torch.ugrid.interpolate import cg_solve
 
     rng = np.random.default_rng(5)
-    indptr, indices, data = synthetic_csr(rng)
-    print(f"phase 2: csr_matvec rows n={len(indptr) - 1} nnz={len(data)}, widest {int(np.diff(indptr).max())}")
     max_err = 0.0
-    for dtype in (torch.float32, torch.float64):
-        tables = [torch.from_numpy(a).to(device) for a in (indptr, indices)]
-        d = torch.from_numpy(data).to(device=device, dtype=dtype)
-        for E in (1, 3, 20):
-            x = torch.from_numpy(rng.normal(size=(4000, E))).to(device=device, dtype=dtype)
-            got = csr_matvec(*tables, d, x)
-            want = csr_matvec_plain(*tables, d, x)
-            rtol, atol = tolerance(dtype, 1.0)
-            bound = torch.clamp(matvec_bound(*tables, d, x), min=atol)
-            torch.cuda.synchronize()
-            err = compare(got, want, False, rtol, bound)
-            max_err = max(max_err, err)
-            print(f"  csr_matvec {str(dtype)[6:]} E={E}: ok, max |diff| {err:.3e}")
+    mappings = set()
+    # Mean row lengths 6.3 to 180: every lane count the wrapper picks.
+    for max_row in (14, 30, 50, 100, 200, 400):
+        indptr, indices, data = synthetic_csr(rng, max_row=max_row)
+        n = len(indptr) - 1
+        print(f"phase 2: csr_matvec rows n={n} nnz={len(data)}, widest {int(np.diff(indptr).max())}")
+        for dtype in (torch.float32, torch.float64):
+            tables = [torch.from_numpy(a).to(device) for a in (indptr, indices)]
+            d = torch.from_numpy(data).to(device=device, dtype=dtype)
+            for E in MATVEC_EXTRAS:
+                x = torch.from_numpy(rng.normal(size=(4000, E))).to(device=device, dtype=dtype)
+                lanes = matvec_lanes(n, len(data), E)
+                got = csr_matvec(*tables, d, x)
+                again = csr_matvec(*tables, d, x)
+                want = csr_matvec_plain(*tables, d, x, lanes)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"csr_matvec E={E}: two launches differ")
+                max_err = max(max_err, compare(got, want, True, 0.0, 0.0))
+                mappings.add((lanes, E))
+                # The mappings the wrapper does not pick for this shape.
+                forced = {1, 2, 4, 8, 16, 32} - {lanes} if E <= 4 else set()
+                for other in sorted(forced):
+                    got = _launch_matvec(*tables, d, x, other)
+                    compare(got, csr_matvec_plain(*tables, d, x, other), True, 0.0, 0.0)
+                    mappings.add((other, E))
+                print(f"  csr_matvec {str(dtype)[6:]} E={E} lanes {lanes}: bit-equal, deterministic; "
+                      f"lanes {sorted(forced)}: bit-equal")
+    print(f"  csr_matvec (lanes, E) checked: {sorted(mappings)}")
     n = 10
     rows = np.concatenate([np.arange(1, n), np.arange(n - 1), np.arange(n)])
     cols = np.concatenate([np.arange(n - 1), np.arange(1, n), np.arange(n)])
@@ -483,8 +535,11 @@ def phase_main_path(device):
     return counts, max_err, results
 
 
-def cuda_time_ms(fn, reps=10, warmup=2):
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+def cuda_time_ms(fn, reps=10, warmup=2, inner=10):
+    """Median milliseconds per call of ``fn`` on the current stream (CUDA
+    events around ``inner`` calls back to back, so the host's launch
+    work overlaps the device's; ``inner`` 1 times one call from an idle
+    card, the host's launch work included)."""
     import torch
 
     for _ in range(warmup):
@@ -495,10 +550,11 @@ def cuda_time_ms(fn, reps=10, warmup=2):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
 
 
@@ -512,17 +568,17 @@ def bound_ms(true_bytes, operations, dtype_name, copy_gbps):
 
 
 def phase_timing(device, results, card):
-    """Phase 4: kernel, plain, full-apply and transpose times at the 1M
-    config.  The apply pass is the source's slice-minor transpose plus
-    the kernel; the output stays a transposed view.  For the sum-kind
-    methods, ``torch.sparse.mm`` of the weight matrix with the staged
-    source computes the same sums (the yardstick ``library_ms``); no
-    library call computes a selection."""
+    """Phase 4: kernel, plain and apply-pass times at the 1M config.
+    window_reduce's pass is one launch on the (E, m) source;
+    window_select's is the source's slice-minor transpose plus the
+    kernel, and the transpose is timed alone beside it.  For the
+    sum-kind methods, ``torch.sparse.mm`` of the weight matrix with the
+    staged (m, E) copy computes the same sums (the yardstick
+    ``library_ms``); no library call computes a selection."""
     import torch
 
-    from xugrid_tpu_torch.regrid.aligned_apply import window_reduce
-
     from xugrid_tpu_torch.regrid import reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import reduce_lanes, window_reduce
     from xugrid_tpu_torch.regrid.apply import apply_weights, device_weights
 
     buf = torch.empty(1 << 28, dtype=torch.float32, device=device)
@@ -537,6 +593,7 @@ def phase_timing(device, results, card):
         csr = regridder._weights
         n, m = csr.n, csr.m
         idx, w = device_weights(regridder._padded, torch.float32, device, regridder._device_weights)
+        red = regridder._reduction
         library = None
         if kernel is window_reduce:
             library = torch.sparse_csr_tensor(
@@ -546,24 +603,39 @@ def phase_timing(device, results, card):
         for n_extra in TIMING_EXTRAS:
             source = torch.from_numpy(rng.normal(size=(n_extra, m)).astype(np.float32)).to(device)
             sourceT = source.t().contiguous()
-            red = regridder._reduction
+            if kernel is window_reduce:
+                run_kernel = lambda: kernel(source, idx, w, red)  # noqa: E731
+                run_plain = lambda: reduce.reduce_windows(source.t(), idx, w, red).t()  # noqa: E731
+                lanes = f", (slice warps, target warps, staged) {reduce_lanes(n_extra, idx.shape[1], 4)}"
+            else:
+                run_kernel = lambda: kernel(sourceT, idx, w, red)  # noqa: E731
+                run_plain = lambda: reduce.reduce_windows(sourceT, idx, w, red)  # noqa: E731
+                lanes = ""
             true_bytes = csr.nnz * 8 + m * n_extra * 4 + n * n_extra * 4
             samples = {"kernel": [], "plain": []}
             # Interleave plain, kernel, kernel, plain.
             for which in ("plain", "kernel", "kernel", "plain"):
-                if which == "kernel":
-                    samples[which].append(cuda_time_ms(lambda: kernel(sourceT, idx, w, red), reps=5))
-                else:
-                    samples[which].append(cuda_time_ms(lambda: reduce.reduce_windows(sourceT, idx, w, red), reps=5))
+                fn = run_kernel if which == "kernel" else run_plain
+                samples[which].append(cuda_time_ms(fn, reps=5))
             kernel_ms = statistics.median(samples["kernel"])
             plain_ms = statistics.median(samples["plain"])
             full_ms = cuda_time_ms(
                 lambda: apply_weights(regridder._padded, source, red, n, cache=regridder._device_weights)
             )
-            transpose_ms = cuda_time_ms(lambda: source.t().contiguous())
+            rows = [
+                ("kernel", kernel_ms), ("kernel, one launch from idle", cuda_time_ms(run_kernel, inner=1)),
+                ("plain", plain_ms), ("apply pass", full_ms),
+                ("apply pass, one call from idle", cuda_time_ms(
+                    lambda: apply_weights(regridder._padded, source, red, n, cache=regridder._device_weights),
+                    inner=1,
+                )),
+            ]
+            if kernel is not window_reduce:
+                rows.append(("source transpose", cuda_time_ms(lambda: source.t().contiguous())))
             library_ms = None
             if library is not None:
                 library_ms = cuda_time_ms(lambda: torch.sparse.mm(library, sourceT))
+                rows.append(("torch.sparse.mm", library_ms))
             if kernel is window_reduce:
                 operations = 2 * csr.nnz * n_extra
             else:
@@ -571,14 +643,8 @@ def phase_timing(device, results, card):
             bound, bound_by = bound_ms(true_bytes, operations, "float32", copy_gbps)
             print(
                 f"  {method} E={n_extra} bound ({kernel.__name__}): {bound:.6f} ms by {bound_by} "
-                f"({operations} operations), kernel at {100 * bound / kernel_ms:.2f} % of it [{card}]"
+                f"({operations} operations), kernel at {100 * bound / kernel_ms:.2f} % of it{lanes} [{card}]"
             )
-            rows = [
-                ("kernel", kernel_ms), ("plain", plain_ms), ("apply pass", full_ms),
-                ("source transpose", transpose_ms),
-            ]
-            if library_ms is not None:
-                rows.append(("torch.sparse.mm", library_ms))
             for label, ms in rows:
                 gbps = true_bytes / (ms * 1e-3) / 1e9
                 print(
@@ -590,9 +656,32 @@ def phase_timing(device, results, card):
                 "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound, "bound_by": bound_by,
             }
+            if method == "mean":
+                reduce_sweep(source, idx, w, red, card)
             del source, sourceT
             torch.cuda.empty_cache()
     return timed, copy_gbps
+
+
+def reduce_sweep(source, idx, w, red, card):
+    """window_reduce's time at each block shape for this source: every
+    slice-warp count S up to E, staged (the largest tile that fits) and
+    read in place; the wrapper's pick marked."""
+    from xugrid_tpu_torch.regrid.aligned_apply import STAGE_BYTES, _launch_reduce, reduce_lanes, stage_bytes
+
+    E, width, size = source.shape[0], idx.shape[1], source.element_size()
+    picked = reduce_lanes(E, width, size)
+    cells = []
+    for S in (1, 2, 4, 8):
+        if S > E:
+            continue
+        G = 8 // S
+        while G > 1 and stage_bytes(G, width, size) > STAGE_BYTES:
+            G //= 2
+        for plan in ((S, G, True), (S, 8 // S, False)):
+            ms = cuda_time_ms(lambda: _launch_reduce(source, idx, w, red, plan), reps=5)
+            cells.append(f"{plan}{'*' if plan == picked else ''} {ms:.6f} ms")
+    print(f"  sweep window_reduce E={E} (slice warps, target warps, staged): " + "; ".join(cells) + f" [{card}]")
 
 
 def unknown_residuals(W, values, filled):
@@ -711,12 +800,59 @@ def phase_laplace(device):
     return counts, runs, meshes
 
 
-def phase_laplace_timing(device, card, copy_gbps, meshes):
-    """Phase 6: csr_matvec on the 1M Delaunay CG system beside its plain
-    version, torch.sparse.mm and its bound; repeat solves; a profile."""
+def cold_time_ms(fn, flush, reps=10):
+    """Median milliseconds of one ``fn`` launched right after ``flush``
+    is overwritten (a buffer larger than the 50 MB L2), so its inputs
+    come from device memory."""
     import torch
 
-    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+#: Right-hand-side counts of phase 6's lane-mapping sweep.
+SWEEP_EXTRAS = (1, 2, 3, 4, 8, 20)
+
+
+def matvec_sweep(indptr, indices, data, card, extras=None, label="CG system"):
+    """csr_matvec's time on one system at each lane mapping: the slice
+    mapping (1 lane per row) and, for E <= 4, the row mapping with 2 to
+    16 lanes, at the ``extras`` right-hand-side counts; the wrapper's
+    pick marked."""
+    import torch
+
+    from xugrid_tpu_torch.regrid.aligned_apply import MATVEC_ROW_MAX_E, _launch_matvec, matvec_lanes
+
+    n = indptr.numel() - 1
+    rng = np.random.default_rng(2)
+    for E in extras or SWEEP_EXTRAS:
+        x = torch.from_numpy(rng.normal(size=(n, E))).to(device=data.device, dtype=data.dtype)
+        picked = matvec_lanes(n, indices.numel(), E)
+        cells = []
+        for lanes in (1, 2, 4, 8, 16) if E <= MATVEC_ROW_MAX_E else (1,):
+            ms = cuda_time_ms(lambda: _launch_matvec(indptr, indices, data, x, lanes), reps=10)
+            cells.append(f"{lanes}{'*' if lanes == picked else ''} {ms:.6f} ms")
+        print(f"  sweep csr_matvec {label} {str(data.dtype)[6:]} E={E} lanes: " + "; ".join(cells) + f" [{card}]")
+        del x
+
+
+def phase_laplace_timing(device, card, copy_gbps, meshes):
+    """Phase 6: csr_matvec on the 1M Delaunay CG system beside its plain
+    version, torch.sparse.mm and its bound, warm and with a cold L2; the
+    lane-mapping sweep; repeat solves; a profile."""
+    import torch
+
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain, matvec_lanes
     from xugrid_tpu_torch.ugrid import interpolate
 
     W, labels, values, truth = meshes["delaunay"]
@@ -727,6 +863,7 @@ def phase_laplace_timing(device, card, copy_gbps, meshes):
     n, nnz = indptr.numel() - 1, data64.numel()
     print(f"phase 6 [{card}]: CG system n {n}, nnz {nnz}, widest row {int((indptr[1:] - indptr[:-1]).max())}")
     rng = np.random.default_rng(1)
+    flush = torch.empty(1 << 26, dtype=torch.float32, device=device)  # 256 MB
     timed = {}
     for dtype in (torch.float64, torch.float32):
         name = str(dtype)[6:]
@@ -736,31 +873,45 @@ def phase_laplace_timing(device, card, copy_gbps, meshes):
         library = torch.sparse_csr_tensor(indptr, indices, data, size=(n, n))
         for E in (1, LAPLACE_SLICES):
             x = torch.from_numpy(rng.normal(size=(n, E))).to(device=device, dtype=dtype)
+            lanes = matvec_lanes(n, nnz, E)
             samples = {"kernel": [], "plain": []}
             for which in ("plain", "kernel", "kernel", "plain"):
-                fn = csr_matvec if which == "kernel" else csr_matvec_plain
-                samples[which].append(cuda_time_ms(lambda: fn(indptr, indices, data, x), reps=20 if which == "kernel" else 3))
+                if which == "kernel":
+                    samples[which].append(cuda_time_ms(lambda: csr_matvec(indptr, indices, data, x), reps=20))
+                else:
+                    samples[which].append(
+                        cuda_time_ms(lambda: csr_matvec_plain(indptr, indices, data, x, lanes), reps=3, inner=2)
+                    )
             kernel_ms = statistics.median(samples["kernel"])
             plain_ms = statistics.median(samples["plain"])
+            single_ms = cuda_time_ms(lambda: csr_matvec(indptr, indices, data, x), reps=20, inner=1)
             library_ms = cuda_time_ms(lambda: torch.sparse.mm(library, x), reps=20)
+            kernel_cold = cold_time_ms(lambda: csr_matvec(indptr, indices, data, x), flush)
+            library_cold = cold_time_ms(lambda: torch.sparse.mm(library, x), flush)
             got = csr_matvec(indptr, indices, data, x)
-            rtol, atol = tolerance(dtype, 1.0)
-            err = compare(got, csr_matvec_plain(indptr, indices, data, x), False, rtol,
-                          torch.clamp(matvec_bound(indptr, indices, data, x), min=atol))
+            err = compare(got, csr_matvec_plain(indptr, indices, data, x, lanes), True, 0.0, 0.0)
             true_bytes = nnz * (4 + size) + (n + 1) * 4 + 2 * n * E * size
             bound, bound_by = bound_ms(true_bytes, 2 * nnz * E, name, copy_gbps)
             print(
-                f"  csr_matvec {name} E={E}: kernel {kernel_ms:.6f} ms, plain {plain_ms:.6f} ms, "
-                f"torch.sparse.mm {library_ms:.6f} ms; true bytes {true_bytes}, bound {bound:.6f} ms "
-                f"by {bound_by} (copy {copy_gbps:.1f} GB/s), kernel at {100 * bound / kernel_ms:.2f} % "
-                f"of the bound, {true_bytes / (kernel_ms * 1e-3) / 1e9:.1f} GB/s; vs plain max |diff| "
-                f"{err:.3e} [{card}]"
+                f"  csr_matvec {name} E={E} lanes {lanes}: kernel {kernel_ms:.6f} ms (one launch from "
+                f"idle {single_ms:.6f}, cold L2 {kernel_cold:.6f}), plain {plain_ms:.6f} ms, torch.sparse.mm "
+                f"{library_ms:.6f} ms (cold L2 {library_cold:.6f}); true bytes {true_bytes}, bound "
+                f"{bound:.6f} ms by {bound_by} (copy {copy_gbps:.1f} GB/s), kernel at "
+                f"{100 * bound / kernel_ms:.2f} % of the bound warm, {100 * bound / kernel_cold:.2f} % "
+                f"cold, {true_bytes / (kernel_ms * 1e-3) / 1e9:.1f} GB/s; bit-equal to plain [{card}]"
             )
             timed[(name, E)] = {
                 "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
             }
             del x
+        matvec_sweep(indptr, indices, data, card)
+        # Longer rows (0 to 64 entries, 28.8 on average, random columns):
+        # where a lane group per row should pay.
+        lp, li, ld = (torch.from_numpy(a).to(device) for a in synthetic_csr(rng, 500_000, 500_000, 64))
+        matvec_sweep(lp, li, ld.to(dtype), card, extras=(1, 2), label="rows of 0-64")
+        del lp, li, ld
+    del flush
     stack = np.where(
         np.isnan(values)[None, :], np.nan,
         truth[None, :] * (1.0 + 0.05 * np.arange(LAPLACE_SLICES))[:, None],

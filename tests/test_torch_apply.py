@@ -29,7 +29,7 @@ from xugrid_tpu.regrid.apply import apply_weights as jax_apply_weights
 from xugrid_tpu.regrid.select_apply import apply_windowed_select
 from xugrid_tpu_torch.core.sparse import PaddedCSR
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.aligned_apply import window_reduce
+from xugrid_tpu_torch.regrid.aligned_apply import STAGE_BYTES, reduce_lanes, stage_bytes, window_reduce
 from xugrid_tpu_torch.regrid.apply import apply_weights, device_weights
 from xugrid_tpu_torch.regrid.select_apply import window_select
 
@@ -148,11 +148,11 @@ def test_window_reduce_plain_f32_matches_aligned_kernel(method):
     plan = plan_gather_aligned(indices, weights)
     want = aligned_apply(source, plan, method=ALIGNED_NAMES[method], interpret=True)
     got = window_reduce(
-        torch.from_numpy(source.T.copy()), torch.from_numpy(indices),
+        torch.from_numpy(source), torch.from_numpy(indices),
         torch.from_numpy(weights), _method(reduce, method),
     )
-    assert got.dtype == torch.float32
-    _check_f32(got.numpy(), want)
+    assert got.dtype == torch.float32 and got.shape == source.shape[:1] + indices.shape[:1]
+    _check_f32(got.numpy().T, want)
 
 
 def test_max_overlap_plain_f32_matches_aligned_kernel():
@@ -162,10 +162,10 @@ def test_max_overlap_plain_f32_matches_aligned_kernel():
     fidx, fw = _max_overlap_filter(indices, weights)
     want = aligned_apply(source, plan_gather_aligned(fidx, fw), method="max", interpret=True)
     got = window_reduce(
-        torch.from_numpy(source.T.copy()), torch.from_numpy(indices),
+        torch.from_numpy(source), torch.from_numpy(indices),
         torch.from_numpy(weights), reduce.max_overlap,
     )
-    _check_f32(got.numpy(), want)
+    _check_f32(got.numpy().T, want)
 
 
 @pytest.mark.parametrize("method", ["mode", "median", "p90"])
@@ -216,10 +216,77 @@ def test_integer_source_applies_as_float64():
 
 
 def test_wrappers_reject_methods_they_do_not_cover():
-    sourceT = torch.zeros((4, 2))
+    source = torch.zeros((2, 4))
     indices = torch.zeros((3, 2), dtype=torch.int32)
     weights = torch.ones((3, 2))
     with pytest.raises(ValueError, match="does not cover"):
-        window_reduce(sourceT, indices, weights, reduce.mode)
+        window_reduce(source, indices, weights, reduce.mode)
     with pytest.raises(ValueError, match="does not cover"):
-        window_select(sourceT, indices, weights, reduce.mean)
+        window_select(source.t().contiguous(), indices, weights, reduce.mean)
+
+
+def _apply_case(source, method, seed):
+    """apply_weights of the port and of oracle (a) on one source; the
+    port launches nothing on the CPU and keeps the leading dims."""
+    indices, weights, _ = make_case(seed=seed)
+    n, w = indices.shape
+    m = source.shape[-1]
+    want = jax_apply_weights(
+        JaxPaddedCSR(indices, weights, n, m, w), np.ascontiguousarray(source), _method(jax_reduce, method), n
+    )
+    before = window_reduce.launches
+    got = apply_weights(PaddedCSR(indices, weights, n, m, w), source, _method(reduce, method), n)
+    assert window_reduce.launches == before
+    assert tuple(got.shape) == source.shape[:-1] + (n,) == want.shape
+    values, ww = windows(indices, weights, np.ascontiguousarray(source).reshape(-1, m))
+    flat = got.numpy().reshape(-1, n).T
+    assert_matches(flat, want.reshape(-1, n).T, method, values, ww)
+
+
+@pytest.mark.parametrize("method", REDUCE_METHODS)
+def test_apply_weights_one_slice_matches_jax_apply(method):
+    """E = 1, a single 2-D field: the commonest regrid call."""
+    _, _, source = make_case(n_extra=1, seed=9, inf_frac=0.02)
+    _apply_case(source[0], method, seed=9)
+
+
+@pytest.mark.parametrize("method", ["mean", "first_order_conservative", "max_overlap", "median"])
+def test_apply_weights_non_contiguous_source_matches_jax_apply(method):
+    """A strided view of a (m, E) array: apply_weights copies it to
+    (E, m) slices-major before the kernel."""
+    _, _, source = make_case(n_extra=4, seed=10, inf_frac=0.02)
+    view = torch.from_numpy(source.T.copy()).t()
+    assert not view.is_contiguous()
+    _apply_case(view, method, seed=10)
+
+
+@pytest.mark.parametrize("method", ["mean", "sum", "geometric_mean", "mode"])
+def test_apply_weights_leading_dims_match_jax_apply(method):
+    """Leading (time, layer) dims (T, L) = (3, 2) come back as they went in."""
+    _, _, source = make_case(n_extra=6, seed=11, nan_frac=0.1, positive=method == "geometric_mean")
+    _apply_case(source.reshape(3, 2, -1), method, seed=11)
+
+
+def test_reduce_lanes_picks_each_branch():
+    """Slice warps S: the least power of two leaving a warp at most 32
+    slices; windows staged when a warp walks them more than once (E >
+    4 S), with target warps G halved until the tile fits STAGE_BYTES;
+    otherwise, or when not even 32 targets fit, read in place."""
+    assert reduce_lanes(1, 16, 4) == (1, 8, False)
+    assert reduce_lanes(4, 16, 4) == (1, 8, False)
+    assert reduce_lanes(5, 16, 4) == (1, 8, True)
+    assert reduce_lanes(20, 16, 4) == (1, 8, True)
+    assert reduce_lanes(32, 16, 4) == (1, 8, True)
+    assert reduce_lanes(33, 16, 4) == (2, 4, True)
+    assert reduce_lanes(8, 16, 4) == (1, 8, True)
+    assert reduce_lanes(65, 16, 4) == (4, 2, True)
+    assert reduce_lanes(128, 16, 4) == (4, 2, True)
+    assert reduce_lanes(129, 16, 4) == (8, 1, True)
+    assert reduce_lanes(2000, 16, 4) == (8, 1, True)
+    # float64 windows of 16 slots: 257 x 16 x 12 bytes do not fit.
+    assert reduce_lanes(20, 16, 8) == (1, 4, True)
+    assert reduce_lanes(20, 40, 8) == (1, 2, True)
+    assert stage_bytes(1, 124, 8) <= STAGE_BYTES < stage_bytes(1, 125, 8)
+    assert reduce_lanes(20, 124, 8) == (1, 1, True)
+    assert reduce_lanes(20, 125, 8) == (1, 8, False)
+    assert reduce_lanes(128, 400, 4) == (4, 2, False)

@@ -17,7 +17,9 @@ import torch
 import chip_smoke
 import xugrid_tpu_torch as xt
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, csr_matvec, csr_matvec_plain, window_reduce
+from xugrid_tpu_torch.regrid.aligned_apply import (
+    METHOD_CODES, _launch_matvec, csr_matvec, csr_matvec_plain, matvec_lanes, reduce_lanes, window_reduce,
+)
 from xugrid_tpu_torch.regrid.select_apply import window_select
 from xugrid_tpu_torch.ugrid import interpolate
 
@@ -48,18 +50,48 @@ def windows():
 def test_kernel_matches_plain(device, windows, fn, kernel, dtype):
     indices, weights, mixed, positive = windows
     src = positive if fn is reduce.harmonic_mean else mixed
-    sourceT = torch.from_numpy(src.T.copy()).to(device=device, dtype=dtype)
+    source = torch.from_numpy(src).to(device=device, dtype=dtype)
     idx = torch.from_numpy(indices).to(device)
     w = torch.from_numpy(weights).to(device=device, dtype=dtype)
     before = kernel.launches
-    got = kernel(sourceT, idx, w, fn)
+    if kernel is window_reduce:
+        got = kernel(source, idx, w, fn)
+        want = reduce.reduce_windows(source.t(), idx, w, fn).t()
+    else:
+        got = kernel(source.t().contiguous(), idx, w, fn)
+        want = reduce.reduce_windows(source.t(), idx, w, fn)
     assert kernel.launches == before + 1
-    want = reduce.reduce_windows(sourceT, idx, w, fn)
     scale = float(np.nanmax(np.abs(np.where(np.isfinite(src), src, np.nan))))
     rtol, atol = chip_smoke.tolerance(dtype, scale)
     if fn in LINEAR:
-        atol = torch.clamp(chip_smoke.summation_bound(sourceT, idx, w, fn), min=atol)
+        atol = torch.clamp(chip_smoke.summation_bound(source, idx, w, fn), min=atol)
     chip_smoke.compare(got, want, fn in EXACT, rtol, atol)
+
+
+@pytest.mark.parametrize("E", [1, 3, 20, 40, 128, 200])
+@pytest.mark.parametrize("w", [40, 400])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_window_reduce_lane_mappings_match_plain(device, dtype, w, E):
+    """Each slice-warp count and slice batch (E), shared-memory tile
+    (dtype, w) and the in-place read of windows (E <= 4, or too wide to
+    stage at w = 400), on a target count that no tile divides."""
+    indices, weights, mixed, positive = chip_smoke.synthetic_windows(
+        np.random.default_rng(E), n=1001, m=900, w=w, n_extra=E
+    )
+    idx = torch.from_numpy(indices).to(device)
+    wt = torch.from_numpy(weights).to(device=device, dtype=dtype)
+    assert reduce_lanes(E, w, wt.element_size())[2] == (w == 40 and E > 4)
+    for fn in METHOD_CODES:
+        src = positive if fn is reduce.harmonic_mean else mixed
+        source = torch.from_numpy(src).to(device=device, dtype=dtype)
+        got = window_reduce(source, idx, wt, fn)
+        assert got.shape == (E, 1001) and got.is_contiguous()
+        want = reduce.reduce_windows(source.t(), idx, wt, fn).t()
+        scale = float(np.nanmax(np.abs(np.where(np.isfinite(src), src, np.nan))))
+        rtol, atol = chip_smoke.tolerance(dtype, scale)
+        if fn in LINEAR:
+            atol = torch.clamp(chip_smoke.summation_bound(source, idx, wt, fn), min=atol)
+        chip_smoke.compare(got, want, fn in EXACT, rtol, atol)
 
 
 def test_wrappers_check_their_tensors(device):
@@ -73,7 +105,7 @@ def test_wrappers_check_their_tensors(device):
     with pytest.raises(TypeError, match="differs"):
         window_reduce(sourceT, idx, w.double(), reduce.mean)
     with pytest.raises(ValueError, match="contiguous"):
-        window_reduce(torch.zeros((3, 10), device=device).t(), idx, w, reduce.mean)
+        window_reduce(torch.zeros((10, 3), device=device).t(), idx, w, reduce.mean)
     with pytest.raises(ValueError, match="CUDA device"):
         window_select(sourceT, idx, w.cpu(), reduce.median)
 
@@ -92,9 +124,11 @@ def test_regrid_on_cuda_matches_cpu(device):
         assert regridder.regrid(data.numpy()).device == device
 
 
-@pytest.mark.parametrize("E", [1, 3, 20])
+@pytest.mark.parametrize("E", [1, 2, 3, 8, 12, 20])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_csr_matvec_matches_plain(device, dtype, E):
+    """Bit for bit, with the plain version summing in the kernel's lane
+    order; two launches give the same bits."""
     rng = np.random.default_rng(E)
     indptr, indices, data = chip_smoke.synthetic_csr(rng)
     x = rng.normal(size=(4000, E))
@@ -104,9 +138,24 @@ def test_csr_matvec_matches_plain(device, dtype, E):
     before = csr_matvec.launches
     got = csr_matvec(*args)
     assert csr_matvec.launches == before + 1
-    want = csr_matvec_plain(*args)
-    rtol, atol = chip_smoke.tolerance(dtype, 1.0)
-    chip_smoke.compare(got, want, False, rtol, chip_smoke.matvec_bound(*args))
+    assert torch.equal(got, csr_matvec(*args))
+    lanes = matvec_lanes(len(indptr) - 1, len(data), E)
+    assert torch.equal(got, csr_matvec_plain(*args, lanes))
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("E", [1, 3])
+def test_csr_matvec_each_lane_mapping_matches_plain(device, E, lanes):
+    """Every row-lane group and the slice mapping, which the wrapper
+    picks only for other row lengths or slice counts, on rows of 0 to
+    40 entries, bit for bit."""
+    rng = np.random.default_rng(lanes)
+    indptr, indices, data = chip_smoke.synthetic_csr(rng)
+    args = [torch.from_numpy(a).to(device) for a in (indptr, indices)] + [
+        torch.from_numpy(a).to(device) for a in (data, rng.normal(size=(4000, E)))
+    ]
+    got = _launch_matvec(*args, lanes)
+    assert torch.equal(got, csr_matvec_plain(*args, lanes))
 
 
 def test_csr_matvec_checks_its_tensors(device):

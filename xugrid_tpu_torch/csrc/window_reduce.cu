@@ -8,22 +8,39 @@
 // chunks, packets, Q_PACK banding, scalar prefetch) exist because Mosaic
 // gathers only within 128 lanes and cannot scatter; Hopper gathers from
 // anywhere, so this kernel reads the PaddedCSR window table directly.
+// Like the TPU kernel it reads the source slices-major, src (E, m), as
+// the caller holds it, and writes out (E, n): no transpose pass.
 //
 // What bounds it on the H100: device memory.  A pass moves the window
-// table (n * w_max * (4 + sizeof(T)) bytes, read once: the E threads of
-// a target read the same row, which the warp broadcasts), the gathered
-// source (every source row is read by the ~2-3 targets overlapping it,
-// mostly from L2) and the output (n * E * sizeof(T)), with a handful of
-// flops per byte.  The design keeps every byte on one path: one thread
-// per (target, slice), slice fastest, so a warp's gathers of one source
-// row are contiguous; no shared memory, no atomics, and each output has
-// one owner that walks its window in slot order, so results do not
-// depend on scheduling.
+// table (n * w_max * (4 + sizeof(T)) bytes), the source (E * m *
+// sizeof(T); every face is gathered by the ~2-3 targets overlapping it,
+// mostly from L1 and L2) and the output (E * n * sizeof(T)), with a
+// handful of flops per byte.  The design keeps every byte on one path:
+// - a block owns a tile of 32 * G consecutive targets.  When its warps
+//   walk the windows more than once (E > 4 S) it stages them in shared
+//   memory once, slot-major, so the window table is read from device
+//   memory once per pass whatever E is; otherwise, or when the windows
+//   are too wide for a 32-target tile, each lane reads its window in
+//   place (STAGED false).  Each target stops at its last non-pad slot
+//   (PaddedCSR pads at the end of a row; a pad slot adds nothing to any
+//   method, and a -1 before the last slot still counts as NaN);
+// - the block's S * G warps walk the slices: warp (g, s) takes slices
+//   s, s + S, ... for its 32 targets, lane = target, so a warp's
+//   gathers from source row e fall on neighbouring faces and its stores
+//   of out[e, t] are coalesced.  The wrapper picks S from E (a warp
+//   walks at most 32 slices) and G from what fits the shared memory
+//   (aligned_apply.reduce_lanes, measured by chip_smoke.py phase 4);
+// - each thread reduces B of its warp's slices together (4 when staged,
+//   else from E / S, at most 4), so each slot's index and weight are
+//   read once for B gathers, and keeps kUnroll * B gathers in flight; it
+//   indexes in 32 bits, with no division per output and no atomics, and
+//   each output has one owner that walks its window in slot order, so
+//   results do not depend on scheduling.
 //
-// The method is a template parameter.  Each method is a literal
-// transcription of its formula in xugrid_tpu/regrid/reduce.py (NaN and
-// pad slots, 0 * inf, the geometric-mean gates), so the kernel returns
-// what reduce.py returns for NaN, inf, zero weights and negative values.
+// Each method is a literal transcription of its formula in
+// xugrid_tpu/regrid/reduce.py (NaN and pad slots, 0 * inf, the
+// geometric-mean gates), so the kernel returns what reduce.py returns for
+// NaN, inf, zero weights and negative values.
 
 #include "window_common.cuh"
 
@@ -40,123 +57,234 @@ enum ReduceMethod : int {
   kMaxOverlap = 7,
 };
 
+constexpr int kUnroll = 4;
+// Shared memory a block may stage its windows in without opting in to
+// more (aligned_apply.STAGE_BYTES).
+constexpr size_t kStageBytes = 48 * 1024;
+
+// One output's running state: add() takes the window's slots in order,
+// result() finishes.  `norm` is the window's raw weight sum (geometric
+// mean only).
 template <typename T, int M>
-__global__ void __launch_bounds__(kThreads)
-window_reduce_kernel(const T* __restrict__ srcT, const int32_t* __restrict__ idx,
-                     const T* __restrict__ wts, T* __restrict__ out, int64_t n, int w,
-                     int E) {
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n * E) return;
-  const int64_t t = gid / E;
-  const int e = (int)(gid - t * E);
-  const int32_t* ti = idx + t * w;
-  const T* tw = wts + t * w;
-  T result;
-  if constexpr (M == kMean || M == kFirstOrderConservative) {
-    T vsum = 0, wsum = 0;
-    for (int k = 0; k < w; ++k) {
-      const T v = window_value(srcT, ti[k], e, E);
-      const bool valid = is_valid(v);
-      const T wk = valid ? tw[k] : (T)0;
-      vsum += wk * (valid ? v : (T)0);
-      wsum += wk;
-    }
-    if constexpr (M == kMean) {
-      result = wsum > (T)0 ? vsum / wsum : qnan<T>();
+struct Reducer {
+  T a, b;
+  bool flag = false;
+
+  __device__ __forceinline__ Reducer() {
+    if constexpr (M == kMinimum) {
+      a = pos_inf<T>();  // extreme valid value
+      b = -pos_inf<T>();  // largest valid weight
+    } else if constexpr (M == kMaximum || M == kMaxOverlap) {
+      a = -pos_inf<T>();
+      b = -pos_inf<T>();
     } else {
-      result = wsum != (T)0 ? vsum : qnan<T>();
+      a = 0;
+      b = 0;
     }
-  } else if constexpr (M == kSum) {
-    T vsum = 0, wsum = 0;
-    for (int k = 0; k < w; ++k) {
-      const T v = window_value(srcT, ti[k], e, E);
-      const bool valid = is_valid(v);
-      vsum += valid ? v : (T)0;
-      wsum += valid ? tw[k] : (T)0;
-    }
-    result = wsum != (T)0 ? vsum : qnan<T>();
-  } else if constexpr (M == kHarmonicMean) {
-    T wsum = 0, vagg = 0;
-    for (int k = 0; k < w; ++k) {
-      const T v = window_value(srcT, ti[k], e, E);
-      const T wk = tw[k];
-      const bool use = is_valid(v) && v != (T)0 && wk > (T)0;
+  }
+
+  __device__ __forceinline__ void add(T v, T wk, T denom) {
+    const bool valid = is_valid(v);
+    if constexpr (M == kMean || M == kFirstOrderConservative) {
+      // a: sum of w * v, b: sum of w, over valid slots.
+      const T wv = valid ? wk : (T)0;
+      a += wv * (valid ? v : (T)0);
+      b += wv;
+    } else if constexpr (M == kSum) {
+      a += valid ? v : (T)0;
+      b += valid ? wk : (T)0;
+    } else if constexpr (M == kHarmonicMean) {
+      // a: sum of w, b: sum of w / v, over valid nonzero v with w > 0.
+      const bool use = valid && v != (T)0 && wk > (T)0;
       const T wu = use ? wk : (T)0;
-      wsum += wu;
-      vagg += use ? wu / v : (T)0;
-    }
-    const bool ok = vagg != (T)0 && wsum != (T)0;
-    result = ok ? wsum / vagg : qnan<T>();
-  } else if constexpr (M == kGeometricMean) {
-    // Weights are normalized by their raw window sum first.
-    T normsum = 0;
-    for (int k = 0; k < w; ++k) normsum += tw[k];
-    const T denom = normsum == (T)0 ? (T)1 : normsum;
-    T vagg = 0, wsum = 0;
-    bool any_negative = false;
-    for (int k = 0; k < w; ++k) {
-      const T v = window_value(srcT, ti[k], e, E);
-      const bool valid = is_valid(v);
-      const T wk = tw[k] / denom;
-      const bool use = valid && v > (T)0 && wk > (T)0;
-      vagg += use ? wk * xlog(xabs(v)) : (T)0;
-      wsum += use ? wk : (T)0;
-      any_negative = any_negative || (valid && v < (T)0);
-    }
-    const bool ok = wsum != (T)0 && !any_negative && normsum != (T)0;
-    result = ok ? xexp(vagg / wsum) : qnan<T>();
-  } else if constexpr (M == kMinimum || M == kMaximum) {
-    result = window_extreme<T, M == kMaximum>(srcT, ti, tw, w, e, E);
-  } else if constexpr (M == kMaxOverlap) {
-    // Value of the valid slot with the largest weight; ties go to the
-    // larger value.
-    T wbest = -pos_inf<T>(), vbest = -pos_inf<T>();
-    bool any_valid = false;
-    for (int k = 0; k < w; ++k) {
-      const T v = window_value(srcT, ti[k], e, E);
-      if (!is_valid(v)) continue;
-      any_valid = true;
-      const T wk = tw[k];
-      if (wk > wbest) {
-        wbest = wk;
-        vbest = v;
-      } else if (wk == wbest && v > vbest) {
-        vbest = v;
+      a += wu;
+      b += use ? wu / v : (T)0;
+    } else if constexpr (M == kGeometricMean) {
+      // Weights normalized by their raw window sum; a: sum of w log v,
+      // b: sum of w, over valid v > 0; flag: a valid negative value.
+      const T wn = wk / denom;
+      const bool use = valid && v > (T)0 && wn > (T)0;
+      a += use ? wn * xlog(xabs(v)) : (T)0;
+      b += use ? wn : (T)0;
+      flag = flag || (valid && v < (T)0);
+    } else if constexpr (M == kMinimum || M == kMaximum) {
+      const T x = valid ? v : (M == kMaximum ? -pos_inf<T>() : pos_inf<T>());
+      a = M == kMaximum ? (x > a ? x : a) : (x < a ? x : a);
+      const T y = valid ? wk : (T)0;
+      b = y > b ? y : b;
+    } else if constexpr (M == kMaxOverlap) {
+      // Value of the valid slot with the largest weight (a: weight, b:
+      // value); ties go to the larger value.  flag: any valid slot.
+      if (!valid) return;
+      flag = true;
+      if (wk > a) {
+        a = wk;
+        b = v;
+      } else if (wk == a && v > b) {
+        b = v;
       }
     }
-    result = (any_valid && wbest > (T)0) ? vbest : qnan<T>();
   }
-  out[gid] = result;
+
+  __device__ __forceinline__ T result(T norm) const {
+    if constexpr (M == kMean) {
+      return b > (T)0 ? a / b : qnan<T>();
+    } else if constexpr (M == kSum || M == kFirstOrderConservative) {
+      return b != (T)0 ? a : qnan<T>();
+    } else if constexpr (M == kHarmonicMean) {
+      return (b != (T)0 && a != (T)0) ? a / b : qnan<T>();
+    } else if constexpr (M == kGeometricMean) {
+      return (b != (T)0 && !flag && norm != (T)0) ? xexp(a / b) : qnan<T>();
+    } else if constexpr (M == kMinimum || M == kMaximum) {
+      return b > (T)0 ? a : qnan<T>();
+    } else {
+      return (flag && a > (T)0) ? b : qnan<T>();
+    }
+  }
+};
+
+// Block (S * G warps) for the tile of targets [32 G blockIdx.x, ...).
+// STAGED: the tile's windows sit in dynamic shared memory, weights then
+// indices, slot-major with a row stride of 32 G + 1 (conflict-free
+// writes from the coalesced row-major reads, and reads by lane).
+// B: slices a thread reduces together (e, e + S, ..., e + (B - 1) S),
+// sharing each slot's index and weight reads and keeping kUnroll * B
+// gathers in flight.
+template <typename T, int M, bool STAGED, int B>
+__global__ void __launch_bounds__(kThreads)
+window_reduce_kernel(const T* __restrict__ src, const int32_t* __restrict__ idx,
+                     const T* __restrict__ wts, T* __restrict__ out, int n, int m, int w,
+                     int E, int slice_warps, int target_warps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int g = warp % target_warps;
+  const int s = warp / target_warps;
+  const int tile = 32 * target_warps;
+  const int t0 = blockIdx.x * tile;
+  const int tl = g * 32 + (threadIdx.x & 31);
+  const int t = t0 + tl;
+  const int stride = tile + 1;
+  T* wts_s = reinterpret_cast<T*>(smem);
+  int32_t* idx_s = reinterpret_cast<int32_t*>(wts_s + w * stride);
+  if constexpr (STAGED) {
+    const int rows = min(tile, n - t0);
+    const int32_t* gi = idx + (int64_t)t0 * w;
+    const T* gw = wts + (int64_t)t0 * w;
+    for (int q = threadIdx.x; q < rows * w; q += blockDim.x) {
+      const int r = q / w;
+      const int k = q - r * w;
+      idx_s[k * stride + r] = gi[q];
+      wts_s[k * stride + r] = gw[q];
+    }
+    __syncthreads();
+  }
+  if (t >= n) return;
+  const int32_t* ti = STAGED ? idx_s + tl : idx + (int64_t)t * w;
+  const T* tw = STAGED ? wts_s + tl : wts + (int64_t)t * w;
+  const int ks = STAGED ? stride : 1;
+  int len = w;
+  while (len > 0 && ti[(len - 1) * ks] < 0) --len;
+  T norm = 0, denom = 1;
+  if constexpr (M == kGeometricMean) {
+    for (int k = 0; k < w; ++k) norm += tw[k * ks];
+    denom = norm == (T)0 ? (T)1 : norm;
+  }
+  for (int e0 = s; e0 < E; e0 += slice_warps * B) {
+    const T* se[B];
+    bool on[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      on[b] = e0 + b * slice_warps < E;
+      se[b] = src + (int64_t)(on[b] ? e0 + b * slice_warps : 0) * m;
+    }
+    Reducer<T, M> acc[B];
+    for (int k0 = 0; k0 < len; k0 += kUnroll) {
+      int32_t i[kUnroll];
+      T wk[kUnroll], v[kUnroll][B];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        const int k = k0 + j;
+        i[j] = k < len ? ti[k * ks] : -1;
+        wk[j] = k < len ? tw[k * ks] : (T)0;
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+#pragma unroll
+        for (int b = 0; b < B; ++b) v[j][b] = (i[j] < 0 || !on[b]) ? qnan<T>() : se[b][i[j]];
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        if (k0 + j < len) {
+#pragma unroll
+          for (int b = 0; b < B; ++b) acc[b].add(v[j][b], wk[j], denom);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      if (on[b]) out[(int64_t)(e0 + b * slice_warps) * n + t] = acc[b].result(norm);
+    }
+  }
+}
+
+// A staged block (bytes > 0) walks its windows more than 4 times (E >
+// 4 S), so it takes B = 4; in place, B follows the slices per warp,
+// ceil(E / S).
+template <typename T, int M>
+void launch_batched(unsigned blocks, int threads, size_t bytes, cudaStream_t stream, const T* s,
+                    const int32_t* i, const T* wt, T* o, int n, int m, int w, int E, int sw,
+                    int tw) {
+  const int per_warp = (E + sw - 1) / sw;
+  if (bytes > 0) {
+    window_reduce_kernel<T, M, true, 4><<<blocks, threads, bytes, stream>>>(s, i, wt, o, n, m, w, E, sw, tw);
+  } else if (per_warp >= 4) {
+    window_reduce_kernel<T, M, false, 4><<<blocks, threads, 0, stream>>>(s, i, wt, o, n, m, w, E, sw, tw);
+  } else if (per_warp >= 2) {
+    window_reduce_kernel<T, M, false, 2><<<blocks, threads, 0, stream>>>(s, i, wt, o, n, m, w, E, sw, tw);
+  } else {
+    window_reduce_kernel<T, M, false, 1><<<blocks, threads, 0, stream>>>(s, i, wt, o, n, m, w, E, sw, tw);
+  }
 }
 
 template <typename T, int M>
-cudaError_t launch_reduce(const void* srcT, const void* idx, const void* wts, void* out,
-                          int64_t n, int w, int E, cudaStream_t stream) {
-  unsigned blocks;
-  if (!grid_size(n, E, &blocks)) return cudaErrorInvalidConfiguration;
-  window_reduce_kernel<T, M><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(srcT), static_cast<const int32_t*>(idx),
-      static_cast<const T*>(wts), static_cast<T*>(out), n, w, E);
+cudaError_t launch_reduce(const void* src, const void* idx, const void* wts, void* out,
+                          int n, int m, int w, int E, int slice_warps, int target_warps,
+                          int staged, cudaStream_t stream) {
+  const int warps = slice_warps * target_warps;
+  if (n <= 0 || w < 0 || E <= 0 || slice_warps <= 0 || target_warps <= 0 ||
+      32 * warps > kThreads) {
+    return cudaErrorInvalidValue;
+  }
+  const int tile = 32 * target_warps;
+  const unsigned blocks = (unsigned)(((int64_t)n + tile - 1) / tile);
+  const size_t bytes = staged ? (size_t)(tile + 1) * w * (sizeof(T) + sizeof(int32_t)) : 0;
+  if (bytes > kStageBytes) return cudaErrorInvalidValue;
+  const T* s = static_cast<const T*>(src);
+  const int32_t* i = static_cast<const int32_t*>(idx);
+  const T* wt = static_cast<const T*>(wts);
+  T* o = static_cast<T*>(out);
+  launch_batched<T, M>(blocks, 32 * warps, bytes, stream, s, i, wt, o, n, m, w, E, slice_warps,
+                       target_warps);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_reduce(int method, const void* srcT, const void* idx, const void* wts,
-                            void* out, int64_t n, int w, int E, cudaStream_t stream) {
+cudaError_t dispatch_reduce(int method, const void* src, const void* idx, const void* wts,
+                            void* out, int n, int m, int w, int E, int sw, int tw, int st,
+                            cudaStream_t stream) {
+#define XT_REDUCE(M) launch_reduce<T, M>(src, idx, wts, out, n, m, w, E, sw, tw, st, stream)
   switch (method) {
-    case kMean: return launch_reduce<T, kMean>(srcT, idx, wts, out, n, w, E, stream);
-    case kSum: return launch_reduce<T, kSum>(srcT, idx, wts, out, n, w, E, stream);
-    case kFirstOrderConservative:
-      return launch_reduce<T, kFirstOrderConservative>(srcT, idx, wts, out, n, w, E, stream);
-    case kHarmonicMean:
-      return launch_reduce<T, kHarmonicMean>(srcT, idx, wts, out, n, w, E, stream);
-    case kGeometricMean:
-      return launch_reduce<T, kGeometricMean>(srcT, idx, wts, out, n, w, E, stream);
-    case kMinimum: return launch_reduce<T, kMinimum>(srcT, idx, wts, out, n, w, E, stream);
-    case kMaximum: return launch_reduce<T, kMaximum>(srcT, idx, wts, out, n, w, E, stream);
-    case kMaxOverlap: return launch_reduce<T, kMaxOverlap>(srcT, idx, wts, out, n, w, E, stream);
+    case kMean: return XT_REDUCE(kMean);
+    case kSum: return XT_REDUCE(kSum);
+    case kFirstOrderConservative: return XT_REDUCE(kFirstOrderConservative);
+    case kHarmonicMean: return XT_REDUCE(kHarmonicMean);
+    case kGeometricMean: return XT_REDUCE(kGeometricMean);
+    case kMinimum: return XT_REDUCE(kMinimum);
+    case kMaximum: return XT_REDUCE(kMaximum);
+    case kMaxOverlap: return XT_REDUCE(kMaxOverlap);
     default: return cudaErrorInvalidValue;
   }
+#undef XT_REDUCE
 }
 
 // csr_matvec: the SpMV of the Laplace PCG, y[t, e] = sum_k data[k] *
@@ -173,39 +301,144 @@ cudaError_t dispatch_reduce(int method, const void* srcT, const void* idx, const
 // once (nnz * (4 + sizeof(T)) + (n + 1) * 4 bytes), the iterate (m * E *
 // sizeof(T), which at 1M unknowns fits the 50 MB L2, so its ~7 gathers
 // per entry mostly hit there) and writes the output (n * E * sizeof(T)),
-// with 2 flops per entry and slice.  The design reads the CSR row
-// pointers, not a padded window table: the Laplacian's rows hold 2-20
-// entries, 6.9 on average at 1M nodes, so a table padded to the widest
-// row would read ~3x the bytes.  One thread per (row, slice), slice
-// fastest: the E threads of a row read the same entries (broadcast) and
-// gather one contiguous run of x per entry.  Each output has one owner
-// that sums its row in CSR order, so results do not depend on scheduling
-// and equal the plain version's, which sums in the same order.
+// with 2 flops per entry and slice.  It reads CSR row pointers, not a
+// padded table: the Laplacian's rows hold 2-21 entries, 6.9 on average
+// at 1M nodes, so a table padded to the widest row would read ~3x the
+// bytes.  Two lane mappings, picked by the wrapper (matvec_lanes,
+// measured by chip_smoke.py phase 6):
+// - rows (E <= kRowMaxE right-hand sides, a compile-time E): a group of
+//   G >= 2 lanes per row.  The lanes read the row's indices and data
+//   coalesced, lane l sums entries l, l + G, ... for every slice with
+//   kUnroll entries' gathers in flight, and the group combines its G
+//   partial sums by an xor-shuffle tree;
+// - slices (G = 1, the pick for rows of up to 8 entries on average, as
+//   the Laplacian's): one thread per (row, slice), slice fastest, found
+//   by one 32-bit division.  The E threads of a row read its entries
+//   together (one broadcast load per warp) and gather one contiguous run
+//   of x per entry, kUnroll entries in flight, summing in CSR order.
+// Neither uses atomics and both sum in a fixed order, so two launches
+// give the same bits, and csr_matvec_plain, which sums in the same
+// order, gives them too.
+constexpr int kRowMaxE = 4;
+
+// Lanes of the aligned group of `lanes` (a power of two) holding `lane`.
+__device__ __forceinline__ unsigned group_mask(int lanes) {
+  if (lanes == 32) return 0xffffffffu;
+  const int first = (threadIdx.x & 31) & ~(lanes - 1);
+  return ((1u << lanes) - 1u) << first;
+}
+
+template <typename T, int E>
+__global__ void __launch_bounds__(kThreads)
+csr_matvec_rows(const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
+                const T* __restrict__ data, const T* __restrict__ x, T* __restrict__ y, int n,
+                int log_lanes) {
+  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  // Groups are aligned within a warp, so a group leaves as a whole.
+  if ((gid >> log_lanes) >= n) return;
+  const int row = (int)(gid >> log_lanes);
+  const int lanes = 1 << log_lanes;
+  const int l = (int)(gid & (lanes - 1));
+  const int end = indptr[row + 1];
+  T acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0;
+  for (int k0 = indptr[row] + l; k0 < end; k0 += kUnroll * lanes) {
+    int32_t j[kUnroll];
+    T a[kUnroll], v[kUnroll][E];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u * lanes;
+      j[u] = k < end ? indices[k] : -1;
+      a[u] = k < end ? data[k] : (T)0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const T* xr = x + (int64_t)j[u] * E;
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[u][e] = j[u] >= 0 ? xr[e] : (T)0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (k0 + u * lanes < end) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] += a[u] * v[u][e];
+      }
+    }
+  }
+  const unsigned mask = group_mask(lanes);
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(mask, acc[e], off);
+  }
+  // Every lane holds the row's sums; lane e % G writes slice e.
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if ((e & (lanes - 1)) == l) y[(int64_t)row * E + e] = acc[e];
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-csr_matvec_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
+csr_matvec_slices(const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
                   const T* __restrict__ data, const T* __restrict__ x, T* __restrict__ y,
-                  int64_t n, int E) {
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+                  int n, int E) {
+  // n * E < 2^31 (the launcher checks), so 32-bit ids suffice.
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= n * E) return;
-  const int64_t t = gid / E;
-  const int e = (int)(gid - t * E);
-  const int32_t end = indptr[t + 1];
+  const int row = gid / E;
+  const int e = gid - row * E;
+  const int end = indptr[row + 1];
   T acc = 0;
-  for (int32_t k = indptr[t]; k < end; ++k) {
-    acc += data[k] * x[(int64_t)indices[k] * E + e];
+  for (int k0 = indptr[row]; k0 < end; k0 += kUnroll) {
+    int32_t j[kUnroll];
+    T a[kUnroll], v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      j[u] = k0 + u < end ? indices[k0 + u] : -1;
+      a[u] = k0 + u < end ? data[k0 + u] : (T)0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = j[u] >= 0 ? x[(int64_t)j[u] * E + e] : (T)0;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (k0 + u < end) acc += a[u] * v[u];
+    }
   }
   y[gid] = acc;
 }
 
+template <typename T, int E>
+void launch_rows(unsigned blocks, cudaStream_t stream, const int32_t* ip, const int32_t* ix,
+                 const T* d, const T* xv, T* yv, int n, int log) {
+  csr_matvec_rows<T, E><<<blocks, kThreads, 0, stream>>>(ip, ix, d, xv, yv, n, log);
+}
+
 template <typename T>
 cudaError_t launch_matvec(const void* indptr, const void* indices, const void* data,
-                          const void* x, void* y, int64_t n, int E, cudaStream_t stream) {
+                          const void* x, void* y, int n, int E, int row_lanes,
+                          cudaStream_t stream) {
+  int log = 0;
+  while ((1 << log) < row_lanes) ++log;
+  if (n <= 0 || E <= 0 || row_lanes < 1 || row_lanes > 32 || (1 << log) != row_lanes ||
+      (row_lanes > 1 && E > kRowMaxE)) {
+    return cudaErrorInvalidValue;
+  }
+  const int64_t threads = row_lanes > 1 ? (int64_t)n << log : (int64_t)n * E;
   unsigned blocks;
-  if (!grid_size(n, E, &blocks)) return cudaErrorInvalidConfiguration;
-  csr_matvec_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
-      static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), n, E);
+  if (threads > 0x7fffffff || !grid_size(threads, &blocks)) return cudaErrorInvalidConfiguration;
+  const int32_t* ip = static_cast<const int32_t*>(indptr);
+  const int32_t* ix = static_cast<const int32_t*>(indices);
+  const T* d = static_cast<const T*>(data);
+  const T* xv = static_cast<const T*>(x);
+  T* yv = static_cast<T*>(y);
+  switch (row_lanes > 1 ? E : 0) {
+    case 1: launch_rows<T, 1>(blocks, stream, ip, ix, d, xv, yv, n, log); break;
+    case 2: launch_rows<T, 2>(blocks, stream, ip, ix, d, xv, yv, n, log); break;
+    case 3: launch_rows<T, 3>(blocks, stream, ip, ix, d, xv, yv, n, log); break;
+    case 4: launch_rows<T, 4>(blocks, stream, ip, ix, d, xv, yv, n, log); break;
+    default: csr_matvec_slices<T><<<blocks, kThreads, 0, stream>>>(ip, ix, d, xv, yv, n, E);
+  }
   return cudaGetLastError();
 }
 
@@ -213,24 +446,40 @@ cudaError_t launch_matvec(const void* indptr, const void* indices, const void* d
 
 // dtype: 0 float32, 1 float64.  indptr (n + 1) and indices (nnz) int32,
 // data (nnz) and x (m, E) of dtype, y (n, E), all contiguous on the
-// current device.  Returns the launch's cudaGetLastError().
+// current device.  row_lanes: a power of two up to 32; above 1 (with
+// E <= 4) the row mapping with that many lanes per row, 1 the slice
+// mapping (n * E < 2^31).  Returns the launch's cudaGetLastError().
 extern "C" int xt_csr_matvec(int dtype, const void* indptr, const void* indices,
-                             const void* data, const void* x, void* y, int64_t n, int32_t E,
-                             void* stream) {
+                             const void* data, const void* x, void* y, int32_t n, int32_t E,
+                             int32_t row_lanes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)xt::launch_matvec<float>(indptr, indices, data, x, y, n, E, s);
-  if (dtype == 1) return (int)xt::launch_matvec<double>(indptr, indices, data, x, y, n, E, s);
+  if (dtype == 0) {
+    return (int)xt::launch_matvec<float>(indptr, indices, data, x, y, n, E, row_lanes, s);
+  }
+  if (dtype == 1) {
+    return (int)xt::launch_matvec<double>(indptr, indices, data, x, y, n, E, row_lanes, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 float32, 1 float64.  method: xt::ReduceMethod.  srcT (m, E),
-// idx and wts (n, w), out (n, E), all contiguous on the current device.
-// Returns the launch's cudaGetLastError().
-extern "C" int xt_window_reduce(int dtype, int method, const void* srcT, const void* idx,
-                                const void* wts, void* out, int64_t n, int32_t w, int32_t E,
-                                void* stream) {
+// dtype: 0 float32, 1 float64.  method: xt::ReduceMethod.  src (E, m),
+// idx and wts (n, w), out (E, n), all contiguous on the current device.
+// slice_warps S and target_warps G: the block's warps (S * G <= 8);
+// staged: stage each tile's windows in (32 G + 1) * w * (4 + sizeof(T))
+// bytes of shared memory (at most 48 KiB).  Returns the launch's
+// cudaGetLastError().
+extern "C" int xt_window_reduce(int dtype, int method, const void* src, const void* idx,
+                                const void* wts, void* out, int32_t n, int32_t m, int32_t w,
+                                int32_t E, int32_t slice_warps, int32_t target_warps,
+                                int32_t staged, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)xt::dispatch_reduce<float>(method, srcT, idx, wts, out, n, w, E, s);
-  if (dtype == 1) return (int)xt::dispatch_reduce<double>(method, srcT, idx, wts, out, n, w, E, s);
+  if (dtype == 0) {
+    return (int)xt::dispatch_reduce<float>(method, src, idx, wts, out, n, m, w, E, slice_warps,
+                                           target_warps, staged, s);
+  }
+  if (dtype == 1) {
+    return (int)xt::dispatch_reduce<double>(method, src, idx, wts, out, n, m, w, E,
+                                            slice_warps, target_warps, staged, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -12,9 +12,10 @@
 // times: percentile rank_k = #{j : v_j < v_k, or v_j == v_k and j < k},
 // mode total_k = sum_j w_j [v_j == v_k].  The repeated reads of a
 // target's E-wide source rows hit L1; at the overlap meshes' w ~ 10 the
-// kernel is bound by those L1 loads and compares.  Like kernel #1 it
-// runs one thread per (target, slice), slice fastest, with no shared
-// memory and no atomics.
+// kernel is bound by those L1 loads and compares.  It runs one thread
+// per (target, slice), slice fastest, over the slice-minor copy of the
+// source that apply_weights makes for it, with no shared memory and no
+// atomics.
 //
 // Both reductions transcribe xugrid_tpu/regrid/reduce.py: percentiles
 // skip NaN, interpolate lower * (1 - m) + upper * m between the closest
@@ -26,6 +27,30 @@
 #include "window_common.cuh"
 
 namespace xt {
+
+// Value of window slot (i = source index) for slice e; NaN for a pad slot.
+template <typename T>
+__device__ __forceinline__ T window_value(const T* __restrict__ srcT, int32_t i, int e, int E) {
+  return i < 0 ? qnan<T>() : srcT[(int64_t)i * E + e];
+}
+
+// reduce.py minimum (MAX = false) and maximum (MAX = true): the extreme
+// valid value, NaN unless some valid slot has a positive weight.
+template <typename T, bool MAX>
+__device__ __forceinline__ T window_extreme(const T* __restrict__ srcT, const int32_t* ti,
+                                            const T* tw, int w, int e, int E) {
+  T best = MAX ? -pos_inf<T>() : pos_inf<T>();
+  T wmax = -pos_inf<T>();
+  for (int k = 0; k < w; ++k) {
+    const T v = window_value(srcT, ti[k], e, E);
+    const bool valid = is_valid(v);
+    const T x = valid ? v : (MAX ? -pos_inf<T>() : pos_inf<T>());
+    best = MAX ? (x > best ? x : best) : (x < best ? x : best);
+    const T y = valid ? tw[k] : (T)0;
+    wmax = y > wmax ? y : wmax;
+  }
+  return wmax > (T)0 ? best : qnan<T>();
+}
 
 template <typename T, bool MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -110,7 +135,7 @@ template <typename T, bool MODE>
 cudaError_t launch_select(const void* srcT, const void* idx, const void* wts, void* out,
                           int64_t n, int w, int E, double p, cudaStream_t stream) {
   unsigned blocks;
-  if (!grid_size(n, E, &blocks)) return cudaErrorInvalidConfiguration;
+  if (!grid_size(n * (int64_t)E, &blocks)) return cudaErrorInvalidConfiguration;
   window_select_kernel<T, MODE><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(srcT), static_cast<const int32_t*>(idx),
       static_cast<const T*>(wts), static_cast<T*>(out), n, w, E, p);

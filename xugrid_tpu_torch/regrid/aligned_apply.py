@@ -8,7 +8,8 @@ It replaces ``xugrid_tpu/regrid/aligned_apply.py:gather_aligned_apply``
 (and, by function, the stream, span, packet and pdot engines of
 ``xugrid_tpu/regrid/gather_apply.py``) for mean, sum,
 first_order_conservative (which conductance is), harmonic_mean,
-geometric_mean, minimum, maximum and max_overlap.
+geometric_mean, minimum, maximum and max_overlap.  Like that kernel it
+takes the source slices-major, (E, m), as ``apply_weights`` holds it.
 
 ``csr_matvec`` replaces ``gather_aligned_apply(method="matvec")`` and,
 by function, the stream, span, packet and pdot engines in that mode,
@@ -17,7 +18,8 @@ the SpMV engines of ``xugrid_tpu/ugrid/interpolate.py:cg_solve``.
 Each wrapper launches its kernel for CUDA tensors and raises on what it
 does not take; for CPU tensors it runs the plain PyTorch version
 (``reduce.reduce_windows``, ``csr_matvec_plain``).  ``window_reduce.
-launches`` and ``csr_matvec.launches`` count kernel launches.
+launches`` and ``csr_matvec.launches`` count kernel launches.  The
+lane mappings are picked here, by ``reduce_lanes`` and ``matvec_lanes``.
 """
 
 from __future__ import annotations
@@ -43,67 +45,133 @@ METHOD_CODES = {
 #: kernel dtype codes (csrc/*.cu): the kernels are instantiated for these.
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
+#: Shared memory a window_reduce block may stage its windows in
+#: (``kStageBytes`` in csrc/window_reduce.cu): the default limit, so no
+#: launch has to opt in to more.
+STAGE_BYTES = 48 * 1024
 
-def check_kernel_args(sourceT, indices, weights):
+#: csr_matvec reads a row with a group of lanes sharing its entries (the
+#: row mapping) up to this many right-hand sides, and runs one thread per
+#: (row, slice) above it.  The kernel keeps up to 4 sums per lane
+#: (kRowMaxE).
+MATVEC_ROW_MAX_E = 4
+
+#: Entries of a row whose gathers one csr_matvec lane keeps in flight
+#: (kUnroll in csrc/window_reduce.cu).
+MATVEC_UNROLL = 4
+
+#: Largest index a kernel takes: they index in 32 bits.
+MAX_INT32 = 2**31 - 1 - 256
+
+
+#: ctypes signatures of the kernel library's entry points
+#: (csrc/*.cu): pointers and the stream as c_void_p.
+_SIGNATURES = {
+    "xt_window_reduce": (ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 4, *[ctypes.c_int32] * 7, ctypes.c_void_p),
+    "xt_csr_matvec": (ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int32] * 3, ctypes.c_void_p),
+    "xt_window_select": (
+        ctypes.c_int, ctypes.c_int, ctypes.c_double, *[ctypes.c_void_p] * 4,
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+    ),
+}
+
+
+def kernel_function(name: str):
+    """The kernel library's entry point ``name``, with its ctypes
+    signature (the library is built on first use)."""
+    from xugrid_tpu_torch.utils.build import kernel_library
+
+    fn = getattr(kernel_library(), name)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_kernel_args(source, indices, weights):
     """Validate the tensors handed to a window kernel; raises on what
     the kernels do not take."""
-    for name, t in (("sourceT", sourceT), ("indices", indices), ("weights", weights)):
-        if t.device.type != "cuda" or t.device != sourceT.device:
-            raise ValueError(f"{name} must lie on the CUDA device of sourceT, got {t.device}")
+    for name, t in (("source", source), ("indices", indices), ("weights", weights)):
+        if t.device.type != "cuda" or t.device != source.device:
+            raise ValueError(f"{name} must lie on the CUDA device of source, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if sourceT.dtype not in DTYPE_CODES:
-        raise TypeError(f"window kernels take float32 or float64, got {sourceT.dtype}")
-    if weights.dtype != sourceT.dtype:
-        raise TypeError(f"weights dtype {weights.dtype} differs from source dtype {sourceT.dtype}")
+    if source.dtype not in DTYPE_CODES:
+        raise TypeError(f"window kernels take float32 or float64, got {source.dtype}")
+    if weights.dtype != source.dtype:
+        raise TypeError(f"weights dtype {weights.dtype} differs from source dtype {source.dtype}")
     if indices.dtype != torch.int32:
         raise TypeError(f"indices must be int32, got {indices.dtype}")
-    if sourceT.dim() != 2 or indices.dim() != 2 or weights.shape != indices.shape:
+    if source.dim() != 2 or indices.dim() != 2 or weights.shape != indices.shape:
         raise ValueError(
-            f"expected sourceT (m, E) and indices, weights (n, w); got "
-            f"{tuple(sourceT.shape)}, {tuple(indices.shape)}, {tuple(weights.shape)}"
+            f"expected a 2-D source and indices, weights (n, w); got "
+            f"{tuple(source.shape)}, {tuple(indices.shape)}, {tuple(weights.shape)}"
         )
+    if max(source.shape) > MAX_INT32 or indices.shape[0] > MAX_INT32:
+        raise ValueError(f"window kernels index in 32 bits: source {tuple(source.shape)}, n {indices.shape[0]}")
 
 
-def launch_args(sourceT, indices, weights, out):
-    """The pointer, size and stream arguments shared by both kernels."""
-    stream = torch.cuda.current_stream(sourceT.device).cuda_stream
-    return (
-        ctypes.c_void_p(sourceT.data_ptr()),
-        ctypes.c_void_p(indices.data_ptr()),
-        ctypes.c_void_p(weights.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_int64(indices.shape[0]),
-        ctypes.c_int32(indices.shape[1]),
-        ctypes.c_int32(sourceT.shape[1]),
-        ctypes.c_void_p(stream),
-    )
+def stage_bytes(target_warps: int, w: int, itemsize: int) -> int:
+    """Shared memory of a window_reduce tile of 32 * target_warps
+    targets: (tile + 1) rows of w slots of a weight and an int32 index."""
+    return (32 * target_warps + 1) * w * (itemsize + 4)
 
 
-def window_reduce(sourceT: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor, reduction) -> torch.Tensor:
+def reduce_lanes(E: int, w: int, itemsize: int) -> tuple[int, int, bool]:
+    """
+    window_reduce's block for E slices and windows of w slots of
+    ``itemsize``-byte values: (slice warps S, target warps G, staged).
+
+    The block's S * G <= 8 warps share a tile of 32 * G targets; warp
+    (g, s) walks slices s, s + S, ..., up to 4 of them per pass over the
+    window.  S is the least power of two, at most 8, that leaves a warp
+    at most 32 slices: one warp walks a short stack alone, and a deep
+    stack spreads over more, smaller tiles.  The windows are staged in
+    shared memory when a warp walks them more than once (E > 4 S) and
+    the tile fits ``STAGE_BYTES`` (G halving until it does); otherwise
+    they are read in place with G = 8 // S.
+    """
+    S = 1
+    while S < 8 and S * 32 < E:
+        S *= 2
+    G = 8 // S
+    while G > 1 and stage_bytes(G, w, itemsize) > STAGE_BYTES:
+        G //= 2
+    if E <= 4 * S or stage_bytes(G, w, itemsize) > STAGE_BYTES:
+        return S, 8 // S, False
+    return S, G, True
+
+
+def window_reduce(source: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor, reduction) -> torch.Tensor:
     """
     ``reduction`` over every target's window.
 
-    sourceT: (m, E) source values, extra slices on the minor axis.
+    source: (E, m) source values, slices major.
     indices: (n, w) int32, -1 padded.  weights: (n, w), 0 padded.
-    Returns (n, E).
+    Returns (E, n) (contiguous on the card).
     """
     if reduction not in METHOD_CODES:
         raise ValueError(f"window_reduce does not cover {reduction!r}")
-    if sourceT.device.type == "cpu":
-        return reduce.reduce_windows(sourceT, indices, weights, reduction)
-    check_kernel_args(sourceT, indices, weights)
-    out = torch.empty((indices.shape[0], sourceT.shape[1]), dtype=sourceT.dtype, device=sourceT.device)
+    if source.device.type == "cpu":
+        return reduce.reduce_windows(source.t(), indices, weights, reduction).t()
+    check_kernel_args(source, indices, weights)
+    plan = reduce_lanes(source.shape[0], indices.shape[1], source.element_size())
+    return _launch_reduce(source, indices, weights, reduction, plan)
+
+
+def _launch_reduce(source, indices, weights, reduction, plan) -> torch.Tensor:
+    """Launch window_reduce's kernel with the block ``plan`` (see
+    ``reduce_lanes``) on checked CUDA tensors; counts the launch."""
+    (E, m), (n, w) = source.shape, indices.shape
+    out = torch.empty((E, n), dtype=source.dtype, device=source.device)
     if out.numel() == 0:
         return out
-    from xugrid_tpu_torch.utils.build import kernel_library
-
-    fn = kernel_library().xt_window_reduce
-    fn.restype = ctypes.c_int
-    err = fn(
-        ctypes.c_int(DTYPE_CODES[sourceT.dtype]),
-        ctypes.c_int(METHOD_CODES[reduction]),
-        *launch_args(sourceT, indices, weights, out),
+    slice_warps, target_warps, staged = plan
+    err = kernel_function("xt_window_reduce")(
+        DTYPE_CODES[source.dtype], METHOD_CODES[reduction],
+        source.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
+        n, m, w, E, slice_warps, target_warps, int(staged),
+        torch.cuda.current_stream(source.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"window_reduce launch failed with CUDA error {err}")
@@ -114,18 +182,62 @@ def window_reduce(sourceT: torch.Tensor, indices: torch.Tensor, weights: torch.T
 window_reduce.launches = 0
 
 
-def csr_matvec_plain(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``csr_matvec``: the same rows summed in the same
-    (CSR) order, one entry slot of every row per step, so it rounds as
-    the kernel does."""
+def matvec_lanes(n: int, nnz: int, E: int) -> int:
+    """
+    csr_matvec's lane mapping for n rows holding nnz entries and E
+    right-hand sides: the lanes G that share each row's entries.
+
+    1, the slice mapping (one thread per (row, slice)), unless a thread
+    would walk more than two unrolled steps of ``MATVEC_UNROLL`` entries
+    of a mean row and E <= ``MATVEC_ROW_MAX_E``: then the row mapping
+    with the least power of two G, up to 32, that brings a lane's share
+    of the mean row to two steps or fewer.
+    """
+    G = 1
+    if E <= MATVEC_ROW_MAX_E:
+        while G < 32 and G * 2 * MATVEC_UNROLL * max(n, 1) < nnz:
+            G *= 2
+    return G
+
+
+def csr_matvec_plain(
+    indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, x: torch.Tensor, lanes: int = 1
+) -> torch.Tensor:
+    """Plain version of ``csr_matvec``, summed in the kernel's order:
+    entry k of a row goes to the partial sum k % ``lanes`` (one entry
+    slot of every row per step, so each partial sum takes its entries in
+    CSR order), and the partial sums are folded in halves, as the row
+    mapping's xor-shuffle tree folds them.  ``lanes`` 1 is the slice
+    mapping's plain CSR order."""
     n = indptr.numel() - 1
     starts = indptr[:-1].long()
     lengths = (indptr[1:] - indptr[:-1]).long()
-    y = torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device)
+    part = torch.zeros((n, lanes, x.shape[1]), dtype=x.dtype, device=x.device)
     for k in range(int(lengths.max()) if n else 0):
         rows = torch.nonzero(lengths > k).squeeze(1)
         pos = starts[rows] + k
-        y[rows] += data[pos, None] * x[indices[pos].long()]
+        part[rows, k % lanes] += data[pos, None] * x[indices[pos].long()]
+    while part.shape[1] > 1:
+        half = part.shape[1] // 2
+        part = part[:, :half] + part[:, half:]
+    return part[:, 0]
+
+
+def _launch_matvec(indptr, indices, data, x, lanes: int) -> torch.Tensor:
+    """Launch csr_matvec's kernel with ``lanes`` per row (see
+    ``matvec_lanes``) on checked CUDA tensors; counts the launch."""
+    y = torch.empty((indptr.numel() - 1, x.shape[1]), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    err = kernel_function("xt_csr_matvec")(
+        DTYPE_CODES[x.dtype],
+        indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), x.data_ptr(), y.data_ptr(),
+        y.shape[0], x.shape[1], lanes,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"csr_matvec launch failed with CUDA error {err}")
+    csr_matvec.launches += 1
     return y
 
 
@@ -135,10 +247,12 @@ def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, 
 
     indptr: (n + 1,) int32.  indices: (nnz,) int32.  data: (nnz,).
     x: (m, E) with the right-hand sides on the minor axis.
-    Returns (n, E).  Inputs are not checked for NaN or inf.
+    Returns (n, E), the same bits from the kernel and from the plain
+    version.  Inputs are not checked for NaN or inf.
     """
+    lanes = matvec_lanes(indptr.numel() - 1, indices.numel(), x.shape[-1])
     if x.device.type == "cpu":
-        return csr_matvec_plain(indptr, indices, data, x)
+        return csr_matvec_plain(indptr, indices, data, x, lanes)
     for name, t in (("indptr", indptr), ("indices", indices), ("data", data), ("x", x)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} must lie on the CUDA device of x, got {t.device}")
@@ -155,28 +269,9 @@ def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, 
             f"expected indptr (n + 1,), indices and data (nnz,), x (m, E); got "
             f"{tuple(indptr.shape)}, {tuple(indices.shape)}, {tuple(data.shape)}, {tuple(x.shape)}"
         )
-    y = torch.empty((indptr.numel() - 1, x.shape[1]), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    from xugrid_tpu_torch.utils.build import kernel_library
-
-    fn = kernel_library().xt_csr_matvec
-    fn.restype = ctypes.c_int
-    err = fn(
-        ctypes.c_int(DTYPE_CODES[x.dtype]),
-        ctypes.c_void_p(indptr.data_ptr()),
-        ctypes.c_void_p(indices.data_ptr()),
-        ctypes.c_void_p(data.data_ptr()),
-        ctypes.c_void_p(x.data_ptr()),
-        ctypes.c_void_p(y.data_ptr()),
-        ctypes.c_int64(y.shape[0]),
-        ctypes.c_int32(x.shape[1]),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"csr_matvec launch failed with CUDA error {err}")
-    csr_matvec.launches += 1
-    return y
+    if (indptr.numel() - 1) * max(x.shape[1], 32) > MAX_INT32 or x.shape[0] > MAX_INT32:
+        raise ValueError(f"csr_matvec indexes in 32 bits: n {indptr.numel() - 1}, x {tuple(x.shape)}")
+    return _launch_matvec(indptr, indices, data, x, lanes)
 
 
 csr_matvec.launches = 0

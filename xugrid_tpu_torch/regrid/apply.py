@@ -1,12 +1,13 @@
 """
 The regrid apply: weights x source values -> target values.
 
-The source is staged slice-minor, (m, E) with the extra (time/layer)
-slices on the minor axis, so one source row holds all slices and a
-warp's gathers of that row are contiguous.  Built-in reductions then go
-to the Hopper kernels (``window_reduce`` or ``window_select``) for a
-CUDA source, or to their plain PyTorch version for a CPU source.  A
-custom reduction runs the plain window path on either device.
+The source is flattened to (E, m), the extra (time/layer) slices
+major, as the caller holds it.  The eight ``window_reduce`` methods take
+it so, in one kernel launch with no copy of a contiguous source.
+``window_select`` and custom reductions take a slice-minor copy, (m,
+E).  Built-in reductions go to the Hopper kernels for a CUDA source, or
+to their plain PyTorch version for a CPU source; a custom reduction runs
+the plain window path on either device.
 """
 
 from __future__ import annotations
@@ -54,12 +55,11 @@ def apply_weights(
     if not source2d.is_floating_point():
         source2d = source2d.to(torch.float64)
     indices, w = device_weights(weights, source2d.dtype, source2d.device, cache)
-    sourceT = source2d.t().contiguous()
     if reduction in METHOD_CODES:
-        out = window_reduce(sourceT, indices, w, reduction)
-    elif covers(reduction):
-        out = window_select(sourceT, indices, w, reduction)
+        out = window_reduce(source2d.contiguous(), indices, w, reduction)
     else:
-        out = reduce.reduce_windows(sourceT, indices, w, reduction)
-    return out.t().reshape(leading + (target_size,))
+        sourceT = source2d.t().contiguous()
+        select = window_select if covers(reduction) else reduce.reduce_windows
+        out = select(sourceT, indices, w, reduction).t()
+    return out.reshape(leading + (target_size,))
 

@@ -15,12 +15,10 @@ kernel launches.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.aligned_apply import DTYPE_CODES, check_kernel_args, launch_args
+from xugrid_tpu_torch.regrid.aligned_apply import DTYPE_CODES, check_kernel_args, kernel_function
 
 
 def covers(reduction) -> bool:
@@ -44,16 +42,12 @@ def window_select(sourceT: torch.Tensor, indices: torch.Tensor, weights: torch.T
     out = torch.empty((indices.shape[0], sourceT.shape[1]), dtype=sourceT.dtype, device=sourceT.device)
     if out.numel() == 0:
         return out
-    from xugrid_tpu_torch.utils.build import kernel_library
-
     is_mode = reduction is reduce.mode
-    fn = kernel_library().xt_window_select
-    fn.restype = ctypes.c_int
-    err = fn(
-        ctypes.c_int(DTYPE_CODES[sourceT.dtype]),
-        ctypes.c_int(1 if is_mode else 0),
-        ctypes.c_double(0.0 if is_mode else float(reduction.p)),
-        *launch_args(sourceT, indices, weights, out),
+    err = kernel_function("xt_window_select")(
+        DTYPE_CODES[sourceT.dtype], 1 if is_mode else 0, 0.0 if is_mode else float(reduction.p),
+        sourceT.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
+        indices.shape[0], indices.shape[1], sourceT.shape[1],
+        torch.cuda.current_stream(sourceT.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"window_select launch failed with CUDA error {err}")
