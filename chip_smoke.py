@@ -3,8 +3,9 @@ Runs the PyTorch port (``xugrid_tpu_torch``) on one CUDA card and checks
 it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare LABEL
 
-Phases:
+With no argument it runs these phases:
 
 1. The card's name and power limit, the versions, and the build of the
    CUDA kernels (nvcc, sm_90a) and of the native host library from the
@@ -17,8 +18,7 @@ Phases:
    than 32 slots, all-pad rows and a target count that no tile divides,
    and on windows of up to 400 slots (read in place); window_select's
    methods; and csr_matvec on ragged rows (empty rows, rows of more than
-   32 entries, negative and zero weights) at E = 1, 2, 3, 4, 8 and 20,
-   with every lane count of the row mapping and the slice mapping, bit
+   32 entries, negative and zero weights) at E = 1, 2, 3, 8 and 20, bit
    for bit, two launches equal.  And ``cg_solve`` refuses a NaN or inf
    right-hand side.
 3. The main path at the 1M-face config of ``bench.py``: a jittered
@@ -34,11 +34,10 @@ Phases:
    and one call from an idle card, as earlier runs timed), with true
    bytes per pass, GB/s, the share of the card's measured copy
    bandwidth, the bound, and ``torch.sparse.mm`` of the same weights
-   with the staged (m, E) copy as a yardstick for the sum-kind methods;
-   and window_reduce at each block shape (the sweep behind
-   ``reduce_lanes``).  window_reduce's pass is one launch on the (E, m)
-   source; window_select's adds the source's slice-minor transpose,
-   timed beside it.
+   with the staged (m, E) copy as a yardstick for the sum-kind methods.
+   window_reduce's pass is one launch on the (E, m) source;
+   window_select's adds the source's slice-minor transpose, timed beside
+   it.
 5. The Laplace fill at ``scripts/laplace_scale_demo.py``'s 1M
    configuration: a shuffled Delaunay mesh of 1,002,001 nodes, 2 %
    known, unit weights, atol 1e-6, through ``laplace_interpolate`` at
@@ -50,16 +49,21 @@ Phases:
    the same path and checks.
 6. csr_matvec's time on the 1M system (float64 and float32, E = 1 and
    20) beside its plain version, ``torch.sparse.mm`` and its bound,
-   warm and with a cold L2 (256 MB written between launches); each lane
-   mapping's time at E = 1 to 4, 8 and 20 on that system and at E = 1
-   and 2 on rows of 0-64 entries (the sweep behind ``matvec_lanes``);
-   the solves' wall, device and host seconds, the host split by stage
+   warm and with a cold L2 (256 MB written between launches); the
+   solves' wall, device and host seconds, the host split by stage
    (content hash, system preparation, right-hand sides, scatter); a
    profiler trace of one degree-4 solve.
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits with 2 and prints no result.
+
+``--compare LABEL`` runs only ``phase_compare``: the regrid apply pass
+and csr_matvec at the 1M configs, timed in the same ways through the
+entry points that every version of the port has (``apply_weights``,
+``csr_matvec``), each line tagged LABEL.  Copied into another checkout
+of the port and run from its root, it times that version the same way,
+so two versions compare in one chip call.
 """
 
 from __future__ import annotations
@@ -348,55 +352,36 @@ def phase_kernel_checks(device):
     return max_err
 
 
-#: Phase 2's csr_matvec right-hand-side counts: each compiled slice
-#: count of the row mapping (E <= 4) and the slice mapping.
-MATVEC_EXTRAS = (1, 2, 3, 4, 8, 20)
+#: Phase 2's csr_matvec right-hand-side counts.
+MATVEC_EXTRAS = (1, 2, 3, 8, 20)
 
 
 def phase_matvec_checks(device):
     """Phase 2, csr_matvec: against its plain version, bit for bit, on
-    ragged CSR rows whose mean lengths give every row-lane group, and
-    the mappings the wrapper does not pick for a shape; two launches
-    compared bit for bit; and cg_solve's refusal of non-finite
-    right-hand sides."""
+    ragged CSR rows (0 to 40 entries); two launches compared bit for
+    bit; and cg_solve's refusal of non-finite right-hand sides."""
     import torch
 
-    from xugrid_tpu_torch.regrid.aligned_apply import (
-        _launch_matvec, csr_matvec, csr_matvec_plain, matvec_lanes,
-    )
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain
     from xugrid_tpu_torch.ugrid.interpolate import cg_solve
 
     rng = np.random.default_rng(5)
     max_err = 0.0
-    mappings = set()
-    # Mean row lengths 6.3 to 180: every lane count the wrapper picks.
-    for max_row in (14, 30, 50, 100, 200, 400):
-        indptr, indices, data = synthetic_csr(rng, max_row=max_row)
-        n = len(indptr) - 1
-        print(f"phase 2: csr_matvec rows n={n} nnz={len(data)}, widest {int(np.diff(indptr).max())}")
-        for dtype in (torch.float32, torch.float64):
-            tables = [torch.from_numpy(a).to(device) for a in (indptr, indices)]
-            d = torch.from_numpy(data).to(device=device, dtype=dtype)
-            for E in MATVEC_EXTRAS:
-                x = torch.from_numpy(rng.normal(size=(4000, E))).to(device=device, dtype=dtype)
-                lanes = matvec_lanes(n, len(data), E)
-                got = csr_matvec(*tables, d, x)
-                again = csr_matvec(*tables, d, x)
-                want = csr_matvec_plain(*tables, d, x, lanes)
-                torch.cuda.synchronize()
-                if not torch.equal(got, again):
-                    raise AssertionError(f"csr_matvec E={E}: two launches differ")
-                max_err = max(max_err, compare(got, want, True, 0.0, 0.0))
-                mappings.add((lanes, E))
-                # The mappings the wrapper does not pick for this shape.
-                forced = {1, 2, 4, 8, 16, 32} - {lanes} if E <= 4 else set()
-                for other in sorted(forced):
-                    got = _launch_matvec(*tables, d, x, other)
-                    compare(got, csr_matvec_plain(*tables, d, x, other), True, 0.0, 0.0)
-                    mappings.add((other, E))
-                print(f"  csr_matvec {str(dtype)[6:]} E={E} lanes {lanes}: bit-equal, deterministic; "
-                      f"lanes {sorted(forced)}: bit-equal")
-    print(f"  csr_matvec (lanes, E) checked: {sorted(mappings)}")
+    indptr, indices, data = synthetic_csr(rng)
+    print(f"phase 2: csr_matvec rows n={len(indptr) - 1} nnz={len(data)}, widest {int(np.diff(indptr).max())}")
+    for dtype in (torch.float32, torch.float64):
+        tables = [torch.from_numpy(a).to(device) for a in (indptr, indices)]
+        d = torch.from_numpy(data).to(device=device, dtype=dtype)
+        for E in MATVEC_EXTRAS:
+            x = torch.from_numpy(rng.normal(size=(4000, E))).to(device=device, dtype=dtype)
+            got = csr_matvec(*tables, d, x)
+            again = csr_matvec(*tables, d, x)
+            want = csr_matvec_plain(*tables, d, x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"csr_matvec E={E}: two launches differ")
+            max_err = max(max_err, compare(got, want, True, 0.0, 0.0))
+            print(f"  csr_matvec {str(dtype)[6:]} E={E}: bit-equal to plain, deterministic")
     n = 10
     rows = np.concatenate([np.arange(1, n), np.arange(n - 1), np.arange(n)])
     cols = np.concatenate([np.arange(n - 1), np.arange(1, n), np.arange(n)])
@@ -656,32 +641,9 @@ def phase_timing(device, results, card):
                 "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound, "bound_by": bound_by,
             }
-            if method == "mean":
-                reduce_sweep(source, idx, w, red, card)
             del source, sourceT
             torch.cuda.empty_cache()
     return timed, copy_gbps
-
-
-def reduce_sweep(source, idx, w, red, card):
-    """window_reduce's time at each block shape for this source: every
-    slice-warp count S up to E, staged (the largest tile that fits) and
-    read in place; the wrapper's pick marked."""
-    from xugrid_tpu_torch.regrid.aligned_apply import STAGE_BYTES, _launch_reduce, reduce_lanes, stage_bytes
-
-    E, width, size = source.shape[0], idx.shape[1], source.element_size()
-    picked = reduce_lanes(E, width, size)
-    cells = []
-    for S in (1, 2, 4, 8):
-        if S > E:
-            continue
-        G = 8 // S
-        while G > 1 and stage_bytes(G, width, size) > STAGE_BYTES:
-            G //= 2
-        for plan in ((S, G, True), (S, 8 // S, False)):
-            ms = cuda_time_ms(lambda: _launch_reduce(source, idx, w, red, plan), reps=5)
-            cells.append(f"{plan}{'*' if plan == picked else ''} {ms:.6f} ms")
-    print(f"  sweep window_reduce E={E} (slice warps, target warps, staged): " + "; ".join(cells) + f" [{card}]")
 
 
 def unknown_residuals(W, values, filled):
@@ -820,39 +782,13 @@ def cold_time_ms(fn, flush, reps=10):
     return statistics.median(times)
 
 
-#: Right-hand-side counts of phase 6's lane-mapping sweep.
-SWEEP_EXTRAS = (1, 2, 3, 4, 8, 20)
-
-
-def matvec_sweep(indptr, indices, data, card, extras=None, label="CG system"):
-    """csr_matvec's time on one system at each lane mapping: the slice
-    mapping (1 lane per row) and, for E <= 4, the row mapping with 2 to
-    16 lanes, at the ``extras`` right-hand-side counts; the wrapper's
-    pick marked."""
-    import torch
-
-    from xugrid_tpu_torch.regrid.aligned_apply import MATVEC_ROW_MAX_E, _launch_matvec, matvec_lanes
-
-    n = indptr.numel() - 1
-    rng = np.random.default_rng(2)
-    for E in extras or SWEEP_EXTRAS:
-        x = torch.from_numpy(rng.normal(size=(n, E))).to(device=data.device, dtype=data.dtype)
-        picked = matvec_lanes(n, indices.numel(), E)
-        cells = []
-        for lanes in (1, 2, 4, 8, 16) if E <= MATVEC_ROW_MAX_E else (1,):
-            ms = cuda_time_ms(lambda: _launch_matvec(indptr, indices, data, x, lanes), reps=10)
-            cells.append(f"{lanes}{'*' if lanes == picked else ''} {ms:.6f} ms")
-        print(f"  sweep csr_matvec {label} {str(data.dtype)[6:]} E={E} lanes: " + "; ".join(cells) + f" [{card}]")
-        del x
-
-
 def phase_laplace_timing(device, card, copy_gbps, meshes):
     """Phase 6: csr_matvec on the 1M Delaunay CG system beside its plain
-    version, torch.sparse.mm and its bound, warm and with a cold L2; the
-    lane-mapping sweep; repeat solves; a profile."""
+    version, torch.sparse.mm and its bound, warm and with a cold L2;
+    repeat solves; a profile."""
     import torch
 
-    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain, matvec_lanes
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain
     from xugrid_tpu_torch.ugrid import interpolate
 
     W, labels, values, truth = meshes["delaunay"]
@@ -873,14 +809,13 @@ def phase_laplace_timing(device, card, copy_gbps, meshes):
         library = torch.sparse_csr_tensor(indptr, indices, data, size=(n, n))
         for E in (1, LAPLACE_SLICES):
             x = torch.from_numpy(rng.normal(size=(n, E))).to(device=device, dtype=dtype)
-            lanes = matvec_lanes(n, nnz, E)
             samples = {"kernel": [], "plain": []}
             for which in ("plain", "kernel", "kernel", "plain"):
                 if which == "kernel":
                     samples[which].append(cuda_time_ms(lambda: csr_matvec(indptr, indices, data, x), reps=20))
                 else:
                     samples[which].append(
-                        cuda_time_ms(lambda: csr_matvec_plain(indptr, indices, data, x, lanes), reps=3, inner=2)
+                        cuda_time_ms(lambda: csr_matvec_plain(indptr, indices, data, x), reps=3, inner=2)
                     )
             kernel_ms = statistics.median(samples["kernel"])
             plain_ms = statistics.median(samples["plain"])
@@ -889,11 +824,11 @@ def phase_laplace_timing(device, card, copy_gbps, meshes):
             kernel_cold = cold_time_ms(lambda: csr_matvec(indptr, indices, data, x), flush)
             library_cold = cold_time_ms(lambda: torch.sparse.mm(library, x), flush)
             got = csr_matvec(indptr, indices, data, x)
-            err = compare(got, csr_matvec_plain(indptr, indices, data, x, lanes), True, 0.0, 0.0)
+            err = compare(got, csr_matvec_plain(indptr, indices, data, x), True, 0.0, 0.0)
             true_bytes = nnz * (4 + size) + (n + 1) * 4 + 2 * n * E * size
             bound, bound_by = bound_ms(true_bytes, 2 * nnz * E, name, copy_gbps)
             print(
-                f"  csr_matvec {name} E={E} lanes {lanes}: kernel {kernel_ms:.6f} ms (one launch from "
+                f"  csr_matvec {name} E={E}: kernel {kernel_ms:.6f} ms (one launch from "
                 f"idle {single_ms:.6f}, cold L2 {kernel_cold:.6f}), plain {plain_ms:.6f} ms, torch.sparse.mm "
                 f"{library_ms:.6f} ms (cold L2 {library_cold:.6f}); true bytes {true_bytes}, bound "
                 f"{bound:.6f} ms by {bound_by} (copy {copy_gbps:.1f} GB/s), kernel at "
@@ -905,12 +840,6 @@ def phase_laplace_timing(device, card, copy_gbps, meshes):
                 "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
             }
             del x
-        matvec_sweep(indptr, indices, data, card)
-        # Longer rows (0 to 64 entries, 28.8 on average, random columns):
-        # where a lane group per row should pay.
-        lp, li, ld = (torch.from_numpy(a).to(device) for a in synthetic_csr(rng, 500_000, 500_000, 64))
-        matvec_sweep(lp, li, ld.to(dtype), card, extras=(1, 2), label="rows of 0-64")
-        del lp, li, ld
     del flush
     stack = np.where(
         np.isnan(values)[None, :], np.nan,
@@ -981,6 +910,120 @@ def profile_solve(values, W, labels, card):
     )
 
 
+def host_us(fn, calls=50, reps=5):
+    """Host microseconds per call of ``fn``: the host's clock around
+    ``calls`` calls issued back to back, read before waiting for the
+    card (median of ``reps``), so it counts the host's work per call
+    (checks, allocation, launch) and not the device's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def profiled_us(fn, kernel, calls=20):
+    """torch.profiler over ``calls`` calls of ``fn``: (device us per
+    launch of the kernels whose name holds ``kernel``, their launches,
+    device busy us per call), or None when the profiler records no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_device)
+    ours = [e for e in on_device if kernel in e.key]
+    launches = sum(e.count for e in ours)
+    if busy == 0 or launches == 0:
+        return None
+    return sum(e.self_device_time_total for e in ours) / launches, launches, busy / calls
+
+
+def time_line(label, what, fn, kernel, card):
+    """Print ``what``'s times by every method (back to back, one call
+    from idle, host us per call, the profiler's device us per launch of
+    ``kernel``), tagged ``label``."""
+    b2b = cuda_time_ms(fn)
+    idle = cuda_time_ms(fn, inner=1)
+    host = host_us(fn)
+    prof = profiled_us(fn, kernel)
+    device = (
+        f"{kernel} device {prof[0]:.3f} us/launch ({prof[1]} launches), device busy {prof[2]:.3f} us/call"
+        if prof else "device time not measured (the profiler recorded none)"
+    )
+    print(
+        f"  compare[{label}] {what}: back to back {b2b:.6f} ms, one call from idle {idle:.6f} ms, "
+        f"host {host:.3f} us/call; {device} [{card}]"
+    )
+
+
+def phase_compare(device, card, label):
+    """``--compare``: the apply pass of the 1M regrid (mean and
+    first_order_conservative, float32, E = 1, 20, 128) and csr_matvec on
+    the 1M Delaunay CG system (float64 and float32, E = 1 and 20), each
+    checked against its plain version and timed by ``time_line``.  Uses
+    only what every version of the port has: the regridders,
+    ``apply_weights``, ``device_weights``, ``reduce_windows``,
+    ``csr_matvec`` and its plain version, ``laplace_interpolate``."""
+    import torch
+    from scipy.sparse.csgraph import connected_components
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid import reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain
+    from xugrid_tpu_torch.regrid.apply import apply_weights, device_weights
+    from xugrid_tpu_torch.ugrid import interpolate
+
+    rng = np.random.default_rng(42)
+    (verts, faces), (tverts, tfaces) = bench_meshes(N_SIDE, T_SIDE, rng)
+    source_grid = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    target_grid = xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)
+    for cls, method in ((xt.OverlapRegridder, "mean"), (xt.RelativeOverlapRegridder, "first_order_conservative")):
+        regridder = cls(source_grid, target_grid, method=method)
+        padded, cache, red = regridder._padded, regridder._device_weights, regridder._reduction
+        n = target_grid.n_face
+        for E in TIMING_EXTRAS:
+            source = torch.from_numpy(rng.normal(size=(E, source_grid.n_face)).astype(np.float32)).to(device)
+            run = lambda: apply_weights(padded, source, red, n, cache=cache)  # noqa: E731
+            idx, w = device_weights(padded, torch.float32, device, cache)
+            want = reduce.reduce_windows(source.t().contiguous(), idx, w, red).t()
+            rtol, atol = tolerance(torch.float32, float(source.abs().max()))
+            compare(run(), want, False, rtol, torch.clamp(summation_bound(source, idx, w, red), min=atol))
+            time_line(label, f"apply pass {method} E={E}", run, "window_reduce", card)
+            del source, want
+    nodes, faces = delaunay_mesh(LAPLACE_SIDE)
+    grid = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, faces)
+    W = grid.get_connectivity_matrix(grid.node_dimension, xy_weights=False).astype(np.float64)
+    W.data = np.ones_like(W.data)
+    _, labels = connected_components(W)
+    _, values = laplace_inputs(nodes)
+    interpolate.laplace_interpolate(values, W, components_labels=labels, precondition_degree=4, **LAPLACE_SOLVE)
+    (prep,) = (v for k, v in interpolate._SYSTEMS.items() if k[0] == "laplace")
+    indptr, indices, data64 = (prep["system"][k] for k in ("indptr", "indices", "data"))
+    n = indptr.numel() - 1
+    for dtype in (torch.float64, torch.float32):
+        data = data64.to(dtype)
+        for E in (1, LAPLACE_SLICES):
+            x = torch.from_numpy(rng.normal(size=(n, E))).to(device=device, dtype=dtype)
+            run = lambda: csr_matvec(indptr, indices, data, x)  # noqa: E731
+            compare(run(), csr_matvec_plain(indptr, indices, data, x), True, 0.0, 0.0)
+            time_line(label, f"csr_matvec {str(dtype)[6:]} E={E}", run, "csr_matvec", card)
+
+
 def main() -> int:
     import torch
 
@@ -994,6 +1037,10 @@ def main() -> int:
     print(card)
     t_start = time.perf_counter()
     phase_build()
+    if sys.argv[1:2] == ["--compare"]:
+        phase_compare(device, card, sys.argv[2])
+        print(f"chip_smoke --compare {sys.argv[2]}: done in {time.perf_counter() - t_start:.1f} s")
+        return 0
     check_err = phase_kernel_checks(device)
     check_err["csr_matvec"] = phase_matvec_checks(device)
     counts, main_err, results = phase_main_path(device)

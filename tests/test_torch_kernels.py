@@ -18,7 +18,7 @@ import chip_smoke
 import xugrid_tpu_torch as xt
 from xugrid_tpu_torch.regrid import reduce
 from xugrid_tpu_torch.regrid.aligned_apply import (
-    METHOD_CODES, _launch_matvec, csr_matvec, csr_matvec_plain, matvec_lanes, reduce_lanes, window_reduce,
+    METHOD_CODES, csr_matvec, csr_matvec_plain, reduce_lanes, window_reduce,
 )
 from xugrid_tpu_torch.regrid.select_apply import window_select
 from xugrid_tpu_torch.ugrid import interpolate
@@ -127,8 +127,8 @@ def test_regrid_on_cuda_matches_cpu(device):
 @pytest.mark.parametrize("E", [1, 2, 3, 8, 12, 20])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_csr_matvec_matches_plain(device, dtype, E):
-    """Bit for bit, with the plain version summing in the kernel's lane
-    order; two launches give the same bits."""
+    """Bit for bit, the plain version summing in the kernel's (CSR)
+    order, on rows of 0 to 40 entries; two launches give the same bits."""
     rng = np.random.default_rng(E)
     indptr, indices, data = chip_smoke.synthetic_csr(rng)
     x = rng.normal(size=(4000, E))
@@ -139,23 +139,7 @@ def test_csr_matvec_matches_plain(device, dtype, E):
     got = csr_matvec(*args)
     assert csr_matvec.launches == before + 1
     assert torch.equal(got, csr_matvec(*args))
-    lanes = matvec_lanes(len(indptr) - 1, len(data), E)
-    assert torch.equal(got, csr_matvec_plain(*args, lanes))
-
-
-@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
-@pytest.mark.parametrize("E", [1, 3])
-def test_csr_matvec_each_lane_mapping_matches_plain(device, E, lanes):
-    """Every row-lane group and the slice mapping, which the wrapper
-    picks only for other row lengths or slice counts, on rows of 0 to
-    40 entries, bit for bit."""
-    rng = np.random.default_rng(lanes)
-    indptr, indices, data = chip_smoke.synthetic_csr(rng)
-    args = [torch.from_numpy(a).to(device) for a in (indptr, indices)] + [
-        torch.from_numpy(a).to(device) for a in (data, rng.normal(size=(4000, E)))
-    ]
-    got = _launch_matvec(*args, lanes)
-    assert torch.equal(got, csr_matvec_plain(*args, lanes))
+    assert torch.equal(got, csr_matvec_plain(*args))
 
 
 def test_csr_matvec_checks_its_tensors(device):

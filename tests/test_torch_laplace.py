@@ -27,7 +27,7 @@ from tests.test_gather_apply import dense_matvec_oracle, make_matvec_case
 from tests.test_golden import load
 from xugrid_tpu.regrid.aligned_apply import matvec_apply, plan_gather_matvec
 from xugrid_tpu.ugrid import interpolate as jax_interpolate
-from xugrid_tpu_torch.regrid.aligned_apply import MATVEC_ROW_MAX_E, csr_matvec, csr_matvec_plain, matvec_lanes
+from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain
 from xugrid_tpu_torch.ugrid import interpolate
 
 ATOL = 1e-10
@@ -120,57 +120,18 @@ def test_csr_matvec_plain_sums_each_row_in_order():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("lanes", [2, 8, 32])
-def test_csr_matvec_plain_sums_lanes_in_kernel_order(lanes):
-    """With G lanes per row, entry k of a row goes to partial sum k % G,
-    each partial sum taken in CSR order, and the G partial sums are
-    folded in halves as the kernel's xor-shuffle tree folds them: a
-    float32 loop doing exactly that reproduces the plain version bit for
-    bit."""
-    indptr, indices, data = chip_smoke.synthetic_csr(np.random.default_rng(4), n=300, m=200)
-    data = data.astype(np.float32)
-    x = np.random.default_rng(5).normal(size=(200, 3)).astype(np.float32)
-    got = csr_matvec_plain(*map(torch.from_numpy, (indptr, indices, data, x)), lanes).numpy()
-    want = np.zeros((300, 3), np.float32)
-    for t in range(300):
-        part = np.zeros((lanes, 3), np.float32)
-        for k in range(indptr[t], indptr[t + 1]):
-            q = (k - indptr[t]) % lanes
-            part[q] = part[q] + data[k] * x[indices[k]]
-        while len(part) > 1:
-            part = part[: len(part) // 2] + part[len(part) // 2 :]
-        want[t] = part[0]
-    np.testing.assert_array_equal(got, want)
-
-
-def test_matvec_lanes_picks_each_branch():
-    """One thread per (row, slice) unless it would walk more than two
-    unrolled steps (of 4 entries) of the mean row with at most 4
-    right-hand sides: then the least power-of-two lane group, up to 32,
-    that brings a lane's share to two steps."""
-    n = 1000
-    assert matvec_lanes(n, 6880, 1) == 1  # the 1M Delaunay CG system
-    assert matvec_lanes(n, 8000, 2) == 1
-    assert matvec_lanes(n, 8001, 3) == 2
-    assert matvec_lanes(n, 16001, MATVEC_ROW_MAX_E) == 4
-    assert matvec_lanes(n, 32001, 1) == 8
-    assert matvec_lanes(n, 64001, 1) == 16
-    assert matvec_lanes(n, 400_000, 1) == 32
-    assert matvec_lanes(0, 0, 1) == 1
-    assert matvec_lanes(n, 400_000, MATVEC_ROW_MAX_E + 1) == 1
-    assert matvec_lanes(n, 400_000, 20) == 1
-
-
-def test_csr_matvec_on_cpu_sums_in_its_lane_order():
-    """On the CPU csr_matvec runs the plain version with the lanes the
-    kernel would take."""
+@pytest.mark.parametrize("E", [1, 2, 3, 8, 20])
+def test_csr_matvec_on_cpu_runs_the_plain_version(E):
+    """On CPU tensors csr_matvec launches nothing and returns the plain
+    version's bits, at any slice count."""
     indptr, indices, data = chip_smoke.synthetic_csr(np.random.default_rng(6), n=200, m=150)
     args = [torch.from_numpy(a) for a in (indptr, indices, data)]
-    for E in (1, 20):
-        x = torch.from_numpy(np.random.default_rng(E).normal(size=(150, E)))
-        lanes = matvec_lanes(200, len(data), E)
-        assert (lanes > 1) == (E == 1)
-        assert torch.equal(csr_matvec(*args, x), csr_matvec_plain(*args, x, lanes))
+    x = torch.from_numpy(np.random.default_rng(E).normal(size=(150, E)))
+    before = csr_matvec.launches
+    got = csr_matvec(*args, x)
+    assert csr_matvec.launches == before
+    assert got.shape == (200, E) and got.dtype == torch.float64
+    assert torch.equal(got, csr_matvec_plain(*args, x))
 
 
 def test_chebyshev_preconditioner_matches_jax():

@@ -29,7 +29,8 @@
 //   gathers from source row e fall on neighbouring faces and its stores
 //   of out[e, t] are coalesced.  The wrapper picks S from E (a warp
 //   walks at most 32 slices) and G from what fits the shared memory
-//   (aligned_apply.reduce_lanes, measured by chip_smoke.py phase 4);
+//   (aligned_apply.reduce_lanes, set from a sweep of block shapes on
+//   the 1M regrid);
 // - each thread reduces B of its warp's slices together (4 when staged,
 //   else from E / S, at most 4), so each slot's index and weight are
 //   read once for B gathers, and keeps kUnroll * B gathers in flight; it
@@ -304,83 +305,19 @@ cudaError_t dispatch_reduce(int method, const void* src, const void* idx, const 
 // with 2 flops per entry and slice.  It reads CSR row pointers, not a
 // padded table: the Laplacian's rows hold 2-21 entries, 6.9 on average
 // at 1M nodes, so a table padded to the widest row would read ~3x the
-// bytes.  Two lane mappings, picked by the wrapper (matvec_lanes,
-// measured by chip_smoke.py phase 6):
-// - rows (E <= kRowMaxE right-hand sides, a compile-time E): a group of
-//   G >= 2 lanes per row.  The lanes read the row's indices and data
-//   coalesced, lane l sums entries l, l + G, ... for every slice with
-//   kUnroll entries' gathers in flight, and the group combines its G
-//   partial sums by an xor-shuffle tree;
-// - slices (G = 1, the pick for rows of up to 8 entries on average, as
-//   the Laplacian's): one thread per (row, slice), slice fastest, found
-//   by one 32-bit division.  The E threads of a row read its entries
-//   together (one broadcast load per warp) and gather one contiguous run
-//   of x per entry, kUnroll entries in flight, summing in CSR order.
-// Neither uses atomics and both sum in a fixed order, so two launches
-// give the same bits, and csr_matvec_plain, which sums in the same
-// order, gives them too.
-constexpr int kRowMaxE = 4;
-
-// Lanes of the aligned group of `lanes` (a power of two) holding `lane`.
-__device__ __forceinline__ unsigned group_mask(int lanes) {
-  if (lanes == 32) return 0xffffffffu;
-  const int first = (threadIdx.x & 31) & ~(lanes - 1);
-  return ((1u << lanes) - 1u) << first;
-}
-
-template <typename T, int E>
-__global__ void __launch_bounds__(kThreads)
-csr_matvec_rows(const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
-                const T* __restrict__ data, const T* __restrict__ x, T* __restrict__ y, int n,
-                int log_lanes) {
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  // Groups are aligned within a warp, so a group leaves as a whole.
-  if ((gid >> log_lanes) >= n) return;
-  const int row = (int)(gid >> log_lanes);
-  const int lanes = 1 << log_lanes;
-  const int l = (int)(gid & (lanes - 1));
-  const int end = indptr[row + 1];
-  T acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0;
-  for (int k0 = indptr[row] + l; k0 < end; k0 += kUnroll * lanes) {
-    int32_t j[kUnroll];
-    T a[kUnroll], v[kUnroll][E];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int k = k0 + u * lanes;
-      j[u] = k < end ? indices[k] : -1;
-      a[u] = k < end ? data[k] : (T)0;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const T* xr = x + (int64_t)j[u] * E;
-#pragma unroll
-      for (int e = 0; e < E; ++e) v[u][e] = j[u] >= 0 ? xr[e] : (T)0;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (k0 + u * lanes < end) {
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[e] += a[u] * v[u][e];
-      }
-    }
-  }
-  const unsigned mask = group_mask(lanes);
-  for (int off = lanes >> 1; off > 0; off >>= 1) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(mask, acc[e], off);
-  }
-  // Every lane holds the row's sums; lane e % G writes slice e.
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    if ((e & (lanes - 1)) == l) y[(int64_t)row * E + e] = acc[e];
-  }
-}
-
+// bytes.  One thread per (row, slice), slice fastest, found by one 32-bit
+// division: the E threads of a row read its entries together (one
+// broadcast load per warp) and gather one contiguous run of x per entry,
+// kUnroll entries in flight, summing in CSR order.  A group of lanes
+// sharing a row (the entries read coalesced, combined by shuffles) was
+// measured on the 1M CG system and was no faster at any E: the
+// Laplacian of a planar mesh has rows of under 7 entries on average, too
+// short to split.  No atomics and a fixed summation order, so two
+// launches give the same bits, and csr_matvec_plain, which sums in the
+// same order, gives them too.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-csr_matvec_slices(const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
+csr_matvec_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
                   const T* __restrict__ data, const T* __restrict__ x, T* __restrict__ y,
                   int n, int E) {
   // n * E < 2^31 (the launcher checks), so 32-bit ids suffice.
@@ -408,37 +345,16 @@ csr_matvec_slices(const int32_t* __restrict__ indptr, const int32_t* __restrict_
   y[gid] = acc;
 }
 
-template <typename T, int E>
-void launch_rows(unsigned blocks, cudaStream_t stream, const int32_t* ip, const int32_t* ix,
-                 const T* d, const T* xv, T* yv, int n, int log) {
-  csr_matvec_rows<T, E><<<blocks, kThreads, 0, stream>>>(ip, ix, d, xv, yv, n, log);
-}
-
 template <typename T>
 cudaError_t launch_matvec(const void* indptr, const void* indices, const void* data,
-                          const void* x, void* y, int n, int E, int row_lanes,
-                          cudaStream_t stream) {
-  int log = 0;
-  while ((1 << log) < row_lanes) ++log;
-  if (n <= 0 || E <= 0 || row_lanes < 1 || row_lanes > 32 || (1 << log) != row_lanes ||
-      (row_lanes > 1 && E > kRowMaxE)) {
-    return cudaErrorInvalidValue;
-  }
-  const int64_t threads = row_lanes > 1 ? (int64_t)n << log : (int64_t)n * E;
+                          const void* x, void* y, int n, int E, cudaStream_t stream) {
+  if (n <= 0 || E <= 0) return cudaErrorInvalidValue;
+  const int64_t threads = (int64_t)n * E;
   unsigned blocks;
   if (threads > 0x7fffffff || !grid_size(threads, &blocks)) return cudaErrorInvalidConfiguration;
-  const int32_t* ip = static_cast<const int32_t*>(indptr);
-  const int32_t* ix = static_cast<const int32_t*>(indices);
-  const T* d = static_cast<const T*>(data);
-  const T* xv = static_cast<const T*>(x);
-  T* yv = static_cast<T*>(y);
-  switch (row_lanes > 1 ? E : 0) {
-    case 1: launch_rows<T, 1>(blocks, stream, ip, ix, d, xv, yv, n, log); break;
-    case 2: launch_rows<T, 2>(blocks, stream, ip, ix, d, xv, yv, n, log); break;
-    case 3: launch_rows<T, 3>(blocks, stream, ip, ix, d, xv, yv, n, log); break;
-    case 4: launch_rows<T, 4>(blocks, stream, ip, ix, d, xv, yv, n, log); break;
-    default: csr_matvec_slices<T><<<blocks, kThreads, 0, stream>>>(ip, ix, d, xv, yv, n, E);
-  }
+  csr_matvec_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
+      static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), n, E);
   return cudaGetLastError();
 }
 
@@ -446,19 +362,13 @@ cudaError_t launch_matvec(const void* indptr, const void* indices, const void* d
 
 // dtype: 0 float32, 1 float64.  indptr (n + 1) and indices (nnz) int32,
 // data (nnz) and x (m, E) of dtype, y (n, E), all contiguous on the
-// current device.  row_lanes: a power of two up to 32; above 1 (with
-// E <= 4) the row mapping with that many lanes per row, 1 the slice
-// mapping (n * E < 2^31).  Returns the launch's cudaGetLastError().
+// current device, n * E < 2^31.  Returns the launch's cudaGetLastError().
 extern "C" int xt_csr_matvec(int dtype, const void* indptr, const void* indices,
                              const void* data, const void* x, void* y, int32_t n, int32_t E,
-                             int32_t row_lanes, void* stream) {
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)xt::launch_matvec<float>(indptr, indices, data, x, y, n, E, row_lanes, s);
-  }
-  if (dtype == 1) {
-    return (int)xt::launch_matvec<double>(indptr, indices, data, x, y, n, E, row_lanes, s);
-  }
+  if (dtype == 0) return (int)xt::launch_matvec<float>(indptr, indices, data, x, y, n, E, s);
+  if (dtype == 1) return (int)xt::launch_matvec<double>(indptr, indices, data, x, y, n, E, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,8 +18,8 @@ the SpMV engines of ``xugrid_tpu/ugrid/interpolate.py:cg_solve``.
 Each wrapper launches its kernel for CUDA tensors and raises on what it
 does not take; for CPU tensors it runs the plain PyTorch version
 (``reduce.reduce_windows``, ``csr_matvec_plain``).  ``window_reduce.
-launches`` and ``csr_matvec.launches`` count kernel launches.  The
-lane mappings are picked here, by ``reduce_lanes`` and ``matvec_lanes``.
+launches`` and ``csr_matvec.launches`` count kernel launches.
+``reduce_lanes`` picks window_reduce's block shape.
 """
 
 from __future__ import annotations
@@ -50,16 +50,6 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 #: launch has to opt in to more.
 STAGE_BYTES = 48 * 1024
 
-#: csr_matvec reads a row with a group of lanes sharing its entries (the
-#: row mapping) up to this many right-hand sides, and runs one thread per
-#: (row, slice) above it.  The kernel keeps up to 4 sums per lane
-#: (kRowMaxE).
-MATVEC_ROW_MAX_E = 4
-
-#: Entries of a row whose gathers one csr_matvec lane keeps in flight
-#: (kUnroll in csrc/window_reduce.cu).
-MATVEC_UNROLL = 4
-
 #: Largest index a kernel takes: they index in 32 bits.
 MAX_INT32 = 2**31 - 1 - 256
 
@@ -68,7 +58,7 @@ MAX_INT32 = 2**31 - 1 - 256
 #: (csrc/*.cu): pointers and the stream as c_void_p.
 _SIGNATURES = {
     "xt_window_reduce": (ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 4, *[ctypes.c_int32] * 7, ctypes.c_void_p),
-    "xt_csr_matvec": (ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int32] * 3, ctypes.c_void_p),
+    "xt_csr_matvec": (ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int32] * 2, ctypes.c_void_p),
     "xt_window_select": (
         ctypes.c_int, ctypes.c_int, ctypes.c_double, *[ctypes.c_void_p] * 4,
         ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
@@ -155,18 +145,11 @@ def window_reduce(source: torch.Tensor, indices: torch.Tensor, weights: torch.Te
     if source.device.type == "cpu":
         return reduce.reduce_windows(source.t(), indices, weights, reduction).t()
     check_kernel_args(source, indices, weights)
-    plan = reduce_lanes(source.shape[0], indices.shape[1], source.element_size())
-    return _launch_reduce(source, indices, weights, reduction, plan)
-
-
-def _launch_reduce(source, indices, weights, reduction, plan) -> torch.Tensor:
-    """Launch window_reduce's kernel with the block ``plan`` (see
-    ``reduce_lanes``) on checked CUDA tensors; counts the launch."""
     (E, m), (n, w) = source.shape, indices.shape
     out = torch.empty((E, n), dtype=source.dtype, device=source.device)
     if out.numel() == 0:
         return out
-    slice_warps, target_warps, staged = plan
+    slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size())
     err = kernel_function("xt_window_reduce")(
         DTYPE_CODES[source.dtype], METHOD_CODES[reduction],
         source.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
@@ -182,62 +165,18 @@ def _launch_reduce(source, indices, weights, reduction, plan) -> torch.Tensor:
 window_reduce.launches = 0
 
 
-def matvec_lanes(n: int, nnz: int, E: int) -> int:
-    """
-    csr_matvec's lane mapping for n rows holding nnz entries and E
-    right-hand sides: the lanes G that share each row's entries.
-
-    1, the slice mapping (one thread per (row, slice)), unless a thread
-    would walk more than two unrolled steps of ``MATVEC_UNROLL`` entries
-    of a mean row and E <= ``MATVEC_ROW_MAX_E``: then the row mapping
-    with the least power of two G, up to 32, that brings a lane's share
-    of the mean row to two steps or fewer.
-    """
-    G = 1
-    if E <= MATVEC_ROW_MAX_E:
-        while G < 32 and G * 2 * MATVEC_UNROLL * max(n, 1) < nnz:
-            G *= 2
-    return G
-
-
-def csr_matvec_plain(
-    indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, x: torch.Tensor, lanes: int = 1
-) -> torch.Tensor:
-    """Plain version of ``csr_matvec``, summed in the kernel's order:
-    entry k of a row goes to the partial sum k % ``lanes`` (one entry
-    slot of every row per step, so each partial sum takes its entries in
-    CSR order), and the partial sums are folded in halves, as the row
-    mapping's xor-shuffle tree folds them.  ``lanes`` 1 is the slice
-    mapping's plain CSR order."""
+def csr_matvec_plain(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``csr_matvec``: the same rows summed in the same
+    (CSR) order, one entry slot of every row per step, so it rounds as
+    the kernel does."""
     n = indptr.numel() - 1
     starts = indptr[:-1].long()
     lengths = (indptr[1:] - indptr[:-1]).long()
-    part = torch.zeros((n, lanes, x.shape[1]), dtype=x.dtype, device=x.device)
+    y = torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device)
     for k in range(int(lengths.max()) if n else 0):
         rows = torch.nonzero(lengths > k).squeeze(1)
         pos = starts[rows] + k
-        part[rows, k % lanes] += data[pos, None] * x[indices[pos].long()]
-    while part.shape[1] > 1:
-        half = part.shape[1] // 2
-        part = part[:, :half] + part[:, half:]
-    return part[:, 0]
-
-
-def _launch_matvec(indptr, indices, data, x, lanes: int) -> torch.Tensor:
-    """Launch csr_matvec's kernel with ``lanes`` per row (see
-    ``matvec_lanes``) on checked CUDA tensors; counts the launch."""
-    y = torch.empty((indptr.numel() - 1, x.shape[1]), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    err = kernel_function("xt_csr_matvec")(
-        DTYPE_CODES[x.dtype],
-        indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), x.data_ptr(), y.data_ptr(),
-        y.shape[0], x.shape[1], lanes,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"csr_matvec launch failed with CUDA error {err}")
-    csr_matvec.launches += 1
+        y[rows] += data[pos, None] * x[indices[pos].long()]
     return y
 
 
@@ -250,9 +189,8 @@ def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, 
     Returns (n, E), the same bits from the kernel and from the plain
     version.  Inputs are not checked for NaN or inf.
     """
-    lanes = matvec_lanes(indptr.numel() - 1, indices.numel(), x.shape[-1])
     if x.device.type == "cpu":
-        return csr_matvec_plain(indptr, indices, data, x, lanes)
+        return csr_matvec_plain(indptr, indices, data, x)
     for name, t in (("indptr", indptr), ("indices", indices), ("data", data), ("x", x)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} must lie on the CUDA device of x, got {t.device}")
@@ -269,9 +207,21 @@ def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, 
             f"expected indptr (n + 1,), indices and data (nnz,), x (m, E); got "
             f"{tuple(indptr.shape)}, {tuple(indices.shape)}, {tuple(data.shape)}, {tuple(x.shape)}"
         )
-    if (indptr.numel() - 1) * max(x.shape[1], 32) > MAX_INT32 or x.shape[0] > MAX_INT32:
-        raise ValueError(f"csr_matvec indexes in 32 bits: n {indptr.numel() - 1}, x {tuple(x.shape)}")
-    return _launch_matvec(indptr, indices, data, x, lanes)
+    n = indptr.numel() - 1
+    if n * x.shape[1] > MAX_INT32 or x.shape[0] > MAX_INT32:
+        raise ValueError(f"csr_matvec indexes in 32 bits: n {n}, x {tuple(x.shape)}")
+    y = torch.empty((n, x.shape[1]), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    err = kernel_function("xt_csr_matvec")(
+        DTYPE_CODES[x.dtype],
+        indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), x.data_ptr(), y.data_ptr(),
+        n, x.shape[1], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"csr_matvec launch failed with CUDA error {err}")
+    csr_matvec.launches += 1
+    return y
 
 
 csr_matvec.launches = 0
