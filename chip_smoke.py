@@ -17,10 +17,13 @@ With no argument it runs these phases:
    windows with NaN, +-inf, zeros, negative values, zero weights, more
    than 32 slots, all-pad rows and a target count that no tile divides,
    and on windows of up to 400 slots (read in place); window_select's
-   methods; and csr_matvec on ragged rows (empty rows, rows of more than
+   mode and percentiles at the same slice counts, at each register array
+   (K = 8, 16, 32) and on the walk of windows longer than 32 slots, bit
+   for bit; and csr_matvec on ragged rows (empty rows, rows of more than
    32 entries, negative and zero weights) at E = 1, 2, 3, 8 and 20, bit
    for bit, two launches equal.  And ``cg_solve`` refuses a NaN or inf
-   right-hand side.
+   right-hand side.  The build's ptxas report must show no stack frame
+   and no spill for every window_select instantiation.
 3. The main path at the 1M-face config of ``bench.py``: a jittered
    1000 x 1000 quad mesh regridded onto a 512 x 512 raster, 20 extra
    slices of float32, through ``OverlapRegridder`` (mean, median, mode)
@@ -33,11 +36,14 @@ With no argument it runs these phases:
    events around back-to-back calls, median of passes after warm-up;
    and one call from an idle card, as earlier runs timed), with true
    bytes per pass, GB/s, the share of the card's measured copy
-   bandwidth, the bound, and ``torch.sparse.mm`` of the same weights
-   with the staged (m, E) copy as a yardstick for the sum-kind methods.
-   window_reduce's pass is one launch on the (E, m) source;
-   window_select's adds the source's slice-minor transpose, timed beside
-   it.
+   bandwidth, the bound, and a library yardstick: ``torch.sparse.mm``
+   of the same weights with the staged (m, E) copy for the sum-kind
+   methods, ``torch.nanquantile`` over the pre-gathered (n, E, w)
+   windows for the median.  Each pass is one launch on the (E, m)
+   source (every device activity the profiler records is a launch of
+   the kernel);
+   window_select's lines add its pair steps, sum over targets of len^2
+   times E.
 5. The Laplace fill at ``scripts/laplace_scale_demo.py``'s 1M
    configuration: a shuffled Delaunay mesh of 1,002,001 nodes, 2 %
    known, unit weights, atol 1e-6, through ``laplace_interpolate`` at
@@ -59,7 +65,8 @@ Prints one JSON line describing the kernels, then, as the last line,
 without a CUDA device it exits with 2 and prints no result.
 
 ``--compare LABEL`` runs only ``phase_compare``: the regrid apply pass
-and csr_matvec at the 1M configs, timed in the same ways through the
+(mean, first_order_conservative, median, mode) and csr_matvec at the 1M
+configs, timed in the same ways through the
 entry points that every version of the port has (``apply_weights``,
 ``csr_matvec``), each line tagged LABEL.  Copied into another checkout
 of the port and run from its root, it times that version the same way,
@@ -275,25 +282,63 @@ def phase_build():
         raise RuntimeError("the native host library did not build")
     t2 = time.perf_counter()
     print(f"build: CUDA kernels {t1 - t0:.3f} s, host library {t2 - t1:.3f} s")
-    log = (build.BUILD_DIR / "kernels.log").read_text().splitlines()
-    for line in log:
+    log = (build.BUILD_DIR / "kernels.log").read_text()
+    for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    return log
 
 
-#: Phase 2's window_reduce slice counts: each slice-warp count S of
-#: ``reduce_lanes`` (1, 1, 1, 2, 4, 8) and slice batch (1, 2, 4, 4, 4, 4).
+def check_select_registers(log):
+    """Every window_select instantiation keeps its window in registers:
+    ptxas reports no stack frame and no spill bytes (a register array
+    indexed at run time would land in local memory).  Prints one line
+    per instantiation; raises otherwise."""
+    import re
+
+    entries = re.findall(
+        r"Function properties for (\S*window_select_kernelI([fd])Lb([01])ELi(\d+)ELb([01])E\S*)\s*\n"
+        r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\s*\n"
+        r".*?Used (\d+) registers",
+        log,
+    )
+    if len(entries) != 2 * 2 * 3 * 2:
+        raise AssertionError(f"expected 24 window_select instantiations in the ptxas report, found {len(entries)}")
+    bad = []
+    for _, dtype, mode, slots, staged, stack, stores, loads, regs in entries:
+        name = (
+            f"window_select<{'float' if dtype == 'f' else 'double'}, {'mode' if mode == '1' else 'percentile'}, "
+            f"K={slots}, {'staged' if staged == '1' else 'in place'}>"
+        )
+        print(f"  {name}: {regs} registers, {stack} bytes stack, {stores} / {loads} bytes spill stores / loads")
+        if int(stack) or int(stores) or int(loads):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"window_select instantiations use local memory: {bad}")
+
+
+#: Phase 2's slice counts: window_reduce's slice-warp count S of
+#: ``reduce_lanes`` (1, 1, 1, 2, 4, 8) and slice batch (1, 2, 4, 4, 4, 4);
+#: window_select's S (1, 1, 4, 8, 8, 8), in place at E = 1 and staged
+#: above.
 CHECK_EXTRAS = (1, 3, 20, 40, 128, 200)
+#: Phase 2's window tables: the first n = 4001 windows of 40 slots cut to
+#: 8, 16 and 32 slots (window_select's register slots K = 8, 16, 32, no
+#: walk) and whole (K = 32, the 5 % of 33-40 slots walk); and 300
+#: windows of up to 400 slots, which fit no tile's shared memory and of
+#: which 5 % walk.
+CHECK_WIDTHS = {40: (8, 16, 32, 40), 400: (400,)}
 
 
 def phase_kernel_checks(device):
     """Phase 2: every method of both window kernels against the plain
-    version, at each lane mapping window_reduce's wrapper picks."""
+    version, at each lane mapping window_reduce's wrapper picks and at
+    each register array and the walk of window_select."""
     import torch
 
     from xugrid_tpu_torch.regrid import reduce
     from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, reduce_lanes, window_reduce
-    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.regrid.select_apply import register_slots, window_select
 
     percentiles = [reduce.Percentile(p) for p in (0, 5, 25, 50, 75, 95, 100, 33.3)]
     # Selections, mode and percentiles run the same arithmetic in the
@@ -307,10 +352,9 @@ def phase_kernel_checks(device):
     max_err = {"window_reduce": 0.0, "window_select": 0.0}
     plans = set()
     # n = 4001 is a multiple of no tile (32 to 256 targets); 2 % of the
-    # windows are all pad; the second set's windows of up to 400 slots
-    # fit no tile's shared memory, so they are read in place.
-    for n, w, extras in ((4001, 40, CHECK_EXTRAS), (300, 400, (1, 20))):
-        indices, weights, mixed, positive = synthetic_windows(rng, n=n, w=w, n_extra=max(extras))
+    # windows are all pad.
+    for n, w in ((4001, 40), (300, 400)):
+        indices, weights, mixed, positive = synthetic_windows(rng, n=n, w=w, n_extra=max(CHECK_EXTRAS))
         print(f"phase 2: windows n={n} w_max={w}, sources (E, m)={mixed.shape}")
         for dtype in (torch.float32, torch.float64):
             idx = torch.from_numpy(indices).to(device)
@@ -318,7 +362,7 @@ def phase_kernel_checks(device):
             for label, src in (("mixed", mixed), ("positive", positive)):
                 scale = float(np.nanmax(np.abs(np.where(np.isfinite(src), src, np.nan))))
                 rtol, atol = tolerance(dtype, scale)
-                for E in extras:
+                for E in CHECK_EXTRAS:
                     source = torch.from_numpy(src[:E].copy()).to(device=device, dtype=dtype)
                     plan = reduce_lanes(E, w, source.element_size())
                     plans.add(plan)
@@ -338,16 +382,21 @@ def phase_kernel_checks(device):
                         f"  window_reduce {label} {str(dtype)[6:]} E={E} (slice warps, target warps, "
                         f"staged) {plan}: all methods ok, max |diff| {max(errs):.3e}"
                     )
-                if w > 40:
-                    continue
-                sourceT = torch.from_numpy(src[:6].T.copy()).to(device=device, dtype=dtype)
-                for fn in (reduce.mode, *percentiles):
-                    got = window_select(sourceT, idx, wt, fn)
-                    want = reduce.reduce_windows(sourceT, idx, wt, fn)
-                    torch.cuda.synchronize()
-                    err = compare(got, want, True, rtol, atol)
-                    max_err["window_select"] = max(max_err["window_select"], err)
-                    print(f"  window_select {fn.__name__} {label} {str(dtype)[6:]} E=6: ok, max |diff| {err:.3e}")
+                    for width in CHECK_WIDTHS[w]:
+                        cut_idx, cut_wt = idx[:, :width].contiguous(), wt[:, :width].contiguous()
+                        for fn in (reduce.mode, *percentiles):
+                            got = window_select(source, cut_idx, cut_wt, fn)
+                            want = reduce.reduce_windows(source.t(), cut_idx, cut_wt, fn).t()
+                            torch.cuda.synchronize()
+                            if got.shape != (E, n) or not got.is_contiguous():
+                                raise AssertionError(f"window_select returned {tuple(got.shape)}")
+                            compare(got, want, True, 0.0, 0.0)
+                        print(
+                            f"  window_select {label} {str(dtype)[6:]} E={E} w={width} K={register_slots(width)} "
+                            f"(slice warps, target warps, staged) "
+                            f"{reduce_lanes(E, width, source.element_size(), batch=1)}: mode and "
+                            f"{len(percentiles)} percentiles bit-equal"
+                        )
     print(f"  window_reduce mappings checked: {sorted(plans)}")
     return max_err
 
@@ -553,18 +602,19 @@ def bound_ms(true_bytes, operations, dtype_name, copy_gbps):
 
 
 def phase_timing(device, results, card):
-    """Phase 4: kernel, plain and apply-pass times at the 1M config.
-    window_reduce's pass is one launch on the (E, m) source;
-    window_select's is the source's slice-minor transpose plus the
-    kernel, and the transpose is timed alone beside it.  For the
-    sum-kind methods, ``torch.sparse.mm`` of the weight matrix with the
-    staged (m, E) copy computes the same sums (the yardstick
-    ``library_ms``); no library call computes a selection."""
+    """Phase 4: kernel, plain and apply-pass times at the 1M config,
+    each pass one launch on the (E, m) source.  The yardstick
+    ``library_ms``: for the sum-kind methods ``torch.sparse.mm`` of the
+    weight matrix with the staged (m, E) copy, which computes the same
+    sums; for the median ``torch.nanquantile`` over the pre-gathered
+    (n, E, w) windows with pads as NaN, which leaves out the gather and
+    the weight gate; none for the mode."""
     import torch
 
     from xugrid_tpu_torch.regrid import reduce
     from xugrid_tpu_torch.regrid.aligned_apply import reduce_lanes, window_reduce
     from xugrid_tpu_torch.regrid.apply import apply_weights, device_weights
+    from xugrid_tpu_torch.regrid.select_apply import register_slots
 
     buf = torch.empty(1 << 28, dtype=torch.float32, device=device)
     dst = torch.empty_like(buf)
@@ -579,6 +629,8 @@ def phase_timing(device, results, card):
         n, m = csr.n, csr.m
         idx, w = device_weights(regridder._padded, torch.float32, device, regridder._device_weights)
         red = regridder._reduction
+        w_max = idx.shape[1]
+        lengths = np.diff(csr.indptr).astype(np.int64)
         library = None
         if kernel is window_reduce:
             library = torch.sparse_csr_tensor(
@@ -587,15 +639,18 @@ def phase_timing(device, results, card):
             )
         for n_extra in TIMING_EXTRAS:
             source = torch.from_numpy(rng.normal(size=(n_extra, m)).astype(np.float32)).to(device)
-            sourceT = source.t().contiguous()
+            run_kernel = lambda: kernel(source, idx, w, red)  # noqa: E731
+            run_plain = lambda: reduce.reduce_windows(source.t(), idx, w, red).t()  # noqa: E731
             if kernel is window_reduce:
-                run_kernel = lambda: kernel(source, idx, w, red)  # noqa: E731
-                run_plain = lambda: reduce.reduce_windows(source.t(), idx, w, red).t()  # noqa: E731
-                lanes = f", (slice warps, target warps, staged) {reduce_lanes(n_extra, idx.shape[1], 4)}"
+                lanes = f", (slice warps, target warps, staged) {reduce_lanes(n_extra, w_max, 4)}"
+                operations = 2 * csr.nnz * n_extra
             else:
-                run_kernel = lambda: kernel(sourceT, idx, w, red)  # noqa: E731
-                run_plain = lambda: reduce.reduce_windows(sourceT, idx, w, red)  # noqa: E731
-                lanes = ""
+                lanes = (
+                    f", K={register_slots(w_max)}, (slice warps, target warps, staged) "
+                    f"{reduce_lanes(n_extra, w_max, 4, batch=1)}, pair steps "
+                    f"{int((lengths ** 2).sum()) * n_extra}"
+                )
+                operations = csr.nnz * n_extra * int(np.ceil(np.log2(max(w_max, 2))))
             true_bytes = csr.nnz * 8 + m * n_extra * 4 + n * n_extra * 4
             samples = {"kernel": [], "plain": []}
             # Interleave plain, kernel, kernel, plain.
@@ -604,32 +659,44 @@ def phase_timing(device, results, card):
                 samples[which].append(cuda_time_ms(fn, reps=5))
             kernel_ms = statistics.median(samples["kernel"])
             plain_ms = statistics.median(samples["plain"])
-            full_ms = cuda_time_ms(
-                lambda: apply_weights(regridder._padded, source, red, n, cache=regridder._device_weights)
-            )
+            run_apply = lambda: apply_weights(regridder._padded, source, red, n, cache=regridder._device_weights)  # noqa: E731
             rows = [
                 ("kernel", kernel_ms), ("kernel, one launch from idle", cuda_time_ms(run_kernel, inner=1)),
-                ("plain", plain_ms), ("apply pass", full_ms),
-                ("apply pass, one call from idle", cuda_time_ms(
-                    lambda: apply_weights(regridder._padded, source, red, n, cache=regridder._device_weights),
-                    inner=1,
-                )),
+                ("plain", plain_ms), ("apply pass", cuda_time_ms(run_apply)),
+                ("apply pass, one call from idle", cuda_time_ms(run_apply, inner=1)),
             ]
-            if kernel is not window_reduce:
-                rows.append(("source transpose", cuda_time_ms(lambda: source.t().contiguous())))
             library_ms = None
             if library is not None:
+                sourceT = source.t().contiguous()
                 library_ms = cuda_time_ms(lambda: torch.sparse.mm(library, sourceT))
                 rows.append(("torch.sparse.mm", library_ms))
-            if kernel is window_reduce:
-                operations = 2 * csr.nnz * n_extra
-            else:
-                operations = csr.nnz * n_extra * int(np.ceil(np.log2(max(regridder._padded.w_max, 2))))
+                del sourceT
+            elif red is not reduce.mode:
+                gathered = reduce.gather_windows(source.t(), idx)
+                library_ms = cuda_time_ms(lambda: torch.nanquantile(gathered, red.p / 100.0, dim=-1), reps=5)
+                rows.append(("torch.nanquantile, windows gathered", library_ms))
+                del gathered
             bound, bound_by = bound_ms(true_bytes, operations, "float32", copy_gbps)
             print(
                 f"  {method} E={n_extra} bound ({kernel.__name__}): {bound:.6f} ms by {bound_by} "
                 f"({operations} operations), kernel at {100 * bound / kernel_ms:.2f} % of it{lanes} [{card}]"
             )
+            # The apply pass is one launch of the kernel: every device
+            # activity the profiler records (it may drop a few) is one of
+            # its launches, with no transpose or copy beside them.
+            calls = 10
+            prof = profiled_us(run_apply, kernel.__name__, calls=calls)
+            if prof is None:
+                print(f"  {method} E={n_extra} apply pass profile: no device time recorded, not measured")
+            else:
+                print(
+                    f"  {method} E={n_extra} apply pass profile: {prof[3]:g} device activities per call, "
+                    f"{prof[1]} {kernel.__name__} launches in {calls} calls, {prof[0]:.3f} us per launch [{card}]"
+                )
+                if round(prof[3] * calls) != prof[1] or prof[1] > calls:
+                    raise AssertionError(
+                        f"{method} E={n_extra}: the apply pass ran device activities besides {kernel.__name__}"
+                    )
             for label, ms in rows:
                 gbps = true_bytes / (ms * 1e-3) / 1e9
                 print(
@@ -641,7 +708,7 @@ def phase_timing(device, results, card):
                 "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound, "bound_by": bound_by,
             }
-            del source, sourceT
+            del source
             torch.cuda.empty_cache()
     return timed, copy_gbps
 
@@ -932,8 +999,8 @@ def host_us(fn, calls=50, reps=5):
 def profiled_us(fn, kernel, calls=20):
     """torch.profiler over ``calls`` calls of ``fn``: (device us per
     launch of the kernels whose name holds ``kernel``, their launches,
-    device busy us per call), or None when the profiler records no
-    device time."""
+    device busy us per call, device activities per call), or None when
+    the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -950,7 +1017,8 @@ def profiled_us(fn, kernel, calls=20):
     launches = sum(e.count for e in ours)
     if busy == 0 or launches == 0:
         return None
-    return sum(e.self_device_time_total for e in ours) / launches, launches, busy / calls
+    activities = sum(e.count for e in on_device)
+    return sum(e.self_device_time_total for e in ours) / launches, launches, busy / calls, activities / calls
 
 
 def time_line(label, what, fn, kernel, card):
@@ -962,7 +1030,8 @@ def time_line(label, what, fn, kernel, card):
     host = host_us(fn)
     prof = profiled_us(fn, kernel)
     device = (
-        f"{kernel} device {prof[0]:.3f} us/launch ({prof[1]} launches), device busy {prof[2]:.3f} us/call"
+        f"{kernel} device {prof[0]:.3f} us/launch ({prof[1]} launches), device busy {prof[2]:.3f} us/call, "
+        f"{prof[3]:g} device activities/call"
         if prof else "device time not measured (the profiler recorded none)"
     )
     print(
@@ -972,8 +1041,9 @@ def time_line(label, what, fn, kernel, card):
 
 
 def phase_compare(device, card, label):
-    """``--compare``: the apply pass of the 1M regrid (mean and
-    first_order_conservative, float32, E = 1, 20, 128) and csr_matvec on
+    """``--compare``: the apply pass of the 1M regrid (mean,
+    first_order_conservative, median and mode, float32, E = 1, 20, 128;
+    the selections held bit for bit) and csr_matvec on
     the 1M Delaunay CG system (float64 and float32, E = 1 and 20), each
     checked against its plain version and timed by ``time_line``.  Uses
     only what every version of the port has: the regridders,
@@ -992,18 +1062,29 @@ def phase_compare(device, card, label):
     (verts, faces), (tverts, tfaces) = bench_meshes(N_SIDE, T_SIDE, rng)
     source_grid = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
     target_grid = xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)
-    for cls, method in ((xt.OverlapRegridder, "mean"), (xt.RelativeOverlapRegridder, "first_order_conservative")):
+    for cls, method, kernel in (
+        (xt.OverlapRegridder, "mean", "window_reduce"),
+        (xt.RelativeOverlapRegridder, "first_order_conservative", "window_reduce"),
+        (xt.OverlapRegridder, "median", "window_select"),
+        (xt.OverlapRegridder, "mode", "window_select"),
+    ):
         regridder = cls(source_grid, target_grid, method=method)
         padded, cache, red = regridder._padded, regridder._device_weights, regridder._reduction
         n = target_grid.n_face
         for E in TIMING_EXTRAS:
-            source = torch.from_numpy(rng.normal(size=(E, source_grid.n_face)).astype(np.float32)).to(device)
+            data = rng.normal(size=(E, source_grid.n_face))
+            if method == "mode":
+                data = np.round(data * 2.0) / 2.0  # windows hold equal values
+            source = torch.from_numpy(data.astype(np.float32)).to(device)
             run = lambda: apply_weights(padded, source, red, n, cache=cache)  # noqa: E731
             idx, w = device_weights(padded, torch.float32, device, cache)
             want = reduce.reduce_windows(source.t().contiguous(), idx, w, red).t()
-            rtol, atol = tolerance(torch.float32, float(source.abs().max()))
-            compare(run(), want, False, rtol, torch.clamp(summation_bound(source, idx, w, red), min=atol))
-            time_line(label, f"apply pass {method} E={E}", run, "window_reduce", card)
+            if kernel == "window_select":
+                compare(run(), want, True, 0.0, 0.0)
+            else:
+                rtol, atol = tolerance(torch.float32, float(source.abs().max()))
+                compare(run(), want, False, rtol, torch.clamp(summation_bound(source, idx, w, red), min=atol))
+            time_line(label, f"apply pass {method} E={E}", run, kernel, card)
             del source, want
     nodes, faces = delaunay_mesh(LAPLACE_SIDE)
     grid = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, faces)
@@ -1036,11 +1117,12 @@ def main() -> int:
     card = card_line()
     print(card)
     t_start = time.perf_counter()
-    phase_build()
+    log = phase_build()
     if sys.argv[1:2] == ["--compare"]:
         phase_compare(device, card, sys.argv[2])
         print(f"chip_smoke --compare {sys.argv[2]}: done in {time.perf_counter() - t_start:.1f} s")
         return 0
+    check_select_registers(log)
     check_err = phase_kernel_checks(device)
     check_err["csr_matvec"] = phase_matvec_checks(device)
     counts, main_err, results = phase_main_path(device)

@@ -29,9 +29,10 @@ from xugrid_tpu.regrid.apply import apply_weights as jax_apply_weights
 from xugrid_tpu.regrid.select_apply import apply_windowed_select
 from xugrid_tpu_torch.core.sparse import PaddedCSR
 from xugrid_tpu_torch.regrid import reduce
+from xugrid_tpu_torch.regrid import apply as apply_module
 from xugrid_tpu_torch.regrid.aligned_apply import STAGE_BYTES, reduce_lanes, stage_bytes, window_reduce
 from xugrid_tpu_torch.regrid.apply import apply_weights, device_weights
-from xugrid_tpu_torch.regrid.select_apply import window_select
+from xugrid_tpu_torch.regrid.select_apply import register_slots, window_select
 
 REDUCE_METHODS = [
     "mean", "sum", "first_order_conservative", "conductance", "harmonic_mean",
@@ -180,9 +181,11 @@ def test_window_select_plain_f32_matches_select_kernel(method):
     )
     want = apply_windowed_select(source, indices, weights, method, interpret=True)
     got = window_select(
-        torch.from_numpy(source.T.copy()), torch.from_numpy(indices),
+        torch.from_numpy(source), torch.from_numpy(indices),
         torch.from_numpy(weights), _method(reduce, method),
-    ).numpy()
+    )
+    assert got.dtype == torch.float32 and got.shape == source.shape[:1] + indices.shape[:1]
+    got = got.numpy().T
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
     exact = jax_apply_weights(
@@ -222,25 +225,33 @@ def test_wrappers_reject_methods_they_do_not_cover():
     with pytest.raises(ValueError, match="does not cover"):
         window_reduce(source, indices, weights, reduce.mode)
     with pytest.raises(ValueError, match="does not cover"):
-        window_select(source.t().contiguous(), indices, weights, reduce.mean)
+        window_select(source, indices, weights, reduce.mean)
 
 
 def _apply_case(source, method, seed):
     """apply_weights of the port and of oracle (a) on one source; the
-    port launches nothing on the CPU and keeps the leading dims."""
+    port launches nothing on the CPU, keeps the leading dims and returns
+    a contiguous result.  For the selection methods window_select is
+    also called alone on the flattened (E, m) source."""
     indices, weights, _ = make_case(seed=seed)
     n, w = indices.shape
     m = source.shape[-1]
     want = jax_apply_weights(
         JaxPaddedCSR(indices, weights, n, m, w), np.ascontiguousarray(source), _method(jax_reduce, method), n
     )
-    before = window_reduce.launches
+    before = window_reduce.launches, window_select.launches
     got = apply_weights(PaddedCSR(indices, weights, n, m, w), source, _method(reduce, method), n)
-    assert window_reduce.launches == before
+    assert (window_reduce.launches, window_select.launches) == before
     assert tuple(got.shape) == source.shape[:-1] + (n,) == want.shape
+    assert got.is_contiguous()
     values, ww = windows(indices, weights, np.ascontiguousarray(source).reshape(-1, m))
     flat = got.numpy().reshape(-1, n).T
     assert_matches(flat, want.reshape(-1, n).T, method, values, ww)
+    if method in SELECT_METHODS:
+        source2d = torch.as_tensor(source).reshape(-1, m)
+        alone = window_select(source2d, torch.from_numpy(indices), torch.from_numpy(weights), _method(reduce, method))
+        assert alone.shape == (source2d.shape[0], n)
+        assert_matches(alone.numpy().T, want.reshape(-1, n).T, method, values, ww)
 
 
 @pytest.mark.parametrize("method", REDUCE_METHODS)
@@ -265,6 +276,76 @@ def test_apply_weights_leading_dims_match_jax_apply(method):
     """Leading (time, layer) dims (T, L) = (3, 2) come back as they went in."""
     _, _, source = make_case(n_extra=6, seed=11, nan_frac=0.1, positive=method == "geometric_mean")
     _apply_case(source.reshape(3, 2, -1), method, seed=11)
+
+
+SELECT_CASES = ["one_slice", "non_contiguous", "leading_dims"]
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+@pytest.mark.parametrize("method", ["mode", "median", "p90"])
+def test_window_select_and_apply_weights_match_jax_apply(method, case):
+    """window_select on the (E, m) source and apply_weights, against
+    oracle (a) in float64 (rtol 1e-12, the mode bit-equal): E = 1, a
+    strided view of a (m, E) array, and leading (T, L) = (3, 2) dims."""
+    _, _, source = make_case(n_extra=6, seed=13, inf_frac=0.02, few_values=True)
+    if case == "one_slice":
+        source = source[0]
+    elif case == "non_contiguous":
+        source = torch.from_numpy(source.T.copy()).t()
+        assert not source.is_contiguous()
+    else:
+        source = source.reshape(3, 2, -1)
+    _apply_case(source, method, seed=13)
+
+
+@pytest.mark.parametrize("method", ["mode", "median"])
+@pytest.mark.parametrize("leading", [(4,), (3, 2)])
+def test_apply_weights_hands_window_select_the_callers_storage(monkeypatch, method, leading):
+    """Mode and percentiles go to window_select on the caller's (E, m)
+    storage: the same data_ptr for a contiguous source, no transposed
+    copy; the (E, n) result comes back contiguous as (..., n)."""
+    indices, weights, _ = make_case(seed=14)
+    n, w = indices.shape
+    m = 700
+    source = torch.from_numpy(np.random.default_rng(14).normal(size=leading + (m,)))
+    seen = []
+
+    def fake_select(src, idx, wts, reduction):
+        seen.append(src)
+        return torch.arange(src.shape[0] * idx.shape[0], dtype=src.dtype).reshape(src.shape[0], idx.shape[0])
+
+    monkeypatch.setattr(apply_module, "window_select", fake_select)
+    out = apply_weights(PaddedCSR(indices, weights, n, m, w), source, _method(reduce, method), n)
+    (got,) = seen
+    E = int(np.prod(leading))
+    assert got.shape == (E, m) and got.is_contiguous()
+    assert got.data_ptr() == source.data_ptr()
+    assert out.shape == leading + (n,) and out.is_contiguous()
+    np.testing.assert_array_equal(out.reshape(E, n).numpy(), np.arange(E * n).reshape(E, n))
+
+
+@pytest.mark.parametrize(
+    "w, slots", [(1, 8), (8, 8), (9, 16), (16, 16), (17, 32), (32, 32), (33, 32), (400, 32)]
+)
+def test_register_slots_picks_each_branch(w, slots):
+    """window_select's register array K: the least of 8, 16, 32 that
+    holds a w-slot window; wider tables keep 32 and their longer
+    windows walk."""
+    assert register_slots(w) == slots
+
+
+def test_reduce_lanes_one_slice_per_walk():
+    """window_select's block (batch 1): a warp walks at most 8 slices,
+    and the windows are staged as soon as it walks them twice (E > S)."""
+    assert reduce_lanes(1, 16, 4, batch=1) == (1, 8, False)
+    assert reduce_lanes(2, 16, 4, batch=1) == (1, 8, True)
+    assert reduce_lanes(8, 16, 4, batch=1) == (1, 8, True)
+    assert reduce_lanes(9, 16, 4, batch=1) == (2, 4, True)
+    assert reduce_lanes(20, 16, 4, batch=1) == (4, 2, True)
+    assert reduce_lanes(33, 16, 4, batch=1) == (8, 1, True)
+    assert reduce_lanes(128, 16, 4, batch=1) == (8, 1, True)
+    assert reduce_lanes(20, 16, 8, batch=1) == (4, 2, True)
+    assert reduce_lanes(20, 400, 4, batch=1) == (4, 2, False)
 
 
 def test_reduce_lanes_picks_each_branch():

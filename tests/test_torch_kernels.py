@@ -20,7 +20,7 @@ from xugrid_tpu_torch.regrid import reduce
 from xugrid_tpu_torch.regrid.aligned_apply import (
     METHOD_CODES, csr_matvec, csr_matvec_plain, reduce_lanes, window_reduce,
 )
-from xugrid_tpu_torch.regrid.select_apply import window_select
+from xugrid_tpu_torch.regrid.select_apply import register_slots, window_select
 from xugrid_tpu_torch.ugrid import interpolate
 
 pytestmark = pytest.mark.cuda
@@ -54,13 +54,10 @@ def test_kernel_matches_plain(device, windows, fn, kernel, dtype):
     idx = torch.from_numpy(indices).to(device)
     w = torch.from_numpy(weights).to(device=device, dtype=dtype)
     before = kernel.launches
-    if kernel is window_reduce:
-        got = kernel(source, idx, w, fn)
-        want = reduce.reduce_windows(source.t(), idx, w, fn).t()
-    else:
-        got = kernel(source.t().contiguous(), idx, w, fn)
-        want = reduce.reduce_windows(source.t(), idx, w, fn)
+    got = kernel(source, idx, w, fn)
+    want = reduce.reduce_windows(source.t(), idx, w, fn).t()
     assert kernel.launches == before + 1
+    assert got.shape == source.shape[:1] + idx.shape[:1] and got.is_contiguous()
     scale = float(np.nanmax(np.abs(np.where(np.isfinite(src), src, np.nan))))
     rtol, atol = chip_smoke.tolerance(dtype, scale)
     if fn in LINEAR:
@@ -95,19 +92,43 @@ def test_window_reduce_lane_mappings_match_plain(device, dtype, w, E):
 
 
 def test_wrappers_check_their_tensors(device):
-    sourceT = torch.zeros((10, 3), device=device)
+    source = torch.zeros((3, 10), device=device)
     idx = torch.zeros((4, 2), dtype=torch.int32, device=device)
     w = torch.ones((4, 2), device=device)
     with pytest.raises(TypeError, match="int32"):
-        window_reduce(sourceT, idx.long(), w, reduce.mean)
+        window_reduce(source, idx.long(), w, reduce.mean)
     with pytest.raises(TypeError, match="float32 or float64"):
-        window_select(sourceT.half(), idx, w.half(), reduce.mode)
+        window_select(source.half(), idx, w.half(), reduce.mode)
     with pytest.raises(TypeError, match="differs"):
-        window_reduce(sourceT, idx, w.double(), reduce.mean)
+        window_reduce(source, idx, w.double(), reduce.mean)
     with pytest.raises(ValueError, match="contiguous"):
         window_reduce(torch.zeros((10, 3), device=device).t(), idx, w, reduce.mean)
+    with pytest.raises(ValueError, match="contiguous"):
+        window_select(torch.zeros((10, 3), device=device).t(), idx, w, reduce.mode)
     with pytest.raises(ValueError, match="CUDA device"):
-        window_select(sourceT, idx, w.cpu(), reduce.median)
+        window_select(source, idx, w.cpu(), reduce.median)
+
+
+@pytest.mark.parametrize("E", [1, 3, 20, 128])
+@pytest.mark.parametrize("w", [8, 16, 32, 40, 400])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_window_select_register_slots_and_walk_match_plain(device, dtype, w, E):
+    """Each register array K (windows cut to 8, 16 and 32 slots) and the
+    walk of windows longer than 32 slots (w = 40: 5 % of the windows
+    hold 33-40 slots; w = 400: up to 400), in place (E = 1) and staged,
+    bit for bit, NaN in the same places."""
+    rng = np.random.default_rng(w + E)
+    indices, weights, mixed, _ = chip_smoke.synthetic_windows(
+        rng, n=1001, m=900, w=max(w, 40), n_extra=E
+    )
+    idx = torch.from_numpy(np.ascontiguousarray(indices[:, :w])).to(device)
+    wt = torch.from_numpy(np.ascontiguousarray(weights[:, :w])).to(device=device, dtype=dtype)
+    source = torch.from_numpy(mixed).to(device=device, dtype=dtype)
+    assert register_slots(w) == min(w, 32)
+    for fn in (reduce.mode, *PERCENTILES):
+        got = window_select(source, idx, wt, fn)
+        assert got.shape == (E, 1001) and got.is_contiguous()
+        chip_smoke.compare(got, reduce.reduce_windows(source.t(), idx, wt, fn).t(), True, 0.0, 0.0)
 
 
 def test_regrid_on_cuda_matches_cpu(device):

@@ -59,9 +59,6 @@ enum ReduceMethod : int {
 };
 
 constexpr int kUnroll = 4;
-// Shared memory a block may stage its windows in without opting in to
-// more (aligned_apply.STAGE_BYTES).
-constexpr size_t kStageBytes = 48 * 1024;
 
 // One output's running state: add() takes the window's slots in order,
 // result() finishes.  `norm` is the window's raw weight sum (geometric
@@ -144,53 +141,25 @@ struct Reducer {
   }
 };
 
-// Block (S * G warps) for the tile of targets [32 G blockIdx.x, ...).
-// STAGED: the tile's windows sit in dynamic shared memory, weights then
-// indices, slot-major with a row stride of 32 G + 1 (conflict-free
-// writes from the coalesced row-major reads, and reads by lane).
-// B: slices a thread reduces together (e, e + S, ..., e + (B - 1) S),
-// sharing each slot's index and weight reads and keeping kUnroll * B
-// gathers in flight.
+// Block (S * G warps) for the tile of targets [32 G blockIdx.x, ...),
+// in the layout of TileWindow (window_common.cuh).  B: slices a thread
+// reduces together (e, e + S, ..., e + (B - 1) S), sharing each slot's
+// index and weight reads and keeping kUnroll * B gathers in flight.
 template <typename T, int M, bool STAGED, int B>
 __global__ void __launch_bounds__(kThreads)
 window_reduce_kernel(const T* __restrict__ src, const int32_t* __restrict__ idx,
                      const T* __restrict__ wts, T* __restrict__ out, int n, int m, int w,
                      int E, int slice_warps, int target_warps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int g = warp % target_warps;
-  const int s = warp / target_warps;
-  const int tile = 32 * target_warps;
-  const int t0 = blockIdx.x * tile;
-  const int tl = g * 32 + (threadIdx.x & 31);
-  const int t = t0 + tl;
-  const int stride = tile + 1;
-  T* wts_s = reinterpret_cast<T*>(smem);
-  int32_t* idx_s = reinterpret_cast<int32_t*>(wts_s + w * stride);
-  if constexpr (STAGED) {
-    const int rows = min(tile, n - t0);
-    const int32_t* gi = idx + (int64_t)t0 * w;
-    const T* gw = wts + (int64_t)t0 * w;
-    for (int q = threadIdx.x; q < rows * w; q += blockDim.x) {
-      const int r = q / w;
-      const int k = q - r * w;
-      idx_s[k * stride + r] = gi[q];
-      wts_s[k * stride + r] = gw[q];
-    }
-    __syncthreads();
-  }
-  if (t >= n) return;
-  const int32_t* ti = STAGED ? idx_s + tl : idx + (int64_t)t * w;
-  const T* tw = STAGED ? wts_s + tl : wts + (int64_t)t * w;
-  const int ks = STAGED ? stride : 1;
-  int len = w;
-  while (len > 0 && ti[(len - 1) * ks] < 0) --len;
+  const TileWindow<T, STAGED> win(smem, idx, wts, n, w, target_warps);
+  if (win.t >= n) return;
+  const int len = win.length(w);
   T norm = 0, denom = 1;
   if constexpr (M == kGeometricMean) {
-    for (int k = 0; k < w; ++k) norm += tw[k * ks];
+    for (int k = 0; k < w; ++k) norm += win.weight(k);
     denom = norm == (T)0 ? (T)1 : norm;
   }
-  for (int e0 = s; e0 < E; e0 += slice_warps * B) {
+  for (int e0 = win.s; e0 < E; e0 += slice_warps * B) {
     const T* se[B];
     bool on[B];
 #pragma unroll
@@ -205,8 +174,8 @@ window_reduce_kernel(const T* __restrict__ src, const int32_t* __restrict__ idx,
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) {
         const int k = k0 + j;
-        i[j] = k < len ? ti[k * ks] : -1;
-        wk[j] = k < len ? tw[k * ks] : (T)0;
+        i[j] = k < len ? win.index(k) : -1;
+        wk[j] = k < len ? win.weight(k) : (T)0;
       }
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) {
@@ -223,7 +192,7 @@ window_reduce_kernel(const T* __restrict__ src, const int32_t* __restrict__ idx,
     }
 #pragma unroll
     for (int b = 0; b < B; ++b) {
-      if (on[b]) out[(int64_t)(e0 + b * slice_warps) * n + t] = acc[b].result(norm);
+      if (on[b]) out[(int64_t)(e0 + b * slice_warps) * n + win.t] = acc[b].result(norm);
     }
   }
 }

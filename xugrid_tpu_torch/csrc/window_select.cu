@@ -1,167 +1,394 @@
 // window_select: Hopper kernel #2 of xugrid_tpu_torch, the order
 // statistics of the regrid apply (mode, median, any percentile).
 //
-// Replaces xugrid_tpu/regrid/select_apply.py:gather_select_apply.  The
-// TPU kernel sorts 32-slot windows in registers through one-hot matmuls
-// and splits wider windows into a second plan (MAX_WINDOW = 32); here a
-// thread ranks its own window by counting, so any w_max is taken.
+// Replaces xugrid_tpu/regrid/select_apply.py:gather_select_apply.  Like
+// that kernel, and like window_reduce, it reads the source slices-major,
+// src (E, m), as the caller holds it, and writes out (E, n): no transpose
+// pass.  The TPU kernel ranks 32-slot windows held in lanes by an
+// all-pairs pass and splits wider windows into a second plan
+// (MAX_WINDOW = 32); here each thread ranks its own window in registers,
+// and a window longer than the registers hold takes a counting walk over
+// memory in the same launch, so any w_max is taken.
 //
-// What bounds it on the H100: the window walk, not the device memory.
-// A pass moves what kernel #1 moves (the window table once, the gathered
-// source, the output once), but each thread reads its window O(w^2)
-// times: percentile rank_k = #{j : v_j < v_k, or v_j == v_k and j < k},
-// mode total_k = sum_j w_j [v_j == v_k].  The repeated reads of a
-// target's E-wide source rows hit L1; at the overlap meshes' w ~ 10 the
-// kernel is bound by those L1 loads and compares.  It runs one thread
-// per (target, slice), slice fastest, over the slice-minor copy of the
-// source that apply_weights makes for it, with no shared memory and no
-// atomics.
-//
+// What bounds it on the H100: the ranking's pair steps and the latency
+// of the gathers, not the device memory.  A pass moves what window_reduce
+// moves (the window table once, the gathered source, the output once),
+// but an output of a window of len slots takes O(len^2) compares, and a
+// warp waits for its gathers before it can rank.  The design keeps the
+// compares off memory and the registers few, so an SM holds enough warps
+// to hide the gathers:
+// - window_reduce's tile layout (window_common.cuh, TileWindow): lane =
+//   target, a warp's 32 consecutive targets of one slice, so its gathers
+//   from source row e fall on neighbouring faces and its stores of
+//   out[e, t] are coalesced; the block's warps split the slices, and the
+//   tile's windows are staged in shared memory when its warps walk them
+//   more than once (E > S).  Each target stops at its last non-pad slot;
+// - each thread loads its window's values for its slice once, into a
+//   register array of K slots (8, 16 or 32; the wrapper picks K from
+//   w_max).  NaN and pad slots become the +inf key, with a validity bit.
+//   All O(len^2) work runs in fully unrolled loops over the K slots, so
+//   the arrays stay in registers (no spills, no local memory): the
+//   percentile's rank_k = #{j : key_j < key_k, or key_j == key_k and j <
+//   k} takes one compare per pair j < k < len, the ranks packed four to
+//   a register; the mode's group totals sum_j w_j [v_j == v_k] are added
+//   in slot order, 4 slots at a time up to len.  float32 windows of up to
+//   16 slots fit 64 registers, 4 blocks per SM;
+// - a target with more than K slots takes a counting walk, which re-reads
+//   its window from shared memory and the source from L1 for every slot;
+// - 32-bit indices, no division per output, no atomics, one owner per
+//   output.  One slice per window read: a second slice's register array
+//   would halve the warps an SM holds.
+
 // Both reductions transcribe xugrid_tpu/regrid/reduce.py: percentiles
 // skip NaN, interpolate lower * (1 - m) + upper * m between the closest
 // ranks of rank = 1 + (n - 1) p / 100 (computed in T, as the plain
 // version does), gate on the raw maximum weight, and reduce to minimum
 // and maximum at p = 0 and p = 100; the mode is area weighted, ties go
-// to the largest value, gated on the valid maximum weight.
+// to the largest value, gated on the valid maximum weight.  Pad slots
+// past len change neither (a percentile's ranks below n_valid come from
+// valid slots; a mode total adds +0 for them), so results are the plain
+// version's bits.
 
 #include "window_common.cuh"
 
 namespace xt {
 
-// Value of window slot (i = source index) for slice e; NaN for a pad slot.
-template <typename T>
-__device__ __forceinline__ T window_value(const T* __restrict__ srcT, int32_t i, int e, int E) {
-  return i < 0 ? qnan<T>() : srcT[(int64_t)i * E + e];
-}
-
-// reduce.py minimum (MAX = false) and maximum (MAX = true): the extreme
-// valid value, NaN unless some valid slot has a positive weight.
+// reduce.py minimum (MAX false) and maximum (MAX true): the extreme valid
+// value, NaN unless some valid slot has a positive weight.
 template <typename T, bool MAX>
-__device__ __forceinline__ T window_extreme(const T* __restrict__ srcT, const int32_t* ti,
-                                            const T* tw, int w, int e, int E) {
+struct Extreme {
   T best = MAX ? -pos_inf<T>() : pos_inf<T>();
   T wmax = -pos_inf<T>();
-  for (int k = 0; k < w; ++k) {
-    const T v = window_value(srcT, ti[k], e, E);
+
+  __device__ __forceinline__ void add(T v, T wk) {
     const bool valid = is_valid(v);
     const T x = valid ? v : (MAX ? -pos_inf<T>() : pos_inf<T>());
     best = MAX ? (x > best ? x : best) : (x < best ? x : best);
-    const T y = valid ? tw[k] : (T)0;
+    const T y = valid ? wk : (T)0;
     wmax = y > wmax ? y : wmax;
   }
-  return wmax > (T)0 ? best : qnan<T>();
-}
+  __device__ __forceinline__ T result() const { return wmax > (T)0 ? best : qnan<T>(); }
+};
 
-template <typename T, bool MODE>
-__global__ void __launch_bounds__(kThreads)
-window_select_kernel(const T* __restrict__ srcT, const int32_t* __restrict__ idx,
-                     const T* __restrict__ wts, T* __restrict__ out, int64_t n, int w,
-                     int E, double p) {
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n * E) return;
-  const int64_t t = gid / E;
-  const int e = (int)(gid - t * E);
-  const int32_t* ti = idx + t * w;
-  const T* tw = wts + t * w;
-  T result = qnan<T>();
-  if constexpr (MODE) {
-    T wmax = -pos_inf<T>();
-    bool any_valid = false;
-    T best_total = -pos_inf<T>(), best_value = -pos_inf<T>();
-    for (int k = 0; k < w; ++k) {
-      const T vk = window_value(srcT, ti[k], e, E);
-      if (!is_valid(vk)) {
-        wmax = wmax > (T)0 ? wmax : (T)0;
-        continue;
-      }
-      any_valid = true;
-      wmax = tw[k] > wmax ? tw[k] : wmax;
-      // Group total in window order (equal values are valid values).
-      T total = 0;
-      for (int j = 0; j < w; ++j) {
-        total += window_value(srcT, ti[j], e, E) == vk ? tw[j] : (T)0;
-      }
-      if (total > best_total) {
-        best_total = total;
-        best_value = vk;
-      } else if (total == best_total && vk > best_value) {
-        best_value = vk;
-      }
-    }
-    if (any_valid && wmax > (T)0) result = best_value;
-  } else {
-    T wraw = -pos_inf<T>();
-    int n_valid = 0;
-    for (int k = 0; k < w; ++k) {
-      wraw = tw[k] > wraw ? tw[k] : wraw;
-      n_valid += is_valid(window_value(srcT, ti[k], e, E)) ? 1 : 0;
-    }
-    if (n_valid > 0 && wraw > (T)0) {
-      if (p == 0.0) {
-        result = window_extreme<T, false>(srcT, ti, tw, w, e, E);
-      } else if (p == 100.0) {
-        result = window_extreme<T, true>(srcT, ti, tw, w, e, E);
-      } else {
-        const T rank = (T)1 + ((T)n_valid - (T)1) * (T)(p / 100.0);
-        const T f = xfloor(rank);
-        const T m = rank - f;
-        int lo = (int)f - 1;
-        lo = lo < 0 ? 0 : (lo > w - 1 ? w - 1 : lo);
-        int hi = lo + 1 > w - 1 ? w - 1 : lo + 1;
-        hi = hi < n_valid - 1 ? hi : n_valid - 1;
-        // Sorted positions by counting: NaN and pad slots sort last (+inf)
-        // and equal values keep slot order, so the ranks are a permutation.
-        T lower = qnan<T>(), upper = qnan<T>();
-        for (int k = 0; k < w; ++k) {
-          const T vk = window_value(srcT, ti[k], e, E);
-          const T key = is_valid(vk) ? vk : pos_inf<T>();
-          int r = 0;
-          for (int j = 0; j < w; ++j) {
-            const T vj = window_value(srcT, ti[j], e, E);
-            const T other = is_valid(vj) ? vj : pos_inf<T>();
-            r += (other < key || (other == key && j < k)) ? 1 : 0;
-          }
-          if (r == lo) lower = key;
-          if (r == hi) upper = key;
-        }
-        result = lower * ((T)1 - m) + upper * m;
-      }
+// The closest ranks lo, hi (0-based, clamped) of the p-th percentile of
+// n_valid > 0 valid values, and the weight m of the upper one.
+template <typename T>
+struct Interpolation {
+  int lo, hi;
+  T m;
+
+  __device__ __forceinline__ Interpolation(int n_valid, int w, double p) {
+    const T rank = (T)1 + ((T)n_valid - (T)1) * (T)(p / 100.0);
+    const T f = xfloor(rank);
+    m = rank - f;
+    lo = (int)f - 1;
+    lo = lo < 0 ? 0 : (lo > w - 1 ? w - 1 : lo);
+    hi = lo + 1 > w - 1 ? w - 1 : lo + 1;
+    hi = hi < n_valid - 1 ? hi : n_valid - 1;
+  }
+  __device__ __forceinline__ T operator()(T lower, T upper) const {
+    return lower * ((T)1 - m) + upper * m;
+  }
+};
+
+// The mode's running state over slots in order: add() takes a valid
+// slot's value, weight and group total, invalid() a NaN or pad slot.  The
+// best (total, value) pair, lexicographically, gated on the valid
+// maximum weight.
+template <typename T>
+struct ModeBest {
+  T wmax = -pos_inf<T>();
+  bool any_valid = false;
+  T total = -pos_inf<T>(), value = -pos_inf<T>();
+
+  __device__ __forceinline__ void invalid() { wmax = wmax > (T)0 ? wmax : (T)0; }
+  __device__ __forceinline__ void add(T v, T wk, T t) {
+    any_valid = true;
+    wmax = wk > wmax ? wk : wmax;
+    if (t > total) {
+      total = t;
+      value = v;
+    } else if (t == total && v > value) {
+      value = v;
     }
   }
-  out[gid] = result;
+  __device__ __forceinline__ T result() const {
+    return (any_valid && wmax > (T)0) ? value : qnan<T>();
+  }
+};
+
+// Slots [0, len) of the window for slice row `se` into registers, 4 at
+// a time: v[k] is the value (NaN for a pad slot) for k below len rounded
+// up to 4; later slots are left unset and never read.
+template <typename T, int K, typename W>
+__device__ __forceinline__ void load_window(const T* __restrict__ se, const W& win, int len,
+                                            T (&v)[K]) {
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 4) {
+    if (k0 >= len) break;
+#pragma unroll
+    for (int k = k0; k < k0 + 4; ++k) {
+      const int32_t i = k < len ? win.index(k) : -1;
+      v[k] = i < 0 ? qnan<T>() : se[i];
+    }
+  }
+}
+
+// The p-th percentile of a window of len <= K slots, ranked in registers.
+template <typename T, int K, typename W>
+__device__ __forceinline__ T percentile_registers(const T* __restrict__ se, const W& win, int len,
+                                                  int w, double p) {
+  T key[K];
+  load_window<T, K>(se, win, len, key);
+  unsigned valid = 0;  // bit k: slot k holds a valid value
+  int n_valid = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k >= len) break;
+    const bool ok = is_valid(key[k]);
+    valid |= (unsigned)ok << k;
+    n_valid += ok ? 1 : 0;
+    key[k] = ok ? key[k] : pos_inf<T>();
+  }
+  if (n_valid == 0) return qnan<T>();
+  if (p == 0.0 || p == 100.0) {
+    Extreme<T, false> lo;
+    Extreme<T, true> hi;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (k >= len) break;
+      const T v = (valid >> k) & 1u ? key[k] : qnan<T>();
+      const T wk = win.weight(k);
+      lo.add(v, wk);
+      hi.add(v, wk);
+    }
+    return p == 0.0 ? lo.result() : hi.result();
+  }
+  const Interpolation<T> at(n_valid, w, p);
+  // Sorted positions by counting: NaN and pad slots sort last (+inf) and
+  // equal keys keep slot order, so the ranks are a permutation of [0,
+  // len).  For j < k: key_j <= key_k puts j before k, else k before j.
+  // Ranks (under 32) are packed 4 to a register, 8 bits each.
+  uint32_t rank4[K / 4];
+#pragma unroll
+  for (int q = 0; q < K / 4; ++q) rank4[q] = 0;
+#pragma unroll
+  for (int k = 1; k < K; ++k) {
+    if (k >= len) break;
+#pragma unroll
+    for (int j = 0; j < k; ++j) {
+      const bool before = key[j] <= key[k];
+      rank4[k >> 2] += before ? 1u << (8 * (k & 3)) : 0u;
+      rank4[j >> 2] += before ? 0u : 1u << (8 * (j & 3));
+    }
+  }
+  T lower = qnan<T>(), upper = qnan<T>();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k >= len) break;
+    const int r = (int)((rank4[k >> 2] >> (8 * (k & 3))) & 0xffu);
+    lower = r == at.lo ? key[k] : lower;
+    upper = r == at.hi ? key[k] : upper;
+  }
+  return at(lower, upper);
+}
+
+// The mode of a window of len <= K slots, its group totals in registers.
+template <typename T, int K, typename W>
+__device__ __forceinline__ T mode_registers(const T* __restrict__ se, const W& win, int len) {
+  T v[K], wk[K];
+  load_window<T, K>(se, win, len, v);
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 4) {
+    if (k0 >= len) break;
+#pragma unroll
+    for (int k = k0; k < k0 + 4; ++k) wk[k] = k < len ? win.weight(k) : (T)0;
+  }
+  ModeBest<T> best;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k >= len) break;
+    if (!is_valid(v[k])) {
+      best.invalid();
+      continue;
+    }
+    // Group total in slot order; the slots of the last group of 4 past
+    // len hold NaN and add +0.
+    T total = 0;
+#pragma unroll
+    for (int j0 = 0; j0 < K; j0 += 4) {
+      if (j0 >= len) break;
+#pragma unroll
+      for (int j = j0; j < j0 + 4; ++j) total += v[j] == v[k] ? wk[j] : (T)0;
+    }
+    best.add(v[k], wk[k], total);
+  }
+  return best.result();
+}
+
+// Value of slot k for slice row `se`: NaN for a pad slot.
+template <typename T, typename W>
+__device__ __forceinline__ T slot_value(const T* __restrict__ se, const W& win, int k) {
+  const int32_t i = win.index(k);
+  return i < 0 ? qnan<T>() : se[i];
+}
+
+// The p-th percentile of a window of any length, by the counting walk.
+template <typename T, typename W>
+__device__ __forceinline__ T percentile_walk(const T* __restrict__ se, const W& win, int len, int w, double p) {
+  int n_valid = 0;
+  for (int k = 0; k < len; ++k) n_valid += is_valid(slot_value(se, win, k)) ? 1 : 0;
+  if (n_valid == 0) return qnan<T>();
+  if (p == 0.0 || p == 100.0) {
+    Extreme<T, false> lo;
+    Extreme<T, true> hi;
+    for (int k = 0; k < len; ++k) {
+      const T v = slot_value(se, win, k);
+      lo.add(v, win.weight(k));
+      hi.add(v, win.weight(k));
+    }
+    return p == 0.0 ? lo.result() : hi.result();
+  }
+  const Interpolation<T> at(n_valid, w, p);
+  T lower = qnan<T>(), upper = qnan<T>();
+  for (int k = 0; k < len; ++k) {
+    const T vk = slot_value(se, win, k);
+    const T key = is_valid(vk) ? vk : pos_inf<T>();
+    int r = 0;
+    for (int j = 0; j < len; ++j) {
+      const T vj = slot_value(se, win, j);
+      const T other = is_valid(vj) ? vj : pos_inf<T>();
+      r += (other < key || (other == key && j < k)) ? 1 : 0;
+    }
+    if (r == at.lo) lower = key;
+    if (r == at.hi) upper = key;
+  }
+  return at(lower, upper);
+}
+
+// The mode of a window of any length, by the counting walk.
+template <typename T, typename W>
+__device__ __forceinline__ T mode_walk(const T* __restrict__ se, const W& win, int len) {
+  ModeBest<T> best;
+  for (int k = 0; k < len; ++k) {
+    const T vk = slot_value(se, win, k);
+    if (!is_valid(vk)) {
+      best.invalid();
+      continue;
+    }
+    T total = 0;
+    for (int j = 0; j < len; ++j) total += slot_value(se, win, j) == vk ? win.weight(j) : (T)0;
+    best.add(vk, win.weight(k), total);
+  }
+  return best.result();
+}
+
+// Block (S * G warps) for the tile of targets [32 G blockIdx.x, ...), in
+// the layout of TileWindow.  K: register slots; windows of more than K
+// slots take the walk.  The launch bounds name the blocks per SM: given
+// only the block size, ptxas spills registers to fit one more block (at
+// 40, 64, 80 or 128 registers).  float32 windows of up to 16 slots fit
+// 64 registers without spilling, so 4 blocks of 256 threads share an SM;
+// the wider arrays take up to 255 registers in one block.
+template <typename T, bool MODE, int K, bool STAGED>
+__global__ void __launch_bounds__(kThreads, (sizeof(T) == 4 && K <= 16) ? 4 : 1)
+window_select_kernel(const T* __restrict__ src, const int32_t* __restrict__ idx,
+                     const T* __restrict__ wts, T* __restrict__ out, int n, int m, int w,
+                     int E, int slice_warps, int target_warps, double p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TileWindow<T, STAGED> win(smem, idx, wts, n, w, target_warps);
+  if (win.t >= n) return;
+  const int len = win.length(w);
+  // Percentiles gate on the raw maximum weight over all w slots, which
+  // holds for every slice.
+  bool gate = true;
+  if constexpr (!MODE) {
+    T wraw = -pos_inf<T>();
+    for (int k = 0; k < w; ++k) {
+      const T wk = win.weight(k);
+      wraw = wk > wraw ? wk : wraw;
+    }
+    gate = wraw > (T)0;
+  }
+  for (int e = win.s; e < E; e += slice_warps) {
+    const T* se = src + (int64_t)e * m;
+    T result = qnan<T>();
+    if constexpr (MODE) {
+      result = len <= K ? mode_registers<T, K>(se, win, len) : mode_walk<T>(se, win, len);
+    } else if (gate) {
+      result = len <= K ? percentile_registers<T, K>(se, win, len, w, p)
+                        : percentile_walk<T>(se, win, len, w, p);
+    }
+    out[(int64_t)e * n + win.t] = result;
+  }
+}
+
+template <typename T, bool MODE, int K>
+void launch_slots(unsigned blocks, int threads, size_t bytes, cudaStream_t stream, const T* s,
+                  const int32_t* i, const T* wt, T* o, int n, int m, int w, int E, int sw, int tw,
+                  double p) {
+  if (bytes > 0) {
+    window_select_kernel<T, MODE, K, true><<<blocks, threads, bytes, stream>>>(s, i, wt, o, n, m, w, E, sw, tw, p);
+  } else {
+    window_select_kernel<T, MODE, K, false><<<blocks, threads, 0, stream>>>(s, i, wt, o, n, m, w, E, sw, tw, p);
+  }
 }
 
 template <typename T, bool MODE>
-cudaError_t launch_select(const void* srcT, const void* idx, const void* wts, void* out,
-                          int64_t n, int w, int E, double p, cudaStream_t stream) {
-  unsigned blocks;
-  if (!grid_size(n * (int64_t)E, &blocks)) return cudaErrorInvalidConfiguration;
-  window_select_kernel<T, MODE><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(srcT), static_cast<const int32_t*>(idx),
-      static_cast<const T*>(wts), static_cast<T*>(out), n, w, E, p);
+cudaError_t launch_select(const void* src, const void* idx, const void* wts, void* out, int n,
+                          int m, int w, int E, int slice_warps, int target_warps, int staged,
+                          int slots, double p, cudaStream_t stream) {
+  const int warps = slice_warps * target_warps;
+  if (n <= 0 || w < 0 || E <= 0 || slice_warps <= 0 || target_warps <= 0 ||
+      32 * warps > kThreads) {
+    return cudaErrorInvalidValue;
+  }
+  const int tile = 32 * target_warps;
+  const unsigned blocks = (unsigned)(((int64_t)n + tile - 1) / tile);
+  const size_t bytes = staged ? (size_t)(tile + 1) * w * (sizeof(T) + sizeof(int32_t)) : 0;
+  if (bytes > kStageBytes) return cudaErrorInvalidValue;
+  const T* s = static_cast<const T*>(src);
+  const int32_t* i = static_cast<const int32_t*>(idx);
+  const T* wt = static_cast<const T*>(wts);
+  T* o = static_cast<T*>(out);
+  const int threads = 32 * warps;
+  switch (slots) {
+    case 8: launch_slots<T, MODE, 8>(blocks, threads, bytes, stream, s, i, wt, o, n, m, w, E, slice_warps, target_warps, p); break;
+    case 16: launch_slots<T, MODE, 16>(blocks, threads, bytes, stream, s, i, wt, o, n, m, w, E, slice_warps, target_warps, p); break;
+    case 32: launch_slots<T, MODE, 32>(blocks, threads, bytes, stream, s, i, wt, o, n, m, w, E, slice_warps, target_warps, p); break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_select(int mode, const void* srcT, const void* idx, const void* wts,
-                            void* out, int64_t n, int w, int E, double p,
-                            cudaStream_t stream) {
-  if (mode == 1) return launch_select<T, true>(srcT, idx, wts, out, n, w, E, p, stream);
-  if (mode == 0) return launch_select<T, false>(srcT, idx, wts, out, n, w, E, p, stream);
+cudaError_t dispatch_select(int mode, const void* src, const void* idx, const void* wts,
+                            void* out, int n, int m, int w, int E, int sw, int tw, int st,
+                            int slots, double p, cudaStream_t stream) {
+  if (mode == 1) return launch_select<T, true>(src, idx, wts, out, n, m, w, E, sw, tw, st, slots, p, stream);
+  if (mode == 0) return launch_select<T, false>(src, idx, wts, out, n, m, w, E, sw, tw, st, slots, p, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace xt
 
 // dtype: 0 float32, 1 float64.  mode: 1 for the mode, 0 for the p-th
-// percentile.  srcT (m, E), idx and wts (n, w), out (n, E), all
-// contiguous on the current device.  Returns the launch's
-// cudaGetLastError().
-extern "C" int xt_window_select(int dtype, int mode, double p, const void* srcT,
-                                const void* idx, const void* wts, void* out, int64_t n,
-                                int32_t w, int32_t E, void* stream) {
+// percentile.  src (E, m), idx and wts (n, w), out (E, n), all contiguous
+// on the current device.  slice_warps S, target_warps G and staged as for
+// xt_window_reduce; slots K: 8, 16 or 32 register slots.  Returns the
+// launch's cudaGetLastError().
+extern "C" int xt_window_select(int dtype, int mode, double p, const void* src, const void* idx,
+                                const void* wts, void* out, int32_t n, int32_t m, int32_t w,
+                                int32_t E, int32_t slice_warps, int32_t target_warps,
+                                int32_t staged, int32_t slots, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)xt::dispatch_select<float>(mode, srcT, idx, wts, out, n, w, E, p, s);
-  if (dtype == 1) return (int)xt::dispatch_select<double>(mode, srcT, idx, wts, out, n, w, E, p, s);
+  if (dtype == 0) {
+    return (int)xt::dispatch_select<float>(mode, src, idx, wts, out, n, m, w, E, slice_warps,
+                                           target_warps, staged, slots, p, s);
+  }
+  if (dtype == 1) {
+    return (int)xt::dispatch_select<double>(mode, src, idx, wts, out, n, m, w, E, slice_warps,
+                                            target_warps, staged, slots, p, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -19,7 +19,7 @@ Each wrapper launches its kernel for CUDA tensors and raises on what it
 does not take; for CPU tensors it runs the plain PyTorch version
 (``reduce.reduce_windows``, ``csr_matvec_plain``).  ``window_reduce.
 launches`` and ``csr_matvec.launches`` count kernel launches.
-``reduce_lanes`` picks window_reduce's block shape.
+``reduce_lanes`` picks the block shape of both window kernels.
 """
 
 from __future__ import annotations
@@ -45,8 +45,8 @@ METHOD_CODES = {
 #: kernel dtype codes (csrc/*.cu): the kernels are instantiated for these.
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
-#: Shared memory a window_reduce block may stage its windows in
-#: (``kStageBytes`` in csrc/window_reduce.cu): the default limit, so no
+#: Shared memory a window-kernel block may stage its windows in
+#: (``kStageBytes`` in csrc/window_common.cuh): the default limit, so no
 #: launch has to opt in to more.
 STAGE_BYTES = 48 * 1024
 
@@ -60,8 +60,8 @@ _SIGNATURES = {
     "xt_window_reduce": (ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 4, *[ctypes.c_int32] * 7, ctypes.c_void_p),
     "xt_csr_matvec": (ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int32] * 2, ctypes.c_void_p),
     "xt_window_select": (
-        ctypes.c_int, ctypes.c_int, ctypes.c_double, *[ctypes.c_void_p] * 4,
-        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_double, *[ctypes.c_void_p] * 4, *[ctypes.c_int32] * 8,
+        ctypes.c_void_p,
     ),
 }
 
@@ -102,32 +102,33 @@ def check_kernel_args(source, indices, weights):
 
 
 def stage_bytes(target_warps: int, w: int, itemsize: int) -> int:
-    """Shared memory of a window_reduce tile of 32 * target_warps
+    """Shared memory of a window-kernel tile of 32 * target_warps
     targets: (tile + 1) rows of w slots of a weight and an int32 index."""
     return (32 * target_warps + 1) * w * (itemsize + 4)
 
 
-def reduce_lanes(E: int, w: int, itemsize: int) -> tuple[int, int, bool]:
+def reduce_lanes(E: int, w: int, itemsize: int, batch: int = 4) -> tuple[int, int, bool]:
     """
-    window_reduce's block for E slices and windows of w slots of
+    The block of a window kernel for E slices and windows of w slots of
     ``itemsize``-byte values: (slice warps S, target warps G, staged).
 
     The block's S * G <= 8 warps share a tile of 32 * G targets; warp
-    (g, s) walks slices s, s + S, ..., up to 4 of them per pass over the
-    window.  S is the least power of two, at most 8, that leaves a warp
-    at most 32 slices: one warp walks a short stack alone, and a deep
-    stack spreads over more, smaller tiles.  The windows are staged in
-    shared memory when a warp walks them more than once (E > 4 S) and
-    the tile fits ``STAGE_BYTES`` (G halving until it does); otherwise
-    they are read in place with G = 8 // S.
+    (g, s) walks slices s, s + S, ..., ``batch`` of them per pass over
+    the window (window_reduce 4, window_select 1).  S is the least power
+    of two, at most 8, that leaves a warp at most 8 passes over its
+    windows (8 * batch slices): one warp walks a short stack alone, and
+    a deep stack spreads over more, smaller tiles.  The windows are
+    staged in shared memory when a warp walks them more than once (E >
+    batch * S) and the tile fits ``STAGE_BYTES`` (G halving until it
+    does); otherwise they are read in place with G = 8 // S.
     """
     S = 1
-    while S < 8 and S * 32 < E:
+    while S < 8 and S * 8 * batch < E:
         S *= 2
     G = 8 // S
     while G > 1 and stage_bytes(G, w, itemsize) > STAGE_BYTES:
         G //= 2
-    if E <= 4 * S or stage_bytes(G, w, itemsize) > STAGE_BYTES:
+    if E <= batch * S or stage_bytes(G, w, itemsize) > STAGE_BYTES:
         return S, 8 // S, False
     return S, G, True
 

@@ -2,12 +2,13 @@
 The regrid apply: weights x source values -> target values.
 
 The source is flattened to (E, m), the extra (time/layer) slices
-major, as the caller holds it.  The eight ``window_reduce`` methods take
-it so, in one kernel launch with no copy of a contiguous source.
-``window_select`` and custom reductions take a slice-minor copy, (m,
-E).  Built-in reductions go to the Hopper kernels for a CUDA source, or
-to their plain PyTorch version for a CPU source; a custom reduction runs
-the plain window path on either device.
+major, as the caller holds it.  Both kernels take it so, the eight
+``window_reduce`` methods and ``window_select``'s mode and percentiles,
+in one kernel launch with no copy of a contiguous source; only custom
+reductions take a slice-minor copy, (m, E).  Built-in reductions go to
+the Hopper kernels for a CUDA source, or to their plain PyTorch version
+for a CPU source; a custom reduction runs the plain window path on
+either device.  The result is contiguous.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def apply_weights(
     Apply regridding weights over the flattened source.
 
     source: (..., m) tensor or array; the leading dims are the extra
-    slices.  Returns (..., n_target) on the source's device.
+    slices.  Returns (..., n_target) on the source's device, contiguous.
     """
     source = torch.as_tensor(source)
     leading = tuple(source.shape[:-1])
@@ -57,9 +58,9 @@ def apply_weights(
     indices, w = device_weights(weights, source2d.dtype, source2d.device, cache)
     if reduction in METHOD_CODES:
         out = window_reduce(source2d.contiguous(), indices, w, reduction)
+    elif covers(reduction):
+        out = window_select(source2d.contiguous(), indices, w, reduction)
     else:
-        sourceT = source2d.t().contiguous()
-        select = window_select if covers(reduction) else reduce.reduce_windows
-        out = select(sourceT, indices, w, reduction).t()
-    return out.reshape(leading + (target_size,))
+        out = reduce.reduce_windows(source2d.t().contiguous(), indices, w, reduction).t()
+    return out.reshape(leading + (target_size,)).contiguous()
 

@@ -3,8 +3,13 @@ Hopper kernel #2, ``window_select`` (``csrc/window_select.cu``): the
 order statistics of the regrid apply, one pass over ``PaddedCSR``.
 
 It replaces ``xugrid_tpu/regrid/select_apply.py:gather_select_apply``
-for mode, median and any percentile (``reduce.Percentile``).  Windows
-of any width are taken, so the reference's 32-slot split plan has no
+for mode, median and any percentile (``reduce.Percentile``).  Like that
+kernel, and like ``window_reduce``, it takes the source slices-major,
+(E, m), as ``apply_weights`` holds it, in window_reduce's tile layout
+(``aligned_apply.reduce_lanes`` with one slice per window read).  Each
+thread ranks its window in ``register_slots(w)`` registers; longer
+windows take a counting walk in the same launch, so windows of any
+width are taken and the reference's 32-slot split plan has no
 counterpart.
 
 ``window_select`` launches the kernel for CUDA tensors and raises on
@@ -18,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.aligned_apply import DTYPE_CODES, check_kernel_args, kernel_function
+from xugrid_tpu_torch.regrid.aligned_apply import DTYPE_CODES, check_kernel_args, kernel_function, reduce_lanes
 
 
 def covers(reduction) -> bool:
@@ -26,28 +31,39 @@ def covers(reduction) -> bool:
     return reduction is reduce.mode or isinstance(reduction, reduce.Percentile)
 
 
-def window_select(sourceT: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor, reduction) -> torch.Tensor:
+def register_slots(w: int) -> int:
+    """The kernel's register array K for windows of w slots: the least
+    of 8, 16 and 32 that holds w, else 32 (longer windows walk)."""
+    for K in (8, 16):
+        if w <= K:
+            return K
+    return 32
+
+
+def window_select(source: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor, reduction) -> torch.Tensor:
     """
     Mode or percentile over every target's window.
 
-    sourceT: (m, E) source values, extra slices on the minor axis.
+    source: (E, m) source values, slices major.
     indices: (n, w) int32, -1 padded.  weights: (n, w), 0 padded.
-    Returns (n, E).
+    Returns (E, n) (contiguous on the card).
     """
     if not covers(reduction):
         raise ValueError(f"window_select does not cover {reduction!r}")
-    if sourceT.device.type == "cpu":
-        return reduce.reduce_windows(sourceT, indices, weights, reduction)
-    check_kernel_args(sourceT, indices, weights)
-    out = torch.empty((indices.shape[0], sourceT.shape[1]), dtype=sourceT.dtype, device=sourceT.device)
+    if source.device.type == "cpu":
+        return reduce.reduce_windows(source.t(), indices, weights, reduction).t()
+    check_kernel_args(source, indices, weights)
+    (E, m), (n, w) = source.shape, indices.shape
+    out = torch.empty((E, n), dtype=source.dtype, device=source.device)
     if out.numel() == 0:
         return out
+    slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size(), batch=1)
     is_mode = reduction is reduce.mode
     err = kernel_function("xt_window_select")(
-        DTYPE_CODES[sourceT.dtype], 1 if is_mode else 0, 0.0 if is_mode else float(reduction.p),
-        sourceT.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        indices.shape[0], indices.shape[1], sourceT.shape[1],
-        torch.cuda.current_stream(sourceT.device).cuda_stream,
+        DTYPE_CODES[source.dtype], 1 if is_mode else 0, 0.0 if is_mode else float(reduction.p),
+        source.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
+        n, m, w, E, slice_warps, target_warps, int(staged), register_slots(w),
+        torch.cuda.current_stream(source.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"window_select launch failed with CUDA error {err}")

@@ -3,7 +3,8 @@ Builds the port's native code into ``xugrid_tpu_torch/_build`` (listed
 in ``.gitignore``) on first use:
 
 * the Hopper kernels, ``xugrid_tpu_torch/csrc/*.cu``, with nvcc for
-  ``sm_90a`` into one shared library with a plain C interface, loaded
+  ``sm_90a`` (one process per source, in parallel) into one shared
+  library with a plain C interface, loaded
   with ctypes (pointers and the stream pass as ``c_void_p``; every
   entry point returns ``cudaGetLastError()`` so the wrapper can raise);
 * the host library ``csrc/host_kernels.cpp`` (see ``utils/native.py``).
@@ -43,10 +44,12 @@ _kernel_lib = None
 def compile_shared(
     command: Sequence[str], sources: Sequence[Path], stem: str, headers: Sequence[Path] = ()
 ) -> Path:
-    """Compile ``sources`` with ``command`` into a shared library under
-    BUILD_DIR, unless a build of the same sources, ``headers`` and flags
-    exists.  The compiler's output goes to ``BUILD_DIR/<stem>.log``.
-    Raises RuntimeError when the compiler fails."""
+    """Compile ``sources`` with ``command`` (which holds ``-shared``) into
+    a shared library under BUILD_DIR, unless a build of the same sources,
+    ``headers`` and flags exists.  Each source is compiled by its own
+    process, all started together, into an object (``-c``) that one more
+    call links.  The compilers' output goes to ``BUILD_DIR/<stem>.log``.
+    Raises RuntimeError when a step fails."""
     digest = hashlib.blake2b(" ".join(command).encode(), digest_size=8)
     for source in [*sources, *headers]:
         digest.update(source.read_bytes())
@@ -55,17 +58,38 @@ def compile_shared(
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp_path = lib_path.with_name(f"{lib_path.name}.tmp{os.getpid()}")
-    cmd = [*command, *map(str, sources), "-o", str(tmp_path)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    (BUILD_DIR / f"{stem}.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        tmp_path.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"building {stem} failed (exit {proc.returncode}):\n{proc.stderr}"
-        )
-    os.replace(tmp_path, lib_path)
+    objects = [tmp_path.with_name(f"{tmp_path.name}.{i}.o") for i in range(len(sources))]
+    compile_only = [arg for arg in command if arg != "-shared"]
+    stages = [
+        [[*compile_only, "-c", str(s), "-o", str(o)] for s, o in zip(sources, objects)],
+        [[*command, *map(str, objects), "-o", str(tmp_path)]],
+    ]
+    log = []
+    try:
+        for stage in stages:
+            procs = [
+                subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for cmd in stage
+            ]
+            failed = None
+            try:
+                for cmd, proc in zip(stage, procs):
+                    out, _ = proc.communicate(timeout=900)
+                    log.append(" ".join(cmd) + "\n" + out)
+                    if proc.returncode != 0 and failed is None:
+                        failed = (proc.returncode, out)
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            if failed is not None:
+                raise RuntimeError(f"building {stem} failed (exit {failed[0]}):\n{failed[1]}")
+        os.replace(tmp_path, lib_path)
+    finally:
+        (BUILD_DIR / f"{stem}.log").write_text("".join(log))
+        for path in [tmp_path, *objects]:
+            path.unlink(missing_ok=True)
     return lib_path
 
 
