@@ -59,6 +59,25 @@ With no argument it runs these phases:
    solves' wall, device and host seconds, the host split by stage
    (content hash, system preparation, right-hand sides, scatter); a
    profiler trace of one degree-4 solve.
+7. The other regridders at phase 3's 1M config (its meshes and data):
+   ``CentroidLocatorRegridder`` mesh -> raster launches no kernel and
+   equals numpy's ``out[:, row] = data[:, col]`` bit for bit;
+   ``BarycentricInterpolator`` mesh -> raster (262,144 points located in
+   the 1M mesh's tessellation) and raster -> mesh (1,000,000 points in
+   the raster's) launches only window_reduce, matches the plain version
+   and a scipy CSR product, its weight rows sum to 1 within 1e-12, a
+   linear field 2x + 3y + 1 comes back within rtol 1e-9 two source cells
+   inside the boundary, and the weights built with the tessellation's
+   angle sort on the card equal those sorted on the host (triplets
+   sorted by (target, source): indices equal, weights rtol 1e-12);
+   ``NetworkGridder`` grids 100 random-walk polylines of 1,000 segments
+   (100,000 edges, 0.5-1.5 long) onto the 1M mesh, mean through
+   window_reduce and mode through window_select, each held to its plain
+   version and to phase 3's host references.  Prints each weight build's
+   host stages (``timings.summary()``: the voronoi angle sort and both
+   point locations apart), the weights' nnz and w_max, and phase 4's
+   apply times at E = 1, 20 and 128 for the barycentric and network
+   weights.
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
@@ -119,6 +138,29 @@ def bench_meshes(n_side, t_side, rng):
     verts = verts + jitter
     tverts, tfaces = quad_mesh(t_side, t_side, dx=n_side / t_side)
     return (verts, faces), (tverts, tfaces)
+
+
+def random_network(n_lines, n_segments, extent, rng):
+    """``n_lines`` random-walk polylines of ``n_segments`` segments each,
+    every segment 0.5 to 1.5 long, inside [0, extent]^2: the heading
+    drifts by a normal step of 0.3 rad per segment and turns back where
+    a step would leave the domain.  Returns (nodes (n, 2), edges (e, 2))."""
+    pos = rng.uniform(0.05 * extent, 0.95 * extent, (n_lines, 2))
+    heading = rng.uniform(-np.pi, np.pi, n_lines)
+    nodes = [pos]
+    for _ in range(n_segments):
+        heading = heading + rng.normal(0.0, 0.3, n_lines)
+        step = rng.uniform(0.5, 1.5, n_lines)
+        nxt = pos + step[:, None] * np.column_stack([np.cos(heading), np.sin(heading)])
+        out = ((nxt < 0.0) | (nxt > extent)).any(axis=1)
+        heading = np.where(out, heading + np.pi, heading)
+        nxt = np.where(out[:, None], pos - (nxt - pos), nxt)
+        pos = np.clip(nxt, 0.0, extent)
+        nodes.append(pos)
+    nodes = np.stack(nodes, axis=1)  # (n_lines, n_segments + 1, 2)
+    first = np.arange(n_lines)[:, None] * (n_segments + 1) + np.arange(n_segments)[None, :]
+    edges = np.stack([first, first + 1], axis=-1).reshape(-1, 2)
+    return nodes.reshape(-1, 2), edges
 
 
 def delaunay_mesh(n_side, seed=11):
@@ -566,7 +608,7 @@ def phase_main_path(device):
             f"(launches +{rose[name]}); vs plain max |diff| {err:.3e}; vs host reference "
             f"max |diff| {ref_err:.3e}; finite {finite:.6f}; checksum {checksum!r}"
         )
-    return counts, max_err, results
+    return counts, max_err, results, ((verts, faces), (tverts, tfaces), data)
 
 
 def cuda_time_ms(fn, reps=10, warmup=2, inner=10):
@@ -601,9 +643,11 @@ def bound_ms(true_bytes, operations, dtype_name, copy_gbps):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def phase_timing(device, results, card):
+def phase_timing(device, results, card, title="phase 4"):
     """Phase 4: kernel, plain and apply-pass times at the 1M config,
-    each pass one launch on the (E, m) source.  The yardstick
+    each pass one launch on the (E, m) source.  ``results`` holds
+    (class, label, kernel, regridder, ...) per regridder; the times are
+    keyed by (label, E).  The yardstick
     ``library_ms``: for the sum-kind methods ``torch.sparse.mm`` of the
     weight matrix with the staged (m, E) copy, which computes the same
     sums; for the median ``torch.nanquantile`` over the pre-gathered
@@ -621,7 +665,7 @@ def phase_timing(device, results, card):
     copy_ms = cuda_time_ms(lambda: dst.copy_(buf))
     copy_gbps = 2 * buf.numel() * 4 / (copy_ms * 1e-3) / 1e9
     del buf, dst
-    print(f"phase 4 [{card}]: device copy {copy_gbps:.1f} GB/s (1 GiB copy_, {copy_ms:.4f} ms)")
+    print(f"{title} [{card}]: device copy {copy_gbps:.1f} GB/s (1 GiB copy_, {copy_ms:.4f} ms)")
     rng = np.random.default_rng(0)
     timed = {}
     for cls, method, kernel, regridder, *_ in results:
@@ -1105,6 +1149,206 @@ def phase_compare(device, card, label):
             time_line(label, f"csr_matvec {str(dtype)[6:]} E={E}", run, "csr_matvec", card)
 
 
+#: Phase 7's network: random-walk polylines x segments, on the 1M mesh.
+NETWORK_LINES, NETWORK_SEGMENTS = 100, 1000
+
+
+def sorted_triplets(csr):
+    """(target, source, weight) of a CSR weight matrix, sorted by (target,
+    source)."""
+    rows = np.repeat(np.arange(csr.n), np.diff(csr.indptr))
+    order = np.lexsort((csr.indices, rows))
+    return rows[order], csr.indices[order], csr.data[order]
+
+
+def build_stages(label, build_s):
+    """Print the host stages of the weight build just done
+    (``timings.summary()``, reset before the build)."""
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    stages = "; ".join(
+        f"{name} {rec['total_s']:.3f} s x{rec['count']}" for name, rec in timings.summary().items()
+    )
+    print(f"  {label} weight build {build_s:.3f} s; host stages: {stages}")
+
+
+def check_apply(label, regridder, source, out, kernel, rose, scale, reference):
+    """An apply of ``regridder`` on the (E, m) ``source``: only ``kernel``
+    launched, the output against the plain version on the card
+    (``window_select`` bit for bit) and against ``reference`` (host) at
+    float32 tolerances.  Returns the largest |kernel - plain|."""
+    import torch
+
+    from xugrid_tpu_torch.regrid import reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import window_reduce
+    from xugrid_tpu_torch.regrid.apply import device_weights
+
+    name = kernel.__name__
+    if rose[name] != 1 or sum(rose.values()) != 1:
+        raise AssertionError(f"{label}: expected one launch of {name}, counters rose by {rose}")
+    idx, w = device_weights(regridder._padded, source.dtype, source.device, regridder._device_weights)
+    plain = reduce.reduce_windows(source.t().contiguous(), idx, w, regridder._reduction).t()
+    rtol, atol = tolerance(source.dtype, scale)
+    bound = atol
+    if kernel is window_reduce:
+        bound = torch.clamp(summation_bound(source, idx, w, regridder._reduction), min=atol)
+    err = compare(out, plain, kernel is not window_reduce, rtol, bound)
+    got, want = reference(out.double().cpu().numpy())
+    ref_err = compare(torch.from_numpy(got), torch.from_numpy(want), False, 1e-5, 1e-6 * scale)
+    finite = float(torch.isfinite(out).double().mean())
+    print(
+        f"  {label}: {name} +1 launch; vs plain max |diff| {err:.3e}; vs host reference max |diff| "
+        f"{ref_err:.3e}; finite {finite:.6f}; nnz {regridder._weights.nnz}, w_max {regridder._padded.w_max}"
+    )
+    return err
+
+
+def phase_regridders(device, card, inputs):
+    """Phase 7: CentroidLocatorRegridder (mesh -> raster),
+    BarycentricInterpolator (both directions) and NetworkGridder (mean,
+    mode) at the 1M config, through their entry points on the card, with
+    the launch counters, checks and times described in the module
+    docstring.  Returns (launch counts, largest |kernel - plain| per
+    kernel, apply times keyed by (label, E))."""
+    import torch
+    from scipy.sparse import csr_matrix
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    (verts, faces), (tverts, tfaces), mesh_data = inputs
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    raster = xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)
+    rng = np.random.default_rng(17)
+    raster_data = rng.normal(size=(N_EXTRA, raster.n_face)).astype(np.float32)
+    raster_data[rng.random(raster_data.shape) < 0.01] = np.nan
+    data = {"mesh": mesh_data, "raster": raster_data}
+    grids = {"mesh": mesh, "raster": raster}
+    cell = {"mesh": 1.0, "raster": N_SIDE / T_SIDE}
+    print(f"phase 7: meshes {mesh.n_face} and {raster.n_face} faces, {N_EXTRA} float32 slices with 1 % NaN")
+    kernels = (window_reduce, window_select, csr_matvec)
+    for k in kernels:
+        k.launches = 0
+    max_err = {"window_reduce": 0.0, "window_select": 0.0}
+    timing_runs = []
+
+    def run(regridder, source):
+        before = {k.__name__: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        out = regridder.regrid(source)
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches - before[k.__name__] for k in kernels}, time.perf_counter() - t0
+
+    # CentroidLocatorRegridder: a row gather, no kernel.
+    timings.reset()
+    t0 = time.perf_counter()
+    centroid = xt.CentroidLocatorRegridder(mesh, raster)
+    build_stages("CentroidLocatorRegridder mesh -> raster", time.perf_counter() - t0)
+    source = torch.from_numpy(mesh_data).to(device)
+    out, rose, apply_s = run(centroid, source)
+    if any(rose.values()):
+        raise AssertionError(f"CentroidLocatorRegridder launched kernels: {rose}")
+    w = centroid._weights
+    want = np.full((N_EXTRA, raster.n_face), np.nan, dtype=np.float32)
+    want[:, w.row] = mesh_data[:, w.col]
+    compare(out, torch.from_numpy(want), True, 0.0, 0.0)
+    gather_ms = cuda_time_ms(lambda: centroid.regrid(source))
+    gather_bytes = 4 * N_EXTRA * (w.nnz + raster.n_face) + 16 * w.nnz
+    print(
+        f"  CentroidLocatorRegridder: {w.nnz} of {raster.n_face} targets located; no launch; bit-equal to "
+        f"numpy out[:, row] = data[:, col]; apply {apply_s:.4f} s (first call), {gather_ms:.6f} ms back to "
+        f"back, true bytes {gather_bytes} [{card}]"
+    )
+
+    # BarycentricInterpolator, both directions.
+    for src, tgt in (("mesh", "raster"), ("raster", "mesh")):
+        label = f"BarycentricInterpolator {src} -> {tgt}"
+        timings.reset()
+        t0 = time.perf_counter()
+        regridder = xt.BarycentricInterpolator(grids[src], grids[tgt])
+        build_stages(f"{label} (angle sort on the card)", time.perf_counter() - t0)
+        timings.reset()
+        t0 = time.perf_counter()
+        on_host = xt.BarycentricInterpolator(grids[src], grids[tgt], device="cpu")
+        build_stages(f"{label} (angle sort on the host)", time.perf_counter() - t0)
+        (r1, c1, w1), (r2, c2, w2) = sorted_triplets(regridder._weights), sorted_triplets(on_host._weights)
+        if not (np.array_equal(r1, r2) and np.array_equal(c1, c2)):
+            raise AssertionError(f"{label}: card- and host-sorted weights differ in their indices")
+        weight_diff = float(np.max(np.abs(w1 - w2) / np.abs(w2))) if len(w2) else 0.0
+        if weight_diff > 1e-12:
+            raise AssertionError(f"{label}: card- and host-sorted weights differ by rtol {weight_diff:.3e}")
+        csr = regridder._weights
+        rows = np.diff(csr.indptr) > 0
+        sums = np.add.reduceat(csr.data, csr.indptr[:-1][rows]) if rows.any() else np.zeros(0)
+        row_err = float(np.abs(sums - 1.0).max())
+        if row_err > 1e-12:
+            raise AssertionError(f"{label}: a weight row sums to 1 + {row_err:.3e}")
+        print(
+            f"  {label}: weights nnz {csr.nnz}, w_max {regridder._padded.w_max}, {int(rows.sum())} of {csr.n} "
+            f"targets weighted; card- and host-sorted triplets equal (weights within rtol {weight_diff:.3e}); "
+            f"rows sum to 1 within {row_err:.3e}"
+        )
+        source = torch.from_numpy(data[src]).to(device)
+        out, rose, apply_s = run(regridder, source)
+        W = csr_matrix((csr.data, csr.indices, csr.indptr), shape=(csr.n, csr.m))
+        err = check_apply(
+            label, regridder, source, out, window_reduce, rose, float(np.nanmax(np.abs(data[src]))),
+            lambda got, csr=csr: (got, reference_linear(csr, data[src], relative=False)),
+        )
+        max_err["window_reduce"] = max(max_err["window_reduce"], err)
+        # A linear field comes back exact at targets two source cells
+        # inside the boundary.
+        field = lambda c: 2.0 * c[:, 0] + 3.0 * c[:, 1] + 1.0  # noqa: E731
+        linear = torch.from_numpy(field(grids[src].centroids)[None, :]).to(device)
+        got = regridder.regrid(linear)[0].cpu().numpy()
+        c = grids[tgt].centroids
+        margin = 2.0 * cell[src]
+        inner = ((c > margin) & (c < N_SIDE - margin)).all(axis=1)
+        rel = np.abs(got[inner] - field(c)[inner]) / np.abs(field(c)[inner])
+        if not np.isfinite(rel).all() or rel.max() > 1e-9:
+            raise AssertionError(f"{label}: linear field off by rtol {np.nanmax(rel):.3e}")
+        print(f"  {label}: linear field 2x + 3y + 1 exact within rtol {rel.max():.3e} at {int(inner.sum())} inner targets")
+        timing_runs.append((xt.BarycentricInterpolator, f"barycentric {src}->{tgt}", window_reduce, regridder))
+
+    # NetworkGridder: random-walk polylines onto the 1M mesh.
+    t0 = time.perf_counter()
+    nodes, edges = random_network(NETWORK_LINES, NETWORK_SEGMENTS, float(N_SIDE), rng)
+    network = xt.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges)
+    values = (np.round(rng.normal(size=(N_EXTRA, network.n_edge)) * 2.0) / 2.0).astype(np.float32)
+    values[rng.random(values.shape) < 0.01] = np.nan
+    source = torch.from_numpy(values).to(device)
+    print(
+        f"  network: {network.n_edge} edges in {NETWORK_LINES} polylines, length {network.edge_length.sum():.1f}, "
+        f"made in {time.perf_counter() - t0:.3f} s"
+    )
+    for method, kernel in (("mean", window_reduce), ("mode", window_select)):
+        label = f"NetworkGridder({method})"
+        timings.reset()
+        t0 = time.perf_counter()
+        gridder = xt.NetworkGridder(network, mesh, method=method)
+        build_stages(label, time.perf_counter() - t0)
+        out, rose, apply_s = run(gridder, source)
+        csr = gridder._weights
+        if method == "mean":
+            reference = lambda got, csr=csr: (got, reference_linear(csr, values, relative=False))  # noqa: E731
+        else:
+            weighted = np.flatnonzero(np.diff(csr.indptr) > 0)
+            sample = np.sort(rng.choice(weighted, size=min(400, len(weighted)), replace=False))
+            reference = lambda got, csr=csr, sample=sample: (  # noqa: E731
+                got[:, sample], reference_select(csr, values, sample, "mode")
+            )
+        err = check_apply(label, gridder, source, out, kernel, rose, float(np.nanmax(np.abs(values))), reference)
+        max_err[kernel.__name__] = max(max_err[kernel.__name__], err)
+        timing_runs.append((xt.NetworkGridder, f"network {method}", kernel, gridder))
+    counts = {k.__name__: k.launches for k in kernels}
+    if counts["csr_matvec"] or not counts["window_reduce"] or not counts["window_select"]:
+        raise AssertionError(f"phase 7 launched {counts}")
+    timed, _ = phase_timing(device, timing_runs, card, title="phase 7 apply times")
+    return counts, max_err, timed
+
+
 def main() -> int:
     import torch
 
@@ -1125,29 +1369,38 @@ def main() -> int:
     check_select_registers(log)
     check_err = phase_kernel_checks(device)
     check_err["csr_matvec"] = phase_matvec_checks(device)
-    counts, main_err, results = phase_main_path(device)
+    counts, main_err, results, inputs = phase_main_path(device)
     timed, copy_gbps = phase_timing(device, results, card)
     laplace_counts, _, meshes = phase_laplace(device)
     matvec_timed = phase_laplace_timing(device, card, copy_gbps, meshes)
     main_matvec = matvec_timed[("float64", 1)]
+    regrid_counts, regrid_err, _ = phase_regridders(device, card, inputs)
+
+    def window_entry(name, timed_at):
+        """A window kernel's line: launches summed over the paths that
+        launch it (each counted from 0 over its own run)."""
+        by_path = {"overlap regridders (phase 3)": counts[name], "phase 7 regridders": regrid_counts[name]}
+        return {
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(check_err[name], main_err[name], regrid_err[name]),
+            **timed_at,
+        }
+
     kernels = [
         {
             "name": "window_reduce",
             "route": "cuda",
             "source": "xugrid_tpu_torch/csrc/window_reduce.cu",
             "replaces": "xugrid_tpu/regrid/aligned_apply.py:1271",
-            "launches": counts["window_reduce"],
-            "max_abs_err": max(check_err["window_reduce"], main_err["window_reduce"]),
-            **timed[("mean", N_EXTRA)],
+            **window_entry("window_reduce", timed[("mean", N_EXTRA)]),
         },
         {
             "name": "window_select",
             "route": "cuda",
             "source": "xugrid_tpu_torch/csrc/window_select.cu",
             "replaces": "xugrid_tpu/regrid/select_apply.py:804",
-            "launches": counts["window_select"],
-            "max_abs_err": max(check_err["window_select"], main_err["window_select"]),
-            **timed[("median", N_EXTRA)],
+            **window_entry("window_select", timed[("median", N_EXTRA)]),
         },
         {
             "name": "csr_matvec",

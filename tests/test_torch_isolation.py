@@ -1,7 +1,9 @@
 """
 The port stands alone: in a fresh interpreter, ``import xugrid_tpu_torch``,
-a CPU regrid, a CPU Laplace fill and a CPU ``cg_solve`` load neither jax
-nor xugrid_tpu, and launch no kernel.
+a CPU regrid through each regridder (overlap, relative overlap, centroid
+locator, barycentric interpolator, network gridder), a CPU Laplace fill
+and a CPU ``cg_solve`` load neither jax nor xugrid_tpu, and launch no
+kernel.
 A subprocess is needed because the test session itself imports jax.
 
 ``chip_smoke.py`` refuses to run without a CUDA device: exit code 2 and
@@ -43,6 +45,14 @@ REGRID_ON_CPU = textwrap.dedent(
                         (xt.RelativeOverlapRegridder, "first_order_conservative")]:
         out = cls(source, target, method=method).regrid(data, device="cpu")
         assert out.shape == (2, target.n_face) and bool(torch.isfinite(out).all()), method
+    for regridder in (xt.CentroidLocatorRegridder(source, target),
+                      xt.BarycentricInterpolator(source, target, device="cpu")):
+        out = regridder.regrid(data, device="cpu")
+        assert out.shape == (2, target.n_face) and bool(torch.isfinite(out).all())
+    network = xt.Ugrid1d([0.5, 6.0, 11.5], [0.5, 7.0, 3.0], -1, np.array([[0, 1], [1, 2]]))
+    for method in ("mean", "mode"):
+        out = xt.NetworkGridder(network, source, method=method).regrid(data[:, :2], device="cpu")
+        assert out.shape == (2, source.n_face) and int(torch.isfinite(out).sum()) > 0
     W = source.get_connectivity_matrix(source.node_dimension, xy_weights=True)
     values = np.where(np.arange(source.n_node) % 7 == 0, 1.0 + np.arange(source.n_node), np.nan)
     filled = interpolate.laplace_interpolate(values, W, device="cpu")

@@ -145,6 +145,68 @@ def test_regrid_on_cuda_matches_cpu(device):
         assert regridder.regrid(data.numpy()).device == device
 
 
+def launch_counts():
+    return window_reduce.launches, window_select.launches, csr_matvec.launches
+
+
+def test_new_regridders_on_cuda_match_cpu(device):
+    """CentroidLocatorRegridder launches no kernel and gathers the same
+    bits; BarycentricInterpolator sorts its tessellation on the card into
+    the same weights and launches only window_reduce; NetworkGridder's
+    mean launches window_reduce and its mode window_select."""
+    rng = np.random.default_rng(4)
+    (verts, faces), (tverts, tfaces) = chip_smoke.bench_meshes(150, 40, rng)
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    raster = xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)
+    data = {g: torch.from_numpy(rng.normal(size=(3, g.n_face))) for g in (mesh, raster)}
+    for source, target in ((mesh, raster), (raster, mesh)):
+        centroid = xt.CentroidLocatorRegridder(source, target)
+        before = launch_counts()
+        on_card = centroid.regrid(data[source].numpy())
+        assert on_card.device == device and launch_counts() == before
+        assert torch.equal(on_card.cpu().nan_to_num(7.0), centroid.regrid(data[source]).nan_to_num(7.0))
+        sorted_on_card = xt.BarycentricInterpolator(source, target)
+        on_host = xt.BarycentricInterpolator(source, target, device="cpu")
+        (r1, c1, w1), (r2, c2, w2) = (chip_smoke.sorted_triplets(r._weights) for r in (sorted_on_card, on_host))
+        np.testing.assert_array_equal(r1, r2)
+        np.testing.assert_array_equal(c1, c2)
+        np.testing.assert_allclose(w1, w2, rtol=1e-12, atol=0)
+        before = launch_counts()
+        out = sorted_on_card.regrid(data[source].to(device))
+        assert launch_counts() == (before[0] + 1, before[1], before[2])
+        torch.testing.assert_close(out.cpu(), on_host.regrid(data[source]), rtol=1e-12, atol=1e-12, equal_nan=True)
+    nodes, edges = chip_smoke.random_network(10, 300, 150.0, rng)
+    network = xt.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges)
+    values = torch.from_numpy(np.round(rng.normal(size=(3, len(edges))) * 2.0) / 2.0)
+    for method, rose in (("mean", (1, 0, 0)), ("mode", (0, 1, 0))):
+        gridder = xt.NetworkGridder(network, mesh, method=method)
+        before = launch_counts()
+        out = gridder.regrid(values.to(device))
+        assert tuple(a - b for a, b in zip(launch_counts(), before)) == rose
+        torch.testing.assert_close(out.cpu(), gridder.regrid(values), rtol=1e-12, atol=1e-12, equal_nan=True)
+
+
+@pytest.mark.parametrize("E", [1, 20, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_window_reduce_at_tessellation_windows(device, dtype, E):
+    """window_reduce on windows of at most 6 slots, as the barycentric
+    weights give it: at E = 20 the whole tile of 256 targets is staged,
+    a block shape the wider windows of the other tests never take."""
+    rng = np.random.default_rng(E)
+    indices, weights, mixed, _ = chip_smoke.synthetic_windows(rng, n=3001, m=2000, w=40, n_extra=E)
+    idx = torch.from_numpy(np.ascontiguousarray(indices[:, :6])).to(device)
+    wt = torch.from_numpy(np.ascontiguousarray(weights[:, :6])).to(device=device, dtype=dtype)
+    source = torch.from_numpy(mixed).to(device=device, dtype=dtype)
+    rtol, atol = chip_smoke.tolerance(dtype, float(np.nanmax(np.abs(np.where(np.isfinite(mixed), mixed, np.nan)))))
+    for fn in (reduce.mean, reduce.sum, reduce.minimum, reduce.max_overlap):
+        got = window_reduce(source, idx, wt, fn)
+        want = reduce.reduce_windows(source.t(), idx, wt, fn).t()
+        bound = atol
+        if fn in LINEAR:
+            bound = torch.clamp(chip_smoke.summation_bound(source, idx, wt, fn), min=atol)
+        chip_smoke.compare(got, want, fn in EXACT, rtol, bound)
+
+
 @pytest.mark.parametrize("E", [1, 2, 3, 8, 12, 20])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_csr_matvec_matches_plain(device, dtype, E):

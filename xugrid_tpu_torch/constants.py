@@ -14,6 +14,10 @@ import numpy as np
 # Other fills and 1-based indices are normalized to this at ingest.
 FILL_VALUE: int = -1
 
+# Tolerance of near-degenerate geometry tests: the float64 machine
+# epsilon, scaled by coordinate extents where it is used.
+X_EPSILON: float = float(np.finfo(np.float64).eps)
+
 # Host dtypes (numpy).
 IntDType = np.int64
 FloatDType = np.float64

@@ -9,10 +9,14 @@ reductions take a slice-minor copy, (m, E).  Built-in reductions go to
 the Hopper kernels for a CUDA source, or to their plain PyTorch version
 for a CPU source; a custom reduction runs the plain window path on
 either device.  The result is contiguous.
+
+``apply_coo_gather`` is the apply of ``CentroidLocatorRegridder``: a
+row gather by torch indexing on the source's device, no kernel.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from xugrid_tpu_torch.core.sparse import PaddedCSR
@@ -64,3 +68,28 @@ def apply_weights(
         out = reduce.reduce_windows(source2d.t().contiguous(), indices, w, reduction).t()
     return out.reshape(leading + (target_size,)).contiguous()
 
+
+def apply_coo_gather(row, col, source, target_size: int, cache: dict | None = None) -> torch.Tensor:
+    """
+    ``out[..., row] = source[..., col]`` over the flattened source, NaN
+    in the targets that no row names; integer input is cast to float64.
+
+    row, col: host int arrays of the gather (target and source index).
+    ``cache`` (owned by the caller) keeps one upload of them per device.
+    Returns (..., target_size) on the source's device, contiguous.
+    """
+    source = torch.as_tensor(source)
+    leading = tuple(source.shape[:-1])
+    source2d = source.reshape(-1, source.shape[-1])
+    if not source2d.is_floating_point():
+        source2d = source2d.to(torch.float64)
+    device = source2d.device
+    if cache is not None and device in cache:
+        rows, cols = cache[device]
+    else:
+        rows, cols = (torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device) for a in (row, col))
+        if cache is not None:
+            cache[device] = (rows, cols)
+    out = torch.full((source2d.shape[0], target_size), torch.nan, dtype=source2d.dtype, device=device)
+    out[:, rows] = source2d[:, cols]
+    return out.reshape(leading + (target_size,))

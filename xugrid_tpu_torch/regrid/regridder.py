@@ -1,23 +1,27 @@
 """
-Overlap regridders: map face data of one 2D mesh onto the faces of
-another by area of overlap.
+Regridders between the faces of 2D meshes: by area of overlap
+(``OverlapRegridder``, ``RelativeOverlapRegridder``), by the face
+holding each target centroid (``CentroidLocatorRegridder``), and by
+barycentric interpolation in the source's centroidal voronoi
+tessellation (``BarycentricInterpolator``).
 
-The weights are built on the host (grid hash and native polygon clip)
-as a CSR matrix, padded to ``PaddedCSR`` and uploaded once per (dtype,
-device); ``regrid`` applies them to a tensor or array whose last axis
-is the source face dimension.
+The weights are built on the host (grid hash and native geometry
+kernels) as a CSR matrix, padded to ``PaddedCSR`` and uploaded once per
+(dtype, device); ``regrid`` applies them to a tensor or array whose last
+axis is the source face dimension.  The centroid locator keeps its
+weights as COO triplets and applies them as a row gather.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
 
-from xugrid_tpu_torch.core.sparse import MatrixCSR, PaddedCSR
+from xugrid_tpu_torch.core.sparse import MatrixCOO, MatrixCSR, PaddedCSR
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.apply import apply_weights
+from xugrid_tpu_torch.regrid.apply import apply_coo_gather, apply_weights
 from xugrid_tpu_torch.regrid.unstructured import UnstructuredGrid2d
 from xugrid_tpu_torch.utils.device import resolve_device
 
@@ -29,16 +33,18 @@ APPLY_CHUNK_BYTES = 2_000_000_000
 class BaseRegridder(abc.ABC):
     _METHODS = {}
 
-    def __init__(self, source, target):
+    def __init__(self, source, target, tolerance: Optional[float] = None):
         self._set_weights(
-            self._compute_weights(UnstructuredGrid2d(source), UnstructuredGrid2d(target))
+            self._compute_weights(UnstructuredGrid2d(source), UnstructuredGrid2d(target), tolerance)
         )
 
     @abc.abstractmethod
-    def _compute_weights(self, source, target) -> MatrixCSR:
+    def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
         ...
 
-    def _set_weights(self, weights: MatrixCSR) -> None:
+    def _set_weights(self, weights) -> None:
+        if isinstance(weights, MatrixCOO):
+            weights = weights.to_csr()
         self._weights = weights
         self._padded = PaddedCSR.from_csr(weights)
         # (dtype, device) -> (indices, weights) tensors on that device.
@@ -63,14 +69,24 @@ class BaseRegridder(abc.ABC):
             )
 
     @classmethod
-    def from_csr_arrays(cls, data, indices, indptr, n: int, m: int, target, method):
+    def from_csr_arrays(cls, data, indices, indptr, n: int, m: int, target, method="mean"):
         """A regridder applying given CSR weights (n targets by m source
-        faces), e.g. those a ``xugrid_tpu`` regridder built."""
+        entities), e.g. those a ``xugrid_tpu`` regridder built."""
+        return cls._from_weights(MatrixCSR(data, indices, indptr, int(n), int(m), len(data)), target, method)
+
+    @classmethod
+    def from_coo_arrays(cls, data, row, col, n: int, m: int, target, method="mean"):
+        """A regridder applying given COO weight triplets (row: target,
+        col: source), e.g. a ``xugrid_tpu`` CentroidLocatorRegridder's."""
+        return cls._from_weights(MatrixCOO.from_triplet(row, col, data, n, m), target, method)
+
+    @classmethod
+    def _from_weights(cls, weights, target, method):
         n_target = UnstructuredGrid2d(target).size
-        if n_target != n:
-            raise ValueError(f"target has {n_target} faces, weights have {n} rows")
+        if n_target != weights.n:
+            raise ValueError(f"target has {n_target} faces, weights have {weights.n} rows")
         instance = cls.__new__(cls)
-        instance._set_weights(MatrixCSR(data, indices, indptr, int(n), int(m), len(data)))
+        instance._set_weights(weights)
         instance._setup_regrid(method)
         return instance
 
@@ -135,7 +151,7 @@ class OverlapRegridder(BaseOverlapRegridder):
         super().__init__(source=source, target=target)
         self._setup_regrid(method)
 
-    def _compute_weights(self, source, target) -> MatrixCSR:
+    def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
         return self._overlap_weights(source, target, relative=False)
 
     @staticmethod
@@ -155,5 +171,70 @@ class RelativeOverlapRegridder(BaseOverlapRegridder):
         super().__init__(source=source, target=target)
         self._setup_regrid(method)
 
-    def _compute_weights(self, source, target) -> MatrixCSR:
+    def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
         return self._overlap_weights(source, target, relative=True)
+
+
+class CentroidLocatorRegridder(BaseRegridder):
+    """
+    Regrid by locating the target faces' centroids in the source mesh:
+    out[target] = source[face holding its centroid], NaN where no face
+    holds it.  ``tolerance`` is the on-edge tolerance of the point
+    location.  Launches no kernel: the apply is a row gather.
+    """
+
+    def _compute_weights(self, source, target, tolerance=None) -> MatrixCOO:
+        source_index, target_index, weight_values = source.locate_centroids(target, tolerance)
+        return MatrixCOO.from_triplet(target_index, source_index, weight_values, n=target.size, m=source.size)
+
+    def _set_weights(self, weights) -> None:
+        if not isinstance(weights, MatrixCOO):
+            raise TypeError(
+                f"CentroidLocatorRegridder takes COO weights (from_coo_arrays), received {type(weights).__name__}"
+            )
+        self._weights = weights
+        # device -> (row, col) tensors on that device.
+        self._device_weights = {}
+
+    def _setup_regrid(self, func) -> None:
+        """The row gather takes no method."""
+
+    def _regrid_array(self, source, device=None) -> torch.Tensor:
+        source = torch.as_tensor(source).to(resolve_device(source, device))
+        n, m = self._weights.n, self._weights.m
+        first_dims_shape = tuple(source.shape[:-1])
+        if 0 in first_dims_shape:
+            return torch.empty(first_dims_shape + (n,), dtype=source.dtype, device=source.device)
+        if source.shape[-1] != m:
+            raise ValueError(
+                f"Source size {source.shape[-1]} does not match regridder source size {m}"
+            )
+        w = self._weights
+        return apply_coo_gather(w.row, w.col, source, n, cache=self._device_weights)
+
+
+class BarycentricInterpolator(BaseRegridder):
+    """
+    Smooth interpolation: the target centroids are located in the
+    source's centroidal voronoi tessellation and weighted by generalized
+    barycentric (mean-value) weights over the surrounding source faces;
+    the apply is their weighted mean, which skips NaN sources.
+
+    ``tolerance`` is the on-edge tolerance of the point location.
+    ``device`` is where the tessellation's angle sort runs: None means
+    the CUDA card, which must be present unless ``device="cpu"``.  The
+    rest of the weight build runs on the host.
+    """
+
+    _METHODS = {"mean": reduce.mean}
+
+    def __init__(self, source, target, tolerance: Optional[float] = None, device=None):
+        self._build_device = resolve_device(None, device)
+        super().__init__(source, target, tolerance)
+        self._setup_regrid("mean")
+
+    def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
+        source_index, target_index, weights = source.barycentric(
+            target, tolerance, device=self._build_device
+        )
+        return MatrixCSR.from_triplet(target_index, source_index, weights, n=target.size, m=source.size)

@@ -252,3 +252,38 @@ class GridHash:
             pair_q = np.concatenate([pair_q, oq])
             pair_p = np.concatenate([pair_p, self.oversize[op]])
         return ids_q[pair_q].astype(IntDType), pair_p.astype(IntDType)
+
+    def query_points(self, points: np.ndarray, tol: float = 0.0):
+        """
+        Candidate join for points: (point_index, prim_index) pairs where
+        the point falls inside the primitive's bounding box expanded by
+        ``tol``, oversize primitives included.  Native path: one bin scan
+        per point; else the box join of the expanded points.
+        """
+        pts = np.asarray(points, dtype=np.float64)
+        with timed("grid_hash.query_points"):
+            native = self._query_points_native(pts, tol)
+        if native is not None:
+            return native
+        return self.query_boxes(np.column_stack([pts - tol, pts + tol]))
+
+    def _query_points_native(self, pts, tol):
+        from xugrid_tpu_torch.utils.native import grid_hash_query_points_native
+
+        valid = np.isfinite(pts).all(axis=1)
+        fp = pts[valid]
+        result = grid_hash_query_points_native(
+            fp, float(tol), self.xmin, self.ymin, self.dx, self.dy, self.nx, self.ny,
+            self.bin_start, self.bin_prims, self.boxes,
+        )
+        if result is None:
+            return None
+        pair_q, pair_p = result
+        if len(self.oversize) > 0:
+            oq, op = self._oversize_hits(
+                fp[:, 0] - tol, fp[:, 1] - tol, fp[:, 0] + tol, fp[:, 1] + tol
+            )
+            pair_q = np.concatenate([pair_q, oq])
+            pair_p = np.concatenate([pair_p, self.oversize[op]])
+        ids_q = np.flatnonzero(valid)
+        return ids_q[pair_q].astype(IntDType), pair_p.astype(IntDType)

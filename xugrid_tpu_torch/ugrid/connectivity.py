@@ -90,6 +90,16 @@ def invert_dense(conn: np.ndarray, sort_indices: bool = True) -> np.ndarray:
     return to_dense(invert_dense_to_sparse(conn, sort_indices))
 
 
+def renumber(a: np.ndarray) -> np.ndarray:
+    """Compactly renumber the non-fill entries to 0..k-1 in the order of
+    their values, keeping FILL_VALUE in place."""
+    valid = a != FILL_VALUE
+    out = np.full_like(a, FILL_VALUE)
+    _, inverse = np.unique(a[valid], return_inverse=True)
+    out[valid] = inverse.astype(IntDType).ravel()
+    return out
+
+
 # Polygon rows
 # ------------
 def close_polygons(face_node_connectivity: np.ndarray):

@@ -1,6 +1,6 @@
 """
 Ugrid2d: topology of a 2D unstructured mesh (UGRID conventions),
-reduced to what the overlap regridders and the Laplace fill read.
+reduced to what the regridders and the Laplace fill read.
 
 The canonical storage is a padded dense int64 ``face_node_connectivity``
 (fill -1, 0-based) plus float64 node x/y; face areas, centroids, the
@@ -9,6 +9,8 @@ and cached.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 from scipy.sparse import csr_matrix
@@ -70,6 +72,7 @@ class Ugrid2d:
         self._edge_face_connectivity = None
         self._face_face_connectivity = None
         self._node_node_connectivity = None
+        self._node_face_connectivity = None
         self._area = None
         self._centroids = None
         self._celltree = None
@@ -159,6 +162,15 @@ class Ugrid2d:
             )
         return self._node_node_connectivity
 
+    @property
+    def node_face_connectivity(self) -> csr_matrix:
+        """Node to face connectivity (CSR); data holds the face index."""
+        if self._node_face_connectivity is None:
+            self._node_face_connectivity = connectivity.invert_dense_to_sparse(
+                self.face_node_connectivity
+            )
+        return self._node_face_connectivity
+
     def get_connectivity_matrix(self, dim: str, xy_weights: bool) -> csr_matrix:
         """Adjacency matrix (CSR) of the nodes or the faces.  With
         ``xy_weights`` its data are normalized inverse distances between
@@ -214,3 +226,13 @@ class Ugrid2d:
                 self.node_coordinates, self.face_node_connectivity, FILL_VALUE
             )
         return self._celltree
+
+    # -- point queries -----------------------------------------------------------
+    def locate_points(self, points: np.ndarray, tolerance: Optional[float] = None) -> np.ndarray:
+        """Index of the face holding each point (-1 outside)."""
+        return self.celltree.locate_points(points, tolerance)
+
+    def compute_barycentric_weights(self, points: np.ndarray, tolerance: Optional[float] = None):
+        """Face holding each point and the mean-value weights of its
+        nodes: (face_index (n,), weights (n, n_max_node))."""
+        return self.celltree.compute_barycentric_weights(points, tolerance)

@@ -2,11 +2,14 @@
 ctypes bindings for the repository's native host kernels
 (``csrc/host_kernels.cpp``), the same source ``xugrid_tpu`` builds.
 
-Only the entry points of the overlap-weight build and the face
-centroids are bound.  The
-library is compiled with g++ into the port's build directory on first
-use.  Every binding returns None when the library is unavailable, and
-its caller then takes the numpy fallback, as in ``xugrid_tpu``.
+Bound are the entry points of the regridders' weight builds (grid hash,
+polygon clip, point location, point in polygon, segment clip, mean-value
+weights, CSR build) and the face centroids.  The library is compiled
+with g++ into the port's build directory on first use.  Every binding
+returns None when the library is unavailable (or refuses the input, as
+each one says); its caller then takes a numpy fallback where
+``xugrid_tpu`` has one on the host, and raises where ``xugrid_tpu``
+falls back to a device kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ _dp = ctypes.POINTER(ctypes.c_double)
 _ip = ctypes.POINTER(ctypes.c_int64)
 _i64 = ctypes.c_int64
 _f64 = ctypes.c_double
+_u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
 def _bind(lib):
@@ -46,6 +50,11 @@ def _bind(lib):
     lib.grid_hash_count.restype = ctypes.c_int64
     lib.grid_hash_fill.argtypes = [_dp, _ip, _i64] + grid[2:] + [_ip, _ip]
     lib.grid_hash_fill.restype = None
+    points = [_dp, _i64, _f64, _f64, _f64, _f64, _f64, _i64, _i64, _ip, _ip, _dp]
+    lib.grid_hash_points_count.argtypes = points + [_ip]
+    lib.grid_hash_points_count.restype = None
+    lib.grid_hash_points_fill.argtypes = points + [_ip, _ip, _ip]
+    lib.grid_hash_points_fill.restype = None
     boxes = grid + [_ip, _ip, _dp]
     lib.grid_hash_boxes_count.argtypes = boxes + [_ip]
     lib.grid_hash_boxes_count.restype = None
@@ -59,6 +68,14 @@ def _bind(lib):
     lib.csr_from_triplet.restype = None
     lib.face_centroids.argtypes = [_ip, _i64, _i64, _dp, _dp, _dp]
     lib.face_centroids.restype = None
+    lib.points_in_polygons.argtypes = [_dp, _ip, _i64, _dp, _i64, _f64, _u8p]
+    lib.points_in_polygons.restype = None
+    lib.clip_segments_by_faces.argtypes = [_dp, _dp, _ip, _i64, _dp, _i64, _u8p, _dp, _dp]
+    lib.clip_segments_by_faces.restype = None
+    lib.mean_value_weights.argtypes = [_dp, _ip, _i64, _dp, _i64, _f64, _dp]
+    lib.mean_value_weights.restype = None
+    lib.locate_points_hash.argtypes = points[:3] + points[3:9] + [_ip, _ip, _dp, _dp, _i64, _ip]
+    lib.locate_points_hash.restype = None
 
 
 def get_lib():
@@ -238,3 +255,111 @@ def csr_from_triplet_native(row, col, data, n: int):
         _ptr(indptr, _ip), _ptr(out_col, _ip), _ptr(out_data, _dp),
     )
     return out_data, out_col, indptr
+
+
+def grid_hash_query_points_native(pts, tol, xmin, ymin, dx, dy, nx, ny, bin_start, bin_prims, boxes):
+    """Point candidate join, one bin scan per point: (pair_q, pair_p)
+    int64 for the boxes (expanded by ``tol``) that hold each point, or
+    None when the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    pts = np.ascontiguousarray(pts, dtype=np.float64)
+    bin_start = np.ascontiguousarray(bin_start, dtype=np.int64)
+    bin_prims = np.ascontiguousarray(bin_prims, dtype=np.int64)
+    boxes = np.ascontiguousarray(boxes, dtype=np.float64)
+    nq = len(pts)
+    counts = np.empty(nq, dtype=np.int64)
+    common = (
+        _ptr(pts, _dp), nq, float(tol), xmin, ymin, dx, dy, nx, ny,
+        _ptr(bin_start, _ip), _ptr(bin_prims, _ip), _ptr(boxes, _dp),
+    )
+    lib.grid_hash_points_count(*common, _ptr(counts, _ip))
+    offsets = np.zeros(nq, dtype=np.int64)
+    if nq:
+        np.cumsum(counts[:-1], out=offsets[1:])
+    total = int(offsets[-1] + counts[-1]) if nq else 0
+    pair_q = np.empty(total, dtype=np.int64)
+    pair_p = np.empty(total, dtype=np.int64)
+    lib.grid_hash_points_fill(*common, _ptr(offsets, _ip), _ptr(pair_q, _ip), _ptr(pair_p, _ip))
+    return pair_q, pair_p
+
+
+def points_in_polygons_native(pts, prims, poly_xy, tol: float):
+    """Pairwise point in polygon (crossing number, or within ``tol`` of
+    an edge): bool per (pts[i], poly_xy[prims[i]]), or None when the
+    library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    pts = np.ascontiguousarray(pts, dtype=np.float64)
+    prims = np.ascontiguousarray(prims, dtype=np.int64)
+    poly_xy = np.ascontiguousarray(poly_xy, dtype=np.float64)
+    out = np.empty(len(pts), dtype=np.uint8)
+    lib.points_in_polygons(
+        _ptr(pts, _dp), _ptr(prims, _ip), len(pts), _ptr(poly_xy, _dp), poly_xy.shape[1],
+        float(tol), _ptr(out, _u8p),
+    )
+    return out.astype(bool)
+
+
+def clip_segments_by_faces_native(p0, p1, prims, poly_xy):
+    """Pairwise Liang-Barsky clip of segment (p0[i], p1[i]) by the
+    convex face poly_xy[prims[i]]: (valid, t0, t1), or None when the
+    library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    p0 = np.ascontiguousarray(p0, dtype=np.float64)
+    p1 = np.ascontiguousarray(p1, dtype=np.float64)
+    prims = np.ascontiguousarray(prims, dtype=np.int64)
+    poly_xy = np.ascontiguousarray(poly_xy, dtype=np.float64)
+    n = len(prims)
+    valid = np.empty(n, dtype=np.uint8)
+    t0 = np.empty(n, dtype=np.float64)
+    t1 = np.empty(n, dtype=np.float64)
+    lib.clip_segments_by_faces(
+        _ptr(p0, _dp), _ptr(p1, _dp), _ptr(prims, _ip), n, _ptr(poly_xy, _dp), poly_xy.shape[1],
+        _ptr(valid, _u8p), _ptr(t0, _dp), _ptr(t1, _dp),
+    )
+    return valid.astype(bool), t0, t1
+
+
+def mean_value_weights_native(pts, prims, poly_xy, tol: float):
+    """Mean-value coordinates of pts[i] in poly_xy[prims[i]], (n, nv)
+    (a zero row where prims[i] < 0), or None when the library is
+    unavailable or a face has more than the kernel's 64 nodes."""
+    lib = get_lib()
+    if lib is None or poly_xy.shape[1] > 64:
+        return None
+    pts = np.ascontiguousarray(pts, dtype=np.float64)
+    prims = np.ascontiguousarray(prims, dtype=np.int64)
+    poly_xy = np.ascontiguousarray(poly_xy, dtype=np.float64)
+    out = np.empty((len(pts), poly_xy.shape[1]), dtype=np.float64)
+    lib.mean_value_weights(
+        _ptr(pts, _dp), _ptr(prims, _ip), len(pts), _ptr(poly_xy, _dp), poly_xy.shape[1],
+        float(tol), _ptr(out, _dp),
+    )
+    return out
+
+
+def locate_points_hash_native(pts, tol: float, grid_hash, poly_xy):
+    """Fused grid-hash scan and exact test: the lowest-index face holding
+    each point (-1 for none), or None when the library is unavailable
+    or the hash has oversize primitives (those bypass the bins)."""
+    lib = get_lib()
+    if lib is None or len(grid_hash.oversize) > 0:
+        return None
+    pts = np.ascontiguousarray(pts, dtype=np.float64)
+    poly_xy = np.ascontiguousarray(poly_xy, dtype=np.float64)
+    boxes = np.ascontiguousarray(grid_hash.boxes, dtype=np.float64)
+    bin_start = np.ascontiguousarray(grid_hash.bin_start, dtype=np.int64)
+    bin_prims = np.ascontiguousarray(grid_hash.bin_prims, dtype=np.int64)
+    out = np.empty(len(pts), dtype=np.int64)
+    lib.locate_points_hash(
+        _ptr(pts, _dp), len(pts), float(tol),
+        grid_hash.xmin, grid_hash.ymin, grid_hash.dx, grid_hash.dy, grid_hash.nx, grid_hash.ny,
+        _ptr(bin_start, _ip), _ptr(bin_prims, _ip), _ptr(boxes, _dp),
+        _ptr(poly_xy, _dp), poly_xy.shape[1], _ptr(out, _ip),
+    )
+    return out
