@@ -78,6 +78,30 @@ With no argument it runs these phases:
    point locations apart), the weights' nnz and w_max, and phase 4's
    apply times at E = 1, 20 and 128 for the barycentric and network
    weights.
+8. Labelled arrays and structured grids at the 1M config: phase 3's
+   mesh and data as a ``UgridDataArray`` (time=20, face) on the card
+   regridded onto a 512 x 512 raster ``DataArray`` (y descending, dx
+   and dy) by ``OverlapRegridder`` mean and mode and
+   ``RelativeOverlapRegridder``: a DataArray (time, y, x) with the
+   raster's coordinates whose payload is a CUDA tensor, one launch,
+   held to the plain version and the host references, bit-equal to the
+   bare-tensor regrid onto ``Ugrid2d.from_structured_bounds`` of the
+   directional bounds (the mean also to the ascending raster flipped,
+   at float32 tolerance), and the labelled and bare apply passes timed
+   (back to back, host us per call).  A 1000 x 1000 raster (time=20, y
+   descending) onto the 512 x 512 raster by overlap mean, relative
+   overlap (every source cell's weights sum to 1 within 1e-12),
+   ``BarycentricInterpolator`` (bilinear weights; a float32 linear
+   field back within rtol 1e-5) and ``CentroidLocatorRegridder`` (no
+   launch, bit-equal to numpy's gather), with the weight builds by
+   stage and phase 4's apply times.  Phase 5's 1M Delaunay fill of 20
+   slices through ``uda.ugrid.laplace_interpolate``: one batched solve
+   (csr_matvec's launches), equal to the direct call, phase 5's
+   residual gate, on a numpy and a CUDA payload.  Faces of 40 and 120
+   nodes over a 40 x 40 quad mesh: overlap areas and mean-value weights
+   on the card against the native kernels (40 nodes) and the CPU (120),
+   and the OverlapRegridder on the card summing each face's areas to
+   its area.
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
@@ -844,6 +868,7 @@ def phase_laplace(device):
         f"{int(np.isnan(values).sum())} unknowns"
     )
     meshes["delaunay"] = (W, labels, values, truth)
+    meshes["delaunay_grid"] = grid
     t0 = time.perf_counter()
     snodes, sfaces = structured_triangle_mesh(LAPLACE_SIDE)
     sgrid = xt.Ugrid2d(snodes[:, 0], snodes[:, 1], -1, sfaces)
@@ -1349,6 +1374,328 @@ def phase_regridders(device, card, inputs):
     return counts, max_err, timed
 
 
+#: Phase 8's raster source: RASTER_SIDE^2 cells over phase 3's extent.
+RASTER_SIDE = 1000
+
+
+def raster_dataarray(side, data, descending=True, extent=None):
+    """A side x side raster DataArray over [0, extent]^2 (default N_SIDE),
+    (y, x) or (time, y, x) by ``data``'s rank, with ``dx``/``dy`` and ``y``
+    descending (north up) unless ``descending`` is False."""
+    import xugrid_tpu_torch as xt
+
+    cell = (N_SIDE if extent is None else extent) / side
+    x = (np.arange(side) + 0.5) * cell
+    coords = {"y": x[::-1].copy() if descending else x, "x": x, "dx": cell, "dy": -cell if descending else cell}
+    dims = ("y", "x")
+    if data.ndim == 3:
+        coords["time"] = np.arange(data.shape[0])
+        dims = ("time",) + dims
+    return xt.xdata.DataArray(data, coords=coords, dims=dims, name="v", attrs={"units": "m"})
+
+
+def check_labelled(label, out, target, n_extra, device):
+    """A regrid result onto the raster ``target``: a DataArray (time, y,
+    x) whose payload is a tensor on ``device`` (the card), with the
+    raster's y, x, dy and dx coordinates and the source's time."""
+    import torch
+
+    import xugrid_tpu_torch as xt
+
+    if not isinstance(out, xt.xdata.DataArray) or out.dims != ("time", "y", "x"):
+        raise AssertionError(f"{label}: {type(out).__name__} {getattr(out, 'dims', None)}")
+    if not isinstance(out.data, torch.Tensor) or out.data.device != device:
+        raise AssertionError(f"{label}: the payload is not a tensor on {device}: {type(out.data).__name__}")
+    if out.shape != (n_extra,) + target.shape:
+        raise AssertionError(f"{label}: shape {out.shape}")
+    np.testing.assert_array_equal(out["time"].values, np.arange(n_extra))
+    for name in ("y", "x"):
+        np.testing.assert_array_equal(out[name].values, target[name].values)
+    for name, dim in (("dy", "y"), ("dx", "x")):
+        if out._coords[name].dims != (dim,) or not np.allclose(out[name].values, abs(float(target[name].values))):
+            raise AssertionError(f"{label}: coordinate {name} {out._coords[name].dims}")
+
+
+def overcap_mesh(n_side=40):
+    """Regular 40- and 120-node polygons (faces 0-3) laid over n_side^2
+    unit quads, padded with -1: points in a polygon locate to it, the
+    lowest face holding them.  Faces of 40 nodes are the ones the native
+    padded clip and mean-value kernel still take once the buffer is cut
+    to their width.  Returns (nodes, faces, nodes per face)."""
+    verts, quads = quad_mesh(n_side, n_side)
+    polygons = [(40, (6.0, 6.0), 3.0), (40, (20.0, 9.0), 2.0), (120, (30.0, 30.0), 6.0), (120, (12.0, 28.0), 4.5)]
+    nodes, faces = [verts], []
+    offset = len(verts)
+    for n, (cx, cy), r in polygons:
+        angle = 0.1 + 2.0 * np.pi * np.arange(n) / n
+        nodes.append(np.column_stack([cx + r * np.cos(angle), cy + r * np.sin(angle)]))
+        faces.append(np.pad(offset + np.arange(n), (0, 120 - n), constant_values=-1)[None, :])
+        offset += n
+    faces = np.concatenate(faces + [np.pad(quads, ((0, 0), (0, 116)), constant_values=-1)])
+    return np.concatenate(nodes), faces, (faces >= 0).sum(axis=1)
+
+
+def phase_overcap(device, card):
+    """Phase 8.4: the exact geometry of faces above the native kernels'
+    sizes on the card: overlap areas and mean-value weights against the
+    native host kernels where those take the face (40 nodes, buffer cut
+    to 40 columns), and against the same torch geometry on the CPU for
+    120-node faces; the OverlapRegridder entry point on the card, each
+    face's areas summing to its own area."""
+    import torch
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.spatial import celltree, geometry
+    from xugrid_tpu_torch.spatial.bvh import face_bounding_boxes
+    from xugrid_tpu_torch.utils import native
+
+    nodes, faces, n_nodes = overcap_mesh()
+    mesh = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, faces)
+    tverts, tfaces = quad_mesh(30, 30, dx=40.0 / 30)
+    raster = xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)
+    boxes = face_bounding_boxes(tfaces, tverts[:, 0], tverts[:, 1])
+    qi, ti = mesh.celltree.grid_hash.query_boxes(boxes)
+    query_xy = geometry.pad_polygons(tfaces, tverts[:, 0], tverts[:, 1])
+    tree_xy = mesh.celltree._poly_xy_host
+    big = n_nodes[ti] > 40
+    t0 = time.perf_counter()
+    on_card = celltree.overlap_areas_device(qi, ti, query_xy, tree_xy, device)
+    card_s = time.perf_counter() - t0
+    host = native.polygon_clip_areas_native(qi[~big], ti[~big], query_xy, np.ascontiguousarray(tree_xy[:, :40]))
+    cut = celltree.overlap_areas_device(qi[~big], ti[~big], query_xy, np.ascontiguousarray(tree_xy[:, :40]), device)
+    on_cpu = celltree.overlap_areas_device(qi[big], ti[big], query_xy, tree_xy, "cpu")
+    # Areas of coordinates up to 40 carry absolute rounding of about
+    # 1e-12 (shoelace terms of 1600); the host clip is another algorithm.
+    err_host = compare(torch.from_numpy(cut), torch.from_numpy(host), False, 1e-9, 1e-10)
+    err_width = compare(torch.from_numpy(on_card[~big]), torch.from_numpy(cut), False, 1e-9, 1e-10)
+    err_cpu = compare(torch.from_numpy(on_card[big]), torch.from_numpy(on_cpu), False, 1e-9, 1e-10)
+    regridder = xt.OverlapRegridder(mesh, raster, device=device)
+    w = regridder._weights
+    sums = np.bincount(w.indices, weights=w.data, minlength=mesh.n_face)
+    inside = ((mesh.celltree.bb_coords[:, :2] >= 0.0) & (mesh.celltree.bb_coords[:, 2:] <= 40.0)).all(axis=1)
+    area_err = float(np.max(np.abs(sums[inside] - mesh.area[inside]) / mesh.area[inside]))
+    if area_err > 1e-9:
+        raise AssertionError(f"over-cap overlap: a face's areas sum to its area within rtol {area_err:.3e}")
+    print(
+        f"  over-cap overlap ({int(big.sum())} pairs on 120-node faces, {int((~big).sum())} on quads and 40-node "
+        f"faces): card {card_s:.4f} s; vs native padded clip max |diff| {err_host:.3e}, vs the 40-column buffer "
+        f"{err_width:.3e}, 120-node pairs vs the CPU {err_cpu:.3e}; OverlapRegridder on the card nnz {w.nnz}, "
+        f"each face's areas sum to its area within rtol {area_err:.3e} [{card}]"
+    )
+    rng = np.random.default_rng(9)
+    centers = np.array([[6.0, 6.0], [20.0, 9.0], [30.0, 30.0], [12.0, 28.0], [35.5, 2.5]])
+    points = np.concatenate([c + rng.uniform(-1.5, 1.5, (2000, 2)) for c in centers])
+    points = np.concatenate([points, nodes[-120:][:5]])
+    face = mesh.locate_points(points)
+    tol = mesh.celltree.default_tolerance()
+    big = n_nodes[np.maximum(face, 0)] > 40
+    t0 = time.perf_counter()
+    _, weights = mesh.compute_barycentric_weights(points, device=device)
+    card_s = time.perf_counter() - t0
+    host = native.mean_value_weights_native(points[~big], face[~big].astype(np.int64),
+                                            np.ascontiguousarray(tree_xy[:, :40]), tol)
+    on_cpu = celltree.mean_value_weights_device(points[big], face[big], tree_xy, tol, "cpu")
+    err_host = compare(torch.from_numpy(weights[~big][:, :40]), torch.from_numpy(host), False, 1e-12, 1e-12)
+    err_cpu = compare(torch.from_numpy(weights[big]), torch.from_numpy(on_cpu), False, 1e-12, 1e-12)
+    row_err = float(np.abs(weights[face >= 0].sum(axis=1) - 1.0).max())
+    if row_err > 1e-12 or weights[~big][:, 40:].any():
+        raise AssertionError(f"over-cap mean-value weights: rows sum to 1 within {row_err:.3e}")
+    print(
+        f"  over-cap mean-value weights ({int(big.sum())} points in 120-node faces, {int((~big).sum())} in others): "
+        f"card {card_s:.4f} s; vs native max |diff| {err_host:.3e}, 120-node rows vs the CPU {err_cpu:.3e}; rows "
+        f"sum to 1 within {row_err:.3e} [{card}]"
+    )
+
+
+def phase_labelled(device, card, inputs, meshes):
+    """Phase 8: labelled arrays and structured grids at the 1M config,
+    through the entry points a user calls, on the card.  Returns (launch
+    counts, largest |kernel - plain| per kernel, apply times keyed by
+    (label, E))."""
+    import torch
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.regrid.structured import StructuredGrid2d
+    from xugrid_tpu_torch.ugrid import interpolate
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    (verts, faces), _, mesh_data = inputs
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    payload = torch.from_numpy(mesh_data).to(device)
+    uda = xt.UgridDataArray(
+        xt.xdata.DataArray(payload, dims=("time", mesh.face_dimension), coords={"time": np.arange(N_EXTRA)}, name="v"),
+        mesh,
+    )
+    target = raster_dataarray(T_SIDE, np.zeros((T_SIDE, T_SIDE), np.float32))
+    grid = StructuredGrid2d(target)
+    kernels = (window_reduce, window_select, csr_matvec)
+    # Launches of the path's own calls (the labelled regrids and fills),
+    # not of the comparisons and timings beside them.
+    counts = {k.__name__: 0 for k in kernels}
+    max_err = {"window_reduce": 0.0, "window_select": 0.0}
+    scale = float(np.nanmax(np.abs(mesh_data)))
+    print(f"phase 8: UgridDataArray (time={N_EXTRA}, face={mesh.n_face}) float32 on the card -> "
+          f"{T_SIDE} x {T_SIDE} raster DataArray, y descending [{card}]")
+
+    def run(regridder, source):
+        before = {k.__name__: k.launches for k in kernels}
+        out = regridder.regrid(source)
+        torch.cuda.synchronize()
+        rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+        for name, n in rose.items():
+            counts[name] += n
+        return out, rose
+
+    # 8.1: mesh -> raster, a labelled target.
+    directional = xt.Ugrid2d.from_structured_bounds(grid.xbounds.directional_bounds, grid.ybounds.directional_bounds)
+    sample = np.sort(np.random.default_rng(8).choice(T_SIDE * T_SIDE, size=min(400, T_SIDE * T_SIDE), replace=False))
+    for cls, method, kernel in (
+        (xt.OverlapRegridder, "mean", window_reduce),
+        (xt.OverlapRegridder, "mode", window_select),
+        (xt.RelativeOverlapRegridder, "first_order_conservative", window_reduce),
+    ):
+        label = f"{cls.__name__}({method}) mesh -> raster"
+        timings.reset()
+        t0 = time.perf_counter()
+        regridder = cls(uda, target, method=method)
+        build_stages(label, time.perf_counter() - t0)
+        out, rose = run(regridder, uda)
+        check_labelled(label, out, target, N_EXTRA, device)
+        flat = out.data.reshape(N_EXTRA, -1)
+        csr = regridder._weights
+        if kernel is window_reduce:
+            reference = lambda got, csr=csr, m=method: (got, reference_linear(csr, mesh_data, relative=m != "mean"))  # noqa: E731
+        else:
+            reference = lambda got, csr=csr: (got[:, sample], reference_select(csr, mesh_data, sample, "mode"))  # noqa: E731
+        err = check_apply(label, regridder, payload, flat, kernel, rose, scale, reference)
+        max_err[kernel.__name__] = max(max_err[kernel.__name__], err)
+        bare = cls(mesh, directional, method=method).regrid(payload)
+        compare(out.data, bare.reshape(out.shape), True, 0.0, 0.0)
+        if method == "mean":
+            ascending = xt.Ugrid2d.from_structured_bounds(grid.xbounds.bounds, grid.ybounds.bounds)
+            flipped = cls(mesh, ascending, method=method).regrid(payload).reshape(out.shape).flip(1)
+            rtol, atol = tolerance(torch.float32, scale)
+            compare(out.data, flipped, False, rtol, atol)
+        labelled_ms = cuda_time_ms(lambda: regridder.regrid(uda))
+        bare_ms = cuda_time_ms(lambda: regridder.regrid(payload))
+        labelled_us, bare_us = host_us(lambda: regridder.regrid(uda)), host_us(lambda: regridder.regrid(payload))
+        print(
+            f"  {label}: bit-equal to the bare regrid onto Ugrid2d.from_structured_bounds, reshaped"
+            f"{' (and to the ascending raster flipped along y, float32 tolerance)' if method == 'mean' else ''}; "
+            f"apply pass labelled {labelled_ms:.6f} ms, bare {bare_ms:.6f} ms back to back; host "
+            f"{labelled_us:.1f} us against {bare_us:.1f} us per call [{card}]"
+        )
+
+    # 8.2: raster -> raster.
+    rng = np.random.default_rng(23)
+    fine = rng.normal(size=(N_EXTRA, RASTER_SIDE, RASTER_SIDE)).astype(np.float32)
+    fine[rng.random(fine.shape) < 0.01] = np.nan
+    source = raster_dataarray(RASTER_SIDE, torch.from_numpy(fine).to(device))
+    fine_flat = fine.reshape(N_EXTRA, -1)
+    fine_payload = source.data.reshape(N_EXTRA, -1)
+    print(f"  raster -> raster: {RASTER_SIDE} x {RASTER_SIDE} (time={N_EXTRA}) float32 on the card -> {T_SIDE} x {T_SIDE}")
+    timing_runs = []
+    for cls, kwargs, kernel, timing_label in (
+        (xt.OverlapRegridder, {"method": "mean"}, window_reduce, "overlap mean raster->raster"),
+        (xt.RelativeOverlapRegridder, {"method": "first_order_conservative"}, window_reduce, None),
+        (xt.BarycentricInterpolator, {}, window_reduce, "bilinear raster->raster"),
+        (xt.CentroidLocatorRegridder, {}, None, None),
+    ):
+        label = f"{cls.__name__} raster -> raster"
+        timings.reset()
+        t0 = time.perf_counter()
+        regridder = cls(source, target, **kwargs)
+        build_stages(label, time.perf_counter() - t0)
+        out, rose = run(regridder, source)
+        check_labelled(label, out, target, N_EXTRA, device)
+        w = regridder._weights
+        flat = out.data.reshape(N_EXTRA, -1)
+        if kernel is None:
+            if any(rose.values()):
+                raise AssertionError(f"{label} launched kernels: {rose}")
+            want = np.full((N_EXTRA, w.n), np.nan, dtype=np.float32)
+            want[:, w.row] = fine_flat[:, w.col]
+            compare(flat, torch.from_numpy(want), True, 0.0, 0.0)
+            print(f"  {label}: {w.nnz} of {w.n} targets located; no launch; bit-equal to numpy out[:, row] = data[:, col]")
+            continue
+        relative = cls is xt.RelativeOverlapRegridder
+        err = check_apply(
+            label, regridder, fine_payload, flat, kernel, rose, float(np.nanmax(np.abs(fine))),
+            lambda got, w=w, relative=relative: (got, reference_linear(w, fine_flat, relative=relative)),
+        )
+        max_err["window_reduce"] = max(max_err["window_reduce"], err)
+        if relative:
+            per_source = np.bincount(w.indices, weights=w.data, minlength=w.m)
+            sum_err = float(np.abs(per_source - 1.0).max())
+            if sum_err > 1e-12:
+                raise AssertionError(f"{label}: a source cell's weights sum to 1 + {sum_err:.3e}")
+            print(f"  {label}: every source cell's weights sum to 1 within {sum_err:.3e}")
+        if cls is xt.BarycentricInterpolator:
+            field = lambda x, y: 2.0 * x + 3.0 * y + 1.0  # noqa: E731
+            sy, sx = np.meshgrid(source["y"].values, source["x"].values, indexing="ij")
+            linear = raster_dataarray(RASTER_SIDE, torch.from_numpy(field(sx, sy).astype(np.float32)[None]).to(device))
+            got = regridder.regrid(linear).values[0].astype(np.float64)
+            ty, tx_ = np.meshgrid(target["y"].values, target["x"].values, indexing="ij")
+            rel = float(np.max(np.abs(got - field(tx_, ty)) / np.abs(field(tx_, ty))))
+            if not np.isfinite(got).all() or rel > 1e-5:
+                raise AssertionError(f"{label}: linear field off by rtol {rel:.3e}")
+            print(f"  {label}: linear field 2x + 3y + 1 (float32) comes back within rtol {rel:.3e} (gate 1e-5)")
+        if timing_label:
+            timing_runs.append((cls, timing_label, kernel, regridder))
+
+    # 8.3: the accessor's fill over 20 slices sharing one NaN pattern.
+    W, labels, values, truth = meshes["delaunay"]
+    dgrid = meshes["delaunay_grid"]
+    stack = np.where(
+        np.isnan(values)[None, :], np.nan, truth[None, :] * (1.0 + 0.05 * np.arange(LAPLACE_SLICES))[:, None]
+    )
+    filled_uda = xt.UgridDataArray(xt.xdata.DataArray(stack, dims=("time", dgrid.node_dimension)), dgrid)
+    solve = {"xy_weights": False, "atol": LAPLACE_SOLVE["atol"], "rtol": LAPLACE_SOLVE["rtol"],
+             "maxiter": LAPLACE_SOLVE["maxiter"]}
+    before = csr_matvec.launches
+    timings.reset()
+    t0 = time.perf_counter()
+    filled = filled_uda.ugrid.laplace_interpolate(**solve)
+    wall = time.perf_counter() - t0
+    info = dict(interpolate.last_solve_info)
+    stages = "; ".join(f"{name} {rec['total_s']:.3f} s" for name, rec in timings.summary().items())
+    launches = csr_matvec.launches - before
+    expected = 1 + 3 + info["iterations"] * 4
+    if launches != expected:
+        raise AssertionError(f"accessor fill: csr_matvec launches {launches}, one batched solve makes {expected}")
+    direct = interpolate.laplace_interpolate(stack, W, components_labels=labels, precondition_degree=4, **LAPLACE_SOLVE)
+    if filled.dims != ("time", dgrid.node_dimension):
+        raise AssertionError(f"accessor fill: dims {filled.dims}")
+    compare(torch.from_numpy(filled.values), torch.from_numpy(direct), True, 0.0, 0.0)
+    residual = unknown_residuals(W, stack, filled.values)
+    if residual.max() > 10 * LAPLACE_SOLVE["atol"]:
+        raise AssertionError(f"accessor fill: host residual {residual.max():.3e} > 10 * atol")
+    on_card = xt.UgridDataArray(filled_uda.obj.copy(data=torch.from_numpy(stack).to(device)), dgrid)
+    before_card = csr_matvec.launches
+    t1 = time.perf_counter()
+    card_filled = on_card.ugrid.laplace_interpolate(**solve)
+    card_wall = time.perf_counter() - t1
+    counts["csr_matvec"] = launches + csr_matvec.launches - before_card
+    if not (isinstance(card_filled.data, torch.Tensor) and card_filled.data.device == device):
+        raise AssertionError("accessor fill of a CUDA payload did not return a tensor on the card")
+    compare(card_filled.data, torch.from_numpy(direct), True, 0.0, 0.0)
+    print(
+        f"  uda.ugrid.laplace_interpolate (time={LAPLACE_SLICES}, node={dgrid.n_node}, one NaN pattern): one batched "
+        f"solve, {info['iterations']} iterations, csr_matvec +{launches}, last_solve_info {json.dumps(info)}; equal "
+        f"to the direct call; host residual max {residual.max():.3e}; wall {wall:.3f} s (accessor stages: {stages}; "
+        f"the solve's host {info['host_s']:.3f} s: {host_stages(info)}; device {info['device_s']:.3f} s); the same on "
+        f"a CUDA payload {card_wall:.3f} s (solve cached: {interpolate.last_solve_info['cached']}), a CUDA tensor "
+        f"back, equal [{card}]"
+    )
+
+    # 8.4: faces above the native caps.
+    phase_overcap(device, card)
+    timed, _ = phase_timing(device, timing_runs, card, title="phase 8 apply times")
+    return counts, max_err, timed
+
+
 def main() -> int:
     import torch
 
@@ -1375,17 +1722,27 @@ def main() -> int:
     matvec_timed = phase_laplace_timing(device, card, copy_gbps, meshes)
     main_matvec = matvec_timed[("float64", 1)]
     regrid_counts, regrid_err, _ = phase_regridders(device, card, inputs)
+    labelled_counts, labelled_err, _ = phase_labelled(device, card, inputs, meshes)
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
         launch it (each counted from 0 over its own run)."""
-        by_path = {"overlap regridders (phase 3)": counts[name], "phase 7 regridders": regrid_counts[name]}
+        by_path = {
+            "overlap regridders (phase 3)": counts[name],
+            "phase 7 regridders": regrid_counts[name],
+            "labelled arrays and structured grids (phase 8)": labelled_counts[name],
+        }
         return {
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(check_err[name], main_err[name], regrid_err[name]),
+            "max_abs_err": max(check_err[name], main_err[name], regrid_err[name], labelled_err[name]),
             **timed_at,
         }
+
+    matvec_by_path = {
+        "Laplace fill (phase 5)": laplace_counts["csr_matvec"],
+        "labelled arrays and structured grids (phase 8)": labelled_counts["csr_matvec"],
+    }
 
     kernels = [
         {
@@ -1410,7 +1767,8 @@ def main() -> int:
                 "xugrid_tpu/regrid/aligned_apply.py:1271 (matvec); "
                 "xugrid_tpu/regrid/gather_apply.py:1794, 1858, 1413, 975"
             ),
-            "launches": laplace_counts["csr_matvec"],
+            "launches": sum(matvec_by_path.values()),
+            "launches_by_path": matvec_by_path,
             **main_matvec,
             "max_abs_err": max(check_err["csr_matvec"], *(t["max_abs_err"] for t in matvec_timed.values())),
         },

@@ -1,9 +1,10 @@
 """
 The port stands alone: in a fresh interpreter, ``import xugrid_tpu_torch``,
 a CPU regrid through each regridder (overlap, relative overlap, centroid
-locator, barycentric interpolator, network gridder), a CPU Laplace fill
-and a CPU ``cg_solve`` load neither jax nor xugrid_tpu, and launch no
-kernel.
+locator, barycentric interpolator, network gridder), a CPU Laplace fill,
+a CPU ``cg_solve``, and a UgridDataArray and a raster DataArray regridded
+onto each other and filled through ``.ugrid.laplace_interpolate`` load
+neither jax nor xugrid_tpu, and launch no kernel.
 A subprocess is needed because the test session itself imports jax.
 
 ``chip_smoke.py`` refuses to run without a CUDA device: exit code 2 and
@@ -64,6 +65,17 @@ REGRID_ON_CPU = textwrap.dedent(
     x, _ = interpolate.cg_solve(rows, cols, vals, np.full(n, 3.0), np.ones(n), np.zeros(n),
                                 0.0, 1e-10, 200, device="cpu")
     assert np.isfinite(x).all()
+    # Labelled arrays: a UgridDataArray onto a raster DataArray, the
+    # raster back onto the mesh, and the accessor's fill.
+    uda = xt.UgridDataArray(xt.xdata.DataArray(data, dims=("time", source.face_dimension)), source)
+    cells = (np.arange(6) + 0.5) * 2.0
+    raster = xt.xdata.DataArray(np.ones((2, 6, 6)), coords={"y": cells[::-1], "x": cells}, dims=("time", "y", "x"))
+    on_raster = xt.OverlapRegridder(uda, raster).regrid(uda, device="cpu")
+    assert on_raster.dims == ("time", "y", "x") and bool(torch.isfinite(on_raster.data).all())
+    on_mesh = xt.BarycentricInterpolator(raster, uda, device="cpu").regrid(raster, device="cpu")
+    assert isinstance(on_mesh, xt.UgridDataArray) and on_mesh.shape == (2, source.n_face)
+    nodes = xt.UgridDataArray(xt.xdata.DataArray(np.stack([values, 2.0 * values]), dims=("time", source.node_dimension)), source)
+    assert np.isfinite(nodes.ugrid.laplace_interpolate(device="cpu").values).all()
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "xugrid_tpu" or m.startswith("xugrid_tpu."))
     assert not loaded, loaded

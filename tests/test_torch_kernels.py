@@ -256,3 +256,84 @@ def test_laplace_on_cuda_matches_cpu(device):
     np.testing.assert_allclose(on_card, on_cpu, rtol=0.0, atol=1e-8)
     with pytest.raises(ValueError, match="b holds NaN or inf"):
         interpolate.laplace_interpolate(np.where(np.isnan(values), values, np.inf), W)
+
+
+def test_overlap_geometry_above_the_native_caps_on_the_card(device):
+    """Overlap areas of 40- and 120-node faces on the card: against the
+    native padded clip where it takes the face (its buffer cut to 40
+    columns) and against the same torch geometry on the CPU; the
+    OverlapRegridder entry point takes that path on the card."""
+    from xugrid_tpu_torch.spatial import celltree, geometry
+    from xugrid_tpu_torch.spatial.bvh import face_bounding_boxes
+    from xugrid_tpu_torch.utils import native
+
+    nodes, faces, n_nodes = chip_smoke.overcap_mesh(20)
+    mesh = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, faces[:4])
+    tverts, tfaces = chip_smoke.quad_mesh(16, 16, dx=40.0 / 16)
+    boxes = face_bounding_boxes(tfaces, tverts[:, 0], tverts[:, 1])
+    qi, ti = mesh.celltree.grid_hash.query_boxes(boxes)
+    query_xy = geometry.pad_polygons(tfaces, tverts[:, 0], tverts[:, 1])
+    tree_xy = mesh.celltree._poly_xy_host
+    on_card = celltree.overlap_areas_device(qi, ti, query_xy, tree_xy, device)
+    on_cpu = celltree.overlap_areas_device(qi, ti, query_xy, tree_xy, "cpu")
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-9, atol=1e-10)
+    small = n_nodes[ti] <= 40
+    cut = np.ascontiguousarray(tree_xy[:, :40])
+    host = native.polygon_clip_areas_native(qi[small], ti[small], query_xy, cut)
+    np.testing.assert_allclose(on_card[small], host, rtol=1e-9, atol=1e-10)
+    w = xt.OverlapRegridder(mesh, xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces), device=device)._weights
+    np.testing.assert_allclose(np.bincount(w.indices, weights=w.data, minlength=4), mesh.area, rtol=1e-9)
+
+
+def test_mean_value_weights_above_the_native_cap_on_the_card(device):
+    from xugrid_tpu_torch.spatial import celltree
+
+    nodes, faces, _ = chip_smoke.overcap_mesh(20)
+    mesh = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, faces[:4])
+    rng = np.random.default_rng(2)
+    points = np.concatenate([rng.uniform(0.0, 40.0, (3000, 2)), nodes[-120:][:3]])
+    face, weights = mesh.compute_barycentric_weights(points, device=device)
+    on_cpu = celltree.mean_value_weights_device(
+        points, face, mesh.celltree._poly_xy_host, mesh.celltree.default_tolerance(), "cpu"
+    )
+    assert (face >= 0).sum() > 300
+    # Points close to an edge of a 120-node face weigh ill-conditioned:
+    # a sum in another order moves a weight by up to 1e-9 there.
+    np.testing.assert_allclose(weights, on_cpu, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(weights[face >= 0].sum(axis=1), 1.0, rtol=0, atol=1e-12)
+
+
+def test_labelled_regrid_on_the_card(device):
+    """A UgridDataArray on the card onto a raster DataArray and back: the
+    payloads stay on the card and match the CPU path."""
+    rng = np.random.default_rng(3)
+    (verts, faces), _ = chip_smoke.bench_meshes(40, 4, rng)
+    grid = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    values = rng.normal(size=(5, grid.n_face)).astype(np.float32)
+    uda = xt.UgridDataArray(xt.xdata.DataArray(torch.from_numpy(values).to(device), dims=("time", grid.face_dimension)), grid)
+    target = chip_smoke.raster_dataarray(16, np.zeros((16, 16), np.float32), extent=40.0)
+    for cls, method in ((xt.OverlapRegridder, "mean"), (xt.OverlapRegridder, "mode"), (xt.BarycentricInterpolator, None)):
+        kwargs = {} if method is None else {"method": method}
+        regridder = cls(uda, target, **kwargs)
+        out = regridder.regrid(uda)
+        assert out.dims == (uda.dims[0], "y", "x") and out.data.device.type == "cuda"
+        on_cpu = regridder.regrid(xt.UgridDataArray(uda.obj.copy(data=torch.from_numpy(values)), grid))
+        chip_smoke.compare(out.data, on_cpu.data, method == "mode", 1e-5, 1e-6)
+        back = xt.BarycentricInterpolator(out, uda).regrid(out)
+        assert isinstance(back, xt.UgridDataArray) and back.data.device.type == "cuda"
+
+
+def test_accessor_fill_on_the_card(device):
+    nodes, faces = chip_smoke.delaunay_mesh(40)
+    grid = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, faces)
+    truth, values = chip_smoke.laplace_inputs(nodes, 0.05)
+    stack = np.stack([values, 2.0 * values, 3.0 * values])
+    uda = xt.UgridDataArray(xt.xdata.DataArray(torch.from_numpy(stack).to(device), dims=("time", grid.node_dimension)), grid)
+    before = csr_matvec.launches
+    filled = uda.ugrid.laplace_interpolate(atol=1e-10, maxiter=2000)
+    assert csr_matvec.launches - before == 1 + 3 + 4 * interpolate.last_solve_info["iterations"]
+    assert filled.data.device.type == "cuda" and filled.data.dtype == torch.float64
+    on_cpu = xt.UgridDataArray(uda.obj.copy(data=torch.from_numpy(stack)), grid).ugrid.laplace_interpolate(
+        atol=1e-10, maxiter=2000, device="cpu"
+    )
+    np.testing.assert_allclose(filled.values, on_cpu.values, rtol=0, atol=1e-8)

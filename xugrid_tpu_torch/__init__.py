@@ -2,18 +2,31 @@
 xugrid_tpu_torch: the PyTorch and CUDA port of xugrid_tpu, for one
 NVIDIA H100.
 
-It covers the regridders between 2D meshes (overlap, centroid locator,
-barycentric interpolation in the centroidal voronoi tessellation) and
-from a 1D network onto a 2D mesh (``NetworkGridder``): weights built on
-the host from the mesh geometry, applied on the device by two
-hand-written CUDA kernels, ``csrc/window_reduce.cu`` and
-``csrc/window_select.cu`` (the centroid locator is a row gather); and
-the Laplace fill (``ugrid/interpolate.py``, a preconditioned CG whose
-SpMV is the CUDA kernel ``csr_matvec``).  Entry points run on the CUDA
-card unless the caller asks for the CPU.  The package imports torch,
-numpy and scipy, and never jax or xugrid_tpu.
+It covers:
+- labelled arrays: ``xdata`` (DataArray, Dataset; coordinates numpy on
+  the host, payloads numpy or torch tensors that stay on their device),
+  ``UgridDataArray`` / ``UgridDataset`` over a ``Ugrid2d`` or
+  ``Ugrid1d``, the ``.ugrid`` accessor's topology and Laplace fill, and
+  ``concat``/``merge``/``full_like``/``zeros_like``/``ones_like``;
+- the regridders between 2D meshes and rasters (overlap, centroid
+  locator, barycentric interpolation: in the centroidal voronoi
+  tessellation, or bilinear between rasters) and from a 1D network onto
+  a mesh or raster (``NetworkGridder``): weights built on the host from
+  the geometry (faces above the native kernels' sizes on the device),
+  applied on the device by two hand-written CUDA kernels,
+  ``csrc/window_reduce.cu`` and ``csrc/window_select.cu`` (the centroid
+  locator is a row gather);
+- the Laplace fill (``ugrid/interpolate.py``, a preconditioned CG whose
+  SpMV is the CUDA kernel ``csr_matvec``).
+
+Entry points run on the CUDA card unless the caller asks for the CPU.
+The package imports torch, numpy, scipy and pandas, and never jax or
+xugrid_tpu.
 """
 
+from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch.core.common import concat, full_like, merge, ones_like, zeros_like
+from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset
 from xugrid_tpu_torch.regrid.gridder import NetworkGridder
 from xugrid_tpu_torch.regrid.regridder import (
     BarycentricInterpolator,
@@ -32,4 +45,12 @@ __all__ = [
     "RelativeOverlapRegridder",
     "Ugrid1d",
     "Ugrid2d",
+    "UgridDataArray",
+    "UgridDataset",
+    "concat",
+    "full_like",
+    "merge",
+    "ones_like",
+    "xdata",
+    "zeros_like",
 ]

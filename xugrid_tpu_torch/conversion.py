@@ -1,0 +1,117 @@
+"""
+Conversions between structured (raster) coordinates and UGRID geometry
+(host, numpy): cell-centre coordinates to interval breaks, cell bounds
+to vertices, and the inference of a raster's x and y coordinates.
+Copied from ``xugrid_tpu/conversion.py`` so that the port imports
+nothing of the JAX package; curvilinear (N, M, 4) bounds are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _is_monotonic_and_increasing(coord, axis: int = 0) -> bool:
+    """True if increasing, False if decreasing; raises otherwise."""
+    coord = np.asarray(coord)
+    n = coord.shape[axis]
+    nxt = coord.take(np.arange(1, n), axis=axis)
+    prv = coord.take(np.arange(0, n - 1), axis=axis)
+    if np.all(nxt >= prv):
+        return True
+    if np.all(nxt <= prv):
+        return False
+    raise ValueError("The input coordinate is not monotonic.")
+
+
+def infer_interval_breaks(coord, axis: int = 0, check_monotonic: bool = False):
+    """Cell-centre coordinates -> interval breaks (midpoints, with the
+    first and last extrapolated by half a cell)."""
+    coord = np.asarray(coord)
+    if check_monotonic:
+        _is_monotonic_and_increasing(coord, axis=axis)
+    deltas = 0.5 * np.diff(coord, axis=axis)
+    if deltas.size == 0:
+        deltas = np.array(0.0)
+    first = np.take(coord, [0], axis=axis) - np.take(deltas, [0], axis=axis)
+    last = np.take(coord, [-1], axis=axis) + np.take(deltas, [-1], axis=axis)
+    trim_last = tuple(slice(None, -1) if n == axis else slice(None) for n in range(coord.ndim))
+    return np.concatenate([first, coord[trim_last] + deltas, last], axis=axis)
+
+
+def _scalar_spacing(coord_values, spacing_value, name):
+    diff = np.diff(coord_values)
+    spacing_value = abs(float(spacing_value))
+    if not np.allclose(np.abs(diff), spacing_value, atol=abs(1.0e-4 * spacing_value)):
+        raise ValueError(f"spacing of {name} does not match value of d{name}")
+    return np.full_like(coord_values, 0.5 * spacing_value)
+
+
+def infer_interval_breaks1d(obj, var: str) -> np.ndarray:
+    """
+    Breaks of a 1D coordinate: from an explicit ``d{var}`` spacing
+    (scalar or array), else from the midpoints.  A coordinate of one
+    value needs the explicit spacing.
+    """
+    values = np.asarray(obj[var].data, dtype=np.float64)
+    spacing_name = f"d{var}"
+    if spacing_name in obj.coords:
+        spacing = np.asarray(obj[spacing_name].data)
+        if spacing.ndim > 1:
+            raise NotImplementedError(f"More than one dimension in spacing variable: {spacing_name}")
+        if spacing.shape in ((), (1,)):
+            halfdiff = _scalar_spacing(values, spacing, var)
+        else:
+            if values.size != spacing.size:
+                raise ValueError(f"size of {var} does not match size of {spacing_name}")
+            halfdiff = 0.5 * np.abs(spacing)
+        if _is_monotonic_and_increasing(values):
+            return np.insert(values + halfdiff, 0, values[0] - halfdiff[0])
+        return np.insert(values - halfdiff, 0, values[0] + halfdiff[0])
+    if values.size == 1:
+        raise ValueError(
+            f"Cannot derive spacing of 1-sized coordinate: {var}\n"
+            f"Assign a d{var} variable with spacing instead."
+        )
+    return infer_interval_breaks(values, check_monotonic=True)
+
+
+def infer_xy_coords(obj):
+    """The names of the x and y coordinates: by dimension name, then by
+    the ``axis`` and ``standard_name`` attributes."""
+    x = None
+    y = None
+    dims = set(obj.dims)
+    if "x" in dims and "y" in dims:
+        x, y = "x", "y"
+    elif "longitude" in dims and "latitude" in dims:
+        x, y = "longitude", "latitude"
+    else:
+        for name in obj.coords:
+            da = obj[name]
+            if da.ndim != 1:
+                continue
+            axis = str(da.attrs.get("axis", "")).lower()
+            stdname = str(da.attrs.get("standard_name", "")).lower()
+            if axis == "x" or stdname in ("longitude", "projection_x_coordinate"):
+                x = name
+            elif axis == "y" or stdname in ("latitude", "projection_y_coordinate"):
+                y = name
+    missing = [n for n in (x, y) if n is not None and n not in obj.coords]
+    if missing:
+        raise ValueError(
+            f"Found spatial dimensions ({y!r}, {x!r}) but no matching "
+            f"coordinate variables for {missing}; assign coordinates "
+            f"(e.g. obj.assign_coords({x}=..., {y}=...)) first."
+        )
+    return x, y
+
+
+def bounds1d_to_vertices(bounds: np.ndarray) -> np.ndarray:
+    """(n, 2) monotonic cell bounds -> the n + 1 vertices."""
+    diff = np.diff(bounds, axis=0)
+    if (diff >= 0.0).all():
+        return np.concatenate((bounds[:, 0], bounds[-1:, 1]))
+    if (diff <= 0.0).all():
+        return np.concatenate((bounds[:, 1], bounds[-1:, 0]))
+    raise ValueError("Bounds are not monotonic ascending or monotonic descending")

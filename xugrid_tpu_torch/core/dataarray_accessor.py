@@ -1,0 +1,110 @@
+"""
+The ``.ugrid`` accessor of a UgridDataArray: its topology, and the Laplace
+fill over it.  The port of ``xugrid_tpu/core/dataarray_accessor.py`` and
+``accessorbase.py`` reduced to these; the rest of the accessor is not
+ported.
+"""
+
+from __future__ import annotations
+
+import scipy.sparse
+
+from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch.utils.profiling import timed
+
+
+class UgridDataArrayAccessor:
+    """Operations using the UGRID topology, via ``uda.ugrid``."""
+
+    def __init__(self, obj: xdata.DataArray, grid):
+        self.obj = obj
+        self.grid = grid
+
+    @property
+    def grids(self):
+        """The topology, as a list (as a UgridDataset gives its grids)."""
+        return [self.grid]
+
+    @property
+    def name(self) -> str:
+        """Name of the UGRID topology."""
+        return self.grid.name
+
+    @property
+    def names(self):
+        """Name of the UGRID topology, as a list."""
+        return [self.grid.name]
+
+    @property
+    def topology(self) -> dict:
+        """Mapping from name to UGRID topology."""
+        return {self.name: self.grid}
+
+    @property
+    def bounds(self) -> dict:
+        """Mapping from grid name to (minx, miny, maxx, maxy)."""
+        return {self.grid.name: self.grid.bounds}
+
+    @property
+    def total_bounds(self):
+        """(minx, miny, maxx, maxy) of the grid."""
+        return self.grid.bounds
+
+    def laplace_interpolate(
+        self,
+        xy_weights: bool = True,
+        direct_solve: bool = False,
+        delta=0.0,
+        relax=0.0,
+        rtol: float = 0.0,
+        atol: float = 1.0e-4,
+        maxiter: int = 500,
+        precondition_degree: int = 4,
+        device=None,
+    ):
+        """
+        Fill NaNs by solving Laplace's equation over the node or face
+        adjacency, with the known values as boundary conditions: the
+        port's ``laplace_interpolate`` (a Chebyshev-Jacobi preconditioned
+        CG whose SpMV is the CUDA kernel ``csr_matvec``).  Slices of the
+        extra dimensions that share one NaN pattern are solved together,
+        as one batched solve.  ``delta`` and ``relax`` are accepted for
+        the reference's signature and unused.
+
+        The solve runs in float64 on ``device``: None means the device of
+        a tensor payload, else the CUDA card; pass ``device="cpu"``
+        without one.  The right-hand sides are built on the host, so a
+        tensor payload is copied there for the solve; the result is
+        float64, a tensor on the payload's device for a tensor payload,
+        numpy for numpy.
+        """
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+        from xugrid_tpu_torch.ugrid.interpolate import interpolate_na_helper, laplace_interpolate
+
+        grid = self.grid
+        da = self.obj
+        ugrid_dim = grid.find_ugrid_dim(da)
+        if ugrid_dim == grid.edge_dimension:
+            raise ValueError("Laplace interpolation along edges is not allowed.")
+        with timed("accessor.connectivity"):
+            conn = grid.get_connectivity_matrix(ugrid_dim, xy_weights=xy_weights)
+        with timed("accessor.components"):
+            _, components_labels = scipy.sparse.csgraph.connected_components(conn)
+        with timed("accessor.fill"):
+            da_filled = interpolate_na_helper(
+                da,
+                ugrid_dim,
+                func=laplace_interpolate,
+                kwargs={
+                    "connectivity": conn,
+                    "use_weights": xy_weights,
+                    "components_labels": components_labels,
+                    "direct_solve": direct_solve,
+                    "rtol": rtol,
+                    "atol": atol,
+                    "maxiter": maxiter,
+                    "precondition_degree": precondition_degree,
+                },
+                device=device,
+            )
+        return UgridDataArray(da_filled, grid)

@@ -39,8 +39,10 @@ class MatrixCOO(NamedTuple):
 
     def to_csr(self) -> "MatrixCSR":
         from xugrid_tpu_torch.utils.native import csr_from_triplet_native
+        from xugrid_tpu_torch.utils.profiling import timed
 
-        native = csr_from_triplet_native(self.row, self.col, self.data, self.n)
+        with timed("sparse.csr_from_triplet"):
+            native = csr_from_triplet_native(self.row, self.col, self.data, self.n)
         if native is not None:
             data, col, indptr = native
             return MatrixCSR(data, col, indptr, self.n, self.m, self.nnz)

@@ -1,0 +1,291 @@
+"""
+UgridDataArray / UgridDataset: labelled data paired with UGRID
+topologies, as in ``xugrid_tpu/core/wrap.py``.
+
+Methods and attributes of the wrapped xdata object are forwarded
+(``__getattr__``); results that still carry a UGRID dimension come back
+wrapped with the grids.  The UGRID dimensions get position coordinates,
+so a forwarded operation that subsets one is seen: subsetting a
+topology is not ported, and such an operation raises.  The payload may
+be a torch tensor and stays on its device.
+"""
+
+from __future__ import annotations
+
+from itertools import chain
+from typing import Sequence, Union
+
+import numpy as np
+
+from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
+from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid
+
+
+def assign_ugrid_coords(obj, grids):
+    """Position coordinates on the UGRID dims that have none, so that
+    subsetting is observable after forwarded operations."""
+    ugrid_dims = {dim for grid in grids for dim in grid.dims} & set(obj.dims)
+    sizes = obj.sizes
+    coords = {dim: np.arange(sizes[dim]) for dim in ugrid_dims if dim not in obj.coords}
+    if coords:
+        obj = obj.assign_coords(coords)
+    return obj
+
+
+def align(obj, grids, old_indexes):
+    """The grids of ``obj`` after a forwarded operation: unchanged where no
+    UGRID dimension's index changed.  A changed index would subset the
+    topology, which is not ported: raises."""
+    if old_indexes is None:
+        return obj, grids
+    ugrid_dims = set(chain.from_iterable(grid.dims for grid in grids)).intersection(old_indexes)
+    changed = sorted(
+        k for k, index in obj.indexes.items() if k in ugrid_dims and not index.equals(old_indexes[k])
+    )
+    if changed:
+        raise NotImplementedError(
+            f"this selection subsets the UGRID dimensions {changed}: topology subsets are not ported"
+        )
+    return obj, grids
+
+
+def maybe_xugrid(obj, grids, old_indexes=None):
+    """Wrap xdata objects that still carry UGRID dims; pass the rest."""
+    if not isinstance(obj, (xdata.DataArray, xdata.Dataset)):
+        return obj
+    item_grids = [grid for grid in grids if grid.dims.intersection(obj.dims)]
+    if not item_grids:
+        return obj
+    aligned, aligned_grids = align(obj, item_grids, old_indexes)
+    if isinstance(aligned, xdata.DataArray):
+        return UgridDataArray(aligned, aligned_grids[0])
+    return UgridDataset(aligned, aligned_grids)
+
+
+def maybe_xdata(obj):
+    """Unwrap Ugrid wrappers into their xdata objects."""
+    if isinstance(obj, (UgridDataArray, UgridDataset)):
+        return obj.obj
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(maybe_xdata(o) for o in obj)
+    return obj
+
+
+class _ForwardMixin:
+    def _indexes_snapshot(self):
+        ugrid_dims = {dim for grid in self.grids for dim in grid.dims}
+        return {k: v for k, v in self.obj.indexes.items() if k in ugrid_dims}
+
+    def __getattr__(self, name: str):
+        if name.startswith("_") or name in ("obj", "grids"):
+            raise AttributeError(name)
+        attr = getattr(self.obj, name)
+        if callable(attr) and not isinstance(attr, (xdata.DataArray, xdata.Dataset)):
+            snapshot = self._indexes_snapshot()
+
+            def wrapped(*args, **kwargs):
+                args = tuple(maybe_xdata(a) for a in args)
+                kwargs = {k: maybe_xdata(v) for k, v in kwargs.items()}
+                return maybe_xugrid(attr(*args, **kwargs), self.grids, snapshot)
+
+            wrapped.__name__ = name
+            wrapped.__doc__ = getattr(attr, "__doc__", None)
+            return wrapped
+        return maybe_xugrid(attr, self.grids, self._indexes_snapshot())
+
+    def _binary(self, other, op, reflexive=False):
+        other_un = maybe_xdata(other)
+        result = op(other_un, self.obj) if reflexive else op(self.obj, other_un)
+        return maybe_xugrid(result, self.grids, self._indexes_snapshot())
+
+    def __getitem__(self, key):
+        return maybe_xugrid(self.obj[key], self.grids, self._indexes_snapshot())
+
+    def __dir__(self):
+        return list(set(super().__dir__()) | set(dir(self.obj)))
+
+    def __repr__(self):
+        return self.obj.__repr__()
+
+    def __len__(self):
+        return len(self.obj)
+
+
+def _attach_operators(cls):
+    from xugrid_tpu_torch.xdata.dataarray import BINARY_OPERATORS, REFLEXIVE_OPERATORS, UNARY_OPERATORS
+
+    def make(op, reflexive):
+        def method(self, other):
+            return self._binary(other, op, reflexive)
+
+        return method
+
+    def make_unary(op):
+        def method(self):
+            return maybe_xugrid(op(self.obj), self.grids, self._indexes_snapshot())
+
+        return method
+
+    for name, op in BINARY_OPERATORS.items():
+        setattr(cls, name, make(op, False))
+    for name, op in REFLEXIVE_OPERATORS.items():
+        setattr(cls, name, make(op, True))
+    for name, op in UNARY_OPERATORS.items():
+        setattr(cls, name, make_unary(op))
+    cls.__hash__ = object.__hash__
+    return cls
+
+
+@_attach_operators
+class UgridDataArray(_ForwardMixin):
+    """An xdata.DataArray paired with one UGRID topology."""
+
+    def __init__(self, obj: xdata.DataArray, grid: AbstractUgrid):
+        if not isinstance(obj, xdata.DataArray):
+            raise TypeError(f"obj must be xdata.DataArray. Received instead: {type(obj).__name__}")
+        if grid is None:
+            raise ValueError("grid is required")
+        object.__setattr__(self, "grid", grid)
+        object.__setattr__(self, "obj", assign_ugrid_coords(obj, [grid]))
+
+    @property
+    def grids(self):
+        return [self.grid]
+
+    @property
+    def ugrid(self):
+        """Topology-aware accessor."""
+        from xugrid_tpu_torch.core.dataarray_accessor import UgridDataArrayAccessor
+
+        return UgridDataArrayAccessor(self.obj, self.grid)
+
+    def __setitem__(self, key, value):
+        self.obj[key] = maybe_xdata(value)
+
+    def __array__(self, dtype=None, copy=None):
+        return self.obj.__array__(dtype)
+
+    def __float__(self):
+        return float(self.obj)
+
+    def __int__(self):
+        return int(self.obj)
+
+    def __bool__(self):
+        return bool(self.obj)
+
+    def __setattr__(self, name, value):
+        if name in ("grid", "obj"):
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self.obj, name, value)
+
+    def to_dataset(self, name=None):
+        return UgridDataset(self.obj.to_dataset(name), self.grids)
+
+    # -- constructors --------------------------------------------------------
+    @staticmethod
+    def from_data(data, grid, facet: str) -> "UgridDataArray":
+        """A UgridDataArray from a 1D array or tensor on a grid facet
+        ("node", "edge" or "face")."""
+        return grid.create_data_array(data, facet)
+
+    @staticmethod
+    def from_structured2d(da: xdata.DataArray, x: str = None, y: str = None) -> "UgridDataArray":
+        """
+        A UgridDataArray from a rectilinear DataArray, its (y, x)
+        dimensions flattened into the face dimension of the Ugrid2d of
+        its cells (faces y-major in the coordinates' own order).  x and y
+        name the coordinates, inferred when not given.
+        """
+        if da.ndim < 2:
+            raise ValueError(f"DataArray must have at least two spatial dimensions. Found: {da.dims}")
+        grid, dims = Ugrid2d.from_structured(da, x, y, return_dims=True)
+        extra_dims = [d for d in da.dims if d not in dims]
+        flattened = da.transpose(*extra_dims, *dims).stack_dims(grid.face_dimension, list(dims))
+        return UgridDataArray(flattened, grid)
+
+
+class UgridDataset(_ForwardMixin):
+    """An xdata.Dataset paired with one or more UGRID topologies.
+    (Reading the topologies from a dataset's UGRID variables needs the
+    conventions, which are not ported: pass the grids.)"""
+
+    def __init__(self, obj: xdata.Dataset = None, grids: Union[AbstractUgrid, Sequence[AbstractUgrid]] = None):
+        if grids is None:
+            raise ValueError("grids is required")
+        if obj is None:
+            obj = xdata.Dataset()
+        if not isinstance(obj, xdata.Dataset):
+            raise TypeError(f"obj must be xdata.Dataset. Received instead: {type(obj).__name__}")
+        grids = [grids] if isinstance(grids, AbstractUgrid) else list(grids)
+        bad = [type(g).__name__ for g in grids if not isinstance(g, AbstractUgrid)]
+        if bad:
+            raise TypeError(f"grids must be Ugrid1d or Ugrid2d, received: {bad}")
+        object.__setattr__(self, "grids", grids)
+        object.__setattr__(self, "obj", assign_ugrid_coords(obj, grids))
+
+    @property
+    def grid(self):
+        if len(self.grids) != 1:
+            raise ValueError(f"Can only call .grid with a single topology, found {len(self.grids)}")
+        return self.grids[0]
+
+    def __contains__(self, key):
+        return key in self.obj
+
+    def __iter__(self):
+        return iter(self.obj)
+
+    def __setattr__(self, name, value):
+        if name in ("grids", "obj"):
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self.obj, name, value)
+
+    def __setitem__(self, key, value):
+        if isinstance(value, UgridDataArray):
+            # A new topology joins the grids; one of the same name replaces it.
+            names = [g.name for g in self.grids]
+            if value.grid.name in names:
+                self.grids[names.index(value.grid.name)] = value.grid
+            else:
+                self.grids.append(value.grid)
+            self.obj[key] = value.obj
+            object.__setattr__(self, "obj", assign_ugrid_coords(self.obj, self.grids))
+        else:
+            self.obj[key] = maybe_xdata(value)
+
+    @staticmethod
+    def from_structured2d(dataset: xdata.Dataset, topology=None) -> "UgridDataset":
+        """
+        A UgridDataset from a rectilinear Dataset: per topology, the
+        variables over both of its (y, x) dimensions flattened into the
+        face dimension of its Ugrid2d, those over neither kept.
+        ``topology`` maps a topology name to ``{"x": ..., "y": ...}``
+        coordinate names, or None to infer them (default ``{"mesh2d":
+        None}``; a string names one topology).  (Cell bounds options are
+        not ported.)
+        """
+        if topology is None:
+            topology = {"mesh2d": None}
+        elif isinstance(topology, str):
+            topology = {topology: None}
+        out = None
+        for name, options in topology.items():
+            options = options or {}
+            grid, dims = Ugrid2d.from_structured(
+                dataset, options.get("x"), options.get("y"), name=name, return_dims=True
+            )
+            new_ds = xdata.Dataset(attrs=dict(dataset.attrs))
+            for varname in dataset.data_vars:
+                da = dataset[varname]
+                if set(dims) <= set(da.dims):
+                    extra = [d for d in da.dims if d not in dims]
+                    new_ds[varname] = da.transpose(*extra, *dims).stack_dims(grid.face_dimension, list(dims))
+                elif not set(dims) & set(da.dims):
+                    new_ds[varname] = da
+            part = UgridDataset(new_ds, [grid])
+            out = part if out is None else UgridDataset(out.obj.merge(part.obj), out.grids + part.grids)
+        return out

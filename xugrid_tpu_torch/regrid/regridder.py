@@ -1,52 +1,94 @@
 """
-Regridders between the faces of 2D meshes: by area of overlap
-(``OverlapRegridder``, ``RelativeOverlapRegridder``), by the face
-holding each target centroid (``CentroidLocatorRegridder``), and by
-barycentric interpolation in the source's centroidal voronoi
-tessellation (``BarycentricInterpolator``).
+Regridders between the faces of 2D meshes and rasters: by area of
+overlap (``OverlapRegridder``, ``RelativeOverlapRegridder``), by the
+cell holding each target centroid (``CentroidLocatorRegridder``), and by
+barycentric interpolation (``BarycentricInterpolator``: in the source's
+centroidal voronoi tessellation, or bilinear between raster cells).
 
-The weights are built on the host (grid hash and native geometry
+A source or target is a ``Ugrid2d``, a ``UgridDataArray`` /
+``UgridDataset`` over one (unstructured), or an xdata ``DataArray`` /
+``Dataset`` with ``x`` and ``y`` coordinates (structured).  The weights
+are built on the host (structured joins, grid hash and native geometry
 kernels) as a CSR matrix, padded to ``PaddedCSR`` and uploaded once per
-(dtype, device); ``regrid`` applies them to a tensor or array whose last
-axis is the source face dimension.  The centroid locator keeps its
-weights as COO triplets and applies them as a row gather.
+(dtype, device).  ``regrid`` applies them to a UgridDataArray or a
+DataArray, returning a UgridDataArray (unstructured target) or a
+DataArray with the raster's coordinates (structured target), or to a
+bare tensor or array whose trailing axes are the source grid's.  The
+centroid locator keeps its weights as COO triplets and applies them as
+a row gather.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.core.sparse import MatrixCOO, MatrixCSR, PaddedCSR
+from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset
 from xugrid_tpu_torch.regrid import reduce
 from xugrid_tpu_torch.regrid.apply import apply_coo_gather, apply_weights
+from xugrid_tpu_torch.regrid.structured import StructuredGrid2d
 from xugrid_tpu_torch.regrid.unstructured import UnstructuredGrid2d
+from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.utils.device import resolve_device
+from xugrid_tpu_torch.utils.profiling import timed
 
 #: Working-set budget per apply chunk (bytes of source plus target):
 #: stacks of extra slices larger than this are applied in slabs.
 APPLY_CHUNK_BYTES = 2_000_000_000
 
 
+def setup_grid(obj):
+    """The regridding adapter of a source or target: a raster has ``x``
+    and ``y`` coordinates."""
+    if isinstance(obj, (UnstructuredGrid2d, StructuredGrid2d)):
+        return obj
+    if isinstance(obj, (Ugrid2d, UgridDataArray, UgridDataset)):
+        return UnstructuredGrid2d(obj)
+    if isinstance(obj, (xdata.DataArray, xdata.Dataset)):
+        return StructuredGrid2d(obj)
+    raise TypeError(
+        "Expected Ugrid2d, UgridDataArray, UgridDataset, DataArray, or "
+        f"Dataset; received: {type(obj).__name__}"
+    )
+
+
+def convert_to_match(source, target):
+    """Both grids structured, or both unstructured (a raster becomes the
+    Ugrid2d of its cells)."""
+    PROMOTIONS = {
+        frozenset({StructuredGrid2d}): StructuredGrid2d,
+        frozenset({StructuredGrid2d, UnstructuredGrid2d}): UnstructuredGrid2d,
+        frozenset({UnstructuredGrid2d}): UnstructuredGrid2d,
+    }
+    matched_type = PROMOTIONS[frozenset({type(source), type(target)})]
+    return source.convert_to(matched_type), target.convert_to(matched_type)
+
+
 class BaseRegridder(abc.ABC):
     _METHODS = {}
+    #: The method of a regridder made from weights without one.
+    _DEFAULT_METHOD = "mean"
 
     def __init__(self, source, target, tolerance: Optional[float] = None):
-        self._set_weights(
-            self._compute_weights(UnstructuredGrid2d(source), UnstructuredGrid2d(target), tolerance)
-        )
+        self._source = setup_grid(source)
+        self._target = setup_grid(target)
+        self._set_weights(self._compute_weights(self._source, self._target, tolerance))
 
     @abc.abstractmethod
     def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
         ...
 
     def _set_weights(self, weights) -> None:
-        if isinstance(weights, MatrixCOO):
-            weights = weights.to_csr()
-        self._weights = weights
-        self._padded = PaddedCSR.from_csr(weights)
+        with timed("regridder.padded_csr"):
+            if isinstance(weights, MatrixCOO):
+                weights = weights.to_csr()
+            self._weights = weights
+            self._padded = PaddedCSR.from_csr(weights)
         # (dtype, device) -> (indices, weights) tensors on that device.
         self._device_weights = {}
 
@@ -69,71 +111,133 @@ class BaseRegridder(abc.ABC):
             )
 
     @classmethod
-    def from_csr_arrays(cls, data, indices, indptr, n: int, m: int, target, method="mean"):
+    def from_csr_arrays(cls, data, indices, indptr, n: int, m: int, target, method=None):
         """A regridder applying given CSR weights (n targets by m source
-        entities), e.g. those a ``xugrid_tpu`` regridder built."""
+        entities), e.g. those a ``xugrid_tpu`` regridder built; ``method``
+        None is the class's default."""
         return cls._from_weights(MatrixCSR(data, indices, indptr, int(n), int(m), len(data)), target, method)
 
     @classmethod
-    def from_coo_arrays(cls, data, row, col, n: int, m: int, target, method="mean"):
+    def from_coo_arrays(cls, data, row, col, n: int, m: int, target, method=None):
         """A regridder applying given COO weight triplets (row: target,
         col: source), e.g. a ``xugrid_tpu`` CentroidLocatorRegridder's."""
         return cls._from_weights(MatrixCOO.from_triplet(row, col, data, n, m), target, method)
 
+    @staticmethod
+    def _target_grid(target):
+        return setup_grid(target)
+
     @classmethod
     def _from_weights(cls, weights, target, method):
-        n_target = UnstructuredGrid2d(target).size
-        if n_target != weights.n:
-            raise ValueError(f"target has {n_target} faces, weights have {weights.n} rows")
         instance = cls.__new__(cls)
+        instance._source = None
+        instance._target = cls._target_grid(target)
+        if instance._target.size != weights.n:
+            raise ValueError(f"target has {instance._target.size} faces, weights have {weights.n} rows")
         instance._set_weights(weights)
-        instance._setup_regrid(method)
+        instance._setup_regrid(cls._DEFAULT_METHOD if method is None else method)
         return instance
 
-    def _regrid_array(self, source, device=None) -> torch.Tensor:
-        source = torch.as_tensor(source).to(resolve_device(source, device))
-        n, m = self._weights.n, self._weights.m
-        first_dims_shape = tuple(source.shape[:-1])
-        if 0 in first_dims_shape:
-            return torch.empty(first_dims_shape + (n,), dtype=source.dtype, device=source.device)
-        if source.shape[-1] != m:
-            raise ValueError(
-                f"Source size {source.shape[-1]} does not match regridder source size {m}"
-            )
-        source2d = source.reshape(-1, m)
-        n_extra = source2d.shape[0]
+    def _source_ndim(self) -> int:
+        return 1 if self._source is None else self._source.ndim
+
+    def _apply(self, source2d: torch.Tensor) -> torch.Tensor:
+        """The weights applied to an (E, m) source: (E, n)."""
+        n = self._weights.n
         # Bound the device working set: stacks larger than the budget
         # stream through in slabs of extra slices.
-        per_slice = source2d.element_size() * (m + n)
+        per_slice = source2d.element_size() * (self._weights.m + n)
         rows = max(APPLY_CHUNK_BYTES // per_slice, 1)
         chunks = [
-            apply_weights(
-                self._padded, source2d[i : i + rows], self._reduction, n,
-                cache=self._device_weights,
-            )
-            for i in range(0, n_extra, rows)
+            apply_weights(self._padded, source2d[i : i + rows], self._reduction, n, cache=self._device_weights)
+            for i in range(0, source2d.shape[0], rows)
         ]
-        out = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
-        return out.reshape(first_dims_shape + (n,))
+        return chunks[0] if len(chunks) == 1 else torch.cat(chunks)
 
-    def regrid(self, data, device=None) -> torch.Tensor:
+    def _regrid_array(self, source, device=None) -> torch.Tensor:
+        if isinstance(source, np.ndarray):
+            source = np.ascontiguousarray(source)  # torch takes no negative strides
+        source = torch.as_tensor(source).to(resolve_device(source, device))
+        first_dims_shape = tuple(source.shape[: source.ndim - self._source_ndim()])
+        target_shape = tuple(self._target.shape)
+        if 0 in first_dims_shape:
+            return torch.empty(first_dims_shape + target_shape, dtype=source.dtype, device=source.device)
+        source = source.reshape(first_dims_shape + (-1,))
+        if source.shape[-1] != self._weights.m:
+            raise ValueError(
+                f"Source size {source.shape[-1]} does not match regridder source size {self._weights.m}"
+            )
+        out = self._apply(source.reshape(-1, self._weights.m))
+        return out.reshape(first_dims_shape + target_shape)
+
+    def regrid_dataarray(self, source: xdata.DataArray, source_dims: Tuple[str, ...], device=None):
+        """The regridded DataArray: the extra dimensions first, then the
+        target's, with the source's coordinates on the extra dimensions,
+        its name and attrs.  The payload is never copied to the host."""
+        extra_dims = tuple(d for d in source.dims if d not in source_dims)
+        transposed = source.transpose(*extra_dims, *source_dims)
+        result = self._regrid_array(transposed.data, device)
+        out = xdata.DataArray(
+            result, dims=extra_dims + tuple(self._target.dims), name=source.name, attrs=dict(source.attrs)
+        )
+        for k, v in transposed._coords.items():
+            if set(v.dims) <= set(extra_dims):
+                out._coords[k] = v
+        return out
+
+    def regrid(self, data, device=None):
         """
-        Regrid a tensor or array whose last axis is the source face
-        dimension; all leading axes (e.g. time, layer) are mapped.
+        Regrid the data along its grid dimensions; all other dimensions
+        (e.g. time, layer) are mapped.
+
+        ``data``: a UgridDataArray or a DataArray, giving a UgridDataArray
+        (unstructured target) or a DataArray with the raster's ``y``,
+        ``x``, ``dy`` and ``dx`` coordinates (structured target); or a
+        tensor or array whose trailing axes are the source grid's (the
+        face axis; a raster's (y, x)), giving a tensor of the leading
+        axes and the target's.
 
         ``device``: where to compute, and where the result lies.  None
-        means the device of ``data`` for a tensor and the CUDA card for
-        anything else; without a card, pass ``device="cpu"``.
+        means the device of a tensor payload and the CUDA card for
+        anything else; without a card, pass ``device="cpu"``.  A numpy
+        payload gives a tensor payload on ``device``.
         """
-        return self._regrid_array(data, device)
+        if isinstance(data, UgridDataArray):
+            obj = data.obj
+            source_dims = (data.grid.core_dimension,)
+        elif isinstance(data, xdata.DataArray):
+            if self._source is None:
+                raise ValueError("a regridder made from weights knows no source grid: pass a UgridDataArray")
+            obj = data
+            source_dims = tuple(self._source.dims)
+        else:
+            return self._regrid_array(data, device)
+        missing_dims = set(source_dims).difference(obj.dims)
+        if missing_dims:
+            raise ValueError(f"data does not contain regridder source dimensions: {missing_dims}")
+        regridded = self.regrid_dataarray(obj, source_dims, device)
+        if isinstance(self._target, StructuredGrid2d):
+            return regridded.assign_coords(self._target.coords)
+        return UgridDataArray(regridded, self._target.ugrid_topology)
 
 
 class BaseOverlapRegridder(BaseRegridder, abc.ABC):
+    def __init__(self, source, target, method, device):
+        # Where the exact overlap of faces above the native clips' sizes
+        # runs; resolved only if such faces occur.
+        self._build_device = device
+        super().__init__(source=source, target=target)
+        self._setup_regrid(method)
+
     def _overlap_weights(self, source, target, relative: bool) -> MatrixCSR:
-        source_index, target_index, weight_values = source.overlap(target, relative=relative)
-        return MatrixCSR.from_triplet(
-            target_index, source_index, weight_values, n=target.size, m=source.size
-        )
+        source, target = convert_to_match(source, target)
+        if isinstance(source, StructuredGrid2d):
+            source_index, target_index, weight_values = source.overlap(target, relative=relative)
+        else:
+            source_index, target_index, weight_values = source.overlap(
+                target, relative=relative, device=self._build_device
+            )
+        return MatrixCSR.from_triplet(target_index, source_index, weight_values, n=target.size, m=source.size)
 
 
 class OverlapRegridder(BaseOverlapRegridder):
@@ -142,14 +246,16 @@ class OverlapRegridder(BaseOverlapRegridder):
 
     Supported methods: mean, harmonic_mean, geometric_mean, sum, minimum,
     maximum, mode, median, max_overlap, p5/p10/p25/p50/p75/p90/p95, or a
-    custom torch reduction over the trailing window axis.
+    custom torch reduction over the trailing window axis.  ``device`` is
+    where the overlap of faces above the native clips' sizes (32 tree
+    nodes, then 96 nodes of both polygons) is computed: None means the
+    CUDA card, which must be present unless ``device="cpu"``.
     """
 
     _METHODS = reduce.ABSOLUTE_OVERLAP_METHODS
 
-    def __init__(self, source, target, method: Union[str, Callable] = "mean"):
-        super().__init__(source=source, target=target)
-        self._setup_regrid(method)
+    def __init__(self, source, target, method: Union[str, Callable] = "mean", device=None):
+        super().__init__(source, target, method, device)
 
     def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
         return self._overlap_weights(source, target, relative=False)
@@ -162,14 +268,15 @@ class OverlapRegridder(BaseOverlapRegridder):
 class RelativeOverlapRegridder(BaseOverlapRegridder):
     """
     Overlap regridding with weights divided by the source face area
-    (first-order conservative / conductance regridding).
+    (first-order conservative / conductance regridding).  ``device`` as
+    for ``OverlapRegridder``.
     """
 
     _METHODS = reduce.RELATIVE_OVERLAP_METHODS
+    _DEFAULT_METHOD = "first_order_conservative"
 
-    def __init__(self, source, target, method: Union[str, Callable] = "first_order_conservative"):
-        super().__init__(source=source, target=target)
-        self._setup_regrid(method)
+    def __init__(self, source, target, method: Union[str, Callable] = "first_order_conservative", device=None):
+        super().__init__(source, target, method, device)
 
     def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
         return self._overlap_weights(source, target, relative=True)
@@ -177,13 +284,14 @@ class RelativeOverlapRegridder(BaseOverlapRegridder):
 
 class CentroidLocatorRegridder(BaseRegridder):
     """
-    Regrid by locating the target faces' centroids in the source mesh:
+    Regrid by locating the target faces' centroids in the source:
     out[target] = source[face holding its centroid], NaN where no face
     holds it.  ``tolerance`` is the on-edge tolerance of the point
     location.  Launches no kernel: the apply is a row gather.
     """
 
     def _compute_weights(self, source, target, tolerance=None) -> MatrixCOO:
+        source, target = convert_to_match(source, target)
         source_index, target_index, weight_values = source.locate_centroids(target, tolerance)
         return MatrixCOO.from_triplet(target_index, source_index, weight_values, n=target.size, m=source.size)
 
@@ -199,31 +307,25 @@ class CentroidLocatorRegridder(BaseRegridder):
     def _setup_regrid(self, func) -> None:
         """The row gather takes no method."""
 
-    def _regrid_array(self, source, device=None) -> torch.Tensor:
-        source = torch.as_tensor(source).to(resolve_device(source, device))
-        n, m = self._weights.n, self._weights.m
-        first_dims_shape = tuple(source.shape[:-1])
-        if 0 in first_dims_shape:
-            return torch.empty(first_dims_shape + (n,), dtype=source.dtype, device=source.device)
-        if source.shape[-1] != m:
-            raise ValueError(
-                f"Source size {source.shape[-1]} does not match regridder source size {m}"
-            )
+    def _apply(self, source2d: torch.Tensor) -> torch.Tensor:
         w = self._weights
-        return apply_coo_gather(w.row, w.col, source, n, cache=self._device_weights)
+        return apply_coo_gather(w.row, w.col, source2d, w.n, cache=self._device_weights)
 
 
 class BarycentricInterpolator(BaseRegridder):
     """
-    Smooth interpolation: the target centroids are located in the
-    source's centroidal voronoi tessellation and weighted by generalized
-    barycentric (mean-value) weights over the surrounding source faces;
-    the apply is their weighted mean, which skips NaN sources.
+    Smooth interpolation: between rasters, bilinear weights of the
+    neighbouring source cell centres; otherwise the target centroids are
+    located in the source's centroidal voronoi tessellation and weighted
+    by generalized barycentric (mean-value) weights over the surrounding
+    source faces.  The apply is their weighted mean, which skips NaN
+    sources.
 
     ``tolerance`` is the on-edge tolerance of the point location.
-    ``device`` is where the tessellation's angle sort runs: None means
-    the CUDA card, which must be present unless ``device="cpu"``.  The
-    rest of the weight build runs on the host.
+    ``device`` is where the tessellation's angle sort and the weights in
+    its cells above the native kernel's 64 nodes run: None means the
+    CUDA card, which must be present unless ``device="cpu"``.  The rest
+    of the weight build runs on the host.
     """
 
     _METHODS = {"mean": reduce.mean}
@@ -234,7 +336,9 @@ class BarycentricInterpolator(BaseRegridder):
         self._setup_regrid("mean")
 
     def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
-        source_index, target_index, weights = source.barycentric(
-            target, tolerance, device=self._build_device
-        )
+        source, target = convert_to_match(source, target)
+        if isinstance(source, StructuredGrid2d):
+            source_index, target_index, weights = source.linear_weights(target)
+        else:
+            source_index, target_index, weights = source.barycentric(target, tolerance, device=self._build_device)
         return MatrixCSR.from_triplet(target_index, source_index, weights, n=target.size, m=source.size)

@@ -1,0 +1,267 @@
+"""
+Structured (raster) grid adapters of the regridders (host, numpy).
+
+Copied from ``xugrid_tpu/regrid/structured.py``'s 1D and 2D grids: cell
+bounds from a ``{x}bounds`` coordinate, a ``d{x}`` spacing or
+equidistant midpoints; descending axes flipped internally and their
+indices flipped back on output; overlap by interval joins, centroid
+location by searchsorted containment, bilinear weights by neighbouring
+centroid pairs, the per-axis joins combined by outer products
+(``utils.broadcast``).  Every join returns ``(source_index,
+target_index, weights)`` sorted by target.  (The 3D grids are not
+ported.)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import numpy as np
+
+from xugrid_tpu_torch.regrid.overlap_1d import overlap_1d
+from xugrid_tpu_torch.regrid.utils import broadcast
+from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
+from xugrid_tpu_torch.utils.profiling import timed
+
+
+def _sorted(source_index, target_index, weights):
+    sorter = np.argsort(target_index, kind="stable")
+    return source_index[sorter], target_index[sorter], weights[sorter]
+
+
+class StructuredGrid1d:
+    """
+    One axis of a structured grid, defined by cell bounds.
+
+    Bounds come from an explicit ``{name}bounds`` coordinate, a ``d{name}``
+    spacing coordinate, or equidistant inference from midpoints.
+    Decreasing coordinates are flipped internally and indexes flipped back
+    on output.
+    """
+
+    def __init__(self, obj, name: str):
+        bounds_name = f"{name}bounds"
+        size_name = f"d{name}"
+
+        if name not in obj.coords:
+            raise ValueError(f"Coordinate {name!r} not present in object.")
+        midpoints_raw = np.asarray(obj[name].data, dtype=np.float64)
+        diffs = np.diff(midpoints_raw)
+        if (diffs < 0).all() or (len(diffs) and (diffs <= 0).all()):
+            midpoints = midpoints_raw[::-1]
+            flipped = True
+        elif (diffs >= 0).all():
+            midpoints = midpoints_raw
+            flipped = False
+        else:
+            raise ValueError(f"{name} is not monotonic")
+
+        coords = obj.coords
+        if bounds_name in coords:
+            bounds = np.asarray(obj[bounds_name].data, dtype=np.float64)
+            if flipped:
+                bounds = bounds[::-1]
+                bounds = np.sort(bounds, axis=1)
+            size = bounds[:, 1] - bounds[:, 0]
+        else:
+            if size_name in coords:
+                size = np.asarray(obj[size_name].data, dtype=np.float64)
+                if size.ndim == 1 and flipped:
+                    size = size[::-1]
+            else:
+                size = np.diff(midpoints)
+                if len(size) == 0:
+                    raise ValueError(
+                        f"Cannot infer cell size along {name} from a single "
+                        f"midpoint; provide {bounds_name} or {size_name}."
+                    )
+                atol = 1.0e-4 * size[0]
+                if not np.allclose(size, size[0], atol=atol):
+                    raise ValueError(
+                        f"DataArray has to be equidistant along {name}, or "
+                        f'explicit bounds must be given as "{bounds_name}", '
+                        f'or cellsizes as "{size_name}"'
+                    )
+                size = np.full_like(midpoints, size[0])
+            abs_size = np.broadcast_to(np.abs(size), midpoints.shape)
+            bounds = np.column_stack((midpoints - 0.5 * abs_size, midpoints + 0.5 * abs_size))
+            size = abs_size
+
+        self.name = name
+        self.midpoints = midpoints
+        self.bounds = bounds
+        self.flipped = flipped
+        self.dname = size_name
+        self.dvalue = np.asarray(size)
+        self.index = midpoints_raw
+
+    @property
+    def coords(self) -> dict:
+        coords = {self.name: self.index}
+        if self.dvalue.ndim == 0:
+            coords[self.dname] = self.dvalue
+        else:
+            dvalue = self.dvalue[::-1] if self.flipped else self.dvalue
+            coords[self.dname] = (self.name, dvalue)
+        return coords
+
+    @property
+    def ndim(self) -> int:
+        return 1
+
+    @property
+    def dims(self) -> Tuple[str]:
+        return (self.name,)
+
+    @property
+    def size(self) -> int:
+        return len(self.bounds)
+
+    @property
+    def length(self) -> np.ndarray:
+        # diff gives (n, 1): take the column, which keeps a single cell 1-D.
+        return np.abs(np.diff(self.bounds, axis=1))[:, 0]
+
+    @property
+    def directional_bounds(self) -> np.ndarray:
+        """The bounds in the coordinate's own order."""
+        if self.flipped:
+            return self.bounds[::-1, :].copy()
+        return self.bounds
+
+    def flip_if_needed(self, index: np.ndarray) -> np.ndarray:
+        if self.flipped:
+            return self.size - index - 1
+        return index
+
+    # -- joins ----------------------------------------------------------------
+    def overlap(self, other: "StructuredGrid1d", relative: bool):
+        """Interval-overlap join; weights are overlap lengths, relative to
+        the source cell length with ``relative``."""
+        source_index, target_index, weights = overlap_1d(self.bounds, other.bounds)
+        if relative:
+            weights = weights / self.length[source_index]
+        source_index = self.flip_if_needed(source_index)
+        target_index = other.flip_if_needed(target_index)
+        return _sorted(source_index, target_index, weights)
+
+    def locate_centroids(self, other: "StructuredGrid1d", tolerance=None):
+        """Containment join of target midpoints in source cells."""
+        source, target = self._containment(other)
+        return _sorted(source, target, np.ones(len(source), dtype=np.float64))
+
+    def _containment(self, other: "StructuredGrid1d"):
+        mid = other.midpoints
+        inside = (mid > self.bounds[0, 0]) & (mid < self.bounds[-1, 1])
+        cell = np.searchsorted(self.bounds[:, 1], mid, side="left")
+        cell = np.clip(cell, 0, self.size - 1)
+        contains = inside & (mid >= self.bounds[cell, 0]) & (mid <= self.bounds[cell, 1])
+        target = np.flatnonzero(contains)
+        source = cell[contains]
+        return self.flip_if_needed(source), other.flip_if_needed(target)
+
+    def linear_weights(self, other: "StructuredGrid1d"):
+        """Pairs of neighbouring source centroids with linear weights for
+        each contained target midpoint.  Raises on weights outside [0, 1]."""
+        if self.midpoints.size < 2:
+            raise ValueError(
+                f"Coordinate {self.name} has size: {self.midpoints.size}. "
+                "At least two points are required for interpolation."
+            )
+        source, target = self._containment(other)
+        # Work in ascending (unflipped) positions; the flip is involutive.
+        src_pos = self.flip_if_needed(source)
+        tgt_pos = other.flip_if_needed(target)
+
+        t_mid = other.midpoints[tgt_pos]
+        s_mid = self.midpoints[src_pos]
+        neighbor = np.where(t_mid <= s_mid, -1, 1)
+        neighbor_pos = np.clip(src_pos + neighbor, 0, self.midpoints.size - 1)
+        neighbor = neighbor_pos - src_pos
+
+        total = self.midpoints[neighbor_pos] - s_mid
+        total[total == 0] = 1.0
+        w_self = 1.0 - (t_mid - s_mid) / total
+        w_self[neighbor == 0] = 0.0
+        if np.any((w_self < 0.0) | (w_self > 1.0)):
+            raise ValueError(f"Computed invalid weights for dimension: {self.name}")
+
+        source_index = np.column_stack((src_pos, neighbor_pos)).ravel()
+        target_index = np.repeat(tgt_pos, 2)
+        weights = np.column_stack((w_self, 1.0 - w_self)).ravel()
+        valid = (source_index >= 0) & (source_index <= self.size - 1)
+        source_index = self.flip_if_needed(source_index[valid])
+        target_index = other.flip_if_needed(target_index[valid])
+        return _sorted(source_index, target_index, weights[valid])
+
+
+class StructuredGrid2d(StructuredGrid1d):
+    """A 2D structured (raster) topology: the outer product of two axes,
+    cells y-major in the coordinates' own order."""
+
+    def __init__(self, obj, name_x: str = "x", name_y: str = "y"):
+        self.xbounds = StructuredGrid1d(obj, name_x)
+        self.ybounds = StructuredGrid1d(obj, name_y)
+
+    @property
+    def coords(self) -> dict:
+        return {**self.ybounds.coords, **self.xbounds.coords}
+
+    @property
+    def ndim(self) -> int:
+        return 2
+
+    @property
+    def dims(self) -> Tuple[str, str]:
+        return self.ybounds.dims + self.xbounds.dims
+
+    @property
+    def size(self) -> int:
+        return self.ybounds.size * self.xbounds.size
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.ybounds.size, self.xbounds.size)
+
+    @property
+    def area(self) -> np.ndarray:
+        return np.multiply.outer(self.ybounds.length, self.xbounds.length)
+
+    def convert_to(self, matched_type: Any) -> Any:
+        """This grid as ``matched_type``: itself, or the Ugrid2d of its
+        directional bounds (faces y-major in the coordinates' order)."""
+        from xugrid_tpu_torch.regrid.unstructured import UnstructuredGrid2d
+
+        if matched_type == StructuredGrid2d:
+            return self
+        if matched_type == UnstructuredGrid2d:
+            with timed("structured.to_ugrid2d"):
+                grid = Ugrid2d.from_structured_bounds(
+                    self.xbounds.directional_bounds, self.ybounds.directional_bounds
+                )
+            return UnstructuredGrid2d(grid)
+        raise TypeError(f"Cannot convert StructuredGrid2d to {matched_type.__name__}")
+
+    def _broadcast_sorted(self, other, sy, sx, ty, tx, wy, wx):
+        return _sorted(*broadcast(self.shape, other.shape, (sy, sx), (ty, tx), (wy, wx)))
+
+    def overlap(self, other, relative: bool):
+        """(Relative) area-of-overlap join with another structured grid."""
+        with timed("structured.overlap"):
+            sx, tx, wx = self.xbounds.overlap(other.xbounds, relative)
+            sy, ty, wy = self.ybounds.overlap(other.ybounds, relative)
+            return self._broadcast_sorted(other, sy, sx, ty, tx, wy, wx)
+
+    def locate_centroids(self, other, tolerance=None):
+        """Containment join of target cell centres."""
+        with timed("structured.locate_centroids"):
+            sx, tx, wx = self.xbounds.locate_centroids(other.xbounds)
+            sy, ty, wy = self.ybounds.locate_centroids(other.ybounds)
+            return self._broadcast_sorted(other, sy, sx, ty, tx, wy, wx)
+
+    def linear_weights(self, other):
+        """Bilinear interpolation weights at target cell centres."""
+        with timed("structured.linear_weights"):
+            sx, tx, wx = self.xbounds.linear_weights(other.xbounds)
+            sy, ty, wy = self.ybounds.linear_weights(other.ybounds)
+            return self._broadcast_sorted(other, sy, sx, ty, tx, wy, wx)

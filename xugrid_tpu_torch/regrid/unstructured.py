@@ -3,9 +3,12 @@ Unstructured-grid adapters of the regridders: each join returns flat
 triplets ``(source_index, target_index, weights)``.
 
 The geometry runs on the host: the celltree's grid hash and native
-kernels (``spatial/celltree.py``), the centroidal voronoi tessellation
-(``ugrid/voronoi.py``, whose angle sort of a large mesh runs on the
-caller's torch device), and vectorized numpy weight fix-ups.
+kernels (``spatial/celltree.py``, whose exact geometry of faces above
+the native sizes runs on the caller's torch device), the centroidal
+voronoi tessellation (``ugrid/voronoi.py``, whose angle sort of a large
+mesh runs on that device too), and vectorized numpy weight fix-ups.
+The adapters take a topology or a UgridDataArray / UgridDataset over
+one.
 """
 
 from __future__ import annotations
@@ -19,6 +22,16 @@ from xugrid_tpu_torch.ugrid import voronoi
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.utils.profiling import timed
+
+
+def _topology_of(obj, allowed, options):
+    from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset
+
+    if isinstance(obj, (UgridDataArray, UgridDataset)):
+        obj = obj.grid
+    if isinstance(obj, allowed):
+        return obj
+    raise TypeError(f"Expected one of {options}, received: {type(obj).__name__}")
 
 
 def _by_target(source_index, target_index, weights):
@@ -71,9 +84,19 @@ class UnstructuredGrid2d:
     """Weight-building adapter around a Ugrid2d topology."""
 
     def __init__(self, obj):
-        if not isinstance(obj, Ugrid2d):
-            raise TypeError(f"Expected Ugrid2d, received: {type(obj).__name__}")
-        self.ugrid_topology = obj
+        self.ugrid_topology = _topology_of(obj, Ugrid2d, ["Ugrid2d", "UgridDataArray", "UgridDataset"])
+
+    @property
+    def ndim(self):
+        return 1
+
+    @property
+    def dims(self):
+        return (self.ugrid_topology.face_dimension,)
+
+    @property
+    def shape(self):
+        return (self.ugrid_topology.n_face,)
 
     @property
     def size(self):
@@ -83,19 +106,26 @@ class UnstructuredGrid2d:
     def area(self):
         return self.ugrid_topology.area
 
-    def overlap(self, other, relative: bool):
+    def convert_to(self, matched_type):
+        if isinstance(self, matched_type):
+            return self
+        raise TypeError(f"Cannot convert UnstructuredGrid2d to {matched_type.__name__}")
+
+    def overlap(self, other, relative: bool, device=None):
         """
         Area-of-overlap join.  The index lives on this (source) grid and
         the probes are ``other``'s (target's) polygons, so the celltree
         hands back (target, source) pairs.  With ``relative=True`` each
         area is divided by its SOURCE cell area (first-order conservative
-        weighting).
+        weighting).  Faces above the native clips' sizes are clipped on
+        ``device``.
         """
         topo = other.ugrid_topology
         tgt, src, area = self.ugrid_topology.celltree.intersect_faces(
             vertices=topo.node_coordinates,
             faces=topo.face_node_connectivity,
             fill_value=topo.fill_value,
+            device=device,
         )
         if relative:
             area = area / self.area[src]
@@ -132,13 +162,15 @@ class UnstructuredGrid2d:
         Smooth-interpolation join: barycentric weights of each target
         centroid within the source's centroidal voronoi tessellation.
         Voronoi nodes ARE source centroids, so a weight on a voronoi
-        node is a weight on a source face.
+        node is a weight on a source face.  The angle sort and the
+        weights in cells above the native kernel's 64 nodes run on
+        ``device``.
         """
         points = other.ugrid_topology.centroids
         tess, vertices, node_to_face, node_pairs = self._voronoi_support(device)
 
         with timed("barycentric.locate_and_weigh_in_tessellation"):
-            cell_of, table = tess.compute_barycentric_weights(points, tolerance)
+            cell_of, table = tess.compute_barycentric_weights(points, tolerance, device=device)
 
         # Exterior voronoi nodes interpolated between two projections
         # carry no source face: push their weight onto the projections.
@@ -185,9 +217,19 @@ class Network1d:
     """Weight-building adapter around a Ugrid1d network."""
 
     def __init__(self, obj):
-        if not isinstance(obj, Ugrid1d):
-            raise TypeError(f"Expected Ugrid1d, received: {type(obj).__name__}")
-        self.ugrid_topology = obj
+        self.ugrid_topology = _topology_of(obj, Ugrid1d, ["Ugrid1d", "UgridDataArray", "UgridDataset"])
+
+    @property
+    def ndim(self):
+        return 1
+
+    @property
+    def dims(self):
+        return (self.ugrid_topology.edge_dimension,)
+
+    @property
+    def shape(self):
+        return (self.ugrid_topology.n_edge,)
 
     @property
     def size(self):

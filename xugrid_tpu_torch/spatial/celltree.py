@@ -6,8 +6,11 @@ clip and mean-value (barycentric) weights.
 The candidate joins run on the host grid hash (``spatial/grid_hash.py``)
 and the exact geometry on the native host kernels
 (``csrc/host_kernels.cpp``), as on ``xugrid_tpu``'s default path.  Where
-``xugrid_tpu`` falls back to a device kernel without the native library,
-these raise.
+the native kernels decline faces by size (overlap areas above 32 tree
+nodes, then above 96 nodes of both polygons; mean-value weights above
+64 nodes), the geometry runs as batched torch ops on a device
+(``spatial/geometry.py``), in chunks, as ``xugrid_tpu`` runs its device
+kernels there.  Without the native library everything raises.
 
 Convention: joins return ``(query_index, tree_index, payload)``.
 """
@@ -17,11 +20,61 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
+from xugrid_tpu_torch.spatial import geometry
 from xugrid_tpu_torch.spatial.bvh import face_bounding_boxes
 from xugrid_tpu_torch.spatial.geometry import pad_polygons
 from xugrid_tpu_torch.spatial.grid_hash import GridHash
+from xugrid_tpu_torch.utils.device import resolve_device
 from xugrid_tpu_torch.utils.profiling import timed
+
+#: Candidate values per chunk of the device geometry: a pair of polygons
+#: of m and k nodes holds m + k + m k candidate points.
+DEVICE_CHUNK = 1 << 22
+
+
+def _require_native_library() -> None:
+    """Raise where the native host library cannot be built: only a
+    decline by size takes the device geometry."""
+    from xugrid_tpu_torch.utils.native import get_lib
+
+    if get_lib() is None:
+        raise RuntimeError("the exact geometry needs the native host library (g++)")
+
+
+def overlap_areas_device(query_index, tree_index, query_xy, tree_xy, device) -> np.ndarray:
+    """Convex overlap area of query_xy[query_index[i]] and
+    tree_xy[tree_index[i]] per pair, on ``device`` in chunks: float64."""
+    device = resolve_device(None, device)
+    m, k = query_xy.shape[1], tree_xy.shape[1]
+    chunk = max(1, DEVICE_CHUNK // (m + k + m * k))
+    areas = np.empty(len(query_index), dtype=np.float64)
+    for start in range(0, len(query_index), chunk):
+        stop = start + chunk
+        subject = torch.from_numpy(query_xy[query_index[start:stop]]).to(device)
+        clip = torch.from_numpy(tree_xy[tree_index[start:stop]]).to(device)
+        areas[start:stop] = geometry.convex_overlap_areas(subject, clip).cpu().numpy()
+    return areas
+
+
+def mean_value_weights_device(points, face_index, poly_xy, tolerance: float, device) -> np.ndarray:
+    """Mean-value weights of points[i] in poly_xy[face_index[i]], a zero
+    row where face_index[i] < 0, on ``device`` in chunks: (n, n_max)."""
+    device = resolve_device(None, device)
+    n_max = poly_xy.shape[1]
+    chunk = max(1, DEVICE_CHUNK // n_max)
+    weights = np.zeros((len(points), n_max), dtype=np.float64)
+    for start in range(0, len(points), chunk):
+        stop = start + chunk
+        face = face_index[start:stop]
+        w = geometry.mean_value_weights(
+            torch.from_numpy(points[start:stop]).to(device),
+            torch.from_numpy(poly_xy[np.maximum(face, 0)]).to(device),
+            tolerance,
+        )
+        weights[start:stop] = np.where((face >= 0)[:, None], w.cpu().numpy(), 0.0)
+    return weights
 
 
 class CellTree2d:
@@ -67,11 +120,14 @@ class CellTree2d:
         q_diag2 = qdx * qdx + qdy * qdy
         return np.minimum(q_diag2[query_index], self._diag2[tree_index]) * 1e-12
 
-    def intersect_faces(self, vertices: np.ndarray, faces: np.ndarray, fill_value: int = -1):
+    def intersect_faces(self, vertices: np.ndarray, faces: np.ndarray, fill_value: int = -1, device=None):
         """
         Area-of-overlap join between query polygons and tree faces.
 
-        Returns (query_face_index, tree_face_index, area).
+        The native clips take polygons up to their sizes; larger ones go
+        to ``device`` (None: the CUDA card, which must be present unless
+        ``device="cpu"``).  Returns (query_face_index, tree_face_index,
+        area).
         """
         vertices = np.asarray(vertices, dtype=np.float64)
         faces = np.asarray(faces)
@@ -83,18 +139,21 @@ class CellTree2d:
             return query_index, tree_index, np.empty(0, dtype=np.float64)
         query_xy = pad_polygons(faces, vertices[:, 0], vertices[:, 1])
 
-        from xugrid_tpu_torch.utils.native import polygon_clip_areas_conn_native
+        from xugrid_tpu_torch.utils.native import polygon_clip_areas_conn_native, polygon_clip_areas_native
 
+        _require_native_library()
         with timed("celltree.exact_overlap_areas"):
+            # Gather the tree polygons from the connectivity; then from the
+            # padded buffer, which takes larger tree faces.
             areas = polygon_clip_areas_conn_native(
                 query_index, tree_index, query_xy,
                 self.faces, self.vertices[:, 0], self.vertices[:, 1],
             )
+            if areas is None:
+                areas = polygon_clip_areas_native(query_index, tree_index, query_xy, self._poly_xy_host)
         if areas is None:
-            raise RuntimeError(
-                "overlap areas need the native host library (g++) and "
-                "faces of at most 32 nodes"
-            )
+            with timed("celltree.exact_overlap_areas_device"):
+                areas = overlap_areas_device(query_index, tree_index, query_xy, self._poly_xy_host, device)
         keep = areas > self._pair_area_tolerance(boxes, query_index, tree_index)
         return query_index[keep], tree_index[keep], areas[keep]
 
@@ -160,10 +219,12 @@ class CellTree2d:
         end_xy = a + t1[valid][:, None] * d
         return edge_index, face_index, np.stack([start_xy, end_xy], axis=1)
 
-    def compute_barycentric_weights(self, points: np.ndarray, tolerance: Optional[float] = None):
+    def compute_barycentric_weights(self, points: np.ndarray, tolerance: Optional[float] = None, device=None):
         """
         Locate points and compute the mean-value (generalized barycentric)
-        weights of the vertices of the face holding each.
+        weights of the vertices of the face holding each.  Faces above
+        the native kernel's 64 nodes go to ``device`` (None: the CUDA
+        card, which must be present unless ``device="cpu"``).
 
         Returns (face_index (n,), weights (n, n_max_node)); the weights
         are a new array, zero in the rows of points outside every face.
@@ -172,12 +233,14 @@ class CellTree2d:
 
         points = np.atleast_2d(np.asarray(points, dtype=np.float64))
         face_index = self.locate_points(points, tolerance)
+        _require_native_library()
         with timed("celltree.mean_value_weights"):
             weights = mean_value_weights_native(
                 points, face_index.astype(np.int64), self._poly_xy_host, self._tol(tolerance)
             )
         if weights is None:
-            raise RuntimeError(
-                "barycentric weights need the native host library (g++) and faces of at most 64 nodes"
-            )
+            with timed("celltree.mean_value_weights_device"):
+                weights = mean_value_weights_device(
+                    points, face_index, self._poly_xy_host, self._tol(tolerance), device
+                )
         return face_index, weights

@@ -36,8 +36,10 @@ import scipy.sparse
 import torch
 from scipy.sparse.linalg import spsolve
 
+from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec
 from xugrid_tpu_torch.utils.device import resolve_device
+from xugrid_tpu_torch.xdata.variable import is_tensor
 
 #: Prepared systems, keyed by a content hash of the matrix (full bytes:
 #: a collision would silently corrupt results) and the device, emptied
@@ -407,3 +409,36 @@ def laplace_interpolate(
         host_s=t_end - t_start - last_solve_info["device_s"],
     )
     return out
+
+
+def interpolate_na_helper(da, ugrid_dim: str, func, kwargs: dict, device=None):
+    """
+    Apply a 1D fill function along ``ugrid_dim`` of an xdata DataArray,
+    over every slice of its other dimensions, in float64.  The Laplace
+    fill takes the slices that share one NaN pattern in one call (one
+    batched solve); with mixed patterns it fills slice by slice.
+
+    ``func`` takes and returns host numpy, and ``device=`` (resolved
+    against the payload: a tensor's device, else the CUDA card).  A
+    tensor payload is copied to the host for it, explicitly, and the
+    result goes back to the payload's device as a float64 tensor.
+    """
+    extra_dims = [d for d in da.dims if d != ugrid_dim]
+    transposed = da.transpose(*extra_dims, ugrid_dim)
+    payload = transposed.data
+    kwargs = dict(kwargs, device=resolve_device(payload, device))
+    values = np.asarray(transposed.values, dtype=np.float64)
+    flat = values.reshape(-1, values.shape[-1])
+
+    patterns = np.isnan(flat)
+    if func is laplace_interpolate and len(flat) > 1 and (patterns == patterns[0]).all():
+        filled = func(flat, **kwargs)
+    else:
+        filled = np.stack([func(row, **kwargs) for row in flat])
+    filled = filled.reshape(values.shape)
+    if is_tensor(payload):
+        filled = torch.from_numpy(filled).to(payload.device)
+
+    out = xdata.DataArray(filled, dims=tuple(extra_dims) + (ugrid_dim,), name=da.name, attrs=dict(da.attrs))
+    out._coords.update(transposed._coords)
+    return out.transpose(*da.dims)

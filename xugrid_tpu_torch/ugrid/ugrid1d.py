@@ -8,9 +8,10 @@ from __future__ import annotations
 import numpy as np
 
 from xugrid_tpu_torch.constants import FloatDType, IntDType
+from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid
 
 
-class Ugrid1d:
+class Ugrid1d(AbstractUgrid):
     """
     Topological data of a 1-D unstructured grid.
 
@@ -55,6 +56,18 @@ class Ugrid1d:
     @property
     def edge_dimension(self) -> str:
         return f"{self.name}_nEdges"
+
+    @property
+    def topology_dimension(self) -> int:
+        return 1
+
+    @property
+    def core_dimension(self) -> str:
+        return self.edge_dimension
+
+    @property
+    def facets(self) -> dict:
+        return {"node": self.node_dimension, "edge": self.edge_dimension}
 
     @property
     def node_coordinates(self) -> np.ndarray:

@@ -17,9 +17,10 @@ from scipy.sparse import csr_matrix
 
 from xugrid_tpu_torch.constants import FILL_VALUE, FloatDType, IntDType
 from xugrid_tpu_torch.ugrid import connectivity
+from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid
 
 
-class Ugrid2d:
+class Ugrid2d(AbstractUgrid):
     """
     Topological data of a 2-D unstructured grid.
 
@@ -103,9 +104,98 @@ class Ugrid2d:
         return f"{self.name}_nFaces"
 
     @property
+    def topology_dimension(self) -> int:
+        return 2
+
+    @property
+    def core_dimension(self) -> str:
+        return self.face_dimension
+
+    @property
+    def facets(self) -> dict:
+        return {"node": self.node_dimension, "edge": self.edge_dimension, "face": self.face_dimension}
+
+    @property
     def node_coordinates(self) -> np.ndarray:
         """(n_node, 2) node x and y."""
         return np.column_stack([self.node_x, self.node_y])
+
+    # -- structured constructors -------------------------------------------------
+    @staticmethod
+    def _from_intervals_helper(node_x, node_y, nx: int, ny: int, name: str) -> "Ugrid2d":
+        """Quads over the (ny + 1, nx + 1) nodes of interval breaks, y-major
+        in the breaks' own order, each counter-clockwise."""
+        linear = np.arange(node_x.size, dtype=IntDType).reshape((ny + 1, nx + 1))
+        face_nodes = np.empty((ny * nx, 4), dtype=IntDType)
+        left, right = slice(None, -1), slice(1, None)
+        lower, upper = slice(None, -1), slice(1, None)
+        if node_x[1] < node_x[0]:  # x decreasing
+            left, right = right, left
+        if node_y[nx + 1] < node_y[0]:  # y decreasing
+            lower, upper = upper, lower
+        face_nodes[:, 0] = linear[lower, left].ravel()
+        face_nodes[:, 1] = linear[lower, right].ravel()
+        face_nodes[:, 2] = linear[upper, right].ravel()
+        face_nodes[:, 3] = linear[upper, left].ravel()
+        return Ugrid2d(node_x, node_y, FILL_VALUE, face_nodes, name=name)
+
+    @staticmethod
+    def from_structured_intervals1d(x_intervals, y_intervals, name="mesh2d") -> "Ugrid2d":
+        """Ugrid2d from 1D x and y interval breaks."""
+        x_intervals = np.asarray(x_intervals)
+        y_intervals = np.asarray(y_intervals)
+        nx = x_intervals.shape[0] - 1
+        ny = y_intervals.shape[0] - 1
+        node_y, node_x = (a.ravel() for a in np.meshgrid(y_intervals, x_intervals, indexing="ij"))
+        return Ugrid2d._from_intervals_helper(node_x, node_y, nx, ny, name)
+
+    @staticmethod
+    def from_structured_bounds(x_bounds, y_bounds, name="mesh2d"):
+        """
+        Ugrid2d from (nx, 2) and (ny, 2) cell bounds, monotonic ascending or
+        descending: face k is cell (k // nx, k % nx) in the bounds' own
+        order.  (Curvilinear (N, M, 4) bounds are not ported.)
+        """
+        from xugrid_tpu_torch import conversion
+
+        x_bounds = np.asarray(x_bounds)
+        y_bounds = np.asarray(y_bounds)
+        if x_bounds.ndim != 2 or y_bounds.ndim != 2:
+            raise ValueError(f"Expected (n, 2) bounds, received {x_bounds.ndim} and {y_bounds.ndim} dimensions")
+        x = conversion.bounds1d_to_vertices(x_bounds)
+        y = conversion.bounds1d_to_vertices(y_bounds)
+        node_y, node_x = (a.ravel() for a in np.meshgrid(y, x, indexing="ij"))
+        return Ugrid2d._from_intervals_helper(node_x, node_y, x_bounds.shape[0], y_bounds.shape[0], name)
+
+    @staticmethod
+    def from_structured(data, x=None, y=None, name="mesh2d", return_dims=False):
+        """
+        Ugrid2d from a rectilinear DataArray or Dataset (1D x and y
+        coordinates, inferred when not given).  ``return_dims`` also
+        returns the (y, x) dimensions.  (Rotated and curvilinear
+        coordinates are not ported.)
+        """
+        from xugrid_tpu_torch import conversion
+
+        if (x is None) ^ (y is None):
+            raise ValueError("Provide both x and y, or neither.")
+        if x is None:
+            x, y = conversion.infer_xy_coords(data)
+            if x is None or y is None:
+                raise ValueError("Could not infer bounds. Please provide x and y explicitly.")
+        else:
+            missing = {x, y} - set(data.coords)
+            if missing:
+                raise ValueError(f"Coordinates {x} and {y} are not present, expected one of: {set(data.coords)}")
+        if data[x].ndim != 1:
+            raise NotImplementedError("x and y must be 1D: curvilinear coordinates are not ported")
+        grid = Ugrid2d.from_structured_intervals1d(
+            conversion.infer_interval_breaks1d(data, x), conversion.infer_interval_breaks1d(data, y), name
+        )
+        dims = (data[y].dims[0], data[x].dims[0])
+        if return_dims:
+            return grid, dims
+        return grid
 
     # -- derived connectivity --------------------------------------------------
     def _edge_connectivity(self):
@@ -232,7 +322,8 @@ class Ugrid2d:
         """Index of the face holding each point (-1 outside)."""
         return self.celltree.locate_points(points, tolerance)
 
-    def compute_barycentric_weights(self, points: np.ndarray, tolerance: Optional[float] = None):
+    def compute_barycentric_weights(self, points: np.ndarray, tolerance: Optional[float] = None, device=None):
         """Face holding each point and the mean-value weights of its
-        nodes: (face_index (n,), weights (n, n_max_node))."""
-        return self.celltree.compute_barycentric_weights(points, tolerance)
+        nodes: (face_index (n,), weights (n, n_max_node)).  Faces above
+        the native kernel's 64 nodes are weighed on ``device``."""
+        return self.celltree.compute_barycentric_weights(points, tolerance, device=device)

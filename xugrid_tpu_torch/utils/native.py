@@ -3,13 +3,14 @@ ctypes bindings for the repository's native host kernels
 (``csrc/host_kernels.cpp``), the same source ``xugrid_tpu`` builds.
 
 Bound are the entry points of the regridders' weight builds (grid hash,
-polygon clip, point location, point in polygon, segment clip, mean-value
-weights, CSR build) and the face centroids.  The library is compiled
-with g++ into the port's build directory on first use.  Every binding
-returns None when the library is unavailable (or refuses the input, as
-each one says); its caller then takes a numpy fallback where
-``xugrid_tpu`` has one on the host, and raises where ``xugrid_tpu``
-falls back to a device kernel.
+polygon clips, point location, point in polygon, segment clip,
+mean-value weights, CSR build) and the face centroids.  The library is
+compiled with g++ into the port's build directory on first use.  Every
+binding returns None when the library is unavailable (or refuses the
+input, as each one says); its caller then takes a numpy fallback where
+``xugrid_tpu`` has one on the host, sends polygons refused by size to
+the device geometry (``spatial/celltree.py``), and raises where the
+library is missing and ``xugrid_tpu`` falls back to a device kernel.
 """
 
 from __future__ import annotations
@@ -64,6 +65,8 @@ def _bind(lib):
         _ip, _ip, _i64, _dp, _i64, _ip, _i64, _dp, _dp, _dp,
     ]
     lib.polygon_clip_areas_conn.restype = None
+    lib.polygon_clip_areas.argtypes = [_ip, _ip, _i64, _dp, _i64, _dp, _i64, _dp]
+    lib.polygon_clip_areas.restype = None
     lib.csr_from_triplet.argtypes = [_ip, _ip, _dp, _i64, _i64, _ip, _ip, _dp]
     lib.csr_from_triplet.restype = None
     lib.face_centroids.argtypes = [_ip, _i64, _i64, _dp, _dp, _dp]
@@ -211,6 +214,27 @@ def polygon_clip_areas_conn_native(pair_q, pair_p, query_xy, tree_faces, x, y):
         _ptr(query_xy, _dp), query_xy.shape[1],
         _ptr(tree_faces, _ip), tree_faces.shape[1],
         _ptr(x, _dp), _ptr(y, _dp), _ptr(areas, _dp),
+    )
+    return areas
+
+
+def polygon_clip_areas_native(pair_q, pair_p, query_xy, tree_xy):
+    """Convex clip area per candidate pair of padded polygon buffers, or
+    None when the library is unavailable or the two polygons together
+    hold more than the kernel's 96-vertex working buffer (a convex-convex
+    intersection has at most m + k vertices)."""
+    lib = get_lib()
+    if lib is None or query_xy.shape[1] + tree_xy.shape[1] > 96:
+        return None
+    pair_q = np.ascontiguousarray(pair_q, dtype=np.int64)
+    pair_p = np.ascontiguousarray(pair_p, dtype=np.int64)
+    query_xy = np.ascontiguousarray(query_xy, dtype=np.float64)
+    tree_xy = np.ascontiguousarray(tree_xy, dtype=np.float64)
+    areas = np.empty(len(pair_q), dtype=np.float64)
+    lib.polygon_clip_areas(
+        _ptr(pair_q, _ip), _ptr(pair_p, _ip), len(pair_q),
+        _ptr(query_xy, _dp), query_xy.shape[1],
+        _ptr(tree_xy, _dp), tree_xy.shape[1], _ptr(areas, _dp),
     )
     return areas
 

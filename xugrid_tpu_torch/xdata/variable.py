@@ -1,0 +1,455 @@
+"""
+Variable: the dimension-labelled array under DataArray and Dataset.
+
+The payload is a numpy array (host) or a torch tensor (on the CPU or the
+card); every operation dispatches on it, so a tensor stays on its
+device through indexing, shaping, arithmetic and reductions.  A numpy
+payload meeting a tensor is moved to the tensor's device.  ``values``
+is the one way a tensor payload is copied to the host.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Hashable, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def is_tensor(data) -> bool:
+    return isinstance(data, torch.Tensor)
+
+
+def to_numpy(data) -> np.ndarray:
+    """The payload as a host numpy array: a copy of a tensor."""
+    if is_tensor(data):
+        return data.detach().cpu().numpy()
+    return np.asarray(data)
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a torch or numpy dtype (or its name)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def as_tensor_like(value, like: torch.Tensor):
+    """``value`` as an operand of the tensor ``like``: arrays and numpy
+    scalars become tensors on ``like``'s device; Python scalars and
+    tensors pass unchanged."""
+    if isinstance(value, (np.ndarray, np.generic)):
+        return torch.as_tensor(np.asarray(value), device=like.device)
+    return value
+
+
+def common_operands(a, b):
+    """(a, b) on one device: where one is a tensor, the other joins it."""
+    if is_tensor(a):
+        return a, as_tensor_like(b, a)
+    if is_tensor(b):
+        return as_tensor_like(a, b), b
+    return a, b
+
+
+def is_floating(data) -> bool:
+    if is_tensor(data):
+        return data.is_floating_point() or data.is_complex()
+    dtype = np.asarray(data).dtype if not hasattr(data, "dtype") else data.dtype
+    return np.issubdtype(dtype, np.floating) or np.issubdtype(dtype, np.complexfloating)
+
+
+def as_compatible_data(data) -> Any:
+    """Coerce Python scalars and lists to numpy; leave arrays and tensors
+    alone (a DataArray gives its payload, not a copy)."""
+    if is_tensor(data) or isinstance(data, np.ndarray):
+        return data
+    if isinstance(data, Variable):
+        return data.data
+    if hasattr(data, "variable") and hasattr(data, "dims"):
+        return data.variable.data
+    return np.asarray(data)
+
+
+_NAN_SKIPPING = ("sum", "mean", "std", "var", "min", "max", "prod", "median")
+
+
+def _reduce_dims(tensor, axis):
+    return tuple(range(tensor.ndim)) if axis is None else tuple(axis)
+
+
+def _prod(x, dims):
+    for d in sorted(dims, reverse=True):
+        x = x.prod(dim=d)
+    return x
+
+
+def _median(x, dims, nan_skipping):
+    """numpy's median (the mean of the two middle values) over ``dims``:
+    torch's quantile at 0.5 with linear interpolation."""
+    rest = [d for d in range(x.ndim) if d not in dims]
+    moved = x.permute(*rest, *dims).reshape(*[x.shape[d] for d in rest], -1)
+    return (torch.nanquantile if nan_skipping else torch.quantile)(moved, 0.5, dim=-1)
+
+
+def _nan_var(x, dims, ddof):
+    valid = ~torch.isnan(x)
+    count = valid.sum(dim=dims, keepdim=True)
+    mean = torch.nansum(x, dim=dims, keepdim=True) / count
+    deviation = torch.where(valid, x - mean, 0.0)
+    dof = count - ddof
+    var = (deviation * deviation).sum(dim=dims, keepdim=True) / dof
+    var = torch.where(dof > 0, var, torch.nan)
+    return var.squeeze(dims) if dims else var
+
+
+def _nan_extreme(x, dims, largest: bool):
+    fill = -torch.inf if largest else torch.inf
+    filled = torch.where(torch.isnan(x), fill, x)
+    out = filled.amax(dim=dims) if largest else filled.amin(dim=dims)
+    return torch.where(torch.isnan(x).all(dim=dims), torch.nan, out)
+
+
+def reduce_tensor(data: torch.Tensor, func_name: str, axis, nan_skipping: bool, **kwargs):
+    """numpy's reduction ``func_name`` (its ``nan`` form when
+    ``nan_skipping``) over the axes ``axis`` (None: all), as torch ops on
+    the tensor's device.  Integer input to mean, std, var and median is
+    taken as float64, as numpy does."""
+    dims = _reduce_dims(data, axis)
+    if func_name in ("all", "any"):
+        out = data.bool()
+        for d in sorted(dims, reverse=True):
+            out = getattr(out, func_name)(dim=d)
+        return out
+    if func_name in ("argmax", "argmin"):
+        return getattr(data, func_name)(dim=None if axis is None else axis)
+    x = data
+    if func_name in ("mean", "std", "var", "median") and not x.is_floating_point():
+        x = x.double()
+    ddof = kwargs.get("ddof", 0)
+    if nan_skipping:
+        if func_name == "sum":
+            return torch.nansum(x, dim=dims)
+        if func_name == "mean":
+            return torch.nanmean(x, dim=dims)
+        if func_name in ("min", "max"):
+            return _nan_extreme(x, dims, func_name == "max")
+        if func_name == "prod":
+            return _prod(torch.where(torch.isnan(x), 1.0, x), dims)
+        if func_name == "var":
+            return _nan_var(x, dims, ddof)
+        if func_name == "std":
+            return torch.sqrt(_nan_var(x, dims, ddof))
+        if func_name == "median":
+            return _median(x, dims, True)
+    if func_name == "sum":
+        return x.sum(dim=dims)
+    if func_name == "mean":
+        return x.mean(dim=dims)
+    if func_name == "min":
+        return x.amin(dim=dims)
+    if func_name == "max":
+        return x.amax(dim=dims)
+    if func_name == "prod":
+        return _prod(x, dims)
+    if func_name == "var":
+        return torch.var(x, dim=dims, correction=ddof)
+    if func_name == "std":
+        return torch.std(x, dim=dims, correction=ddof)
+    if func_name == "median":
+        return _median(x, dims, False)
+    raise ValueError(f"unknown reduction: {func_name}")
+
+
+def _index_tensor(k, size: int, device) -> torch.Tensor:
+    """A 1-D position indexer (array, list or bool mask) as an int64
+    tensor of positions in [0, size) on ``device``."""
+    if is_tensor(k):
+        k = torch.nonzero(k).ravel() if k.dtype == torch.bool else k.long()
+        return torch.where(k < 0, k + size, k).to(device)
+    k = np.asarray(k)
+    if k.dtype == bool:
+        k = np.flatnonzero(k)
+    if k.ndim != 1:
+        raise IndexError(f"a tensor payload takes 1-D position indexers, received {k.ndim}-D")
+    k = k.astype(np.int64)
+    return torch.from_numpy(np.where(k < 0, k + size, k)).to(device)
+
+
+class Variable:
+    """An array or tensor with named dimensions and attributes."""
+
+    __slots__ = ("dims", "data", "attrs", "encoding")
+
+    def __init__(
+        self,
+        dims: Sequence[Hashable] | Hashable,
+        data,
+        attrs: Mapping | None = None,
+        encoding: Mapping | None = None,
+    ):
+        data = as_compatible_data(data)
+        if isinstance(dims, str):
+            dims = (dims,)
+        dims = tuple(dims)
+        if len(dims) != data.ndim:
+            raise ValueError(
+                f"dimensions {dims} do not match data with {data.ndim} "
+                f"dimensions (shape {tuple(data.shape)})"
+            )
+        self.dims: Tuple[Hashable, ...] = dims
+        self.data = data
+        self.attrs = dict(attrs) if attrs else {}
+        self.encoding = dict(encoding) if encoding else {}
+
+    # -- basic properties ---------------------------------------------------
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.data.shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.dims)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def sizes(self) -> dict:
+        return dict(zip(self.dims, self.shape))
+
+    @property
+    def values(self) -> np.ndarray:
+        """The payload on the host (a copy of a tensor)."""
+        return to_numpy(self.data)
+
+    def __repr__(self) -> str:
+        return f"<xdata.Variable {self.dims} {self.shape} {self.dtype}>"
+
+    def copy(self, deep: bool = True, data=None) -> "Variable":
+        """Copy; ``data`` replaces the values (it must match the shape)."""
+        if data is None:
+            data = self.data
+            if deep:
+                data = data.clone() if is_tensor(data) else np.array(data, copy=True)
+        else:
+            data = as_compatible_data(data)
+            if tuple(data.shape) != self.shape:
+                raise ValueError(
+                    f"Data shape {tuple(data.shape)} must match original shape {self.shape}"
+                )
+        return Variable(self.dims, data, self.attrs, self.encoding)
+
+    def astype(self, dtype) -> "Variable":
+        if is_tensor(self.data):
+            return Variable(self.dims, self.data.to(torch_dtype(dtype)), self.attrs)
+        return Variable(self.dims, self.data.astype(dtype), self.attrs)
+
+    # -- indexing -----------------------------------------------------------
+    def isel(self, indexers: Mapping[Hashable, Any]) -> "Variable":
+        key = []
+        for dim in self.dims:
+            idx = indexers.get(dim, slice(None))
+            if isinstance(idx, Variable):
+                idx = idx.data
+            key.append(idx)
+        if is_tensor(self.data):
+            return self._isel_tensor(key)
+        # Several array indexers, or an array and an integer: sequential
+        # (outer) indexing, as xarray does, not numpy's joint fancy
+        # indexing (which moves the indexed axes first where a slice
+        # separates them; ``xugrid_tpu`` mislabels that case).
+        n_array = sum(1 for k in key if not isinstance(k, (slice, int, np.integer)))
+        n_int = sum(1 for k in key if isinstance(k, (int, np.integer)))
+        if n_array > 1 or (n_array and n_int):
+            data = self.data
+            new_dims = []
+            offset = 0
+            for axis, (dim, k) in enumerate(zip(self.dims, key)):
+                ax = axis - offset
+                if isinstance(k, (int, np.integer)):
+                    data = np.take(data, int(k), axis=ax)
+                    offset += 1
+                elif isinstance(k, slice):
+                    sl = [slice(None)] * data.ndim
+                    sl[ax] = k
+                    data = data[tuple(sl)]
+                    new_dims.append(dim)
+                else:
+                    k = np.asarray(k)
+                    # Boolean masks become positions, not 0/1 indices.
+                    if k.dtype == bool:
+                        k = np.flatnonzero(k)
+                    data = np.take(data, k.astype(np.int64), axis=ax)
+                    new_dims.append(dim)
+            return Variable(tuple(new_dims), data, self.attrs)
+        data = self.data[tuple(key)]
+        new_dims = tuple(dim for dim, k in zip(self.dims, key) if not isinstance(k, (int, np.integer)))
+        return Variable(new_dims, data, self.attrs)
+
+    def _isel_tensor(self, key) -> "Variable":
+        """Outer indexing of a tensor payload, one axis after another:
+        integers select, slices of positive step view, and arrays,
+        masks and slices of negative step gather on the tensor's device."""
+        data = self.data
+        new_dims = []
+        ax = 0
+        for dim, k in zip(self.dims, key):
+            if isinstance(k, (int, np.integer)):
+                data = data.select(ax, int(k))
+                continue
+            if isinstance(k, slice) and (k.step is None or k.step > 0):
+                data = data[(slice(None),) * ax + (k,)]
+            else:
+                if isinstance(k, slice):
+                    k = np.arange(data.shape[ax])[k]
+                data = data.index_select(ax, _index_tensor(k, data.shape[ax], data.device))
+            new_dims.append(dim)
+            ax += 1
+        return Variable(tuple(new_dims), data, self.attrs)
+
+    # -- shaping ------------------------------------------------------------
+    def transpose(self, *dims: Hashable) -> "Variable":
+        if not dims:
+            dims = self.dims[::-1]
+        if set(dims) != set(self.dims):
+            raise ValueError(f"transpose dims {dims} != variable dims {self.dims}")
+        if tuple(dims) == self.dims:
+            return Variable(self.dims, self.data, self.attrs)
+        axes = [self.dims.index(d) for d in dims]
+        if is_tensor(self.data):
+            return Variable(tuple(dims), self.data.permute(*axes), self.attrs)
+        return Variable(tuple(dims), np.transpose(self.data, axes), self.attrs)
+
+    def squeeze(self, dim=None) -> "Variable":
+        if dim is None:
+            drop = [d for d, s in zip(self.dims, self.shape) if s == 1]
+        else:
+            drop = [dim] if isinstance(dim, str) else list(dim)
+        return self.isel({d: 0 for d in drop})
+
+    def expand_dims(self, dim: Hashable, axis: int = 0) -> "Variable":
+        if is_tensor(self.data):
+            data = self.data.unsqueeze(axis)
+        else:
+            data = np.expand_dims(self.data, axis=axis)
+        dims = list(self.dims)
+        dims.insert(axis, dim)
+        return Variable(tuple(dims), data, self.attrs)
+
+    def broadcast_to(self, dims: Sequence[Hashable], sizes: Mapping) -> "Variable":
+        """Reorder and insert dimensions to match ``dims``."""
+        dims = tuple(dims)
+        var = self
+        for d in dims:
+            if d not in var.dims:
+                var = var.expand_dims(d, axis=0)
+        var = var.transpose(*dims)
+        shape = tuple(sizes[d] for d in dims)
+        if var.shape != shape:
+            data = var.data.expand(shape) if is_tensor(var.data) else np.broadcast_to(var.data, shape)
+            var = Variable(dims, data, var.attrs)
+        return var
+
+    # -- math ---------------------------------------------------------------
+    def _binary_op(self, other, op, reflexive: bool = False):
+        if isinstance(other, Variable):
+            self_b, other_b = broadcast_variables(self, other)
+            a, b = self_b.data, other_b.data
+            dims = self_b.dims
+        else:
+            a, b = self.data, other
+            dims = self.dims
+        a, b = common_operands(a, b)
+        result = op(b, a) if reflexive else op(a, b)
+        return Variable(dims, result)
+
+    def reduce(self, func_name: str, dim=None, skipna=None, **kwargs):
+        if dim is None:
+            axis = None
+            new_dims: Tuple[Hashable, ...] = ()
+        else:
+            if isinstance(dim, str):
+                dim = [dim]
+            axis = tuple(self.dims.index(d) for d in dim)
+            new_dims = tuple(d for d in self.dims if d not in dim)
+        data = self.data
+        use_nan = skipna or (skipna is None and func_name in _NAN_SKIPPING and is_floating(data))
+        if func_name in ("argmax", "argmin") and isinstance(axis, tuple):
+            if len(axis) != 1:
+                raise ValueError(f"{func_name} requires a single dimension")
+            axis = axis[0]
+        if is_tensor(data):
+            result = reduce_tensor(data, func_name, axis, bool(use_nan), **kwargs)
+        else:
+            fname = f"nan{func_name}" if use_nan else func_name
+            func = getattr(np, fname, getattr(np, func_name))
+            result = func(data, axis=axis, **kwargs)
+        if new_dims == ():
+            return Variable((), result)
+        return Variable(new_dims, result, self.attrs)
+
+    def fillna(self, value) -> "Variable":
+        data = self.data
+        if is_tensor(data):
+            return Variable(self.dims, torch.where(torch.isnan(data), as_tensor_like(value, data), data), self.attrs)
+        return Variable(self.dims, np.where(np.isnan(data), value, data), self.attrs)
+
+    def notnull(self) -> "Variable":
+        data = self.data
+        if is_tensor(data):
+            if is_floating(data):
+                return Variable(self.dims, ~torch.isnan(data))
+            return Variable(self.dims, torch.ones(self.shape, dtype=torch.bool, device=data.device))
+        if is_floating(data):
+            return Variable(self.dims, ~np.isnan(data))
+        if self.dtype.kind in "mM":  # datetime64/timedelta64: NaT
+            return Variable(self.dims, ~np.isnat(data))
+        return Variable(self.dims, np.ones(self.shape, dtype=bool))
+
+    def isnull(self) -> "Variable":
+        nn = self.notnull()
+        return Variable(nn.dims, ~nn.data)
+
+
+def broadcast_variables(*variables: Variable) -> Tuple[Variable, ...]:
+    """Broadcast variables against each other by dimension name."""
+    all_dims: list = []
+    sizes: dict = {}
+    for var in variables:
+        for d, s in var.sizes.items():
+            if d not in sizes:
+                all_dims.append(d)
+                sizes[d] = s
+            elif sizes[d] != s and s != 1 and sizes[d] != 1:
+                raise ValueError(f"conflicting sizes for dimension {d!r}: {sizes[d]} vs {s}")
+            else:
+                sizes[d] = max(sizes[d], s)
+    return tuple(v.broadcast_to(all_dims, sizes) for v in variables)
+
+
+def _joined(parts):
+    """The parts, as tensors on the first tensor's device where any part
+    is a tensor."""
+    like = next((p for p in parts if is_tensor(p)), None)
+    if like is None:
+        return parts, False
+    return [as_tensor_like(p, like) for p in parts], True
+
+
+def concat_variables(variables: Sequence[Variable], dim: Hashable) -> Variable:
+    first = variables[0]
+    if dim in first.dims:
+        axis = first.dims.index(dim)
+        parts, tensors = _joined([v.transpose(*first.dims).data for v in variables])
+        data = torch.cat(parts, dim=axis) if tensors else np.concatenate(parts, axis=axis)
+        return Variable(first.dims, data, first.attrs)
+    # New dimension: stack.
+    parts, tensors = _joined([v.broadcast_to(first.dims, first.sizes).data for v in variables])
+    data = torch.stack(parts, dim=0) if tensors else np.stack(parts, axis=0)
+    return Variable((dim,) + first.dims, data, first.attrs)
