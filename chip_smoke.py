@@ -102,6 +102,22 @@ With no argument it runs these phases:
    on the card against the native kernels (40 nodes) and the CPU (120),
    and the OverlapRegridder on the card summing each face's areas to
    its area.
+9. UGRID files and stored weights at the 1M config, in a temporary
+   directory removed at the end: phase 3's mesh with a (time=20, face)
+   float32 payload on the card and a datetime64 time coordinate written
+   through ``.ugrid.to_netcdf`` and ``.ugrid.to_zarr`` (the payload
+   copied to the host explicitly) and opened with ``xt.open_dataset`` /
+   ``xt.open_zarr``: the grid equal, connectivity, node coordinates and
+   data bit-equal, MB and write and open seconds printed.
+   ``OverlapRegridder`` (mean, mode) and ``BarycentricInterpolator``
+   mesh -> 512 x 512 raster, and phase 7's ``NetworkGridder`` (mean),
+   each built (timed), stored with ``to_dataset().to_netcdf`` and
+   rebuilt with ``from_dataset`` (timed): the weights bit-equal, the
+   regrid of the opened data on the card one launch of window_reduce or
+   window_select, held to the plain version and the host references and
+   bit-equal to the fresh regridder's, its first pass and back-to-back
+   pass timed beside the fresh one's.  The mean's raster result written
+   with ``to_dataset(...).to_netcdf`` and read back bit-equal.
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
@@ -1696,6 +1712,234 @@ def phase_labelled(device, card, inputs, meshes):
     return counts, max_err, timed
 
 
+def path_mb(path):
+    """Megabytes of a file, or of every file under a directory."""
+    import os
+
+    if os.path.isdir(path):
+        return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files) / 1e6
+    return os.path.getsize(path) / 1e6
+
+
+def phase7_network():
+    """Phase 7's network and edge data: the same seed and the same draws
+    before them."""
+    import xugrid_tpu_torch as xt
+
+    rng = np.random.default_rng(17)
+    rng.normal(size=(N_EXTRA, T_SIDE * T_SIDE))
+    rng.random((N_EXTRA, T_SIDE * T_SIDE))
+    nodes, edges = random_network(NETWORK_LINES, NETWORK_SEGMENTS, float(N_SIDE), rng)
+    network = xt.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges)
+    values = (np.round(rng.normal(size=(N_EXTRA, network.n_edge)) * 2.0) / 2.0).astype(np.float32)
+    values[rng.random(values.shape) < 0.01] = np.nan
+    return network, values
+
+
+def weights_bit_equal(label, got, want):
+    """Two weight matrices (CSR or COO) with equal fields, bit for bit."""
+    for field, a, b in zip(want._fields, got, want):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError(f"{label}: the reloaded weights' {field} differs from the stored one")
+
+
+def phase_files(device, card, inputs, timed):
+    """Phase 9: UGRID files and stored weights at the 1M config, on the
+    card, in a temporary directory removed at the end: phase 3's mesh
+    with a (time, face) float32 payload on the card written through
+    ``.ugrid.to_netcdf`` and ``.ugrid.to_zarr`` and opened with
+    ``xt.open_dataset`` / ``xt.open_zarr``; OverlapRegridder (mean,
+    mode) and BarycentricInterpolator mesh -> raster and phase 7's
+    NetworkGridder (mean) stored with ``to_dataset().to_netcdf`` and
+    rebuilt with ``from_dataset``, each regrid of the opened data on the
+    card one launch, bit-equal to the fresh regridder's; and the raster
+    result written and read back.  Returns (launch counts of the
+    reloaded regridders' passes, largest |kernel - plain| per kernel)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+
+    (verts, faces), _, mesh_data = inputs
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    times = np.datetime64("2020-01-01T00:00", "ns") + np.arange(N_EXTRA) * np.timedelta64(6, "h")
+    payload = torch.from_numpy(mesh_data).to(device)
+    uda = xt.UgridDataArray(
+        xt.xdata.DataArray(payload, dims=("time", mesh.face_dimension), coords={"time": times},
+                           name="temperature", attrs={"units": "degC"}),
+        mesh,
+    )
+    kernels = (window_reduce, window_select, csr_matvec)
+    counts = {k.__name__: 0 for k in kernels}
+    max_err = {"window_reduce": 0.0, "window_select": 0.0}
+    scale = float(np.nanmax(np.abs(mesh_data)))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    print(f"phase 9: UGRID files and stored weights, mesh {mesh.n_face} faces, (time={N_EXTRA}, face) float32 on "
+          f"the card [{card}]")
+
+    def run(regridder, source):
+        before = {k.__name__: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        out = regridder.regrid(source)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+        for name, n in rose.items():
+            counts[name] += n
+        return out, rose, first_s
+
+    try:
+        # 9.1: the mesh and its payload to netCDF and zarr, and back.
+        try:
+            np.asarray(uda.obj)
+        except TypeError:
+            pass
+        else:
+            raise AssertionError("a DataArray over a CUDA tensor converted to numpy implicitly")
+        opened = {}
+        for fmt, writer, opener in (("netCDF", "to_netcdf", xt.open_dataset), ("zarr", "to_zarr", xt.open_zarr)):
+            path = os.path.join(tmp, "mesh_1M.nc" if fmt == "netCDF" else "mesh_1M.zarr")
+            t0 = time.perf_counter()
+            getattr(uda.ugrid, writer)(path)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            uds = opener(path)
+            open_s = time.perf_counter() - t0
+            grid = uds.grid
+            if not grid.equals(mesh):
+                raise AssertionError(f"{fmt}: the opened grid does not equal the one written")
+            for name in ("node_x", "node_y", "face_node_connectivity"):
+                if not np.array_equal(getattr(grid, name), getattr(mesh, name)):
+                    raise AssertionError(f"{fmt}: {name} differs from the one written")
+            back = uds["temperature"]
+            if not isinstance(back.data, np.ndarray) or not back.data.dtype.isnative:
+                raise AssertionError(f"{fmt}: the opened payload is not a native host array")
+            if back.dims != uda.dims or not np.array_equal(back.values, mesh_data, equal_nan=True):
+                raise AssertionError(f"{fmt}: the opened payload differs from the one written")
+            if not np.array_equal(back.obj["time"].values, times):
+                raise AssertionError(f"{fmt}: the time coordinate differs from the one written")
+            if uda.data.device != device:
+                raise AssertionError(f"{fmt}: writing moved the payload off the card")
+            opened[fmt] = uds
+            print(
+                f"  9.1 {fmt}: {path_mb(path):.3f} MB written in {write_s:.3f} s (the CUDA payload through an "
+                f"explicit host copy), opened in {open_s:.3f} s; grid equal, connectivity, node coordinates and "
+                f"data bit-equal, time coordinate datetime64 equal [{card}]"
+            )
+
+        # 9.2: stored weights mesh -> raster, regridding the opened data.
+        source = opened["netCDF"]["temperature"]
+        on_card = xt.UgridDataArray(source.obj.copy(data=torch.from_numpy(source.values).to(device)), source.grid)
+        flat = on_card.data
+        target = raster_dataarray(T_SIDE, np.zeros((T_SIDE, T_SIDE), np.float32))
+        sample = np.sort(np.random.default_rng(9).choice(T_SIDE * T_SIDE, size=min(400, T_SIDE * T_SIDE), replace=False))
+        mean_out = None
+        for cls, kwargs, kernel, phase4 in (
+            (xt.OverlapRegridder, {"method": "mean"}, window_reduce, "mean"),
+            (xt.OverlapRegridder, {"method": "mode"}, window_select, "mode"),
+            (xt.BarycentricInterpolator, {}, window_reduce, None),
+        ):
+            label = f"{cls.__name__}({kwargs.get('method', 'mean')}) mesh -> raster"
+            t0 = time.perf_counter()
+            fresh = cls(source, target, **kwargs)
+            build_s = time.perf_counter() - t0
+            path = os.path.join(tmp, "weights.nc")
+            t0 = time.perf_counter()
+            fresh.to_dataset().to_netcdf(path)
+            store_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = cls.from_dataset(xt.xdata.open_dataset(path), **kwargs)
+            load_s = time.perf_counter() - t0
+            weights_bit_equal(label, loaded._weights, fresh._weights)
+            out, rose, first_s = run(loaded, on_card)
+            if out.dims != ("time", "y", "x") or not isinstance(out.data, torch.Tensor) or out.data.device != device:
+                raise AssertionError(f"{label}: {out.dims}, payload {type(out.data).__name__} not on {device}")
+            for name, want in (("time", times), ("y", target["y"].values), ("x", target["x"].values)):
+                if not np.array_equal(out[name].values, want):
+                    raise AssertionError(f"{label}: coordinate {name} differs")
+            csr = loaded._weights
+            if kernel is window_reduce:
+                reference = lambda got, csr=csr: (got, reference_linear(csr, mesh_data, relative=False))  # noqa: E731
+            else:
+                reference = lambda got, csr=csr: (got[:, sample], reference_select(csr, mesh_data, sample, "mode"))  # noqa: E731
+            err = check_apply(label, loaded, flat, out.data.reshape(N_EXTRA, -1), kernel, rose, scale, reference)
+            max_err[kernel.__name__] = max(max_err[kernel.__name__], err)
+            t0 = time.perf_counter()
+            fresh_out = fresh.regrid(on_card)
+            torch.cuda.synchronize()
+            fresh_first_s = time.perf_counter() - t0
+            compare(out.data, fresh_out.data, True, 0.0, 0.0)
+            loaded_ms = cuda_time_ms(lambda: loaded.regrid(on_card))
+            fresh_ms = cuda_time_ms(lambda: fresh.regrid(on_card))
+            kernel_ms = f"{timed[(phase4, N_EXTRA)]['ms']:.6f} ms" if phase4 else "not timed there"
+            print(
+                f"  9.2 {label}: build {build_s:.3f} s; stored ({path_mb(path):.3f} MB netCDF) in {store_s:.3f} s; "
+                f"reloaded with from_dataset in {load_s:.3f} s; weights bit-equal (nnz {csr.nnz}); regrid of the "
+                f"opened data on the card bit-equal to the fresh regridder's; first apply pass (the padded "
+                f"weights' upload included) {first_s:.4f} s reloaded, {fresh_first_s:.4f} s fresh; back to back {loaded_ms:.6f} ms "
+                f"reloaded, {fresh_ms:.6f} ms fresh; phase 4's kernel at E={N_EXTRA} {kernel_ms} [{card}]"
+            )
+            if kwargs.get("method") == "mean":
+                mean_out = out
+
+        # 9.3: phase 7's network gridder (mean), stored and reloaded.
+        network, values = phase7_network()
+        edge_uda = xt.UgridDataArray(
+            xt.xdata.DataArray(torch.from_numpy(values).to(device), dims=("time", network.edge_dimension)), network
+        )
+        label = "NetworkGridder(mean)"
+        t0 = time.perf_counter()
+        fresh = xt.NetworkGridder(network, mesh, method="mean")
+        build_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "network_weights.nc")
+        t0 = time.perf_counter()
+        fresh.to_dataset().to_netcdf(path)
+        store_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = xt.NetworkGridder.from_dataset(xt.xdata.open_dataset(path))
+        load_s = time.perf_counter() - t0
+        weights_bit_equal(label, loaded._weights, fresh._weights)
+        out, rose, first_s = run(loaded, edge_uda)
+        csr = loaded._weights
+        err = check_apply(
+            label, loaded, edge_uda.data, out.data, window_reduce, rose, float(np.nanmax(np.abs(values))),
+            lambda got, csr=csr: (got, reference_linear(csr, values, relative=False)),
+        )
+        max_err["window_reduce"] = max(max_err["window_reduce"], err)
+        compare(out.data, fresh.regrid(edge_uda).data, True, 0.0, 0.0)
+        print(
+            f"  9.3 {label} ({network.n_edge} edges -> {mesh.n_face} faces): build {build_s:.3f} s; stored "
+            f"({path_mb(path):.3f} MB) in {store_s:.3f} s; reloaded in {load_s:.3f} s; weights bit-equal; regrid on "
+            f"the card bit-equal to the fresh gridder's, first pass {first_s:.4f} s [{card}]"
+        )
+
+        # 9.4: the raster result to netCDF and back.
+        path = os.path.join(tmp, "raster.nc")
+        t0 = time.perf_counter()
+        mean_out.to_dataset(name="temperature").to_netcdf(path)
+        write_s = time.perf_counter() - t0
+        back = xt.xdata.open_dataset(path)["temperature"]
+        if back.dims != mean_out.dims or not np.array_equal(back.values, mean_out.values, equal_nan=True):
+            raise AssertionError("raster result: read back differs from the one written")
+        for name in ("time", "y", "x"):
+            if not np.array_equal(back[name].values, mean_out[name].values):
+                raise AssertionError(f"raster result: coordinate {name} differs")
+        print(
+            f"  9.4 raster result (time={N_EXTRA}, y={T_SIDE}, x={T_SIDE}) on the card: {path_mb(path):.3f} MB "
+            f"written in {write_s:.3f} s, read back bit-equal with its time, y and x [{card}]"
+        )
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if counts["csr_matvec"] or counts["window_reduce"] != 3 or counts["window_select"] != 1:
+        raise AssertionError(f"phase 9 launched {counts}")
+    return counts, max_err
+
+
 def main() -> int:
     import torch
 
@@ -1723,6 +1967,7 @@ def main() -> int:
     main_matvec = matvec_timed[("float64", 1)]
     regrid_counts, regrid_err, _ = phase_regridders(device, card, inputs)
     labelled_counts, labelled_err, _ = phase_labelled(device, card, inputs, meshes)
+    files_counts, files_err = phase_files(device, card, inputs, timed)
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
@@ -1731,11 +1976,14 @@ def main() -> int:
             "overlap regridders (phase 3)": counts[name],
             "phase 7 regridders": regrid_counts[name],
             "labelled arrays and structured grids (phase 8)": labelled_counts[name],
+            "UGRID files and stored weights (phase 9)": files_counts[name],
         }
         return {
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(check_err[name], main_err[name], regrid_err[name], labelled_err[name]),
+            "max_abs_err": max(
+                check_err[name], main_err[name], regrid_err[name], labelled_err[name], files_err[name]
+            ),
             **timed_at,
         }
 

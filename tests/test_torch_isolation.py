@@ -2,9 +2,11 @@
 The port stands alone: in a fresh interpreter, ``import xugrid_tpu_torch``,
 a CPU regrid through each regridder (overlap, relative overlap, centroid
 locator, barycentric interpolator, network gridder), a CPU Laplace fill,
-a CPU ``cg_solve``, and a UgridDataArray and a raster DataArray regridded
-onto each other and filled through ``.ugrid.laplace_interpolate`` load
-neither jax nor xugrid_tpu, and launch no kernel.
+a CPU ``cg_solve``, a UgridDataArray and a raster DataArray regridded
+onto each other and filled through ``.ugrid.laplace_interpolate``, a
+UGRID netCDF file and zarr store written and opened, and a CPU regrid
+through weights stored to netCDF and reloaded with ``from_dataset``
+load neither jax nor xugrid_tpu, and launch no kernel.
 A subprocess is needed because the test session itself imports jax.
 
 ``chip_smoke.py`` refuses to run without a CUDA device: exit code 2 and
@@ -76,6 +78,21 @@ REGRID_ON_CPU = textwrap.dedent(
     assert isinstance(on_mesh, xt.UgridDataArray) and on_mesh.shape == (2, source.n_face)
     nodes = xt.UgridDataArray(xt.xdata.DataArray(np.stack([values, 2.0 * values]), dims=("time", source.node_dimension)), source)
     assert np.isfinite(nodes.ugrid.laplace_interpolate(device="cpu").values).all()
+    # Files: a UGRID netCDF file and zarr store, and stored weights.
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    uda.ugrid.to_netcdf(tmp + "/mesh.nc")
+    uda.ugrid.to_zarr(tmp + "/mesh.zarr")
+    for opened in (xt.open_dataset(tmp + "/mesh.nc"), xt.open_zarr(tmp + "/mesh.zarr")):
+        assert np.array_equal(opened.grid.face_node_connectivity, source.face_node_connectivity)
+        assert np.array_equal(opened["mesh2d_data"].values, data.numpy())
+    xt.OverlapRegridder(uda, raster).to_dataset().to_netcdf(tmp + "/weights.nc")
+    loaded = xt.OverlapRegridder.from_dataset(xt.xdata.open_dataset(tmp + "/weights.nc"))
+    reloaded = loaded.regrid(opened["mesh2d_data"], device="cpu")
+    assert torch.equal(reloaded.data, on_raster.data)
+    shutil.rmtree(tmp)
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "xugrid_tpu" or m.startswith("xugrid_tpu."))
     assert not loaded, loaded

@@ -337,3 +337,48 @@ def test_accessor_fill_on_the_card(device):
         atol=1e-10, maxiter=2000, device="cpu"
     )
     np.testing.assert_allclose(filled.values, on_cpu.values, rtol=0, atol=1e-8)
+
+
+def test_loaded_regridder_on_the_card_is_bit_equal_to_the_fresh_one(device, tmp_path):
+    """Weights stored to netCDF and reloaded regrid a CUDA payload through
+    the same kernel, one launch per pass, bit for bit as the fresh
+    regridder."""
+    rng = np.random.default_rng(4)
+    (verts, faces), _ = chip_smoke.bench_meshes(40, 4, rng)
+    grid = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    values = torch.from_numpy(rng.normal(size=(5, grid.n_face)).astype(np.float32)).to(device)
+    uda = xt.UgridDataArray(xt.xdata.DataArray(values, dims=("time", grid.face_dimension)), grid)
+    target = chip_smoke.raster_dataarray(16, np.zeros((16, 16), np.float32), extent=40.0)
+    for cls, method, kernel in (
+        (xt.OverlapRegridder, "mean", window_reduce),
+        (xt.OverlapRegridder, "mode", window_select),
+        (xt.BarycentricInterpolator, None, window_reduce),
+    ):
+        kwargs = {} if method is None else {"method": method}
+        fresh = cls(uda, target, **kwargs)
+        fresh.to_dataset().to_netcdf(tmp_path / "weights.nc")
+        loaded = cls.from_dataset(xt.xdata.open_dataset(tmp_path / "weights.nc"), **kwargs)
+        before = kernel.launches
+        out = loaded.regrid(uda)
+        assert kernel.launches == before + 1 and out.data.device.type == "cuda"
+        assert torch.equal(out.data.nan_to_num(-7.0), fresh.regrid(uda).data.nan_to_num(-7.0))
+
+
+def test_cuda_payload_writes_and_reads_back(device, tmp_path):
+    rng = np.random.default_rng(5)
+    (verts, faces), _ = chip_smoke.bench_meshes(20, 4, rng)
+    grid = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    values = torch.from_numpy(rng.normal(size=(3, grid.n_face)).astype(np.float32)).to(device)
+    times = np.array(["2021-01-01", "2021-01-02", "2021-01-03"], dtype="datetime64[ns]")
+    uda = xt.UgridDataArray(
+        xt.xdata.DataArray(values, dims=("time", grid.face_dimension), coords={"time": times}, name="v"), grid
+    )
+    uda.ugrid.to_netcdf(tmp_path / "mesh.nc")
+    uda.ugrid.to_zarr(tmp_path / "mesh.zarr")
+    assert uda.data.device.type == "cuda"
+    for opened in (xt.open_dataset(tmp_path / "mesh.nc"), xt.open_zarr(tmp_path / "mesh.zarr")):
+        back = opened["v"]
+        assert isinstance(back.data, np.ndarray)
+        np.testing.assert_array_equal(back.values, values.cpu().numpy())
+        np.testing.assert_array_equal(back.obj["time"].values, times)
+        np.testing.assert_array_equal(opened.grid.face_node_connectivity, grid.face_node_connectivity)

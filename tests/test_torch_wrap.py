@@ -358,5 +358,8 @@ def test_dataset_wrapper_and_combinations(inputs):
     merged = xt.merge([t, t.rename("w")])
     assert isinstance(merged, xt.UgridDataset) and len(merged.grids) == 1
     assert sorted(merged.obj.data_vars) == sorted(xu.merge([j, j.rename("w")]).obj.data_vars)
-    with pytest.raises(ValueError, match="grids is required"):
-        xt.UgridDataset(uds.obj)
+    # Without grids, the topologies are read from the UGRID variables:
+    # a dataset holding none gives none, as in the JAX package.
+    assert xt.UgridDataset(uds.obj).grids == [] == xu.UgridDataset(j.to_dataset().obj).grids
+    with pytest.raises(ValueError, match="At least one of obj and grids is required"):
+        xt.UgridDataset()

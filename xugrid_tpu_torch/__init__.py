@@ -8,6 +8,11 @@ It covers:
   ``UgridDataArray`` / ``UgridDataset`` over a ``Ugrid2d`` or
   ``Ugrid1d``, the ``.ugrid`` accessor's topology and Laplace fill, and
   ``concat``/``merge``/``full_like``/``zeros_like``/``ones_like``;
+- files: UGRID conventions (``ugrid_roles``), ``Ugrid2d``/``Ugrid1d``
+  ``from_dataset``/``to_dataset``, eager netCDF and zarr reading and
+  writing (``open_dataset``, ``open_zarr``, ``.ugrid.to_netcdf``,
+  ``.ugrid.to_zarr``), and regridder weights stored with
+  ``to_dataset`` and reloaded with ``from_dataset``;
 - the regridders between 2D meshes and rasters (overlap, centroid
   locator, barycentric interpolation: in the centroidal voronoi
   tessellation, or bilinear between rasters) and from a 1D network onto
@@ -25,7 +30,20 @@ xugrid_tpu.
 """
 
 from xugrid_tpu_torch import xdata
-from xugrid_tpu_torch.core.common import concat, full_like, merge, ones_like, zeros_like
+from xugrid_tpu_torch.core.common import (
+    concat,
+    full_like,
+    load_dataarray,
+    load_dataset,
+    merge,
+    ones_like,
+    open_dataarray,
+    open_dataset,
+    open_mfdataset,
+    open_zarr,
+    zeros_like,
+)
+from xugrid_tpu_torch.core.dataset_accessor import UgridDatasetAccessor
 from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset
 from xugrid_tpu_torch.regrid.gridder import NetworkGridder
 from xugrid_tpu_torch.regrid.regridder import (
@@ -34,6 +52,7 @@ from xugrid_tpu_torch.regrid.regridder import (
     OverlapRegridder,
     RelativeOverlapRegridder,
 )
+from xugrid_tpu_torch.ugrid.conventions import UgridRolesAccessor, ugrid_roles
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 
@@ -47,10 +66,19 @@ __all__ = [
     "Ugrid2d",
     "UgridDataArray",
     "UgridDataset",
+    "UgridDatasetAccessor",
+    "UgridRolesAccessor",
     "concat",
     "full_like",
+    "load_dataarray",
+    "load_dataset",
     "merge",
     "ones_like",
+    "open_dataarray",
+    "open_dataset",
+    "open_mfdataset",
+    "open_zarr",
+    "ugrid_roles",
     "xdata",
     "zeros_like",
 ]

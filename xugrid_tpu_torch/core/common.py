@@ -1,13 +1,69 @@
 """
-Combination functions over UgridDataArrays and UgridDatasets: the
-xdata ones, with the grids carried over (``xugrid_tpu/core/common.py``;
-its file readers are not ported).
+Top-level file readers and combination functions over UgridDataArrays
+and UgridDatasets (``xugrid_tpu/core/common.py``): the readers open a
+UGRID netCDF file or zarr store eagerly into host arrays and read its
+topologies; the combinations are the xdata ones, with the grids carried
+over.
 """
 
 from __future__ import annotations
 
 from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset, maybe_xdata
+from xugrid_tpu_torch.ugrid.conventions import ugrid_roles
+
+
+def _dataset_helper(ds: xdata.Dataset) -> UgridDataset:
+    if len(ugrid_roles(ds).topology) == 0:
+        raise ValueError(
+            "The file or object does not contain UGRID conventions data: "
+            "no variable with the attribute cf_role: mesh_topology was found."
+        )
+    return UgridDataset(ds)
+
+
+def open_dataset(path, **kwargs) -> UgridDataset:
+    """Open a UGRID netCDF file as a UgridDataset (host arrays)."""
+    return _dataset_helper(xdata.open_dataset(path, **kwargs))
+
+
+def load_dataset(path, **kwargs) -> UgridDataset:
+    """Open a UGRID netCDF file (every read is eager)."""
+    return open_dataset(path, **kwargs)
+
+
+def open_dataarray(path, **kwargs) -> UgridDataArray:
+    """Open a UGRID netCDF file holding a single data variable."""
+    uds = open_dataset(path, **kwargs)
+    data_vars = list(uds.obj.data_vars)
+    if len(data_vars) != 1:
+        raise ValueError(
+            f"The file contains more than one data variable: use open_dataset instead. Found: {data_vars}"
+        )
+    return uds[data_vars[0]]
+
+
+def load_dataarray(path, **kwargs) -> UgridDataArray:
+    return open_dataarray(path, **kwargs)
+
+
+def open_zarr(store, **kwargs) -> UgridDataset:
+    """Open a UGRID zarr store as a UgridDataset (host arrays)."""
+    return _dataset_helper(xdata.open_zarr(store, **kwargs))
+
+
+def open_mfdataset(paths, **kwargs) -> UgridDataset:
+    """Open several UGRID netCDF files (a list, or a glob pattern) and
+    merge them."""
+    if isinstance(paths, str):
+        import glob
+
+        paths = sorted(glob.glob(paths))
+    datasets = [xdata.open_dataset(p, **kwargs) for p in paths]
+    merged = datasets[0]
+    for ds in datasets[1:]:
+        merged = merged.merge(ds)
+    return _dataset_helper(merged)
 
 
 def _unwrap_grids(objects):

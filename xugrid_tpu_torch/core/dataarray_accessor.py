@@ -1,8 +1,8 @@
 """
-The ``.ugrid`` accessor of a UgridDataArray: its topology, and the Laplace
-fill over it.  The port of ``xugrid_tpu/core/dataarray_accessor.py`` and
-``accessorbase.py`` reduced to these; the rest of the accessor is not
-ported.
+The ``.ugrid`` accessor of a UgridDataArray: its topology, renaming,
+coordinate assignment, the conversion to a UGRID dataset and file, and
+the Laplace fill.  The port of ``xugrid_tpu/core/dataarray_accessor.py``
+reduced to these; the rest of the accessor is not ported.
 """
 
 from __future__ import annotations
@@ -10,10 +10,11 @@ from __future__ import annotations
 import scipy.sparse
 
 from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch.core.accessorbase import AbstractUgridAccessor
 from xugrid_tpu_torch.utils.profiling import timed
 
 
-class UgridDataArrayAccessor:
+class UgridDataArrayAccessor(AbstractUgridAccessor):
     """Operations using the UGRID topology, via ``uda.ugrid``."""
 
     def __init__(self, obj: xdata.DataArray, grid):
@@ -49,6 +50,43 @@ class UgridDataArrayAccessor:
     def total_bounds(self):
         """(minx, miny, maxx, maxy) of the grid."""
         return self.grid.bounds
+
+    def rename(self, name: str):
+        """The array over this topology renamed to ``name``, its UGRID
+        coordinate and dimension names with it."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        new_grid, name_dict = self.grid.rename(name, return_name_dict=True)
+        present = tuple(self.obj.coords) + tuple(self.obj.dims)
+        return UgridDataArray(self.obj.rename({k: v for k, v in name_dict.items() if k in present}), new_grid)
+
+    def assign_node_coords(self):
+        """The array with the grid's node coordinates."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        return UgridDataArray(self.grid.assign_node_coords(self.obj), self.grid)
+
+    def assign_edge_coords(self):
+        """The array with the grid's edge coordinates."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        return UgridDataArray(self.grid.assign_edge_coords(self.obj), self.grid)
+
+    def assign_face_coords(self):
+        """The array with the grid's face coordinates."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        if self.grid.topology_dimension == 1:
+            raise TypeError("Cannot set face coords from a Ugrid1D topology")
+        return UgridDataArray(self.grid.assign_face_coords(self.obj), self.grid)
+
+    def to_dataset(self, optional_attributes: bool = False):
+        """The array (named ``{grid}_data`` when unnamed) and the UGRID
+        variables of its topology as one Dataset."""
+        obj = self.obj
+        if obj.name is None:
+            obj = obj.rename(f"{self.grid.name}_data")
+        return self.grid.to_dataset(obj.to_dataset(), optional_attributes)
 
     def laplace_interpolate(
         self,

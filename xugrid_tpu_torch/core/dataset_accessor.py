@@ -1,0 +1,117 @@
+"""
+The ``.ugrid`` accessor of a UgridDataset: its topologies, renaming,
+coordinate assignment and the conversion to a UGRID dataset.  The port
+of ``xugrid_tpu/core/dataset_accessor.py``'s non-geometric part; the
+rest of the accessor is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch.core.accessorbase import AbstractUgridAccessor
+from xugrid_tpu_torch.core.wrap import UgridDataset
+
+
+class UgridDatasetAccessor(AbstractUgridAccessor):
+    """Operations using the UGRID topologies, via ``uds.ugrid``."""
+
+    def __init__(self, obj: xdata.Dataset, grids):
+        self.obj = obj
+        self.grids = grids
+
+    @property
+    def grid(self):
+        """The single grid (raises for several topologies)."""
+        if len(self.grids) != 1:
+            raise ValueError(f"Can only call .grid with a single topology, found: {len(self.grids)}")
+        return self.grids[0]
+
+    @property
+    def name(self) -> str:
+        """Name of the single topology."""
+        return self.grid.name
+
+    @property
+    def names(self):
+        """Names of all topologies."""
+        return [grid.name for grid in self.grids]
+
+    @property
+    def topology(self) -> dict:
+        """Mapping from name to topology."""
+        return {grid.name: grid for grid in self.grids}
+
+    @property
+    def bounds(self) -> dict:
+        """Mapping from grid name to (minx, miny, maxx, maxy)."""
+        return {grid.name: grid.bounds for grid in self.grids}
+
+    @property
+    def total_bounds(self):
+        """(minx, miny, maxx, maxy) over all topologies."""
+        bounds = np.array(list(self.bounds.values()))
+        return (bounds[:, 0].min(), bounds[:, 1].min(), bounds[:, 2].max(), bounds[:, 3].max())
+
+    def _single_grid_for(self, method: str):
+        if len(self.grids) != 1:
+            raise ValueError(
+                f".{method} requires a single grid, found {len(self.grids)}. Select a single topology first."
+            )
+        return self.grids[0]
+
+    def rename(self, name_dict=None, **names) -> UgridDataset:
+        """Rename topologies: ``{old_name: new_name}``, or a single name
+        when only one topology is present."""
+        if isinstance(name_dict, str):
+            name_dict = {self._single_grid_for("rename").name: name_dict}
+        mapping = dict(name_dict or {})
+        mapping.update(names)
+        obj = self.obj
+        new_grids = []
+        for grid in self.grids:
+            if grid.name in mapping:
+                new_grid, name_dict_grid = grid.rename(mapping[grid.name], return_name_dict=True)
+                present = tuple(obj._variables) + tuple(obj.dims_sizes())
+                obj = obj.rename({k: v for k, v in name_dict_grid.items() if k in present})
+                new_grids.append(new_grid)
+            else:
+                new_grids.append(grid)
+        return UgridDataset(obj, new_grids)
+
+    def assign_node_coords(self) -> UgridDataset:
+        """The dataset with every grid's node coordinates."""
+        obj = self.obj
+        for grid in self.grids:
+            obj = grid.assign_node_coords(obj)
+        return UgridDataset(obj, self.grids)
+
+    def assign_edge_coords(self) -> UgridDataset:
+        """The dataset with every grid's edge coordinates."""
+        obj = self.obj
+        for grid in self.grids:
+            obj = grid.assign_edge_coords(obj)
+        return UgridDataset(obj, self.grids)
+
+    def assign_face_coords(self) -> UgridDataset:
+        """The dataset with every 2D grid's face coordinates."""
+        obj = self.obj
+        for grid in self.grids:
+            if grid.topology_dimension == 2:
+                obj = grid.assign_face_coords(obj)
+        return UgridDataset(obj, self.grids)
+
+    def set_node_coords(self, node_x: str, node_y: str, topology: Optional[str] = None):
+        """Use dataset coordinates as the node coordinates of a topology."""
+        grid = self._single_grid_for("set_node_coords") if topology is None else self.topology[topology]
+        grid.set_node_coords(node_x, node_y, self.obj)
+
+    def to_dataset(self, optional_attributes: bool = False):
+        """The data and every topology's UGRID variables as one Dataset."""
+        ds = self.obj
+        for grid in self.grids:
+            ds = grid.to_dataset(ds, optional_attributes)
+        return ds

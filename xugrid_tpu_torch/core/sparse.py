@@ -69,6 +69,10 @@ class MatrixCSR(NamedTuple):
     def from_triplet(row, col, data, n: int, m: int) -> "MatrixCSR":
         return MatrixCOO.from_triplet(row, col, data, n, m).to_csr()
 
+    def to_coo(self) -> MatrixCOO:
+        row = np.repeat(np.arange(self.n, dtype=IntDType), np.diff(self.indptr))
+        return MatrixCOO(self.data, row, self.indices, self.n, self.m, self.nnz)
+
 
 class PaddedCSR(NamedTuple):
     """

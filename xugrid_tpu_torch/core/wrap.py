@@ -4,10 +4,11 @@ topologies, as in ``xugrid_tpu/core/wrap.py``.
 
 Methods and attributes of the wrapped xdata object are forwarded
 (``__getattr__``); results that still carry a UGRID dimension come back
-wrapped with the grids.  The UGRID dimensions get position coordinates,
-so a forwarded operation that subsets one is seen: subsetting a
-topology is not ported, and such an operation raises.  The payload may
-be a torch tensor and stays on its device.
+wrapped with the grids.  A UgridDataset made from a dataset alone reads
+its topologies from the UGRID variables.  The UGRID dimensions get
+position coordinates, so a forwarded operation that subsets one is
+seen: subsetting a topology is not ported, and such an operation
+raises.  The payload may be a torch tensor and stays on its device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Sequence, Union
 import numpy as np
 
 from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch.ugrid import conventions
+from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid
 
@@ -208,23 +211,58 @@ class UgridDataArray(_ForwardMixin):
 
 
 class UgridDataset(_ForwardMixin):
-    """An xdata.Dataset paired with one or more UGRID topologies.
-    (Reading the topologies from a dataset's UGRID variables needs the
-    conventions, which are not ported: pass the grids.)"""
+    """An xdata.Dataset paired with one or more UGRID topologies.  Without
+    ``grids``, the topologies are read from the dataset's UGRID variables
+    (``ugrid_roles``), which are then dropped from the data."""
 
     def __init__(self, obj: xdata.Dataset = None, grids: Union[AbstractUgrid, Sequence[AbstractUgrid]] = None):
-        if grids is None:
-            raise ValueError("grids is required")
+        if obj is None and grids is None:
+            raise ValueError("At least one of obj and grids is required")
         if obj is None:
             obj = xdata.Dataset()
         if not isinstance(obj, xdata.Dataset):
             raise TypeError(f"obj must be xdata.Dataset. Received instead: {type(obj).__name__}")
-        grids = [grids] if isinstance(grids, AbstractUgrid) else list(grids)
-        bad = [type(g).__name__ for g in grids if not isinstance(g, AbstractUgrid)]
-        if bad:
-            raise TypeError(f"grids must be Ugrid1d or Ugrid2d, received: {bad}")
+        if grids is None:
+            grids = []
+            for topology in conventions.ugrid_roles(obj).topology:
+                topodim = obj._variables[topology].attrs["topology_dimension"]
+                if topodim == 1:
+                    grids.append(Ugrid1d.from_dataset(obj, topology))
+                elif topodim == 2:
+                    grids.append(Ugrid2d.from_dataset(obj, topology))
+                else:
+                    raise ValueError(f"Invalid topology dimension: {topodim}")
+            obj = self._remove_topology(obj, grids)
+        else:
+            grids = [grids] if isinstance(grids, AbstractUgrid) else list(grids)
+            bad = [type(g).__name__ for g in grids if not isinstance(g, AbstractUgrid)]
+            if bad:
+                raise TypeError(f"grids must be Ugrid1d or Ugrid2d, received: {bad}")
         object.__setattr__(self, "grids", grids)
         object.__setattr__(self, "obj", assign_ugrid_coords(obj, grids))
+
+    @staticmethod
+    def _remove_topology(ds, grids):
+        """``ds`` without the topology, connectivity and grid-mapping
+        variables of ``grids`` (they live on the grids)."""
+        remove = set()
+        roles = conventions.ugrid_roles(ds)
+        for grid in grids:
+            remove.add(grid.name)
+            for key in conventions._CONNECTIVITY_NAMES[grid.topology_dimension]:
+                if key in grid._attrs:
+                    remove.add(grid._attrs[key])
+            gm = roles.grid_mapping_names.get(grid.name)
+            if gm:
+                remove.add(gm)
+        return ds.drop_vars([v for v in remove if v in ds._variables], errors="ignore")
+
+    @property
+    def ugrid(self):
+        """Topology-aware accessor."""
+        from xugrid_tpu_torch.core.dataset_accessor import UgridDatasetAccessor
+
+        return UgridDatasetAccessor(self.obj, self.grids)
 
     @property
     def grid(self):

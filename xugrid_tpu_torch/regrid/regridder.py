@@ -16,6 +16,11 @@ DataArray with the raster's coordinates (structured target), or to a
 bare tensor or array whose trailing axes are the source grid's.  The
 centroid locator keeps its weights as COO triplets and applies them as
 a row gather.
+
+``to_dataset`` stores the weights (``__regrid_*``) with the source and
+target grids (``__source_*``, ``__target_*``), under the names
+``xugrid_tpu`` uses, so that either package reloads the other's file
+with ``from_dataset``.
 """
 
 from __future__ import annotations
@@ -24,15 +29,18 @@ import abc
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
+import pandas as pd
 import torch
 
 from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch.constants import IntDType
 from xugrid_tpu_torch.core.sparse import MatrixCOO, MatrixCSR, PaddedCSR
 from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset
 from xugrid_tpu_torch.regrid import reduce
 from xugrid_tpu_torch.regrid.apply import apply_coo_gather, apply_weights
 from xugrid_tpu_torch.regrid.structured import StructuredGrid2d
-from xugrid_tpu_torch.regrid.unstructured import UnstructuredGrid2d
+from xugrid_tpu_torch.regrid.unstructured import Network1d, UnstructuredGrid2d
+from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.utils.device import resolve_device
 from xugrid_tpu_torch.utils.profiling import timed
@@ -128,15 +136,111 @@ class BaseRegridder(abc.ABC):
         return setup_grid(target)
 
     @classmethod
-    def _from_weights(cls, weights, target, method):
+    def _from_weights(cls, weights, target, method, source=None):
         instance = cls.__new__(cls)
-        instance._source = None
+        instance._source = source
         instance._target = cls._target_grid(target)
         if instance._target.size != weights.n:
             raise ValueError(f"target has {instance._target.size} faces, weights have {weights.n} rows")
+        if source is not None and source.size != weights.m:
+            raise ValueError(f"source has {source.size} faces, weights have {weights.m} columns")
         instance._set_weights(weights)
         instance._setup_regrid(cls._DEFAULT_METHOD if method is None else method)
         return instance
+
+    # -- serialization ---------------------------------------------------------
+    def to_dataset(self) -> xdata.Dataset:
+        """The weights (``__regrid_{field}`` for each field of the CSR or
+        COO matrix), the source grid (``__source_*``) and the target grid
+        (``__target_*``), for reuse through ``from_dataset``."""
+        if self._source is None:
+            raise ValueError("a regridder made from weight arrays knows no source grid to store")
+        w = self._weights
+        ds = xdata.Dataset()
+        for field, value in zip(w._fields, w):
+            value = np.asarray(value)
+            if value.ndim == 0:
+                ds[f"__regrid_{field}"] = ((), value)
+            else:
+                ds[f"__regrid_{field}"] = ((f"__regrid_{field}",), value)
+        ds = ds.merge(self._source.to_dataset("__source"), compat="override")
+        return ds.merge(self._target.to_dataset("__target"), compat="override")
+
+    def weights_as_dataframe(self) -> pd.DataFrame:
+        """The weights as a (target_index, source_index, weight) frame."""
+        matrix = self._weights
+        if isinstance(matrix, MatrixCSR):
+            matrix = matrix.to_coo()
+        return pd.DataFrame({"target_index": matrix.row, "source_index": matrix.col, "weight": matrix.data})
+
+    @staticmethod
+    def _csr_from_dataset(dataset) -> MatrixCSR:
+        """The CSR weights of a stored dataset, with the index dtypes of
+        ``core/sparse.py`` (netCDF3 stores the indices as int32)."""
+        return MatrixCSR(
+            np.asarray(dataset["__regrid_data"].data, dtype=np.float64),
+            np.asarray(dataset["__regrid_indices"].data, dtype=IntDType),
+            np.asarray(dataset["__regrid_indptr"].data, dtype=IntDType),
+            int(dataset["__regrid_n"].data),
+            int(dataset["__regrid_m"].data),
+            int(dataset["__regrid_nnz"].data),
+        )
+
+    @staticmethod
+    def _coo_from_dataset(dataset) -> MatrixCOO:
+        """The COO weights of a stored dataset, with ``core/sparse.py``'s
+        index dtypes."""
+        return MatrixCOO(
+            np.asarray(dataset["__regrid_data"].data, dtype=np.float64),
+            np.asarray(dataset["__regrid_row"].data, dtype=IntDType),
+            np.asarray(dataset["__regrid_col"].data, dtype=IntDType),
+            int(dataset["__regrid_n"].data),
+            int(dataset["__regrid_m"].data),
+            int(dataset["__regrid_nnz"].data),
+        )
+
+    @classmethod
+    def _weights_from_dataset(cls, dataset):
+        return cls._csr_from_dataset(dataset)
+
+    @staticmethod
+    def _structured_from_dataset(dataset, prefix: str) -> StructuredGrid2d:
+        """The structured grid stored under ``{prefix}_*`` names, with the
+        user-facing coordinate names restored."""
+        attrs = dataset[prefix + "_type"].attrs
+        nx = attrs.get("name_x", "x")
+        ny = attrs.get("name_y", "y")
+        grid = StructuredGrid2d(dataset, name_x=f"{prefix}_{nx}", name_y=f"{prefix}_{ny}")
+        grid.xbounds.name, grid.xbounds.dname = nx, f"d{nx}"
+        grid.ybounds.name, grid.ybounds.dname = ny, f"d{ny}"
+        return grid
+
+    @classmethod
+    def _grid_from_dataset(cls, dataset, prefix: str):
+        """The regridding adapter stored under ``{prefix}_*`` names."""
+        kind = dataset[prefix + "_type"].attrs["type"]
+        if kind == "UnstructuredGrid2d":
+            return UnstructuredGrid2d(Ugrid2d.from_dataset(dataset, prefix))
+        if kind == "StructuredGrid2d":
+            return cls._structured_from_dataset(dataset, prefix)
+        if kind == "Network1d":
+            return Network1d(Ugrid1d.from_dataset(dataset, prefix))
+        raise ValueError(f"unknown stored grid type: {kind}")
+
+    @classmethod
+    def from_weights(cls, weights, target, method=None):
+        """A regridder from a stored weights dataset (``to_dataset``) onto
+        ``target``, its source grid rebuilt from the dataset; ``method``
+        None is the class's default."""
+        return cls._from_weights(
+            cls._weights_from_dataset(weights), target, method, source=cls._grid_from_dataset(weights, "__source")
+        )
+
+    @classmethod
+    def from_dataset(cls, dataset, method=None):
+        """A regridder from a stored weights dataset, source and target
+        grids rebuilt from it (either target kind)."""
+        return cls.from_weights(dataset, cls._grid_from_dataset(dataset, "__target"), method)
 
     def _source_ndim(self) -> int:
         return 1 if self._source is None else self._source.ndim
@@ -306,6 +410,10 @@ class CentroidLocatorRegridder(BaseRegridder):
 
     def _setup_regrid(self, func) -> None:
         """The row gather takes no method."""
+
+    @classmethod
+    def _weights_from_dataset(cls, dataset) -> MatrixCOO:
+        return cls._coo_from_dataset(dataset)
 
     def _apply(self, source2d: torch.Tensor) -> torch.Tensor:
         w = self._weights

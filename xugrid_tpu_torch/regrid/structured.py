@@ -18,6 +18,7 @@ from typing import Any, Tuple
 
 import numpy as np
 
+from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.regrid.overlap_1d import overlap_1d
 from xugrid_tpu_torch.regrid.utils import broadcast
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
@@ -195,6 +196,18 @@ class StructuredGrid1d:
         return _sorted(source_index, target_index, weights[valid])
 
 
+    def to_dataset(self, name: str):
+        """The axis as ``{name}_{axis}`` midpoints and ``{name}_{axis}bounds``
+        directional bounds, both coordinates."""
+        export_name = name + "_" + self.name
+        ds = xdata.Dataset()
+        ds[export_name] = ((export_name,), self.index)
+        ds._coord_names.add(export_name)
+        ds[export_name + "bounds"] = ((export_name, export_name + "nbounds"), self.directional_bounds)
+        ds._coord_names.add(export_name + "bounds")
+        return ds
+
+
 class StructuredGrid2d(StructuredGrid1d):
     """A 2D structured (raster) topology: the outer product of two axes,
     cells y-major in the coordinates' own order."""
@@ -265,3 +278,14 @@ class StructuredGrid2d(StructuredGrid1d):
             sx, tx, wx = self.xbounds.linear_weights(other.xbounds)
             sy, ty, wy = self.ybounds.linear_weights(other.ybounds)
             return self._broadcast_sorted(other, sy, sx, ty, tx, wy, wx)
+
+    def to_dataset(self, name: str):
+        """Both axes (``StructuredGrid1d.to_dataset``) and a ``{name}_type``
+        variable naming this adapter and the axes' coordinate names."""
+        ds = self.xbounds.to_dataset(name).merge(self.ybounds.to_dataset(name))
+        ds[name + "_type"] = (
+            (),
+            np.int64(-1),
+            {"type": "StructuredGrid2d", "name_x": self.xbounds.name, "name_y": self.ybounds.name},
+        )
+        return ds

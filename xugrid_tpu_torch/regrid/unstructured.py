@@ -212,6 +212,13 @@ class UnstructuredGrid2d:
         face_s, edge_s, length_s = _by_target(face_ix, edge_ix, length)
         return edge_s, face_s, length_s
 
+    def to_dataset(self, name: str):
+        """The topology's UGRID dataset under the name ``name``, with a
+        ``{name}_type`` variable naming this adapter."""
+        ds = self.ugrid_topology.rename(name).to_dataset()
+        ds[name + "_type"] = ((), np.int64(-1), {"type": "UnstructuredGrid2d"})
+        return ds
+
 
 class Network1d:
     """Weight-building adapter around a Ugrid1d network."""
@@ -234,3 +241,10 @@ class Network1d:
     @property
     def size(self):
         return self.ugrid_topology.n_edge
+
+    def to_dataset(self, name: str):
+        """The network's UGRID dataset under the name ``name``, with a
+        ``{name}_type`` variable naming this adapter."""
+        ds = self.ugrid_topology.rename(name).to_dataset()
+        ds[name + "_type"] = ((), np.int64(-1), {"type": "Network1d"})
+        return ds

@@ -162,6 +162,12 @@ def edge_connectivity(
     return edge_nodes, face_edges
 
 
+def boundary_node_connectivity(edge_face_connectivity: np.ndarray, edge_node_connectivity: np.ndarray) -> np.ndarray:
+    """Node pairs of the edges bordering at most one face."""
+    is_boundary = (edge_face_connectivity == FILL_VALUE).any(axis=1)
+    return edge_node_connectivity[is_boundary]
+
+
 def face_face_connectivity(edge_face_connectivity: np.ndarray, n_face: int) -> sparse.csr_matrix:
     """Symmetric face adjacency; data holds the connecting edge index."""
     i = edge_face_connectivity[:, 0]

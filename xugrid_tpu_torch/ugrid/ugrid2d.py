@@ -1,23 +1,27 @@
 """
 Ugrid2d: topology of a 2D unstructured mesh (UGRID conventions),
-reduced to what the regridders and the Laplace fill read.
+reduced to what the regridders, the Laplace fill and the UGRID file
+round trip read.
 
 The canonical storage is a padded dense int64 ``face_node_connectivity``
-(fill -1, 0-based) plus float64 node x/y; face areas, centroids, the
-derived connectivities and the spatial index are computed on first use
-and cached.
+(fill -1, 0-based) plus float64 node x/y; the fill value and start index
+of the file it came from are kept and restored on writing.  Face areas,
+centroids, the derived connectivities and the spatial index are
+computed on first use and cached.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from itertools import chain
+from typing import Any, Dict, Optional
 
 import numpy as np
-from scipy.sparse import csr_matrix
+from scipy.sparse import coo_matrix, csr_matrix
 
+from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.constants import FILL_VALUE, FloatDType, IntDType
-from xugrid_tpu_torch.ugrid import connectivity
-from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid
+from xugrid_tpu_torch.ugrid import connectivity, conventions
+from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, _strip_dim_coords
 
 
 class Ugrid2d(AbstractUgrid):
@@ -29,12 +33,19 @@ class Ugrid2d(AbstractUgrid):
     node_x, node_y: ndarray of floats
     fill_value: int
         Fill value of the provided face_node_connectivity.
-    face_node_connectivity: ndarray of integers
+    face_node_connectivity: ndarray of integers, or a CSR/COO matrix
     name: str, default "mesh2d"
-        Names the UGRID dimensions: ``{name}_nNodes``, ``{name}_nEdges``,
-        ``{name}_nFaces``.
+        Names the UGRID variables and dimensions: ``{name}_nNodes``,
+        ``{name}_nEdges``, ``{name}_nFaces`` by default.
     edge_node_connectivity: ndarray of integers, optional
         A prior edge numbering to keep.
+    dataset: xdata.Dataset, optional
+        The UGRID variables this grid was read from (``from_dataset``).
+    indexes: dict role -> variable name, optional
+    is_projected: bool, default True
+    crs: Any, optional
+    attrs: dict, optional
+        UGRID topology attributes overriding the defaults.
     start_index: 0 or 1, default 0
     """
 
@@ -46,18 +57,28 @@ class Ugrid2d(AbstractUgrid):
         face_node_connectivity,
         name: str = "mesh2d",
         edge_node_connectivity=None,
+        dataset=None,
+        indexes: Optional[Dict[str, str]] = None,
+        is_projected: bool = True,
+        crs: Any = None,
+        attrs: Optional[Dict[str, str]] = None,
         start_index: int = 0,
     ):
         self.node_x = np.ascontiguousarray(node_x, dtype=FloatDType)
         self.node_y = np.ascontiguousarray(node_y, dtype=FloatDType)
         self.fill_value = fill_value
+        self.start_index = start_index
         self.name = name
-        if not isinstance(face_node_connectivity, np.ndarray):
+        self.crs, self.is_projected = self._validate_crs(crs, is_projected)
+        if isinstance(face_node_connectivity, np.ndarray):
+            conn = face_node_connectivity.copy()
+        elif isinstance(face_node_connectivity, (coo_matrix, csr_matrix)):
+            conn = connectivity.to_dense(face_node_connectivity)
+        else:
             raise TypeError(
-                "face_node_connectivity should be an array of integers, "
+                "face_node_connectivity should be an array of integers or a sparse matrix, "
                 f"received: {type(face_node_connectivity).__name__}"
             )
-        conn = face_node_connectivity.copy()
         # Normalize to -1 fill and 0-based indices.
         if fill_value != FILL_VALUE or start_index != 0:
             is_fill = conn == fill_value
@@ -67,41 +88,182 @@ class Ugrid2d(AbstractUgrid):
                 conn[is_fill] = FILL_VALUE
         self.face_node_connectivity = conn.astype(IntDType, copy=False)
         if edge_node_connectivity is not None:
-            edge_node_connectivity = np.asarray(edge_node_connectivity, dtype=IntDType) - start_index
+            edge_node_connectivity = np.asarray(edge_node_connectivity).astype(IntDType) - start_index
         self._edge_node_connectivity = edge_node_connectivity
+        self._initialize_indexes_attrs(name, dataset, indexes, attrs)
+        self._dataset = dataset
         self._face_edge_connectivity = None
         self._edge_face_connectivity = None
         self._face_face_connectivity = None
         self._node_node_connectivity = None
         self._node_face_connectivity = None
+        self._boundary_node_connectivity = None
+        self._clear_geometry_properties()
+
+    def _clear_geometry_properties(self):
+        """Drop the cached geometry (after the node coordinates change)."""
         self._area = None
         self._centroids = None
         self._celltree = None
+        self._edge_x = None
+        self._edge_y = None
+
+    # -- UGRID datasets ----------------------------------------------------------
+    @classmethod
+    def from_dataset(cls, dataset, topology: Optional[str] = None) -> "Ugrid2d":
+        """The 2D UGRID topology ``topology`` of a Dataset (the only one
+        when None)."""
+        ds = dataset
+        if not isinstance(ds, xdata.Dataset):
+            raise TypeError(
+                "Ugrid2d should be initialized with an xdata.Dataset. "
+                f"Received instead: {type(ds).__name__}"
+            )
+        if topology is None:
+            topology = cls._single_topology(ds)
+
+        roles = conventions.ugrid_roles(ds)
+        connectivity_names = roles.connectivity[topology]
+        coordinates = roles.coordinates[topology]
+        dimensions = roles.dimensions[topology]
+        ugrid_vars = (
+            [topology]
+            + list(connectivity_names.values())
+            + list(chain.from_iterable(chain.from_iterable(coordinates.values())))
+        )
+
+        x_index = coordinates["node_coordinates"][0][0]
+        y_index = coordinates["node_coordinates"][1][0]
+        node_x = np.asarray(ds[x_index].data, dtype=FloatDType)
+        node_y = np.asarray(ds[y_index].data, dtype=FloatDType)
+
+        da = ds[connectivity_names["face_node_connectivity"]]
+        fill_value = da.encoding.get("_FillValue", da.attrs.get("_FillValue", -1))
+        start_index = da.attrs.get("start_index", 0)
+        face_node_connectivity = cls._prepare_connectivity(
+            da, fill_value, IntDType, coredim=dimensions["face_dimension"]
+        )
+        edge_nodes = connectivity_names.get("edge_node_connectivity")
+        if edge_nodes:
+            eda = ds[edge_nodes]
+            edge_node_connectivity = cls._prepare_connectivity(
+                eda, fill_value, IntDType, coredim=dimensions["edge_dimension"]
+            )
+            edge_start_index = eda.attrs.get("start_index", 0)
+            if edge_start_index != start_index:
+                edge_node_connectivity += start_index - edge_start_index
+        else:
+            edge_node_connectivity = None
+
+        indexes = {"node_x": x_index, "node_y": y_index}
+        for facet in ("edge", "face"):
+            facet_coords = coordinates.get(f"{facet}_coordinates")
+            if facet_coords is not None:
+                indexes[f"{facet}_x"] = facet_coords[0][0]
+                indexes[f"{facet}_y"] = facet_coords[1][0]
+
+        crs, is_projected = cls._extract_crs(ds, topology)
+        return cls(
+            node_x,
+            node_y,
+            fill_value,
+            face_node_connectivity,
+            name=topology,
+            edge_node_connectivity=edge_node_connectivity,
+            dataset=_strip_dim_coords(ds[ugrid_vars]),
+            indexes=indexes,
+            is_projected=is_projected,
+            crs=crs,
+            start_index=start_index,
+        )
+
+    def _get_name_and_attrs(self, name: str):
+        key = f"{name}_connectivity"
+        attrs = dict(conventions.DEFAULT_ATTRS[key])
+        if "start_index" in attrs:
+            attrs["start_index"] = self.start_index
+        if "_FillValue" in attrs:
+            attrs["_FillValue"] = self.fill_value
+        return self._attrs[key], attrs
+
+    def to_dataset(self, other=None, optional_attributes: bool = False):
+        """The UGRID dataset of this grid (merged with ``other``, whose
+        variables it then carries): the topology variable, the
+        connectivity in the grid's fill value and start index, and the
+        node coordinates; with ``optional_attributes`` also every derived
+        connectivity and the edge and face coordinates."""
+        node_x = self._indexes["node_x"]
+        node_y = self._indexes["node_y"]
+        face_nodes, face_nodes_attrs = self._get_name_and_attrs("face_node")
+        nmax_dim = self._attrs["max_face_nodes_dimension"]
+        edge_nodes, edge_nodes_attrs = self._get_name_and_attrs("edge_node")
+
+        ds = xdata.Dataset(attrs={"Conventions": "CF-1.9 UGRID-1.0"})
+        if other is not None:
+            ds.attrs.update(other.attrs)
+        ds[self.name] = ((), np.int32(0))
+        ds[face_nodes] = (
+            (self.face_dimension, nmax_dim),
+            self._adjust_connectivity(self.face_node_connectivity),
+            face_nodes_attrs,
+        )
+        if self._edge_node_connectivity is not None or optional_attributes:
+            ds[edge_nodes] = (
+                (self.edge_dimension, "two"),
+                self._adjust_connectivity(self.edge_node_connectivity),
+                edge_nodes_attrs,
+            )
+        if optional_attributes:
+            boundary_edge_dim = self._attrs["boundary_edge_dimension"]
+            optional = (
+                ("face_edge", (self.face_dimension, nmax_dim), self.face_edge_connectivity),
+                (
+                    "face_face",
+                    (self.face_dimension, nmax_dim),
+                    connectivity.to_dense(self.face_face_connectivity, self.n_max_node_per_face),
+                ),
+                ("edge_face", (self.edge_dimension, "two"), self.edge_face_connectivity),
+                ("boundary_node", (boundary_edge_dim, "two"), self.boundary_node_connectivity),
+            )
+            for role, dims, conn in optional:
+                varname, attrs = self._get_name_and_attrs(role)
+                ds[varname] = (dims, self._adjust_connectivity(conn), attrs)
+
+        if self._dataset:
+            ds = ds.merge(self._dataset, compat="override")
+        if other is not None:
+            ds = ds.merge(other, compat="override")
+        if node_x not in ds._variables or node_y not in ds._variables:
+            ds = self.assign_node_coords(ds)
+        if optional_attributes:
+            ds = self.assign_face_coords(ds)
+            ds = self.assign_edge_coords(ds)
+
+        ds._variables[self.name].attrs = self._filtered_attrs(ds)
+        return self.write_grid_mapping(ds)
+
+    @staticmethod
+    def topology_dataset(node_x, node_y, face_node_connectivity, name="mesh2d"):
+        """The minimal UGRID dataset of raw topology arrays."""
+        return Ugrid2d(node_x, node_y, FILL_VALUE, face_node_connectivity, name=name).to_dataset()
 
     # -- sizes and dimension names ---------------------------------------------
-    @property
-    def n_node(self) -> int:
-        return len(self.node_x)
-
-    @property
-    def n_edge(self) -> int:
-        return len(self.edge_node_connectivity)
-
     @property
     def n_face(self) -> int:
         return len(self.face_node_connectivity)
 
     @property
-    def node_dimension(self) -> str:
-        return f"{self.name}_nNodes"
-
-    @property
-    def edge_dimension(self) -> str:
-        return f"{self.name}_nEdges"
+    def n_max_node_per_face(self) -> int:
+        """Maximum number of nodes a face can contain."""
+        return self.face_node_connectivity.shape[1]
 
     @property
     def face_dimension(self) -> str:
-        return f"{self.name}_nFaces"
+        return self._attrs["face_dimension"]
+
+    @property
+    def max_face_node_dimension(self) -> str:
+        return self._attrs["max_face_nodes_dimension"]
 
     @property
     def topology_dimension(self) -> int:
@@ -116,9 +278,8 @@ class Ugrid2d(AbstractUgrid):
         return {"node": self.node_dimension, "edge": self.edge_dimension, "face": self.face_dimension}
 
     @property
-    def node_coordinates(self) -> np.ndarray:
-        """(n_node, 2) node x and y."""
-        return np.column_stack([self.node_x, self.node_y])
+    def sizes(self) -> dict:
+        return {self.node_dimension: self.n_node, self.edge_dimension: self.n_edge, self.face_dimension: self.n_face}
 
     # -- structured constructors -------------------------------------------------
     @staticmethod
@@ -235,6 +396,15 @@ class Ugrid2d(AbstractUgrid):
         return self._edge_face_connectivity
 
     @property
+    def boundary_node_connectivity(self) -> np.ndarray:
+        """(n_boundary_edge, 2) node pairs of the boundary edges."""
+        if self._boundary_node_connectivity is None:
+            self._boundary_node_connectivity = connectivity.boundary_node_connectivity(
+                self.edge_face_connectivity, self.edge_node_connectivity
+            )
+        return self._boundary_node_connectivity
+
+    @property
     def face_face_connectivity(self) -> csr_matrix:
         """Face adjacency (CSR); data holds the shared edge index."""
         if self._face_face_connectivity is None:
@@ -305,6 +475,25 @@ class Ugrid2d(AbstractUgrid):
                 self.face_node_connectivity, self.node_x, self.node_y
             )
         return self._centroids
+
+    @property
+    def face_x(self) -> np.ndarray:
+        """x-coordinate of the face centroids."""
+        return self.centroids[:, 0]
+
+    @property
+    def face_y(self) -> np.ndarray:
+        """y-coordinate of the face centroids."""
+        return self.centroids[:, 1]
+
+    @property
+    def face_coordinates(self) -> np.ndarray:
+        """(n_face, 2) face centroids."""
+        return self.centroids
+
+    def assign_face_coords(self, obj):
+        """``obj`` with this grid's face centroids as coordinates."""
+        return self._assign_coords(obj, "face", self.face_x, self.face_y, self.face_dimension)
 
     @property
     def celltree(self):

@@ -1,14 +1,34 @@
 """
-What ``Ugrid1d`` and ``Ugrid2d`` share for the labelled wrappers: the
-UGRID dimension names, the search for the one a DataArray carries, the
-bounding box, and the construction of a UgridDataArray on a facet.
+What ``Ugrid1d`` and ``Ugrid2d`` share: the UGRID attributes and
+dimension names, the conversion to and from a UGRID dataset (fill value
+and start index, connectivity layout, coordinate attributes, the CRS and
+its grid mapping), renaming, the bounding box, and the construction of
+a UgridDataArray on a facet.  The port of ``xugrid_tpu/ugrid/
+ugridbase.py``'s serialization part.
 """
 
 from __future__ import annotations
 
 import abc
+import copy
+import warnings
+from typing import Any, Optional
 
 import numpy as np
+from scipy.sparse import coo_matrix, csr_matrix
+
+from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch.constants import FILL_VALUE
+from xugrid_tpu_torch.ugrid import connectivity, conventions
+from xugrid_tpu_torch.ugrid.crs import CrsPlaceholder, crs_from_attrs, crs_to_attrs
+
+
+def _strip_dim_coords(ds):
+    """Drop index coordinates named after their own dimension (the wrap
+    layer's position coordinates) before storing the dataset on the grid
+    for round-tripping."""
+    drop = [name for name in list(ds._coord_names) if ds._variables[name].dims == (name,)]
+    return ds.drop_vars(drop, errors="ignore")
 
 
 class AbstractUgrid(abc.ABC):
@@ -28,40 +48,430 @@ class AbstractUgrid(abc.ABC):
         """Facet name ("node", "edge", "face") -> dimension name."""
 
     @property
+    @abc.abstractmethod
+    def sizes(self) -> dict:
+        """UGRID dimension name -> length."""
+
+    @abc.abstractmethod
+    def to_dataset(self, other=None, optional_attributes: bool = False):
+        ...
+
+    @abc.abstractmethod
+    def _clear_geometry_properties(self):
+        ...
+
+    @property
     def dims(self) -> set:
         """Set of UGRID dimension names."""
         return set(self.facets.values())
+
+    @property
+    def dimensions(self):
+        warnings.warn(
+            ".dimensions is deprecated; use .dims (set of names) or .sizes (mapping to lengths) instead.",
+            FutureWarning,
+        )
+        return self.sizes
+
+    # -- connectivity format helpers -------------------------------------------
+    @staticmethod
+    def format_connectivity_as_dense(sparse_connectivity) -> np.ndarray:
+        """CSR/COO connectivity -> padded dense (-1 fill)."""
+        if isinstance(sparse_connectivity, np.ndarray):
+            return sparse_connectivity
+        return connectivity.to_dense(sparse_connectivity)
+
+    @staticmethod
+    def format_connectivity_as_sparse(dense_connectivity) -> csr_matrix:
+        """Padded dense (-1 fill) connectivity -> CSR."""
+        if isinstance(dense_connectivity, csr_matrix):
+            return dense_connectivity
+        if isinstance(dense_connectivity, coo_matrix):
+            return dense_connectivity.tocsr()
+        return connectivity.to_sparse(dense_connectivity)
+
+    # -- construction helpers --------------------------------------------------
+    def _initialize_indexes_attrs(self, name, dataset, indexes, attrs) -> None:
+        defaults = conventions.default_topology_attrs(name, self.topology_dimension)
+        if dataset is None:
+            if attrs is None:
+                x, y = defaults["node_coordinates"].split()
+                indexes = {"node_x": x, "node_y": y}
+            else:
+                if indexes is None:
+                    raise ValueError("indexes must be provided for attrs")
+                defaults.update(attrs)
+            self._indexes = indexes
+            self._attrs = defaults
+        else:
+            if attrs is not None:
+                raise ValueError("Provide either dataset or attrs, not both.")
+            if indexes is None:
+                raise ValueError("indexes must be provided for dataset")
+            derived_dims = conventions.ugrid_roles(dataset).dimensions[name]
+            self._indexes = indexes
+            self._attrs = {**defaults, **derived_dims, **dataset._variables[name].attrs}
+        self._attrs["name"] = name
+
+    def rename(self, name: str, return_name_dict: bool = False):
+        """This grid with every topology variable and dimension renamed to
+        the default scheme of ``name``.  The copy shares the arrays."""
+        old_attrs = self._attrs
+        new_attrs = conventions.default_topology_attrs(name, self.topology_dimension)
+
+        name_dict = {self.name: name}
+        skip = ("cf_role", "long_name", "topology_dimension")
+        for key, value in old_attrs.items():
+            if key in new_attrs and key not in skip:
+                split_new = new_attrs[key].split()
+                split_old = str(value).split()
+                if len(split_new) != len(split_old):
+                    raise ValueError(f"Number of entries does not match on {key}: {split_new} versus {split_old}")
+                for old_name, new_name in zip(split_old, split_new):
+                    name_dict[old_name] = new_name
+
+        new = copy.copy(self)
+        new.name = name
+        new._attrs = new_attrs
+        new._indexes = {k: name_dict[v] for k, v in self._indexes.items()}
+        if new._dataset is not None:
+            present = set(new._dataset._variables) | set(new._dataset.dims_sizes())
+            new._dataset = new._dataset.rename({k: v for k, v in name_dict.items() if k in present})
+        if return_name_dict:
+            return new, name_dict
+        return new
+
+    @staticmethod
+    def _single_topology(dataset) -> str:
+        topologies = conventions.ugrid_roles(dataset).topology
+        if len(topologies) == 0:
+            raise ValueError("Dataset contains no UGRID topology variable.")
+        if len(topologies) > 1:
+            raise ValueError(
+                f"Dataset contains {len(topologies)} topology variables, "
+                "please specify the topology variable name to use."
+            )
+        return topologies[0]
+
+    def _filtered_attrs(self, dataset) -> dict:
+        """The topology attrs without entries naming variables or
+        dimensions absent from ``dataset``."""
+        topodim = self.topology_dimension
+        attrs = self._attrs.copy()
+        present_dims = set(dataset.dims_sizes())
+        present_vars = set(dataset._variables)
+
+        ugrid_dims = conventions._DIM_NAMES[topodim] + tuple(
+            dims[0] for dims in conventions._CONNECTIVITY_DIMS.values()
+        )
+        for key in ugrid_dims:
+            if key in attrs and attrs[key] not in present_dims:
+                attrs.pop(key)
+        for key in conventions._CONNECTIVITY_NAMES[topodim]:
+            if key in attrs and attrs[key] not in present_vars:
+                attrs.pop(key)
+        for coord in conventions._COORD_NAMES[topodim]:
+            if coord in attrs:
+                names = [n for n in attrs[coord].split(" ") if n in present_vars]
+                if names:
+                    attrs[coord] = " ".join(names)
+                else:
+                    attrs.pop(coord)
+        return attrs
+
+    # -- fill value / start index -----------------------------------------------
+    @property
+    def fill_value(self) -> int:
+        """Fill value of the UGRID connectivity arrays as written."""
+        return self._fill_value
+
+    @fill_value.setter
+    def fill_value(self, value: int):
+        self._fill_value = value
+
+    @property
+    def start_index(self) -> int:
+        """Start index of the UGRID connectivity arrays as written."""
+        return self._start_index
+
+    @start_index.setter
+    def start_index(self, value: int):
+        if value not in (0, 1):
+            raise ValueError(f"start_index must be 0 or 1, received: {value}")
+        self._start_index = value
+
+    @staticmethod
+    def _prepare_connectivity(da, fill_value, dtype, coredim: str) -> np.ndarray:
+        """
+        A connectivity variable read from a file, normalized: core
+        dimension first, the file's fill (or NaN for a float variable)
+        replaced by ``fill_value``, cast to ``dtype`` (netCDF3 stores
+        int32).
+        """
+        data = np.asarray(da.data)
+        if da.dims[0] != coredim:
+            data = data.T
+        data = data.copy()
+        file_fill = da.encoding.get("_FillValue", da.attrs.get("_FillValue"))
+        if np.issubdtype(data.dtype, np.floating):
+            # The CF decode replaced the fill by NaN: NaN is the fill,
+            # whatever sentinel was recorded.
+            is_fill = np.isnan(data)
+            if file_fill is not None and not np.isnan(np.asarray(file_fill)).any():
+                is_fill |= data == file_fill
+        elif file_fill is not None and not np.isnan(np.asarray(file_fill)).any():
+            is_fill = data == file_fill
+        else:
+            is_fill = data == fill_value
+        data[is_fill] = fill_value
+        cast = data.astype(dtype, copy=False)
+        if (cast[~is_fill] < 0).any():
+            raise ValueError("connectivity contains negative values")
+        return cast
+
+    def _adjust_connectivity(self, conn: np.ndarray) -> np.ndarray:
+        """Write side: restore the grid's fill_value and start_index."""
+        c = conn.copy()
+        if self.start_index == 0 and self.fill_value == FILL_VALUE:
+            return c
+        is_fill = c == FILL_VALUE
+        if self.start_index:
+            c[~is_fill] += self.start_index
+        if self.fill_value != FILL_VALUE:
+            c[is_fill] = self.fill_value
+        return c
+
+    # -- CRS ----------------------------------------------------------------------
+    @staticmethod
+    def _extract_crs(dataset, topology: str):
+        roles = conventions.ugrid_roles(dataset)
+        grid_mapping_name = roles.grid_mapping_names[topology]
+        stdname_projected = roles.is_projected[topology]
+        crs = None
+        if grid_mapping_name is not None:
+            crs = crs_from_attrs(dataset._variables[grid_mapping_name].attrs)
+
+        if not (crs is None or isinstance(crs, CrsPlaceholder)):
+            is_projected = crs.is_projected
+            if stdname_projected is not None and stdname_projected != is_projected:
+                warnings.warn(
+                    "standard_name suggests "
+                    f"{'projected' if stdname_projected else 'geographic'} "
+                    f"coordinates, but the CRS ({crs}) is "
+                    f"{'projected' if is_projected else 'geographic'}. "
+                    "The CRS will take priority.",
+                    UserWarning,
+                    stacklevel=2,
+                )
+            return crs, is_projected
+
+        if stdname_projected is not None:
+            is_projected = stdname_projected
+        else:
+            warnings.warn(
+                f"No CRS or recognizable standard_name found for topology '{topology}'. "
+                "Assuming projected coordinates.",
+                UserWarning,
+                stacklevel=2,
+            )
+            is_projected = True
+        return crs, is_projected
+
+    @staticmethod
+    def _validate_crs(crs: Any, is_projected: bool):
+        if crs is None or isinstance(crs, CrsPlaceholder):
+            return crs, is_projected
+        import pyproj
+
+        _crs = pyproj.CRS.from_user_input(crs)
+        if not (_crs.is_projected ^ _crs.is_geographic):
+            raise ValueError(
+                f"Unsupported CRS: {crs}. CRS should either be geographic "
+                "(latitude / longitude) or projected."
+            )
+        return _crs, _crs.is_projected
+
+    def set_crs(self, crs=None, epsg: Optional[int] = None, allow_override: bool = False):
+        """Set the CRS without transforming the geometry (needs pyproj)."""
+        import pyproj
+
+        if crs is not None:
+            crs = pyproj.CRS.from_user_input(crs)
+        elif epsg is not None:
+            crs = pyproj.CRS.from_epsg(epsg)
+        else:
+            raise ValueError("Must pass either crs or epsg.")
+        crs, is_projected = self._validate_crs(crs, crs.is_projected)
+        if not allow_override and self.crs is not None and not self.crs == crs:
+            raise ValueError(
+                "The Ugrid already has a CRS which is not equal to the "
+                "passed CRS. Specify 'allow_override=True' to replace it "
+                "without transformation."
+            )
+        self.crs = crs
+        self.is_projected = is_projected
+
+    @property
+    def is_geographic(self) -> bool:
+        return not self.is_projected
+
+    def write_grid_mapping(self, dataset, grid_mapping_name: Optional[str] = None):
+        """Write the CF grid_mapping attributes of the CRS to a mapping
+        variable, and name it on every variable sharing this topology's
+        dimensions."""
+        if self.crs is None:
+            return dataset
+        dataset = dataset.copy(deep=False)
+        if grid_mapping_name is None:
+            grid_mapping_name = f"{self.name}_crs"
+        fill = np.int32(np.iinfo(np.int32).min + 1)
+        dataset._variables[grid_mapping_name] = xdata.Variable((), fill, attrs=crs_to_attrs(self.crs))
+        for var in dataset._variables.values():
+            if set(self.dims) & set(var.dims):
+                var.attrs["grid_mapping"] = grid_mapping_name
+        return dataset
+
+    def _update_coordinate_attrs(self, obj) -> None:
+        for role, name in self._indexes.items():
+            attrs = conventions.DEFAULT_ATTRS[role][self.is_projected]
+            if name in getattr(obj, "_coords", {}):
+                obj._coords[name].attrs = dict(attrs)
+            elif isinstance(obj, xdata.Dataset) and name in obj._variables:
+                obj._variables[name].attrs = dict(attrs)
+            if self._dataset is not None and name in self._dataset._variables:
+                self._dataset._variables[name].attrs = dict(attrs)
+
+    # -- generic -----------------------------------------------------------------
+    def __repr__(self) -> str:
+        if self._dataset:
+            return self._dataset.__repr__()
+        return self.to_dataset().__repr__()
+
+    def equals(self, other) -> bool:
+        """Same kind, and identical UGRID datasets (names, attributes,
+        coordinates and connectivity)."""
+        if other is self:
+            return True
+        if isinstance(other, type(self)):
+            return self.to_dataset().identical(other.to_dataset())
+        return False
+
+    def copy(self):
+        """A deep copy."""
+        return copy.deepcopy(self)
+
+    @property
+    def attrs(self) -> dict:
+        return copy.deepcopy(self._attrs)
+
+    @property
+    def node_dimension(self) -> str:
+        """Name of the node dimension."""
+        return self._attrs["node_dimension"]
+
+    @property
+    def edge_dimension(self) -> str:
+        """Name of the edge dimension."""
+        return self._attrs["edge_dimension"]
+
+    # -- geometry ----------------------------------------------------------------
+    @property
+    def node_coordinates(self) -> np.ndarray:
+        """(n_node, 2) node x and y."""
+        return np.column_stack([self.node_x, self.node_y])
+
+    @property
+    def n_node(self) -> int:
+        return len(self.node_x)
+
+    @property
+    def n_edge(self) -> int:
+        return len(self.edge_node_connectivity)
+
+    @property
+    def edge_x(self) -> np.ndarray:
+        """x-coordinate of every edge midpoint."""
+        if self._edge_x is None:
+            self._edge_x = self.node_x[self.edge_node_connectivity].mean(axis=1)
+        return self._edge_x
+
+    @property
+    def edge_y(self) -> np.ndarray:
+        """y-coordinate of every edge midpoint."""
+        if self._edge_y is None:
+            self._edge_y = self.node_y[self.edge_node_connectivity].mean(axis=1)
+        return self._edge_y
+
+    @property
+    def edge_coordinates(self) -> np.ndarray:
+        """(n_edge, 2) edge midpoints."""
+        return np.column_stack([self.edge_x, self.edge_y])
+
+    @property
+    def edge_node_coordinates(self) -> np.ndarray:
+        """Node coordinates of every edge: (n_edge, 2, 2)."""
+        return self.node_coordinates[self.edge_node_connectivity]
+
+    @property
+    def edge_length(self) -> np.ndarray:
+        """Length of every edge."""
+        dxy = np.diff(self.edge_node_coordinates, axis=1)[:, 0, :]
+        return np.linalg.norm(dxy, axis=-1)
 
     @property
     def bounds(self) -> tuple:
         """(xmin, ymin, xmax, ymax) of the nodes."""
         return (self.node_x.min(), self.node_y.min(), self.node_x.max(), self.node_y.max())
 
-    def equals(self, other) -> bool:
-        """Same kind, name, node coordinates and connectivity."""
-        if other is self:
-            return True
-        if type(other) is not type(self) or other.name != self.name:
-            return False
-        conn = "face_node_connectivity" if self.topology_dimension == 2 else "edge_node_connectivity"
-        return (
-            np.array_equal(self.node_x, other.node_x)
-            and np.array_equal(self.node_y, other.node_y)
-            and np.array_equal(getattr(self, conn), getattr(other, conn))
-        )
+    # -- coordinate assignment ---------------------------------------------------
+    def set_node_coords(self, node_x: str, node_y: str, obj, is_projected=True, crs=None):
+        """Use the coordinates ``node_x`` and ``node_y`` of ``obj`` as this
+        grid's node coordinates."""
+        if " " in node_x or " " in node_y:
+            raise ValueError("coordinate names may not contain spaces")
+        x = np.asarray(obj[node_x].values)
+        y = np.asarray(obj[node_y].values)
+        if x.ndim != 1 or x.size != self.n_node:
+            raise ValueError(f"shape of node_x does not match n_node of grid: {x.shape} versus {self.n_node}")
+        if y.ndim != 1 or y.size != self.n_node:
+            raise ValueError(f"shape of node_y does not match n_node of grid: {y.shape} versus {self.n_node}")
+        node_coords = [c for c in self._attrs["node_coordinates"].split(" ") if c not in (node_x, node_y)]
+        node_coords.extend((node_x, node_y))
+        self._clear_geometry_properties()
+        self.node_x = np.ascontiguousarray(x, dtype=np.float64)
+        self.node_y = np.ascontiguousarray(y, dtype=np.float64)
+        self._attrs["node_coordinates"] = " ".join(node_coords)
+        self._indexes["node_x"] = node_x
+        self._indexes["node_y"] = node_y
+        self.crs, self.is_projected = self._validate_crs(crs, is_projected)
 
+    def _assign_coords(self, obj, facet: str, x: np.ndarray, y: np.ndarray, dim: str):
+        xname = self._indexes.get(f"{facet}_x", f"{self.name}_{facet}_x")
+        yname = self._indexes.get(f"{facet}_y", f"{self.name}_{facet}_y")
+        coords = {
+            xname: xdata.DataArray(x, dims=(dim,), attrs=conventions.DEFAULT_ATTRS[f"{facet}_x"][self.is_projected]),
+            yname: xdata.DataArray(y, dims=(dim,), attrs=conventions.DEFAULT_ATTRS[f"{facet}_y"][self.is_projected]),
+        }
+        return obj.assign_coords(coords)
+
+    def assign_node_coords(self, obj):
+        """``obj`` with this grid's node coordinates."""
+        return self._assign_coords(obj, "node", self.node_x, self.node_y, self.node_dimension)
+
+    def assign_edge_coords(self, obj):
+        """``obj`` with this grid's edge midpoints as coordinates."""
+        return self._assign_coords(obj, "edge", self.edge_x, self.edge_y, self.edge_dimension)
+
+    # -- labelled wrappers --------------------------------------------------------
     def find_ugrid_dim(self, obj) -> str:
         """The single UGRID dimension present in the object."""
         ugrid_dims = self.dims.intersection(obj.dims)
         if len(ugrid_dims) != 1:
-            raise ValueError(
-                f"UgridDataArray should contain exactly one of the UGRID dimensions: {self.dims}"
-            )
+            raise ValueError(f"UgridDataArray should contain exactly one of the UGRID dimensions: {self.dims}")
         return ugrid_dims.pop()
 
     def create_data_array(self, data, facet: str):
         """UgridDataArray from a 1D array or tensor on the given facet."""
-        from xugrid_tpu_torch import xdata
         from xugrid_tpu_torch.core.wrap import UgridDataArray
         from xugrid_tpu_torch.xdata.variable import as_compatible_data
 

@@ -2,7 +2,8 @@
 xdata: the labelled-array core of the port, a copy of ``xugrid_tpu``'s
 xarray stand-in reduced to what the UGRID wrappers and the regridders
 read: DataArray, Dataset, Variable, concat/merge,
-full_like/zeros_like/ones_like and where.
+full_like/zeros_like/ones_like and where, and the eager netCDF and zarr
+readers and writers (``io_netcdf.py``, ``io_zarr.py``).
 
 Coordinates and indexes are numpy on the host.  A data payload may be a
 numpy array or a torch tensor; a tensor stays on its device through
@@ -19,6 +20,8 @@ import torch
 
 from xugrid_tpu_torch.xdata.dataarray import DataArray
 from xugrid_tpu_torch.xdata.dataset import Dataset
+from xugrid_tpu_torch.xdata.io_netcdf import open_dataset, to_netcdf
+from xugrid_tpu_torch.xdata.io_zarr import open_zarr, to_zarr
 from xugrid_tpu_torch.xdata.variable import (
     Variable,
     as_tensor_like,
@@ -33,6 +36,10 @@ __all__ = [
     "DataArray",
     "Dataset",
     "Variable",
+    "open_dataset",
+    "open_zarr",
+    "to_netcdf",
+    "to_zarr",
     "broadcast_variables",
     "concat",
     "concat_variables",

@@ -316,3 +316,21 @@ class Dataset:
         if not self.equals(other) or self.attrs != other.attrs:
             return False
         return all(v.attrs == other._variables[k].attrs for k, v in self._variables.items())
+
+    # -- files ----------------------------------------------------------------
+    def to_netcdf(self, path=None, **kwargs):
+        """Write to a netCDF file (``io_netcdf.to_netcdf``); a tensor
+        payload is copied to the host."""
+        from xugrid_tpu_torch.xdata.io_netcdf import to_netcdf
+
+        return to_netcdf(self, path, **kwargs)
+
+    def to_zarr(self, store=None, **kwargs):
+        """Write to a zarr v2 directory store (``io_zarr.to_zarr``); a
+        tensor payload is copied to the host."""
+        from xugrid_tpu_torch.xdata.io_zarr import to_zarr
+
+        return to_zarr(self, store, **kwargs)
+
+    def close(self):
+        pass
