@@ -118,6 +118,26 @@ With no argument it runs these phases:
    bit-equal to the fresh regridder's, its first pass and back-to-back
    pass timed beside the fresh one's.  The mean's raster result written
    with ``to_dataset(...).to_netcdf`` and read back bit-equal.
+10. A partitioned run merged and regridded at the 1M config: phase 3's
+   mesh as a ``UgridDataset`` with (time=20, face) float32, (edge,) and
+   (node,) float64 payloads on the card split by
+   ``uds.ugrid.partition(n_part=4)`` (payloads still on the card), each
+   partition written as a UGRID netCDF map file in a temporary directory
+   removed at the end and opened with ``xt.open_dataset``;
+   ``xt.merge_partitions`` of the in-memory partitions (payload on the
+   card, still a CUDA tensor after) and of the opened files each gives
+   the mesh's node, face and edge counts, and under the original
+   positions the merge carried along every face's node coordinates and
+   every payload value bit-equal.  Both merged temperatures regridded
+   onto phase 3's 512 x 512 raster by ``OverlapRegridder`` mean
+   (window_reduce) and median (window_select), one launch per call, held
+   to the plain version and the host references; the median bit-equal
+   to phase 3's unpartitioned regrid, the mean within rtol 1e-5 and the
+   float32 summation bound of the window.  Times the partition (labels,
+   subsets, data ``isel``), the files, the merge by stage (nodes, faces,
+   edges, data), ``unique_rows`` on the merge's node and face rows
+   through the native hash and the torch grouping on the card, and the
+   regrid passes.
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
@@ -1940,6 +1960,249 @@ def phase_files(device, card, inputs, timed):
     return counts, max_err
 
 
+def stage_line(prefix):
+    """The recorded host stages whose name starts with ``prefix``
+    (``timings.summary()``), as "name s" pairs."""
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    return ", ".join(
+        f"{name} {rec['total_s']:.3f} s" for name, rec in timings.summary().items() if name.startswith(prefix)
+    )
+
+
+def check_merged(label, merged, mesh, values, device):
+    """A merged 1M dataset against the unpartitioned one: the same node,
+    face and edge counts, and under the original positions that the merge
+    carried along (the position coordinates of the UGRID dimensions),
+    every face's node coordinates and every payload value bit-equal on
+    all three dimensions.  ``device`` None: a host payload is expected,
+    else a tensor on it."""
+    grid = merged.grid
+    sizes = (grid.n_face, grid.n_node, grid.n_edge)
+    if sizes != (mesh.n_face, mesh.n_node, mesh.n_edge):
+        raise AssertionError(f"{label}: merged sizes {sizes} differ from the mesh's")
+    index = {dim: merged.obj[dim].values for dim in (grid.face_dimension, grid.node_dimension, grid.edge_dimension)}
+    for dim, idx in index.items():
+        if not np.array_equal(np.sort(idx), np.arange(mesh.sizes[dim])):
+            raise AssertionError(f"{label}: the merged {dim} is not a permutation of the original's")
+    face, node, edge = index[grid.face_dimension], index[grid.node_dimension], index[grid.edge_dimension]
+    for name, got, want in (
+        ("face node x", grid.node_x[grid.face_node_connectivity], mesh.node_x[mesh.face_node_connectivity[face]]),
+        ("face node y", grid.node_y[grid.face_node_connectivity], mesh.node_y[mesh.face_node_connectivity[face]]),
+        ("node x", grid.node_x, mesh.node_x[node]),
+        ("edge node x", grid.node_x[grid.edge_node_connectivity], mesh.node_x[mesh.edge_node_connectivity[edge]]),
+        ("edge node y", grid.node_y[grid.edge_node_connectivity], mesh.node_y[mesh.edge_node_connectivity[edge]]),
+    ):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: {name} differ from the original's under the merge's positions")
+    for name, want in (
+        ("temperature", values["temperature"][:, face]),
+        ("edge_v", values["edge_v"][edge]),
+        ("node_v", values["node_v"][node]),
+    ):
+        data = merged.obj[name].data
+        on_device = getattr(data, "device", None)
+        if (device is None) != isinstance(data, np.ndarray) or (device is not None and on_device != device):
+            raise AssertionError(f"{label}: {name} payload is {type(data).__name__} on {on_device}")
+        got = merged.obj[name].values
+        if got.dtype != want.dtype or not np.array_equal(got, want, equal_nan=True):
+            raise AssertionError(f"{label}: {name} differs from the original's under the merge's positions")
+
+
+def phase_partitions(device, card, inputs, main_results):
+    """Phase 10: a partitioned 1M run merged and regridded on the card.
+    Phase 3's mesh as a UgridDataset with (time, face) float32, (edge,)
+    and (node,) float64 payloads on the card, split by
+    ``uds.ugrid.partition(n_part=4)``, each partition written to a UGRID
+    netCDF file (the per-rank map files of a partitioned model run) and
+    opened; ``xt.merge_partitions`` of the in-memory partitions and of the
+    opened files each rebuilds the mesh (``check_merged``); both merged
+    temperatures regridded onto phase 3's 512 x 512 raster by
+    ``OverlapRegridder`` mean (window_reduce) and median (window_select),
+    one launch each, held to the plain version and the host references,
+    the median bit-equal and the mean within float32 summation error of
+    phase 3's unpartitioned regrid.  Times the partition, the files, the
+    merge by stage, ``unique_rows`` at the merge's sizes (the native hash
+    and the torch grouping on the card) and the regrid passes.  Returns
+    (launch counts of the four regrids, largest |kernel - plain| per
+    kernel)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.core.dedup import _group_rows_device, _to_u32_columns, unique_rows
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.apply import device_weights
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    (verts, faces), (tverts, tfaces), mesh_data = inputs
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    target = xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)
+    rng = np.random.default_rng(10)
+    t0 = time.perf_counter()
+    n_edge = mesh.n_edge
+    edges_s = time.perf_counter() - t0
+    values = {
+        "temperature": mesh_data,
+        "edge_v": rng.normal(size=n_edge),
+        "node_v": rng.normal(size=mesh.n_node),
+    }
+    dims = {
+        "temperature": ("time", mesh.face_dimension),
+        "edge_v": (mesh.edge_dimension,),
+        "node_v": (mesh.node_dimension,),
+    }
+    ds = xt.xdata.Dataset({name: (dims[name], torch.from_numpy(v).to(device)) for name, v in values.items()})
+    uds = xt.UgridDataset(ds, grids=[mesh])
+    print(
+        f"phase 10: partition, files and merge_partitions of the 1M mesh ({mesh.n_face} faces, {mesh.n_node} nodes, "
+        f"{n_edge} edges derived in {edges_s:.3f} s), (time={N_EXTRA}, face) float32, (edge,) and (node,) float64 "
+        f"on the card [{card}]"
+    )
+    kernels = (window_reduce, window_select, csr_matvec)
+    for k in kernels:
+        k.launches = 0
+
+    # 10.1: the partition.
+    timings.reset()
+    t0 = time.perf_counter()
+    parts = uds.ugrid.partition(n_part=4)
+    torch.cuda.synchronize()
+    partition_s = time.perf_counter() - t0
+    for part in parts:
+        for name in values:
+            if part.obj[name].data.device != device:
+                raise AssertionError(f"partition: {name} left the card")
+    print(
+        f"  10.1 uds.ugrid.partition(n_part=4): {partition_s:.3f} s ({stage_line('partition.')}); faces per part "
+        f"{[p.grid.n_face for p in parts]}, nodes {[p.grid.n_node for p in parts]}, edges "
+        f"{[p.grid.n_edge for p in parts]}; payloads stay on the card [{card}]"
+    )
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_partitions_")
+    try:
+        # 10.2: each partition as a map file, and back.
+        opened, write_s, open_s, mb = [], [], [], []
+        for i, part in enumerate(parts):
+            path = os.path.join(tmp, f"map_{i:04d}_map.nc")
+            t0 = time.perf_counter()
+            part.ugrid.to_netcdf(path)
+            write_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            opened.append(xt.open_dataset(path))
+            open_s.append(time.perf_counter() - t0)
+            mb.append(path_mb(path))
+        print(
+            f"  10.2 partition files (netCDF): {', '.join(f'{m:.3f}' for m in mb)} MB; written in "
+            f"{', '.join(f'{s:.3f}' for s in write_s)} s, opened in {', '.join(f'{s:.3f}' for s in open_s)} s [{card}]"
+        )
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 10.3: the merges.
+    merged = {}
+    for label, partitions, on in (("in-memory", parts, device), ("files", opened, None)):
+        timings.reset()
+        t0 = time.perf_counter()
+        merged[label] = xt.merge_partitions(partitions)
+        torch.cuda.synchronize()
+        merge_s = time.perf_counter() - t0
+        check_merged(label, merged[label], mesh, values, on)
+        print(
+            f"  10.3 merge_partitions ({label}, payload {'on the card' if on else 'numpy'}): {merge_s:.3f} s "
+            f"({stage_line('merge.')}); n_face, n_node, n_edge equal; face node coordinates and the face, edge and "
+            f"node payloads bit-equal under the merge's positions [{card}]"
+        )
+
+    # 10.4: unique_rows at the merge's sizes: the native hash against the
+    # torch grouping on the card.
+    node_rows = np.column_stack([np.concatenate([p.grid.node_x for p in parts]),
+                                 np.concatenate([p.grid.node_y for p in parts])])
+    face_rows = np.concatenate(
+        [p.obj[mesh.node_dimension].values[p.grid.face_node_connectivity] for p in parts]
+    )
+    for label, rows in (("node rows", node_rows), ("face rows", face_rows)):
+        host_s, card_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            host = unique_rows(rows)
+            host_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            on_card = unique_rows(rows, device=device)
+            card_s.append(time.perf_counter() - t0)
+        if not all(np.array_equal(a, b) for a, b in zip(host, on_card)):
+            raise AssertionError(f"unique_rows {label}: the torch grouping on the card differs from the native hash")
+        cols = torch.from_numpy(_to_u32_columns(rows).astype(np.int64)).to(device)
+        group_ms = cuda_time_ms(lambda cols=cols: _group_rows_device(cols), reps=5, warmup=1, inner=1)
+        print(
+            f"  10.4 unique_rows {label} {rows.shape} {rows.dtype} ({cols.shape[1]} u32 keys, {len(host[0])} unique): "
+            f"native hash {statistics.median(host_s) * 1e3:.3f} ms; torch grouping on the card "
+            f"{statistics.median(card_s) * 1e3:.3f} ms with the copies, {group_ms:.3f} ms of it the grouping on "
+            f"resident keys; equal [{card}]"
+        )
+
+    # 10.5: both merged temperatures regridded, against phase 3's
+    # unpartitioned regrids.
+    unpartitioned = {method: out for _, method, _, _, out, *_ in main_results}
+    scale = float(np.nanmax(np.abs(mesh_data)))
+    sample = np.sort(np.random.default_rng(9).choice(target.n_face, size=min(400, target.n_face), replace=False))
+    counts = {k.__name__: 0 for k in kernels}
+    max_err = {"window_reduce": 0.0, "window_select": 0.0}
+    regridders = []
+    for label in ("in-memory", "files"):
+        temperature = merged[label]["temperature"]
+        source = torch.from_numpy(temperature.values).to(device)
+        merged_data = temperature.values
+        for method, kernel in (("mean", window_reduce), ("median", window_select)):
+            t0 = time.perf_counter()
+            regridder = xt.OverlapRegridder(temperature, target, method=method)
+            build_s = time.perf_counter() - t0
+            before = {k.__name__: k.launches for k in kernels}
+            t0 = time.perf_counter()
+            out = regridder.regrid(temperature)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+            for name, n in rose.items():
+                counts[name] += n
+            if not isinstance(out, xt.UgridDataArray) or out.data.device != device:
+                raise AssertionError(f"{label} {method}: {type(out).__name__} not on the card")
+            csr = regridder._weights
+            if kernel is window_reduce:
+                reference = lambda got, csr=csr, d=merged_data: (got, reference_linear(csr, d, relative=False))  # noqa: E731
+            else:
+                reference = lambda got, csr=csr, d=merged_data: (  # noqa: E731
+                    got[:, sample], reference_select(csr, d, sample, "median")
+                )
+            err = check_apply(f"10.5 {label} {method}", regridder, source, out.data, kernel, rose, scale, reference)
+            max_err[kernel.__name__] = max(max_err[kernel.__name__], err)
+            if kernel is window_select:
+                diff = compare(out.data, unpartitioned[method], True, 0.0, 0.0)
+                how = "bit-equal to"
+            else:
+                rtol, atol = tolerance(torch.float32, scale)
+                idx, w = device_weights(regridder._padded, torch.float32, device, regridder._device_weights)
+                bound = torch.clamp(summation_bound(source, idx, w, regridder._reduction), min=atol)
+                diff = compare(out.data, unpartitioned[method], False, rtol, bound)
+                how = f"within rtol {rtol} and the float32 summation bound (at least {atol:.3e}) of"
+            print(
+                f"       {label} {method}: build {build_s:.3f} s, first pass {first_s:.4f} s; {how} the unpartitioned "
+                f"regrid (phase 3), max |diff| {diff:.3e} [{card}]"
+            )
+            regridders.append((label, method, regridder, temperature))
+    if counts != {"window_reduce": 2, "window_select": 2, "csr_matvec": 0}:
+        raise AssertionError(f"phase 10 launched {counts}")
+    for label, method, regridder, temperature in regridders:
+        if label == "in-memory":
+            ms = cuda_time_ms(lambda r=regridder, t=temperature: r.regrid(t))
+            print(f"  10.6 regrid of the merged temperature ({method}), back to back: {ms:.6f} ms per pass [{card}]")
+    return counts, max_err
+
+
 def main() -> int:
     import torch
 
@@ -1968,6 +2231,7 @@ def main() -> int:
     regrid_counts, regrid_err, _ = phase_regridders(device, card, inputs)
     labelled_counts, labelled_err, _ = phase_labelled(device, card, inputs, meshes)
     files_counts, files_err = phase_files(device, card, inputs, timed)
+    partition_counts, partition_err = phase_partitions(device, card, inputs, results)
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
@@ -1977,12 +2241,14 @@ def main() -> int:
             "phase 7 regridders": regrid_counts[name],
             "labelled arrays and structured grids (phase 8)": labelled_counts[name],
             "UGRID files and stored weights (phase 9)": files_counts[name],
+            "merge_partitions then regrid (phase 10)": partition_counts[name],
         }
         return {
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(
-                check_err[name], main_err[name], regrid_err[name], labelled_err[name], files_err[name]
+                check_err[name], main_err[name], regrid_err[name], labelled_err[name], files_err[name],
+                partition_err[name],
             ),
             **timed_at,
         }

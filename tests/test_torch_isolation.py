@@ -4,9 +4,10 @@ a CPU regrid through each regridder (overlap, relative overlap, centroid
 locator, barycentric interpolator, network gridder), a CPU Laplace fill,
 a CPU ``cg_solve``, a UgridDataArray and a raster DataArray regridded
 onto each other and filled through ``.ugrid.laplace_interpolate``, a
-UGRID netCDF file and zarr store written and opened, and a CPU regrid
-through weights stored to netCDF and reloaded with ``from_dataset``
-load neither jax nor xugrid_tpu, and launch no kernel.
+UGRID netCDF file and zarr store written and opened, a CPU regrid
+through weights stored to netCDF and reloaded with ``from_dataset``, and
+a UgridDataArray partitioned, merged with ``merge_partitions`` and
+regridded load neither jax nor xugrid_tpu, and launch no kernel.
 A subprocess is needed because the test session itself imports jax.
 
 ``chip_smoke.py`` refuses to run without a CUDA device: exit code 2 and
@@ -93,6 +94,13 @@ REGRID_ON_CPU = textwrap.dedent(
     reloaded = loaded.regrid(opened["mesh2d_data"], device="cpu")
     assert torch.equal(reloaded.data, on_raster.data)
     shutil.rmtree(tmp)
+    # Partitions: split, merged back and regridded.
+    parts = uda.rename("v").ugrid.partition(n_part=3)
+    merged = xt.merge_partitions(parts)
+    assert merged.grid.n_face == source.n_face and isinstance(merged["v"].data, torch.Tensor)
+    out = xt.OverlapRegridder(merged["v"], raster).regrid(merged["v"], device="cpu")
+    assert out.dims == ("time", "y", "x")
+    assert torch.allclose(out.data, on_raster.data, rtol=1e-12, atol=1e-12)
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "xugrid_tpu" or m.startswith("xugrid_tpu."))
     assert not loaded, loaded

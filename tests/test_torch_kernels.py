@@ -1,7 +1,8 @@
 """
 The Hopper kernels (window_reduce, window_select, csr_matvec) against
 their plain PyTorch version on a CUDA card, the checks of their
-wrappers, and the entry points (regrid, laplace_interpolate) on the card.
+wrappers, the entry points (regrid, laplace_interpolate) on the card,
+and the row grouping and ``merge_partitions`` with payloads there.
 
 Every test here needs a card: marked ``cuda`` and skipped without one.
 This file imports no jax; where jax is not installed, skip the suite's
@@ -382,3 +383,43 @@ def test_cuda_payload_writes_and_reads_back(device, tmp_path):
         np.testing.assert_array_equal(back.values, values.cpu().numpy())
         np.testing.assert_array_equal(back.obj["time"].values, times)
         np.testing.assert_array_equal(opened.grid.face_node_connectivity, grid.face_node_connectivity)
+
+
+def test_row_grouping_on_the_card_matches_the_host_hash(device):
+    from xugrid_tpu_torch.core.dedup import unique_rows
+
+    rng = np.random.default_rng(12)
+    base = rng.normal(size=(3000, 2))
+    other_nan = np.array([0x7FF8000000000001], dtype=np.uint64).view(np.float64)[0]
+    for rows in (
+        base[rng.integers(0, 3000, 40_000)],
+        rng.integers(0, 60, (50_000, 4)),
+        np.array([[0.0, 1.0], [-0.0, 1.0], [np.nan, 2.0], [other_nan, 2.0], [np.nan, 2.0]]),
+    ):
+        want_index, want_inverse = unique_rows(rows)
+        got_index, got_inverse = unique_rows(rows, device=device)
+        np.testing.assert_array_equal(got_index, want_index)
+        np.testing.assert_array_equal(got_inverse, want_inverse)
+
+
+def test_merge_partitions_keeps_a_cuda_payload(device):
+    rng = np.random.default_rng(13)
+    (verts, faces), _ = chip_smoke.bench_meshes(20, 4, rng)
+    grid = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    grid.edge_node_connectivity
+    values = {
+        "face_v": (("time", grid.face_dimension), rng.normal(size=(3, grid.n_face)).astype(np.float32)),
+        "node_v": ((grid.node_dimension,), rng.normal(size=grid.n_node)),
+        "edge_v": ((grid.edge_dimension,), rng.normal(size=grid.n_edge)),
+    }
+    merged = {}
+    for where in ("cpu", device):
+        ds = xt.xdata.Dataset({k: (dims, torch.from_numpy(v).to(where)) for k, (dims, v) in values.items()})
+        parts = xt.UgridDataset(ds, grids=[grid]).ugrid.partition(n_part=4)
+        assert all(p.obj["face_v"].data.device.type == torch.device(where).type for p in parts)
+        merged[str(where)] = xt.merge_partitions(parts)
+    on_card, on_host = merged[str(device)], merged["cpu"]
+    np.testing.assert_array_equal(on_card.grid.face_node_connectivity, on_host.grid.face_node_connectivity)
+    for name in values:
+        assert on_card.obj[name].data.device.type == "cuda"
+        assert torch.equal(on_card.obj[name].data.cpu(), on_host.obj[name].data)

@@ -311,8 +311,11 @@ def test_wrapper_forwarding_and_operators(inputs):
     reduced = t.mean(t.grid.face_dimension)
     assert isinstance(reduced, xt.xdata.DataArray) and reduced.dims == ("time",)
     assert t.shape == (3, t.grid.n_face) and t.sizes["time"] == 3 and len(t) == 3
-    with pytest.raises(NotImplementedError, match="topology subsets"):
-        t.isel({t.grid.face_dimension: [0, 1]})
+    jsub, tsub = j.isel({j.grid.face_dimension: [0, 1]}), t.isel({t.grid.face_dimension: [0, 1]})
+    assert isinstance(tsub, xt.UgridDataArray) and tsub.dims == jsub.dims and tsub.grid.n_face == 2
+    for attr in ("node_x", "node_y", "face_node_connectivity"):
+        np.testing.assert_array_equal(getattr(tsub.grid, attr), getattr(jsub.grid, attr))
+    np.testing.assert_array_equal(tsub.values, np.asarray(jsub.values))
     accessor, jaccessor = t.ugrid, j.ugrid
     assert accessor.name == jaccessor.name and accessor.names == jaccessor.names
     assert list(accessor.topology) == list(jaccessor.topology) and accessor.grids == [t.grid]

@@ -13,6 +13,9 @@ It covers:
   writing (``open_dataset``, ``open_zarr``, ``.ugrid.to_netcdf``,
   ``.ugrid.to_zarr``), and regridder weights stored with
   ``to_dataset`` and reloaded with ``from_dataset``;
+- topology subsets (``isel`` and box ``sel`` along a UGRID dimension,
+  ``clip_box``), partitions (``.ugrid.partition``, ``label_partitions``)
+  and ``merge_partitions``, which reassembles a partitioned run;
 - the regridders between 2D meshes and rasters (overlap, centroid
   locator, barycentric interpolation: in the centroidal voronoi
   tessellation, or bilinear between rasters) and from a 1D network onto
@@ -53,6 +56,7 @@ from xugrid_tpu_torch.regrid.regridder import (
     RelativeOverlapRegridder,
 )
 from xugrid_tpu_torch.ugrid.conventions import UgridRolesAccessor, ugrid_roles
+from xugrid_tpu_torch.ugrid.partitioning import merge_partitions
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 
@@ -73,6 +77,7 @@ __all__ = [
     "load_dataarray",
     "load_dataset",
     "merge",
+    "merge_partitions",
     "ones_like",
     "open_dataarray",
     "open_dataset",

@@ -1,8 +1,9 @@
 """
 The ``.ugrid`` accessor of a UgridDataArray: its topology, renaming,
-coordinate assignment, the conversion to a UGRID dataset and file, and
-the Laplace fill.  The port of ``xugrid_tpu/core/dataarray_accessor.py``
-reduced to these; the rest of the accessor is not ported.
+coordinate assignment, the conversion to a UGRID dataset and file, box
+selections, partitions, and the Laplace fill.  The port of
+``xugrid_tpu/core/dataarray_accessor.py`` reduced to these; the rest of
+the accessor is not ported.
 """
 
 from __future__ import annotations
@@ -79,6 +80,24 @@ class UgridDataArrayAccessor(AbstractUgridAccessor):
         if self.grid.topology_dimension == 1:
             raise TypeError("Cannot set face coords from a Ugrid1D topology")
         return UgridDataArray(self.grid.assign_face_coords(self.obj), self.grid)
+
+    def sel(self, x=None, y=None):
+        """The array and its topology in a box of UGRID x and y (two
+        slices), as a UgridDataArray.  Selections along a line or at
+        points are not ported."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        return UgridDataArray(*self.grid.sel(self.obj, x, y))
+
+    def label_partitions(self, n_part: int):
+        """Partition labels of the grid with this array's integer values
+        on the core dimension as the weights (a tensor payload is copied
+        to the host)."""
+        obj = self.obj
+        grid = self.grid
+        if tuple(obj.dims) != (grid.core_dimension,):
+            raise ValueError(f"Weights must be associated with the core-dimension of the grid: {grid.core_dimension}")
+        return grid.label_partitions(n_part=n_part, weights=obj.values)
 
     def to_dataset(self, optional_attributes: bool = False):
         """The array (named ``{grid}_data`` when unnamed) and the UGRID

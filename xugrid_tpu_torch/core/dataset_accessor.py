@@ -1,8 +1,9 @@
 """
 The ``.ugrid`` accessor of a UgridDataset: its topologies, renaming,
-coordinate assignment and the conversion to a UGRID dataset.  The port
-of ``xugrid_tpu/core/dataset_accessor.py``'s non-geometric part; the
-rest of the accessor is not ported.
+coordinate assignment, the conversion to a UGRID dataset, box
+selections and partitions.  The port of
+``xugrid_tpu/core/dataset_accessor.py`` reduced to these; the rest of
+the accessor is not ported.
 """
 
 from __future__ import annotations
@@ -108,6 +109,16 @@ class UgridDatasetAccessor(AbstractUgridAccessor):
         """Use dataset coordinates as the node coordinates of a topology."""
         grid = self._single_grid_for("set_node_coords") if topology is None else self.topology[topology]
         grid.set_node_coords(node_x, node_y, self.obj)
+
+    def sel(self, x=None, y=None) -> UgridDataset:
+        """The data and every topology in a box of UGRID x and y (two
+        slices).  Selections along a line or at points are not ported."""
+        result = self.obj
+        new_grids = []
+        for grid in self.grids:
+            result, new_grid = grid.sel(result, x, y)
+            new_grids.append(new_grid)
+        return UgridDataset(result, new_grids)
 
     def to_dataset(self, optional_attributes: bool = False):
         """The data and every topology's UGRID variables as one Dataset."""

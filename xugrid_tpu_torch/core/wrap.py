@@ -7,13 +7,12 @@ Methods and attributes of the wrapped xdata object are forwarded
 wrapped with the grids.  A UgridDataset made from a dataset alone reads
 its topologies from the UGRID variables.  The UGRID dimensions get
 position coordinates, so a forwarded operation that subsets one is
-seen: subsetting a topology is not ported, and such an operation
-raises.  The payload may be a torch tensor and stays on its device.
+seen, and its grid is subset with it (``ugridbase.align``).  The
+payload may be a torch tensor and stays on its device.
 """
 
 from __future__ import annotations
 
-from itertools import chain
 from typing import Sequence, Union
 
 import numpy as np
@@ -22,7 +21,7 @@ from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.ugrid import conventions
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
-from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid
+from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, align
 
 
 def assign_ugrid_coords(obj, grids):
@@ -34,23 +33,6 @@ def assign_ugrid_coords(obj, grids):
     if coords:
         obj = obj.assign_coords(coords)
     return obj
-
-
-def align(obj, grids, old_indexes):
-    """The grids of ``obj`` after a forwarded operation: unchanged where no
-    UGRID dimension's index changed.  A changed index would subset the
-    topology, which is not ported: raises."""
-    if old_indexes is None:
-        return obj, grids
-    ugrid_dims = set(chain.from_iterable(grid.dims for grid in grids)).intersection(old_indexes)
-    changed = sorted(
-        k for k, index in obj.indexes.items() if k in ugrid_dims and not index.equals(old_indexes[k])
-    )
-    if changed:
-        raise NotImplementedError(
-            f"this selection subsets the UGRID dimensions {changed}: topology subsets are not ported"
-        )
-    return obj, grids
 
 
 def maybe_xugrid(obj, grids, old_indexes=None):

@@ -192,6 +192,20 @@ def node_node_connectivity(edge_node_connectivity: np.ndarray) -> sparse.csr_mat
     return sparse.coo_matrix((data, (rows, cols))).tocsr()
 
 
+def edge_edge_connectivity(
+    edge_node_connectivity: np.ndarray, node_edge_connectivity: sparse.csr_matrix
+) -> sparse.csr_matrix:
+    """Edges sharing a node; data holds the shared node index."""
+    n_edge = len(edge_node_connectivity)
+    node_index = edge_node_connectivity.ravel()
+    j = node_edge_connectivity[node_index].indices
+    n_connection = node_edge_connectivity.getnnz(axis=1)[node_index]
+    i = np.repeat(np.arange(n_edge), n_connection.reshape((-1, 2)).sum(axis=1))
+    data = np.repeat(node_index, n_connection)
+    not_self = i != j
+    return sparse.coo_matrix((data[not_self], (i[not_self], j[not_self]))).tocsr()
+
+
 # Geometry
 # --------
 def area_from_coordinates(coordinates: np.ndarray) -> np.ndarray:

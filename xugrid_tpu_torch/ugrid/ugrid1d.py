@@ -1,20 +1,23 @@
 """
 Ugrid1d: topology of a 1D network (connected line elements, such as a
-river or channel network), reduced to what ``NetworkGridder`` and the
-UGRID file round trip read.
+river or channel network), reduced to what ``NetworkGridder``, the
+UGRID file round trip, the topology subsets and the partition merge
+read.
 """
 
 from __future__ import annotations
 
 from itertools import chain
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
+import pandas as pd
 
 from xugrid_tpu_torch import xdata
-from xugrid_tpu_torch.constants import FloatDType, IntDType
-from xugrid_tpu_torch.ugrid import conventions
-from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, _strip_dim_coords
+from xugrid_tpu_torch.constants import FILL_VALUE, FloatDType, IntDType
+from xugrid_tpu_torch.ugrid import connectivity, conventions
+from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, _strip_dim_coords, as_pandas_index
+from xugrid_tpu_torch.utils.profiling import timed
 
 
 class Ugrid1d(AbstractUgrid):
@@ -167,3 +170,136 @@ class Ugrid1d(AbstractUgrid):
     @property
     def sizes(self) -> dict:
         return {self.node_dimension: self.n_node, self.edge_dimension: self.n_edge}
+
+    def get_coordinates(self, dim: str) -> np.ndarray:
+        """(n, 2) coordinates of the nodes or the edge midpoints."""
+        if dim == self.node_dimension:
+            return self.node_coordinates
+        elif dim == self.edge_dimension:
+            return self.edge_coordinates
+        raise ValueError(f"Expected {self.node_dimension} or {self.edge_dimension}; got: {dim}")
+
+    # -- subsets -------------------------------------------------------------------
+    def isel(self, indexers=None, return_index: bool = False, **indexers_kwargs):
+        """The network of a selection by node or edge positions.  An edge
+        selection always gives a valid topology; a node selection takes
+        the edges it touches, and raises where those hold other nodes."""
+        if indexers is None:
+            indexers = indexers_kwargs
+        elif indexers_kwargs:
+            raise ValueError("cannot specify both indexers and keyword arguments")
+        invalid = indexers.keys() - self.dims
+        if invalid:
+            raise ValueError(f"Dimensions {invalid} do not exist. Expected one of {self.dims}")
+        indexers = {
+            k: as_pandas_index(v if isinstance(v, pd.Index) else np.asarray(v), self.sizes[k])
+            for k, v in indexers.items()
+        }
+        nodedim, edgedim = self.node_dimension, self.edge_dimension
+
+        edge_index = {}
+        if nodedim in indexers:
+            edge_index[nodedim] = np.unique(self.node_edge_connectivity[indexers[nodedim]].data)
+        if edgedim in indexers:
+            edge_index[edgedim] = indexers[edgedim]
+
+        edge_index = {
+            k: as_pandas_index(v if isinstance(v, pd.Index) else np.asarray(v), self.n_edge)
+            for k, v in edge_index.items()
+        }
+        index = self._precheck(edge_index)
+        grid, finalized_indexers = self.topology_subset(index, return_index=True)
+        self._postcheck(indexers, finalized_indexers)
+        if return_index:
+            return grid, finalized_indexers
+        return grid
+
+    def _validate_indexer(self, indexer):
+        if isinstance(indexer, slice):
+            if indexer.step is not None:
+                raise ValueError("Ugrid1d does not support steps in slices")
+            if indexer.start is not None and indexer.stop is not None and indexer.start >= indexer.stop:
+                raise ValueError("slice start should be smaller than slice stop")
+        else:
+            raise ValueError("Ugrid1d only supports slice indexing")
+        return indexer
+
+    def sel(self, obj, x, y):
+        """The edges whose midpoint lies in the box of two slices: (the
+        subset of ``obj``, the subset network)."""
+        x = self._validate_indexer(x)
+        y = self._validate_indexer(y)
+        xmin, ymin, xmax, ymax = self.bounds
+        x0 = x.start if x.start is not None else xmin
+        x1 = x.stop if x.stop is not None else np.nextafter(xmax, np.inf)
+        y0 = y.start if y.start is not None else ymin
+        y1 = y.stop if y.stop is not None else np.nextafter(ymax, np.inf)
+        edge_index = np.nonzero(
+            (self.edge_x >= x0) & (self.edge_x < x1) & (self.edge_y >= y0) & (self.edge_y < y1)
+        )[0]
+        grid, indexes = self.topology_subset(edge_index, return_index=True)
+        return obj.isel({k: v.to_numpy() for k, v in indexes.items() if k in obj.dims}), grid
+
+    def topology_subset(self, edge_index, return_index: bool = False):
+        """The network of a subset of edges, in the order given, with the
+        nodes they use, renumbered.  ``return_index`` also returns the
+        positions taken per UGRID dimension (pandas Indexes)."""
+        if not isinstance(edge_index, pd.Index):
+            edge_index = as_pandas_index(edge_index, self.n_edge)
+        range_index = pd.RangeIndex(0, self.n_edge)
+        if edge_index.size == self.n_edge and edge_index.equals(range_index):
+            if return_index:
+                indexes = {self.node_dimension: pd.RangeIndex(0, self.n_node), self.edge_dimension: range_index}
+                return self, indexes
+            return self
+
+        edge_subset = self.edge_node_connectivity[edge_index.to_numpy()]
+        node_index = np.unique(edge_subset.ravel())
+        grid = Ugrid1d(
+            self.node_x[node_index],
+            self.node_y[node_index],
+            FILL_VALUE,
+            connectivity.renumber(edge_subset),
+            name=self.name,
+            indexes=self._indexes,
+            is_projected=self.is_projected,
+            crs=self.crs,
+            attrs=self._attrs,
+        )
+        self._propagate_properties(grid)
+        if return_index:
+            return grid, {self.node_dimension: pd.Index(node_index), self.edge_dimension: edge_index}
+        return grid
+
+    def clip_box(self, xmin, ymin, xmax, ymax):
+        """The network of the edges whose midpoint lies in the closed box."""
+        edge_index = np.nonzero(
+            (self.edge_x >= xmin) & (self.edge_x <= xmax) & (self.edge_y >= ymin) & (self.edge_y <= ymax)
+        )[0]
+        return self.topology_subset(edge_index)
+
+    # -- partition merge -------------------------------------------------------------
+    @staticmethod
+    def merge_partitions(grids: Sequence["Ugrid1d"]):
+        """The partitions merged into one network, shared nodes and edges
+        deduplicated: (network, each partition's positions taken per
+        UGRID dimension)."""
+        from xugrid_tpu_torch.ugrid import partitioning
+
+        grid = next(iter(grids))
+        with timed("merge.nodes"):
+            node_coordinates, node_indexes, node_inverse = partitioning.merge_nodes(grids)
+        with timed("merge.edges"):
+            new_edges, edge_indexes = partitioning.merge_edges(grids, node_inverse)
+        merged = Ugrid1d(
+            node_coordinates[:, 0],
+            node_coordinates[:, 1],
+            grid.fill_value,
+            new_edges,
+            name=grid.name,
+            indexes=grid._indexes,
+            is_projected=grid.is_projected,
+            crs=grid.crs,
+            attrs=grid._attrs,
+        )
+        return merged, {grid.node_dimension: node_indexes, grid.edge_dimension: edge_indexes}

@@ -1,7 +1,7 @@
 """
 Ugrid2d: topology of a 2D unstructured mesh (UGRID conventions),
-reduced to what the regridders, the Laplace fill and the UGRID file
-round trip read.
+reduced to what the regridders, the Laplace fill, the UGRID file
+round trip, the topology subsets and the partition merge read.
 
 The canonical storage is a padded dense int64 ``face_node_connectivity``
 (fill -1, 0-based) plus float64 node x/y; the fill value and start index
@@ -13,15 +13,17 @@ computed on first use and cached.
 from __future__ import annotations
 
 from itertools import chain
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
+import pandas as pd
 from scipy.sparse import coo_matrix, csr_matrix
 
 from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.constants import FILL_VALUE, FloatDType, IntDType
 from xugrid_tpu_torch.ugrid import connectivity, conventions
-from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, _strip_dim_coords
+from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, _strip_dim_coords, as_pandas_index, numeric_bound
+from xugrid_tpu_torch.utils.profiling import timed
 
 
 class Ugrid2d(AbstractUgrid):
@@ -258,12 +260,24 @@ class Ugrid2d(AbstractUgrid):
         return self.face_node_connectivity.shape[1]
 
     @property
+    def n_node_per_face(self) -> np.ndarray:
+        return (self.face_node_connectivity != FILL_VALUE).sum(axis=1)
+
+    @property
     def face_dimension(self) -> str:
         return self._attrs["face_dimension"]
 
     @property
     def max_face_node_dimension(self) -> str:
         return self._attrs["max_face_nodes_dimension"]
+
+    @property
+    def max_connectivity_sizes(self) -> dict:
+        return {self.max_face_node_dimension: self.n_max_node_per_face}
+
+    @property
+    def max_connectivity_dimensions(self) -> tuple:
+        return (self.max_face_node_dimension,)
 
     @property
     def topology_dimension(self) -> int:
@@ -280,6 +294,19 @@ class Ugrid2d(AbstractUgrid):
     @property
     def sizes(self) -> dict:
         return {self.node_dimension: self.n_node, self.edge_dimension: self.n_edge, self.face_dimension: self.n_face}
+
+    def get_coordinates(self, dim: str) -> np.ndarray:
+        """(n, 2) coordinates of the entities of a UGRID dimension: nodes,
+        edge midpoints or face centroids."""
+        if dim == self.node_dimension:
+            return self.node_coordinates
+        elif dim == self.edge_dimension:
+            return self.edge_coordinates
+        elif dim == self.face_dimension:
+            return self.face_coordinates
+        raise ValueError(
+            f"Expected {self.node_dimension}, {self.edge_dimension}, or {self.face_dimension}; got: {dim}"
+        )
 
     # -- structured constructors -------------------------------------------------
     @staticmethod
@@ -516,3 +543,180 @@ class Ugrid2d(AbstractUgrid):
         nodes: (face_index (n,), weights (n, n_max_node)).  Faces above
         the native kernel's 64 nodes are weighed on ``device``."""
         return self.celltree.compute_barycentric_weights(points, tolerance, device=device)
+
+    # -- subsets -------------------------------------------------------------------
+    def locate_bounding_box(self, xmin, ymin, xmax, ymax) -> np.ndarray:
+        """Faces whose centroid lies in the half-open bounding box."""
+        return np.nonzero(
+            (self.face_x >= xmin) & (self.face_x < xmax) & (self.face_y >= ymin) & (self.face_y < ymax)
+        )[0]
+
+    def topology_subset(self, face_index, return_index: bool = False):
+        """
+        The topology of a subset of faces, in the order given, with the
+        nodes (and edges, where this grid has them) they use, renumbered.
+        ``return_index`` also returns the positions taken per UGRID
+        dimension (pandas Indexes).
+        """
+        if not isinstance(face_index, pd.Index):
+            face_index = as_pandas_index(face_index, self.n_face)
+
+        range_index = pd.RangeIndex(0, self.n_face)
+        if face_index.size == self.n_face and face_index.equals(range_index):
+            if return_index:
+                indexes = {
+                    self.node_dimension: pd.RangeIndex(0, self.n_node),
+                    self.edge_dimension: pd.RangeIndex(0, self.n_edge),
+                    self.face_dimension: range_index,
+                }
+                return self, indexes
+            return self
+
+        index = face_index.to_numpy()
+        face_subset = self.face_node_connectivity[index]
+        node_index = np.unique(face_subset.ravel())
+        node_index = node_index[node_index != FILL_VALUE]
+        new_faces = connectivity.renumber(face_subset)
+
+        edge_index = None
+        new_edges = None
+        if self._edge_node_connectivity is not None:
+            edge_index = np.unique(self.face_edge_connectivity[index].ravel())
+            edge_index = edge_index[edge_index != FILL_VALUE]
+            new_edges = connectivity.renumber(self.edge_node_connectivity[edge_index])
+
+        grid = Ugrid2d(
+            self.node_x[node_index],
+            self.node_y[node_index],
+            FILL_VALUE,
+            new_faces,
+            name=self.name,
+            edge_node_connectivity=new_edges,
+            indexes=self._indexes,
+            is_projected=self.is_projected,
+            crs=self.crs,
+            attrs=self._attrs,
+        )
+        self._propagate_properties(grid)
+        if return_index:
+            indexes = {self.node_dimension: pd.Index(node_index), self.face_dimension: face_index}
+            if edge_index is not None:
+                indexes[self.edge_dimension] = pd.Index(edge_index)
+            return grid, indexes
+        return grid
+
+    def clip_box(self, xmin, ymin, xmax, ymax):
+        """The topology of the faces whose centroid lies in the box."""
+        return self.topology_subset(self.locate_bounding_box(xmin, ymin, xmax, ymax))
+
+    def isel(self, indexers=None, return_index: bool = False, **indexers_kwargs):
+        """
+        The topology of a selection by node, edge or face positions.  A
+        face selection always gives a valid topology; a node or edge
+        selection takes the faces they touch, and raises where those
+        faces hold other nodes or edges than the ones selected.
+        """
+        if indexers is None:
+            indexers = indexers_kwargs
+        elif indexers_kwargs:
+            raise ValueError("cannot specify both indexers and keyword arguments")
+        invalid = indexers.keys() - self.dims
+        if invalid:
+            raise ValueError(f"Dimensions {invalid} do not exist. Expected one of {self.dims}")
+        indexers = {
+            k: as_pandas_index(v if isinstance(v, pd.Index) else np.asarray(v), self.sizes[k])
+            for k, v in indexers.items()
+        }
+        nodedim, edgedim, facedim = self.node_dimension, self.edge_dimension, self.face_dimension
+
+        face_index = {}
+        if nodedim in indexers:
+            face_index[nodedim] = np.unique(self.node_face_connectivity[indexers[nodedim]].data)
+        if edgedim in indexers:
+            index = np.unique(self.edge_face_connectivity[indexers[edgedim]])
+            face_index[edgedim] = index[index != FILL_VALUE]
+        if facedim in indexers:
+            face_index[facedim] = indexers[facedim]
+
+        face_index = {
+            k: as_pandas_index(v if isinstance(v, pd.Index) else np.asarray(v), self.n_face)
+            for k, v in face_index.items()
+        }
+        index = self._precheck(face_index)
+        grid, finalized_indexers = self.topology_subset(index, return_index=True)
+        self._postcheck(indexers, finalized_indexers)
+        if return_index:
+            return grid, finalized_indexers
+        return grid
+
+    def _validate_indexer(self, indexer):
+        if isinstance(indexer, slice):
+            s = indexer
+            if s.start is not None and s.stop is not None:
+                if s.start >= s.stop:
+                    raise ValueError(
+                        f"slice stop should be larger than slice start, received: start: {s.start}, stop: {s.stop}"
+                    )
+                if s.step is not None:
+                    indexer = np.arange(s.start, s.stop, s.step)
+            elif s.step is not None:
+                raise ValueError("step should be None if slice start or stop is None")
+        else:
+            if isinstance(indexer, xdata.DataArray):
+                indexer = indexer.values
+            if isinstance(indexer, (list, np.ndarray, int, float)):
+                indexer = np.atleast_1d(indexer)
+            else:
+                raise TypeError(
+                    f"Invalid indexer type: {type(indexer).__name__}, allowed types: integer, float, list, "
+                    "numpy array, DataArray"
+                )
+            if indexer.ndim > 1:
+                raise ValueError("index should be 0d or 1d")
+        return indexer
+
+    def _sel_box(self, obj, x: slice, y: slice):
+        xmin, ymin, xmax, ymax = self.bounds
+        face_index = self.locate_bounding_box(
+            numeric_bound(x.start, xmin),
+            numeric_bound(y.start, ymin),
+            numeric_bound(x.stop, xmax),
+            numeric_bound(y.stop, ymax),
+        )
+        grid, indexes = self.topology_subset(face_index, return_index=True)
+        return obj.isel({k: v.to_numpy() for k, v in indexes.items() if k in obj.dims}), grid
+
+    # -- partition merge -------------------------------------------------------------
+    @staticmethod
+    def merge_partitions(grids: Sequence["Ugrid2d"]):
+        """The partitions merged into one topology, shared nodes, faces and
+        edges deduplicated: (grid, each partition's positions taken per
+        UGRID dimension)."""
+        from xugrid_tpu_torch.ugrid import partitioning
+
+        grid = next(iter(grids))
+        with timed("merge.nodes"):
+            node_coordinates, node_indexes, node_inverse = partitioning.merge_nodes(grids)
+        with timed("merge.faces"):
+            new_faces, face_indexes = partitioning.merge_faces(grids, node_inverse)
+        indexes = {grid.node_dimension: node_indexes, grid.face_dimension: face_indexes}
+        new_edges = None
+        if grid._edge_node_connectivity is not None:
+            with timed("merge.edges"):
+                new_edges, edge_indexes = partitioning.merge_edges(grids, node_inverse)
+            indexes[grid.edge_dimension] = edge_indexes
+
+        merged = Ugrid2d(
+            node_coordinates[:, 0],
+            node_coordinates[:, 1],
+            FILL_VALUE,
+            new_faces,
+            name=grid.name,
+            edge_node_connectivity=new_edges,
+            indexes=grid._indexes,
+            is_projected=grid.is_projected,
+            crs=grid.crs,
+            attrs=grid._attrs,
+        )
+        grid._propagate_properties(merged)
+        return merged, indexes

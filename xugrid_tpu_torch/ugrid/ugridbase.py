@@ -12,15 +12,22 @@ from __future__ import annotations
 import abc
 import copy
 import warnings
-from typing import Any, Optional
+from itertools import chain
+from typing import Any, Optional, Union
 
 import numpy as np
+import pandas as pd
 from scipy.sparse import coo_matrix, csr_matrix
 
 from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.constants import FILL_VALUE
 from xugrid_tpu_torch.ugrid import connectivity, conventions
 from xugrid_tpu_torch.ugrid.crs import CrsPlaceholder, crs_from_attrs, crs_to_attrs
+from xugrid_tpu_torch.utils.profiling import timed
+
+
+def numeric_bound(v: Union[float, None], other: float) -> float:
+    return other if v is None else v
 
 
 def _strip_dim_coords(ds):
@@ -29,6 +36,57 @@ def _strip_dim_coords(ds):
     for round-tripping."""
     drop = [name for name in list(ds._coord_names) if ds._variables[name].dims == (name,)]
     return ds.drop_vars(drop, errors="ignore")
+
+
+def as_pandas_index(index, n: int) -> pd.Index:
+    """A bool mask or integer positions into a dimension of size ``n``
+    as a pandas Index of unique positions."""
+    if isinstance(index, np.ndarray):
+        if index.size > n:
+            raise ValueError(f"index size {index.size} is larger than dimension size: {n}")
+        if np.issubdtype(index.dtype, np.bool_):
+            pd_index = pd.RangeIndex(0, n) if index.all() else pd.Index(np.arange(n)[index])
+        elif np.issubdtype(index.dtype, np.integer):
+            pd_index = pd.Index(index)
+        else:
+            raise TypeError(f"index should be bool or integer. Received: {index.dtype}")
+    elif isinstance(index, pd.Index):
+        pd_index = index
+    else:
+        raise TypeError(f"index should be pandas Index or numpy array. Received: {type(index).__name__}")
+    if not pd_index.is_unique:
+        raise ValueError("index contains repeated values; only subsets will result in valid UGRID topology.")
+    return pd_index
+
+
+def align(obj, grids, old_indexes):
+    """
+    ``obj`` and its grids after a forwarded operation: where the index of
+    a UGRID dimension changed, the grid is subset to the entities left
+    (``grid.isel``), and ``obj`` to that subset's entities on the grid's
+    other dimensions.  The positions into the grid are the new index's
+    places in the old one.
+    """
+    if old_indexes is None:
+        return obj, grids
+    ugrid_dims = set(chain.from_iterable(grid.dims for grid in grids)).intersection(old_indexes)
+    new_indexes = {
+        k: index for k, index in obj.indexes.items() if k in ugrid_dims and not index.equals(old_indexes[k])
+    }
+    if not new_indexes:
+        return obj, grids
+
+    new_grids = []
+    for grid in grids:
+        grid_dims = grid.dims.intersection(new_indexes)
+        if grid_dims:
+            positions = {dim: old_indexes[dim].get_indexer(new_indexes[dim]) for dim in grid_dims}
+            newgrid, indexers = grid.isel(indexers=positions, return_index=True)
+            obj = obj.isel({k: v.to_numpy() for k, v in indexers.items() if k in obj.dims and k not in new_indexes})
+            new_grids.append(newgrid)
+        else:
+            new_grids.append(grid)
+    return obj, new_grids
 
 
 class AbstractUgrid(abc.ABC):
@@ -58,6 +116,18 @@ class AbstractUgrid(abc.ABC):
 
     @abc.abstractmethod
     def _clear_geometry_properties(self):
+        ...
+
+    @abc.abstractmethod
+    def get_coordinates(self, dim: str) -> np.ndarray:
+        ...
+
+    @abc.abstractmethod
+    def topology_subset(self, index, return_index: bool = False):
+        ...
+
+    @abc.abstractmethod
+    def clip_box(self, xmin, ymin, xmax, ymax):
         ...
 
     @property
@@ -140,6 +210,10 @@ class AbstractUgrid(abc.ABC):
         if return_name_dict:
             return new, name_dict
         return new
+
+    def _propagate_properties(self, other) -> None:
+        other.start_index = self.start_index
+        other.fill_value = self.fill_value
 
     @staticmethod
     def _single_topology(dataset) -> str:
@@ -374,6 +448,14 @@ class AbstractUgrid(abc.ABC):
         """Name of the edge dimension."""
         return self._attrs["edge_dimension"]
 
+    @property
+    def max_connectivity_dimensions(self) -> tuple:
+        return ()
+
+    @property
+    def max_connectivity_sizes(self) -> dict:
+        return {}
+
     # -- geometry ----------------------------------------------------------------
     @property
     def node_coordinates(self) -> np.ndarray:
@@ -422,6 +504,17 @@ class AbstractUgrid(abc.ABC):
     def bounds(self) -> tuple:
         """(xmin, ymin, xmax, ymax) of the nodes."""
         return (self.node_x.min(), self.node_y.min(), self.node_x.max(), self.node_y.max())
+
+    # -- derived connectivity ----------------------------------------------------
+    @property
+    def node_edge_connectivity(self) -> csr_matrix:
+        """Node to edge connectivity (CSR)."""
+        return connectivity.invert_dense_to_sparse(self.edge_node_connectivity)
+
+    @property
+    def edge_edge_connectivity(self) -> csr_matrix:
+        """Edge adjacency (CSR); data holds the shared node index."""
+        return connectivity.edge_edge_connectivity(self.edge_node_connectivity, self.node_edge_connectivity)
 
     # -- coordinate assignment ---------------------------------------------------
     def set_node_coords(self, node_x: str, node_y: str, obj, is_projected=True, crs=None):
@@ -488,3 +581,96 @@ class AbstractUgrid(abc.ABC):
                 f"but length {size} on the grid."
             )
         return UgridDataArray(xdata.DataArray(data, dims=(dimension,)), self)
+
+    # -- selection -----------------------------------------------------------------
+    def _sel_yline(self, obj, x: slice, y: np.ndarray):
+        raise NotImplementedError(
+            "selection along a line is not ported yet: it waits in ROADMAP.md queue 1 item 2"
+        )
+
+    _sel_xline = _sel_yline
+
+    def sel_points(self, obj, x, y, method=None, out_of_bounds="warn", fill_value=np.nan, tolerance=None):
+        raise NotImplementedError(
+            "selection at points is not ported yet: it waits in ROADMAP.md queue 1 item 2"
+        )
+
+    def sel(self, obj, x=None, y=None):
+        """
+        Orthogonal selection in UGRID x and y.  Two slices select a box:
+        returns (the subset of ``obj``, the subset grid).  A slice and
+        values (a line) or values for both (points) are not ported.
+        """
+        if x is None:
+            x = slice(None, None)
+        if y is None:
+            y = slice(None, None)
+        x = self._validate_indexer(x)
+        y = self._validate_indexer(y)
+        if isinstance(x, slice) and isinstance(y, slice):
+            f = self._sel_box
+        elif isinstance(x, slice) and isinstance(y, np.ndarray):
+            f = self._sel_yline
+        elif isinstance(x, np.ndarray) and isinstance(y, slice):
+            f = self._sel_xline
+        elif isinstance(x, np.ndarray) and isinstance(y, np.ndarray):
+            y, x = (a.ravel() for a in np.meshgrid(y, x, indexing="ij"))
+            f = self.sel_points
+        else:
+            raise TypeError(f"Invalid indexer types: {type(x).__name__}, {type(y).__name__}")
+        return f(obj, x, y)
+
+    def _precheck(self, multi_index):
+        dim, index = multi_index.popitem()
+        for check_dim, check_index in multi_index.items():
+            if not index.equals(check_index):
+                raise ValueError(f"UGRID dimensions do not align: {dim} versus {check_dim}")
+        return index
+
+    def _postcheck(self, indexers, finalized_indexers):
+        for dim, indexer in indexers.items():
+            if dim != self.core_dimension and not indexer.equals(finalized_indexers[dim]):
+                raise ValueError(f"This subset selection of UGRID dimension {dim} results in an invalid topology")
+
+    # -- partitioning --------------------------------------------------------------
+    def _validate_partitioning_weights(self, weights) -> None:
+        facet = {v: k for k, v in self.facets.items()}[self.core_dimension]
+        n_expected = getattr(self, f"n_{facet}")
+        if weights is None:
+            return
+        if weights.shape != (n_expected,):
+            raise ValueError(
+                f"Wrong shape on weights. Expected a 1D array with {n_expected} elements, "
+                f"received array with shape: {weights.shape}"
+            )
+        if not np.issubdtype(weights.dtype, np.integer):
+            raise TypeError(f"Wrong type on weights. Expected an integer array, received: {weights.dtype}")
+        if np.any(weights < 0):
+            raise ValueError("Wrong values on weights. Weights should be greater or equal to zero.")
+
+    def label_partitions(self, n_part: int, weights: Optional[np.ndarray] = None):
+        """
+        Partition labels on the core dimension (``partition_labels``: the
+        Hilbert order of the core entities' coordinates, split into
+        ``n_part`` chunks of equal count or of equal total ``weights``),
+        as a UgridDataArray named "labels".
+        """
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+        from xugrid_tpu_torch.ugrid.partitioning import partition_labels
+
+        self._validate_partitioning_weights(weights)
+        with timed("partition.labels"):
+            facet = {v: k for k, v in self.facets.items()}[self.core_dimension]
+            coordinates = self.get_coordinates(self.core_dimension)
+            # The adjacency is unused by the partitioner, but computing it
+            # derives a Ugrid2d's edges, which every subset then carries.
+            adjacency = getattr(self, f"{facet}_{facet}_connectivity")
+            labels = partition_labels(coordinates, n_part, adjacency, weights)
+        return UgridDataArray(xdata.DataArray(labels, dims=(self.core_dimension,), name="labels"), self)
+
+    def partition(self, n_part: int, weights: Optional[np.ndarray] = None):
+        """This topology split into ``n_part`` topologies."""
+        from xugrid_tpu_torch.ugrid.partitioning import labels_to_indices
+
+        labels = self.label_partitions(n_part, weights)
+        return [self.topology_subset(index) for index in labels_to_indices(labels.values)]

@@ -4,7 +4,8 @@ ctypes bindings for the repository's native host kernels
 
 Bound are the entry points of the regridders' weight builds (grid hash,
 polygon clips, point location, point in polygon, segment clip,
-mean-value weights, CSR build) and the face centroids.  The library is
+mean-value weights, CSR build), the face centroids, and the partition
+and merge kernels (Hilbert distances, the hashed row deduplication).  The library is
 compiled with g++ into the port's build directory on first use.  Every
 binding returns None when the library is unavailable (or refuses the
 input, as each one says); its caller then takes a numpy fallback where
@@ -79,6 +80,12 @@ def _bind(lib):
     lib.mean_value_weights.restype = None
     lib.locate_points_hash.argtypes = points[:3] + points[3:9] + [_ip, _ip, _dp, _dp, _i64, _ip]
     lib.locate_points_hash.restype = None
+    lib.hilbert_distance.argtypes = [_dp, _i64, ctypes.c_int32, _f64, _f64, _f64, _f64, ctypes.POINTER(ctypes.c_uint64)]
+    lib.hilbert_distance.restype = None
+    lib.unique_rows_hash.argtypes = [ctypes.c_char_p, _i64, _i64, _ip, _ip]
+    lib.unique_rows_hash.restype = ctypes.c_int64
+    lib.unique_sorted_rows_hash.argtypes = [_ip, _i64, _i64, _ip, _ip]
+    lib.unique_sorted_rows_hash.restype = ctypes.c_int64
 
 
 def get_lib():
@@ -387,3 +394,53 @@ def locate_points_hash_native(pts, tol: float, grid_hash, poly_xy):
         _ptr(poly_xy, _dp), poly_xy.shape[1], _ptr(out, _ip),
     )
     return out
+
+
+def hilbert_distance_native(xy: np.ndarray, order: int = 16):
+    """Distance along the Hilbert curve of 2^order cells over the points'
+    bounding box, uint64 per point, or None when the library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    xy = np.ascontiguousarray(xy, dtype=np.float64)
+    lo = xy.min(axis=0)
+    extent = np.maximum(xy.max(axis=0) - lo, 1e-300)
+    out = np.empty(len(xy), dtype=np.uint64)
+    lib.hilbert_distance(
+        _ptr(xy, _dp), len(xy), order, float(lo[0]), float(lo[1]), float(extent[0]), float(extent[1]),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+    )
+    return out
+
+
+def unique_rows_hash_native(rows: np.ndarray):
+    """Bytewise row deduplication in first-seen order, one hashed pass:
+    (rep, inverse, count), rep the first row of each group and inverse
+    each row's group, or None when the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows)
+    n = len(rows)
+    row_bytes = rows.dtype.itemsize * int(np.prod(rows.shape[1:]))
+    rep = np.empty(n, dtype=np.int64)
+    inverse = np.empty(n, dtype=np.int64)
+    count = lib.unique_rows_hash(rows.ctypes.data_as(ctypes.c_char_p), n, row_bytes, _ptr(rep, _ip), _ptr(inverse, _ip))
+    return rep[:count], inverse, int(count)
+
+
+def unique_sorted_rows_native(rows: np.ndarray):
+    """Deduplication of int64 rows regardless of the order within a row
+    (each row sorted, then compared bytewise), in first-seen order:
+    (rep, inverse, count), or None when the library is unavailable or a
+    row is wider than the kernel's 64 entries."""
+    lib = get_lib()
+    if lib is None or rows.shape[1] > 64:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    n, width = rows.shape
+    rep = np.empty(n, dtype=np.int64)
+    inverse = np.empty(n, dtype=np.int64)
+    count = lib.unique_sorted_rows_hash(_ptr(rows, _ip), n, width, _ptr(rep, _ip), _ptr(inverse, _ip))
+    return rep[:count], inverse, int(count)

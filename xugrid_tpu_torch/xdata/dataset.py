@@ -224,6 +224,18 @@ class Dataset:
             out._coord_names.add(k)
         return out
 
+    def update(self, other) -> "Dataset":
+        """Add or replace the variables of ``other`` (a Dataset or a
+        mapping) in place; returns this dataset."""
+        if isinstance(other, Dataset):
+            self._variables.update(other._variables)
+            self._coord_names |= other._coord_names
+            self._check_sizes()
+        else:
+            for k, v in other.items():
+                self[k] = v
+        return self
+
     def merge(self, other, compat: str = "no_conflicts") -> "Dataset":
         out = self.copy(deep=False)
         if isinstance(other, DataArray):
