@@ -138,6 +138,35 @@ With no argument it runs these phases:
    edges, data), ``unique_rows`` on the merge's node and face rows
    through the native hash and the torch grouping on the card, and the
    regrid passes.
+11. Queries and the nearest fill at the 1M config, through the
+   ``.ugrid`` accessor of phase 3's mesh with its (time=20, face) float32
+   payload on the card: ``locate_nearest_node``/``_edge``/``_face`` of
+   100,000 seeded points (1.0e11 to 2.0e11 pairs: the tiled distance scan
+   of ``spatial/nearest.py`` on the card), each equal to scipy's KDTree or
+   equidistant within rtol 1e-5 or the float32 scan's resolution (2
+   sqrt(2) ulps of its largest shifted coordinate), the scan timed on resident tensors
+   (CUDA events, median of 3 after a warm-up) beside the KDTree's build
+   and threaded query, also at the threshold shape 32,768 x 2,097,152 =
+   2^36 pairs; ``sel_points`` of 10,000 stations (1 % outside) by
+   containment, ``method="nearest"`` and on a node payload, bit-equal to
+   numpy's gather with NaN outside, on the card; ``intersect_line`` along
+   the diagonal, ``sel(x=..., y=slice(None))`` and ``intersect_linestring``
+   of a 1,000-vertex random walk, every face holding its sub-segment's
+   midpoint (native point location), ``s`` non-decreasing, values
+   bit-equal; ``rasterize_like`` onto the 512 x 512 raster and
+   ``rasterize(resolution)``, bit-equal to the host gather and to phase
+   7's ``CentroidLocatorRegridder`` wherever both located a face;
+   ``interpolate_na`` of a (time=4, face) payload with 10 % NaN in seeded
+   patches (the card scan, about 100,000 queries against 900,000 known
+   faces per slice), each fill the value of the KDTree's nearest known
+   face or an equidistant one, then regridded onto the raster by
+   ``OverlapRegridder`` mean (one window_reduce launch, held to the plain
+   version and the host reference); ``to_node``/``to_edge``/``to_face``
+   bit-equal to numpy's gather on the card, and ``reindex_like`` of a
+   shuffled copy of the mesh bit-equal to the original; on phase 7's
+   network ``sel_points`` onto its edges, ``intersect_line`` across it and
+   ``interpolate_na`` of 10 % NaN node data by Dijkstra, bit-equal to
+   scipy's ``dijkstra`` called directly.
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
@@ -2203,6 +2232,400 @@ def phase_partitions(device, card, inputs, main_results):
     return counts, max_err
 
 
+QUERY_POINTS = 100_000
+THRESHOLD_SHAPE = (32_768, 2_097_152)
+STATIONS = 10_000
+SECTION_VERTICES = 1_000
+FILL_SLICES, FILL_FRACTION = 4, 0.10
+
+
+def scan_resolution(sources, queries):
+    """The float32 scan's distance resolution: its coordinates, shifted to
+    the sources' mean, are rounded to half a float32 ulp of the largest
+    of them, so two distances may swap order when they differ by less
+    than 2 sqrt(2) ulps."""
+    origin = sources.mean(axis=0)
+    extent = max(np.abs(sources - origin).max(), np.abs(queries - origin).max())
+    return 2.0 * np.sqrt(2.0) * float(np.spacing(np.float32(extent)))
+
+
+def check_nearest(label, sources, queries, got, tree):
+    """``got`` against scipy's KDTree over ``sources``: the same index, or
+    a source at the same distance within rtol 1e-5 or the scan's float32
+    resolution (``scan_resolution``).  Returns (the number of differing
+    indices, the largest |distance difference| among them)."""
+    _, want = tree.query(queries, workers=-1)
+    if got.shape != want.shape or (got < 0).any():
+        raise AssertionError(f"{label}: {got.shape} indices, {int((got < 0).sum())} negative")
+    diff = got != want
+    gap = 0.0
+    if diff.any():
+        d_want = np.linalg.norm(sources[want[diff]] - queries[diff], axis=1)
+        d_got = np.linalg.norm(sources[got[diff]] - queries[diff], axis=1)
+        gap = float(np.abs(d_got - d_want).max())
+        if not np.allclose(d_got, d_want, rtol=1e-5, atol=scan_resolution(sources, queries)):
+            raise AssertionError(
+                f"{label}: {int(diff.sum())} indices differ, not all equidistant: largest |distance difference| "
+                f"{gap:.3e} at distances {d_want[np.argmax(np.abs(d_got - d_want))]:.6e}; float32 resolution "
+                f"{scan_resolution(sources, queries):.3e}"
+            )
+    return int(diff.sum()), gap
+
+
+def scan_line(label, sources, queries, device, card):
+    """Times the device scan on resident float32 tensors (CUDA events, one
+    call per pass, median of 3 after one warm-up) and scipy's KDTree
+    (build, then a threaded query) at one shape; prints both with the
+    pairs per second and the scan's operations bound (5 float32
+    operations per pair at the card's peak)."""
+    import torch
+    from scipy.spatial import KDTree
+
+    from xugrid_tpu_torch.spatial import nearest
+
+    origin = sources.mean(axis=0)
+    q = torch.from_numpy((queries - origin).astype(np.float32)).to(device)
+    s = torch.from_numpy((sources - origin).astype(np.float32)).to(device)
+    scan_ms = cuda_time_ms(lambda: nearest.scan_tiles(q, s), reps=3, warmup=1, inner=1)
+    t0 = time.perf_counter()
+    tree = KDTree(sources)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree.query(queries, workers=-1)
+    query_s = time.perf_counter() - t0
+    pairs = len(queries) * len(sources)
+    bound = pairs * 5 / PEAK_FLOPS["float32"] * 1e3
+    print(
+        f"  11.1 {label}: {len(queries)} x {len(sources)} = {pairs:.4e} pairs; card scan {scan_ms:.3f} ms "
+        f"({pairs / scan_ms * 1e3:.4e} pairs/s; chunk {nearest.CHUNK} queries x tile {nearest.TILE}; operations "
+        f"bound {bound:.3f} ms); KDTree build {build_s:.4f} s, query {query_s:.4f} s (threaded) [{card}]"
+    )
+    return {"scan_ms": scan_ms, "kdtree_build_s": build_s, "kdtree_query_s": query_s, "pairs": pairs}
+
+
+def host_gather(values, index):
+    """numpy's gather of ``values`` (..., n) at ``index``, NaN where -1."""
+    taken = values[..., np.maximum(index, 0)]
+    return np.where(index >= 0, taken, np.nan)
+
+
+def bit_equal(label, got, want, device):
+    """A tensor result on ``device`` equal to the numpy ``want`` bit for
+    bit, NaN where NaN."""
+    import torch
+
+    if not isinstance(got, torch.Tensor) or got.device != device:
+        raise AssertionError(f"{label}: the result is not a tensor on {device}")
+    got = got.cpu().numpy()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {got.shape} {got.dtype}, expected {want.shape} {want.dtype}")
+    np.testing.assert_array_equal(got, want, err_msg=label)
+
+
+def nan_patches(centroids, fraction, rng):
+    """Faces in seeded disks until about ``fraction`` of them: gaps in
+    the data as a model's dry cells or a satellite's cloud leave them."""
+    from scipy.spatial import cKDTree
+
+    extent = centroids.max(axis=0)
+    radius = 0.01 * extent[0]
+    n_disks = int(fraction * extent[0] * extent[1] / (np.pi * radius**2) * 1.05)
+    centers = rng.uniform(0.0, extent, (n_disks, 2))
+    distance, _ = cKDTree(centers).query(centroids, distance_upper_bound=radius)
+    return np.isfinite(distance)
+
+
+def phase_queries(device, card, inputs):
+    """Phase 11: nearest lookups, point and line selections,
+    rasterization, the facet remaps, reindexing and the nearest fill at
+    the 1M config, on the card, through the ``.ugrid`` accessor of phase
+    3's mesh with its (time, face) float32 payload on the card, and on
+    phase 7's network.  Each result is held to a host computation (scipy's
+    KDTree, numpy gathers, native point location, scipy's dijkstra);
+    the fill is regridded onto the raster (one window_reduce launch).
+    Returns (launch counts, largest |kernel - plain|, the scan timings)."""
+    import torch
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import dijkstra
+    from scipy.spatial import KDTree
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.spatial import nearest
+    from xugrid_tpu_torch.utils import native
+
+    (verts, faces), (tverts, tfaces), mesh_data = inputs
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    target = xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)
+    t0 = time.perf_counter()
+    n_edge = mesh.n_edge
+    print(
+        f"phase 11: queries and the nearest fill on the 1M mesh ({mesh.n_face} faces, {mesh.n_node} nodes, "
+        f"{n_edge} edges derived in {time.perf_counter() - t0:.3f} s), (time={N_EXTRA}, face) float32 on the card "
+        f"[{card}]"
+    )
+    uda = xt.UgridDataArray(
+        xt.xdata.DataArray(torch.from_numpy(mesh_data).to(device), dims=("time", mesh.face_dimension), name="v"), mesh
+    )
+    rng = np.random.default_rng(11)
+    kernels = (window_reduce, window_select, csr_matvec)
+    for k in kernels:
+        k.launches = 0
+    timed = {}
+
+    # 11.1: nearest node, edge and face of 100,000 points; the card scan
+    # (P x M >= 2^36, M <= 2^21) against scipy's KDTree.
+    points = rng.uniform(0.0, float(N_SIDE), (QUERY_POINTS, 2))
+    for facet in ("node", "edge", "face"):
+        sources = mesh.get_coordinates(getattr(mesh, f"{facet}_dimension"))
+        t0 = time.perf_counter()
+        got = getattr(mesh, f"locate_nearest_{facet}")(points)
+        call_s = time.perf_counter() - t0
+        n_diff, gap = check_nearest(f"locate_nearest_{facet}", sources, points, got, getattr(mesh, f"{facet}_kdtree"))
+        print(
+            f"  11.1 locate_nearest_{facet}: {call_s:.3f} s (first call: the grid's KDTree built, the upload and "
+            f"the scan); equal to the KDTree's but {n_diff} equidistant (largest |distance difference| {gap:.3e}, "
+            f"float32 resolution {scan_resolution(sources, points):.3e}) [{card}]"
+        )
+        timed[facet] = scan_line(f"{facet} scan", sources, points, device, card)
+    n_query, n_source = THRESHOLD_SHAPE
+    threshold_sources = rng.uniform(0.0, float(N_SIDE), (n_source, 2))
+    threshold_queries = rng.uniform(0.0, float(N_SIDE), (n_query, 2))
+    got = nearest.nearest_points(threshold_sources, threshold_queries)
+    n_diff, _ = check_nearest("threshold", threshold_sources, threshold_queries, got, KDTree(threshold_sources))
+    timed["threshold"] = scan_line(f"threshold 2^36 ({n_diff} equidistant)", threshold_sources, threshold_queries,
+                                   device, card)
+
+    # 11.2: sel_points of 10,000 stations, 1 % outside the mesh.
+    n_out = STATIONS // 100
+    stations = np.concatenate([
+        rng.uniform(0.0, float(N_SIDE), (STATIONS - n_out, 2)),
+        rng.uniform(N_SIDE + 1.0, N_SIDE + 50.0, (n_out, 2)),
+    ])
+    x, y = stations[:, 0], stations[:, 1]
+    located = mesh.locate_points(stations)
+    node_data = rng.normal(size=(N_EXTRA, mesh.n_node)).astype(np.float32)
+    node_uda = xt.UgridDataArray(
+        xt.xdata.DataArray(torch.from_numpy(node_data).to(device), dims=("time", mesh.node_dimension), name="h"), mesh
+    )
+    nearest_face = mesh.face_kdtree.query(stations, workers=-1)[1]
+    nearest_node = mesh.node_kdtree.query(stations, workers=-1)[1]
+    for label, obj, method, index, values in (
+        ("face, containment", uda, None, located, mesh_data),
+        ("face, method='nearest'", uda, "nearest", nearest_face, mesh_data),
+        ("node", node_uda, None, nearest_node, node_data),
+    ):
+        t0 = time.perf_counter()
+        out = obj.ugrid.sel_points(x, y, method=method, out_of_bounds="ignore")
+        torch.cuda.synchronize()
+        sel_s = time.perf_counter() - t0
+        want = np.where(located >= 0, host_gather(values, index), np.nan).astype(np.float32)
+        bit_equal(f"sel_points {label}", out.data, want, device)
+        if out.dims != ("time", f"{mesh.name}_points"):
+            raise AssertionError(f"sel_points {label}: dims {out.dims}")
+        print(
+            f"  11.2 sel_points ({label}) of {STATIONS} stations, {int((located < 0).sum())} outside: {sel_s:.4f} s; "
+            f"bit-equal to numpy's gather, NaN outside, on the card [{card}]"
+        )
+
+    # 11.3: cross-sections.
+    walk_nodes, _ = random_network(1, SECTION_VERTICES - 1, float(N_SIDE), rng)
+    poly_xy = mesh.celltree._poly_xy_host
+    tol = mesh.celltree.default_tolerance()
+    for label, call in (
+        ("intersect_line (diagonal)", lambda: uda.ugrid.intersect_line((0.0, 0.0), (float(N_SIDE), float(N_SIDE)))),
+        (f"sel(x={N_SIDE / 3 + 0.03:.3f}, y=slice(None))", lambda: uda.ugrid.sel(x=N_SIDE / 3 + 0.03, y=slice(None))),
+        (f"intersect_linestring ({SECTION_VERTICES} vertices)", lambda: uda.ugrid.intersect_linestring(walk_nodes)),
+    ):
+        t0 = time.perf_counter()
+        section = call()
+        torch.cuda.synchronize()
+        section_s = time.perf_counter() - t0
+        face_index = section[mesh.face_dimension].values
+        mid = np.column_stack([section[f"{mesh.name}_x"].values, section[f"{mesh.name}_y"].values])
+        s_along = section[f"{mesh.name}_s"].values
+        if len(face_index) < N_SIDE:
+            raise AssertionError(f"{label}: {len(face_index)} faces")
+        inside = native.points_in_polygons_native(mid, face_index, poly_xy, tol)
+        if not inside.all():
+            raise AssertionError(f"{label}: {int((~inside).sum())} sub-segment midpoints outside their face")
+        if (np.diff(s_along) < 0).any():
+            raise AssertionError(f"{label}: s decreases")
+        bit_equal(label, section.data, mesh_data[:, face_index], device)
+        print(
+            f"  11.3 {label}: {len(face_index)} faces in {section_s:.4f} s; each face holds its sub-segment's "
+            f"midpoint, s non-decreasing to {s_along[-1]:.3f}, values bit-equal to the host gather [{card}]"
+        )
+
+    # 11.4: rasterize onto phase 3's 512 x 512 raster, against the
+    # centroid locator onto the same raster.
+    raster = raster_dataarray(T_SIDE, np.zeros((T_SIDE, T_SIDE)))
+    t0 = time.perf_counter()
+    rastered = uda.ugrid.rasterize_like(raster)
+    torch.cuda.synchronize()
+    like_s = time.perf_counter() - t0
+    _, _, index = mesh.rasterize_like(raster["x"].values, raster["y"].values)
+    bit_equal("rasterize_like", rastered.data, host_gather(mesh_data, index.ravel()).reshape(N_EXTRA, T_SIDE, T_SIDE),
+              device)
+    locator = xt.CentroidLocatorRegridder(mesh, target)
+    located_rows = np.zeros(target.n_face, dtype=bool)
+    located_rows[locator._weights.row] = True
+    on_target = locator.regrid(uda).data.cpu().numpy()
+    # Raster row r (y descending) holds the target faces of row T - 1 - r.
+    as_raster = on_target.reshape(N_EXTRA, T_SIDE, T_SIDE)[:, ::-1]
+    both = (index >= 0) & located_rows.reshape(T_SIDE, T_SIDE)[::-1]
+    np.testing.assert_array_equal(rastered.data.cpu().numpy()[:, both], as_raster[:, both])
+    one_only = int((index >= 0).sum() + located_rows.sum() - 2 * both.sum())
+    resolution = N_SIDE / T_SIDE
+    t0 = time.perf_counter()
+    by_resolution = uda.ugrid.rasterize(resolution)
+    torch.cuda.synchronize()
+    resolution_s = time.perf_counter() - t0
+    x_r, y_r, index_r = mesh.rasterize(resolution)
+    bit_equal("rasterize", by_resolution.data, host_gather(mesh_data, index_r.ravel()).reshape(N_EXTRA, *index_r.shape),
+              device)
+    print(
+        f"  11.4 rasterize_like ({T_SIDE} x {T_SIDE}): {like_s:.4f} s; bit-equal to the host gather and to the "
+        f"CentroidLocatorRegridder where both located a face ({int(both.sum())} cells, {one_only} located by one "
+        f"only); rasterize({resolution}): {by_resolution.shape} in {resolution_s:.4f} s, bit-equal [{card}]"
+    )
+
+    # 11.5: the nearest fill of (time=4, face) with 10 % NaN in patches,
+    # then regridded onto the raster.
+    gaps = nan_patches(mesh.centroids, FILL_FRACTION, rng)
+    gappy = mesh_data[:FILL_SLICES].copy()
+    gappy[:, gaps] = np.nan
+    known = ~np.isnan(gappy)
+    gappy_uda = xt.UgridDataArray(
+        xt.xdata.DataArray(torch.from_numpy(gappy).to(device), dims=("time", mesh.face_dimension), name="v"), mesh
+    )
+    t0 = time.perf_counter()
+    filled = gappy_uda.ugrid.interpolate_na()
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    if filled.data.device != device or filled.data.dtype != torch.float64:
+        raise AssertionError(f"interpolate_na: {filled.data.dtype} on {filled.data.device}")
+    filled_np = filled.data.cpu().numpy()
+    n_equidistant = 0
+    for k in range(FILL_SLICES):
+        i_source, i_target = np.flatnonzero(known[k]), np.flatnonzero(~known[k])
+        sources, queries = mesh.centroids[i_source], mesh.centroids[i_target]
+        chosen = nearest.nearest_points(sources, queries)
+        n_equidistant += check_nearest(f"interpolate_na slice {k}", sources, queries, chosen, KDTree(sources))[0]
+        np.testing.assert_array_equal(filled_np[k, i_target], gappy[k, i_source[chosen]].astype(np.float64))
+        np.testing.assert_array_equal(filled_np[k, i_source], gappy[k, i_source].astype(np.float64))
+    print(
+        f"  11.5 interpolate_na of (time={FILL_SLICES}, face) with {int(gaps.sum())} NaN faces in patches "
+        f"({gaps.mean() * 100:.2f} %; {int(known[0].sum())} known): {fill_s:.3f} s; every fill the value of the "
+        f"KDTree's nearest known face but {n_equidistant} equidistant; float64 on the card [{card}]"
+    )
+    regridder = xt.OverlapRegridder(filled, target, method="mean")
+    before = {k.__name__: k.launches for k in kernels}
+    out = regridder.regrid(filled)
+    torch.cuda.synchronize()
+    rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    source = filled.data
+    err = check_apply(
+        "11.5 the filled data onto the raster (mean)", regridder, source, out.data, window_reduce, rose,
+        float(np.nanmax(np.abs(filled_np))),
+        lambda got, csr=regridder._weights: (got, reference_linear(csr, filled_np, relative=False)),
+    )
+
+    # 11.6: the facet remaps and reindexing.
+    for label, obj, values, conn in (
+        ("to_node", uda, mesh_data, mesh.format_connectivity_as_dense(mesh.node_face_connectivity)),
+        ("to_edge", uda, mesh_data, mesh.edge_face_connectivity),
+        ("to_face", node_uda, node_data, mesh.face_node_connectivity),
+    ):
+        t0 = time.perf_counter()
+        mapped = getattr(obj.ugrid, label)()
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        want = np.where(conn >= 0, values[:, np.maximum(conn, 0)], np.nan).astype(values.dtype)
+        bit_equal(label, mapped.data, want, device)
+        print(f"  11.6 {label}: {tuple(mapped.shape)} in {map_s:.4f} s; bit-equal to numpy's gather [{card}]")
+    face_perm = rng.permutation(mesh.n_face)
+    node_perm = rng.permutation(mesh.n_node)
+    inverse = np.empty_like(node_perm)
+    inverse[node_perm] = np.arange(mesh.n_node)
+    shuffled = xt.Ugrid2d(verts[node_perm, 0], verts[node_perm, 1], -1, inverse[faces[face_perm]])
+    shuffled_uda = xt.UgridDataArray(
+        xt.xdata.DataArray(uda.data[:, torch.from_numpy(face_perm).to(device)], dims=uda.dims, name="v"), shuffled
+    )
+    t0 = time.perf_counter()
+    back = shuffled_uda.ugrid.reindex_like(mesh)
+    torch.cuda.synchronize()
+    reindex_s = time.perf_counter() - t0
+    bit_equal("reindex_like", back.data, mesh_data, device)
+    print(f"  11.6 reindex_like of a shuffled copy of the mesh: {reindex_s:.3f} s; bit-equal to the original [{card}]")
+
+    # 11.7: phase 7's network.
+    network, edge_values = phase7_network()
+    edge_uda = xt.UgridDataArray(
+        xt.xdata.DataArray(torch.from_numpy(edge_values).to(device), dims=("time", network.edge_dimension), name="q"),
+        network,
+    )
+    chosen_edges = rng.choice(network.n_edge, size=min(1000, network.n_edge // 2), replace=False)
+    a = network.node_coordinates[network.edge_node_connectivity[chosen_edges, 0]]
+    b = network.node_coordinates[network.edge_node_connectivity[chosen_edges, 1]]
+    on_edges = 0.7 * a + 0.3 * b
+    off = rng.uniform(0.0, float(N_SIDE), (10, 2))
+    pts = np.concatenate([on_edges, off])
+    t0 = time.perf_counter()
+    out = edge_uda.ugrid.sel_points(pts[:, 0], pts[:, 1], out_of_bounds="ignore")
+    torch.cuda.synchronize()
+    sel_s = time.perf_counter() - t0
+    on_network = network.locate_points(pts)
+    if not np.array_equal(on_network[: len(chosen_edges)], chosen_edges) or (on_network[len(chosen_edges):] >= 0).any():
+        raise AssertionError("network sel_points: the stations were not located on their edges")
+    bit_equal("network sel_points", out.data, host_gather(edge_values, on_network).astype(np.float32), device)
+    t0 = time.perf_counter()
+    section = edge_uda.ugrid.intersect_line((0.0, 0.5 * N_SIDE + 0.3), (float(N_SIDE), 0.5 * N_SIDE - 0.3))
+    torch.cuda.synchronize()
+    line_s = time.perf_counter() - t0
+    edge_index = section[network.edge_dimension].values
+    xy = np.column_stack([section[f"{network.name}_x"].values, section[f"{network.name}_y"].values])
+    p, q = (network.node_coordinates[network.edge_node_connectivity[edge_index, i]] for i in (0, 1))
+    d = q - p
+    t = np.clip(((xy - p) * d).sum(axis=1) / (d * d).sum(axis=1), 0.0, 1.0)
+    off_edge = np.linalg.norm(p + t[:, None] * d - xy, axis=1).max()
+    if off_edge > 1e-9 or (np.diff(section[f"{network.name}_s"].values) < 0).any():
+        raise AssertionError(f"network intersect_line: points {off_edge:.3e} off their edges, or s decreasing")
+    bit_equal("network intersect_line", section.data, edge_values[:, edge_index], device)
+    node_values = rng.normal(size=(2, network.n_node))
+    node_values[:, rng.random(network.n_node) < FILL_FRACTION] = np.nan
+    node_fill_uda = xt.UgridDataArray(
+        xt.xdata.DataArray(torch.from_numpy(node_values).to(device), dims=("time", network.node_dimension)), network
+    )
+    t0 = time.perf_counter()
+    node_filled = node_fill_uda.ugrid.interpolate_na()
+    torch.cuda.synchronize()
+    dijkstra_s = time.perf_counter() - t0
+    e = network.edge_node_connectivity
+    length = np.linalg.norm(network.node_coordinates[e[:, 1]] - network.node_coordinates[e[:, 0]], axis=1)
+    graph = coo_matrix(
+        (np.concatenate([length, length]), (np.concatenate([e[:, 0], e[:, 1]]), np.concatenate([e[:, 1], e[:, 0]]))),
+        shape=(network.n_node,) * 2,
+    ).tocsr()
+    known_nodes = np.flatnonzero(~np.isnan(node_values[0]))
+    _, _, nearest_known = dijkstra(graph, indices=known_nodes, min_only=True, return_predecessors=True)
+    want = np.where(nearest_known >= 0, node_values[:, np.maximum(nearest_known, 0)], np.nan)
+    bit_equal("network interpolate_na", node_filled.data, want, device)
+    print(
+        f"  11.7 network ({network.n_edge} edges): sel_points of {len(pts)} stations {sel_s:.4f} s, each on its "
+        f"edge, bit-equal; intersect_line across it: {len(edge_index)} crossings in {line_s:.4f} s, on their "
+        f"edges, s non-decreasing, bit-equal; interpolate_na of (2, node) with "
+        f"{int(np.isnan(node_values[0]).sum())} NaN nodes by Dijkstra {dijkstra_s:.3f} s, bit-equal to scipy's "
+        f"dijkstra called directly [{card}]"
+    )
+
+    counts = {k.__name__: k.launches for k in kernels}
+    if counts != {"window_reduce": 1, "window_select": 0, "csr_matvec": 0}:
+        raise AssertionError(f"phase 11 launched {counts}")
+    return counts, {"window_reduce": err}, timed
+
+
 def main() -> int:
     import torch
 
@@ -2232,6 +2655,7 @@ def main() -> int:
     labelled_counts, labelled_err, _ = phase_labelled(device, card, inputs, meshes)
     files_counts, files_err = phase_files(device, card, inputs, timed)
     partition_counts, partition_err = phase_partitions(device, card, inputs, results)
+    query_counts, query_err, _ = phase_queries(device, card, inputs)
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
@@ -2242,13 +2666,14 @@ def main() -> int:
             "labelled arrays and structured grids (phase 8)": labelled_counts[name],
             "UGRID files and stored weights (phase 9)": files_counts[name],
             "merge_partitions then regrid (phase 10)": partition_counts[name],
+            "queries and the nearest fill, then regrid (phase 11)": query_counts[name],
         }
         return {
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(
                 check_err[name], main_err[name], regrid_err[name], labelled_err[name], files_err[name],
-                partition_err[name],
+                partition_err[name], query_err.get(name, 0.0),
             ),
             **timed_at,
         }

@@ -7,7 +7,11 @@ onto each other and filled through ``.ugrid.laplace_interpolate``, a
 UGRID netCDF file and zarr store written and opened, a CPU regrid
 through weights stored to netCDF and reloaded with ``from_dataset``, and
 a UgridDataArray partitioned, merged with ``merge_partitions`` and
-regridded load neither jax nor xugrid_tpu, and launch no kernel.
+regridded, and the queries (the nearest scan forced on the CPU, the
+KDTree lookups, ``sel_points``, the line selections, ``rasterize``,
+``to_node``, ``reindex_like``, ``interpolate_na`` on a mesh and along a
+network's edge index) load neither jax nor xugrid_tpu, and launch no
+kernel.
 A subprocess is needed because the test session itself imports jax.
 
 ``chip_smoke.py`` refuses to run without a CUDA device: exit code 2 and
@@ -101,6 +105,31 @@ REGRID_ON_CPU = textwrap.dedent(
     out = xt.OverlapRegridder(merged["v"], raster).regrid(merged["v"], device="cpu")
     assert out.dims == ("time", "y", "x")
     assert torch.allclose(out.data, on_raster.data, rtol=1e-12, atol=1e-12)
+    # Queries: nearest lookups, point and line selections, rasterize,
+    # the facet remaps, reindexing and the nearest fill.
+    import os
+    import warnings
+
+    from xugrid_tpu_torch.spatial import nearest
+
+    stations = source.node_coordinates + [0.123, 0.311]
+    os.environ["XUGRID_TPU_NEAREST"] = "device"
+    scanned = nearest.nearest_points(source.face_coordinates, stations, device="cpu")
+    del os.environ["XUGRID_TPU_NEAREST"]
+    assert np.array_equal(scanned, source.locate_nearest_face(stations))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        at_points = uda.ugrid.sel_points(x=[0.5, 6.2, 40.0], y=[0.5, 3.3, 40.0], method="nearest")
+    assert isinstance(at_points.data, torch.Tensor) and bool(torch.isnan(at_points.data[:, 2]).all())
+    assert uda.ugrid.intersect_line((0.1, 0.2), (11.5, 11.9)).shape[1] > 11
+    assert uda.ugrid.sel(x=slice(None), y=5.5).shape == (2, 12)
+    assert uda.ugrid.rasterize(2.0).dims == ("time", "y", "x")
+    assert uda.ugrid.to_node().dims == ("time", source.node_dimension, "nmax")
+    assert torch.equal(uda.ugrid.reindex_like(source).data, uda.data)
+    gappy = xt.UgridDataArray(xt.xdata.DataArray(np.where(np.arange(source.n_face) % 3, np.nan, 1.0),
+                              dims=(source.face_dimension,)), source)
+    assert np.isfinite(gappy.ugrid.interpolate_na().values).all()
+    assert network.locate_points([[3.25, 3.75]])[0] == 0
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "xugrid_tpu" or m.startswith("xugrid_tpu."))
     assert not loaded, loaded

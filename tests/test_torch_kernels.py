@@ -423,3 +423,35 @@ def test_merge_partitions_keeps_a_cuda_payload(device):
     for name in values:
         assert on_card.obj[name].data.device.type == "cuda"
         assert torch.equal(on_card.obj[name].data.cpu(), on_host.obj[name].data)
+
+
+def test_nearest_scan_on_the_card(device):
+    """The nearest scan on the card: the CPU scan's indices (or an
+    equidistant source), ties to the lowest index, a payload's
+    ``sel_points`` and ``interpolate_na`` kept on the card."""
+    from scipy.spatial import KDTree
+
+    from xugrid_tpu_torch.spatial import nearest
+
+    rng = np.random.default_rng(3)
+    sources = rng.uniform(0.0, 100.0, (3 * nearest.TILE + 11, 2))
+    sources[5] = sources[2]
+    queries = np.concatenate([rng.uniform(-5.0, 105.0, (500, 2)), sources[[2, 5]]])
+    d2, idx = nearest.nearest_scan(queries, sources, device)
+    assert idx.device.type == "cuda"
+    idx = idx.cpu().numpy()
+    want = KDTree(sources).query(queries)[1]
+    diff = idx != want
+    np.testing.assert_allclose(
+        np.linalg.norm(sources[idx[diff]] - queries[diff], axis=1),
+        np.linalg.norm(sources[want[diff]] - queries[diff], axis=1), rtol=1e-5,
+    )
+    assert idx[-2] == idx[-1] == 2
+    (verts, faces), _ = chip_smoke.bench_meshes(12, 2, rng)
+    grid = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    values = rng.normal(size=(2, grid.n_face))
+    values[:, ::4] = np.nan
+    uda = xt.UgridDataArray(xt.xdata.DataArray(torch.from_numpy(values).to(device), dims=("t", grid.face_dimension)),
+                            grid)
+    assert uda.ugrid.interpolate_na().data.device == device
+    assert uda.ugrid.sel_points(x=[1.5, 7.2], y=[3.3, 9.1]).data.device == device

@@ -16,6 +16,13 @@ It covers:
 - topology subsets (``isel`` and box ``sel`` along a UGRID dimension,
   ``clip_box``), partitions (``.ugrid.partition``, ``label_partitions``)
   and ``merge_partitions``, which reassembles a partitioned run;
+- queries: the nearest node, edge or face (scipy's KDTree, or a tiled
+  distance scan on the card for large batches, ``spatial/nearest.py``),
+  selections at points (``.ugrid.sel_points``) and along lines
+  (``intersect_line``, ``intersect_linestring``, ``sel`` of a slice and a
+  value), ``rasterize``/``rasterize_like``, the remaps between facets
+  (``to_node``, ``to_edge``, ``to_face``), ``reindex_like``, and the
+  nearest fill ``.ugrid.interpolate_na`` (Dijkstra along a network);
 - the regridders between 2D meshes and rasters (overlap, centroid
   locator, barycentric interpolation: in the centroidal voronoi
   tessellation, or bilinear between rasters) and from a 1D network onto
@@ -46,6 +53,7 @@ from xugrid_tpu_torch.core.common import (
     open_zarr,
     zeros_like,
 )
+from xugrid_tpu_torch.core.dataarray_accessor import UgridDataArrayAccessor
 from xugrid_tpu_torch.core.dataset_accessor import UgridDatasetAccessor
 from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset
 from xugrid_tpu_torch.regrid.gridder import NetworkGridder
@@ -59,8 +67,10 @@ from xugrid_tpu_torch.ugrid.conventions import UgridRolesAccessor, ugrid_roles
 from xugrid_tpu_torch.ugrid.partitioning import merge_partitions
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
+from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid
 
 __all__ = [
+    "AbstractUgrid",
     "BarycentricInterpolator",
     "CentroidLocatorRegridder",
     "NetworkGridder",
@@ -69,6 +79,7 @@ __all__ = [
     "Ugrid1d",
     "Ugrid2d",
     "UgridDataArray",
+    "UgridDataArrayAccessor",
     "UgridDataset",
     "UgridDatasetAccessor",
     "UgridRolesAccessor",

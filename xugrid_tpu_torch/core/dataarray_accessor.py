@@ -1,18 +1,24 @@
 """
 The ``.ugrid`` accessor of a UgridDataArray: its topology, renaming,
-coordinate assignment, the conversion to a UGRID dataset and file, box
-selections, partitions, and the Laplace fill.  The port of
+coordinate assignment, the conversion to a UGRID dataset and file, box,
+line and point selections, rasterization, the remaps between facets,
+reindexing, partitions, and the nearest and Laplace fills.  The port of
 ``xugrid_tpu/core/dataarray_accessor.py`` reduced to these; the rest of
-the accessor is not ported.
+the accessor is not ported.  A tensor payload stays on its device.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
+import numpy as np
 import scipy.sparse
+import torch
 
 from xugrid_tpu_torch import xdata
-from xugrid_tpu_torch.core.accessorbase import AbstractUgridAccessor
+from xugrid_tpu_torch.core.accessorbase import AbstractUgridAccessor, payload_device, where_nan
 from xugrid_tpu_torch.utils.profiling import timed
+from xugrid_tpu_torch.xdata.variable import is_tensor
 
 
 class UgridDataArrayAccessor(AbstractUgridAccessor):
@@ -82,12 +88,138 @@ class UgridDataArrayAccessor(AbstractUgridAccessor):
         return UgridDataArray(self.grid.assign_face_coords(self.obj), self.grid)
 
     def sel(self, x=None, y=None):
-        """The array and its topology in a box of UGRID x and y (two
-        slices), as a UgridDataArray.  Selections along a line or at
-        points are not ported."""
+        """Selection in UGRID x and y: a box (two slices) gives a
+        UgridDataArray; a line (a slice and a value) or points (values)
+        a DataArray with the section's or the points' coordinates."""
         from xugrid_tpu_torch.core.wrap import UgridDataArray
 
-        return UgridDataArray(*self.grid.sel(self.obj, x, y))
+        result = self.grid.sel(self.obj, x, y)
+        if isinstance(result, tuple):
+            return UgridDataArray(*result)
+        return result
+
+    def sel_points(self, x, y, method=None, out_of_bounds="warn", fill_value=np.nan, tolerance=None):
+        """The values at the points (x[i], y[i]): ``Ugrid2d.sel_points``,
+        its nearest searches on the payload's device."""
+        return self.grid.sel_points(
+            self.obj, x, y, method, out_of_bounds, fill_value, tolerance, device=payload_device(self.obj)
+        )
+
+    def rasterize(self, resolution: float):
+        """The face data sampled on a regular raster of cell size
+        ``resolution`` over the grid: a DataArray (..., y, x)."""
+        x, y, index = self.grid.rasterize(resolution)
+        return self._raster(x, y, index)
+
+    def rasterize_like(self, other):
+        """The face data sampled at the x and y coordinates of ``other``."""
+        x, y, index = self.grid.rasterize_like(x=np.asarray(other["x"].values), y=np.asarray(other["y"].values))
+        return self._raster(x, y, index)
+
+    def intersect_line(self, start: Sequence[float], end: Sequence[float]):
+        """The values along the line from start to end, with the distance
+        along it as the coordinate ``{name}_s``."""
+        return self.grid.intersect_line(self.obj, start, end)
+
+    def intersect_linestring(self, linestring):
+        """The values along a linestring (a shapely LineString or its
+        (n, 2) vertices)."""
+        return self.grid.intersect_linestring(self.obj, linestring)
+
+    def _to_facet(self, facet: str, newdim: str):
+        """The data on ``facet``: for each of its entities, the values of
+        the entities that connect to it along ``newdim``, NaN in the fill
+        slots (an integer payload becomes float64, as numpy promotes)."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        grid = self.grid
+        obj = self.obj
+        gridfacets = grid.facets
+        if facet not in gridfacets:
+            raise ValueError(f"Cannot map to {facet} for a {type(grid).__name__} topology.")
+        if newdim in obj.dims:
+            raise ValueError(f"Dimension {newdim} already exists. Please provide a new dimension name.")
+        source_dim = grid.dims.intersection(obj.dims).pop()
+        target_dim = getattr(grid, f"{facet}_dimension")
+        if source_dim == target_dim:
+            raise ValueError(f"No conversion needed, data is already {facet}-associated.")
+        source = {v: k for k, v in gridfacets.items()}[source_dim]
+        conn = grid.format_connectivity_as_dense(getattr(grid, f"{facet}_{source}_connectivity"))
+        axis = obj.dims.index(source_dim)
+        values = obj.data
+        shape = tuple(values.shape)
+        gathered = shape[:axis] + conn.shape + shape[axis + 1 :]
+        if is_tensor(values):
+            index = torch.from_numpy(np.maximum(conn, 0).ravel()).to(values.device)
+            taken = values.index_select(axis, index).reshape(gathered)
+        else:
+            taken = np.take(values, np.maximum(conn, 0), axis=axis)
+        mask_shape = [1] * len(shape)
+        mask_shape[axis : axis + 1] = list(conn.shape)
+        taken = where_nan(taken, (conn != -1).reshape(mask_shape))
+        new_dims = obj.dims[:axis] + (target_dim, newdim) + obj.dims[axis + 1 :]
+        mapped = xdata.DataArray(taken, dims=new_dims, name=obj.name, attrs=dict(obj.attrs))
+        mapped._coords.update({k: v for k, v in obj._coords.items() if source_dim not in v.dims})
+        return UgridDataArray(mapped, grid)
+
+    def to_node(self, dim: str = "nmax"):
+        """The data mapped to the nodes; ``dim`` holds the contributing
+        entities."""
+        return self._to_facet("node", dim)
+
+    def to_edge(self, dim: str = "nmax"):
+        """The data mapped to the edges; ``dim`` holds the contributing
+        entities."""
+        return self._to_facet("edge", dim)
+
+    def to_face(self, dim: str = "nmax"):
+        """The data mapped to the faces; ``dim`` holds the contributing
+        entities."""
+        return self._to_facet("face", dim)
+
+    def reindex_like(self, other, tolerance: float = 0.0):
+        """The array on ``other``'s topology (a grid, UgridDataArray or
+        UgridDataset): the same entities in another order, matched by
+        coordinates within ``tolerance``."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset
+        from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
+        from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
+
+        if isinstance(other, (Ugrid1d, Ugrid2d)):
+            other_grid = other
+        elif isinstance(other, (UgridDataArray, UgridDataset)):
+            other_grid = other.ugrid.grid
+        else:
+            raise TypeError(
+                "Expected Ugrid1d, Ugrid2d, UgridDataArray, or UgridDataset, "
+                f"received instead: {type(other).__name__}"
+            )
+        return UgridDataArray(self.grid.reindex_like(other_grid, obj=self.obj, tolerance=tolerance), other_grid)
+
+    def interpolate_na(self, method: str = "nearest", max_distance: Optional[float] = None):
+        """
+        Fill NaNs with the value of the nearest non-NaN entity: by
+        distance on a 2D grid (the search on the payload's device from
+        ``spatial/nearest.py``'s threshold), along the network (Dijkstra)
+        on a 1D one; NaN beyond ``max_distance``.  The result is float64,
+        on the payload's device.
+        """
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+        from xugrid_tpu_torch.ugrid.interpolate import interpolate_na_helper
+
+        if method != "nearest":
+            raise ValueError(f'"{method}" is not a valid interpolator.')
+        if max_distance is None:
+            max_distance = np.inf
+        grid = self.grid
+        ugrid_dim = grid.find_ugrid_dim(self.obj)
+        filled = interpolate_na_helper(
+            self.obj,
+            ugrid_dim=ugrid_dim,
+            func=grid._nearest_interpolate,
+            kwargs={"ugrid_dim": ugrid_dim, "max_distance": max_distance},
+        )
+        return UgridDataArray(filled, grid)
 
     def label_partitions(self, n_part: int):
         """Partition labels of the grid with this array's integer values

@@ -1,20 +1,20 @@
 """
 The ``.ugrid`` accessor of a UgridDataset: its topologies, renaming,
-coordinate assignment, the conversion to a UGRID dataset, box
-selections and partitions.  The port of
-``xugrid_tpu/core/dataset_accessor.py`` reduced to these; the rest of
+coordinate assignment, the conversion to a UGRID dataset, box, line and
+point selections, rasterization, reindexing and partitions.  The port
+of ``xugrid_tpu/core/dataset_accessor.py`` reduced to these; the rest of
 the accessor is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
 from xugrid_tpu_torch import xdata
-from xugrid_tpu_torch.core.accessorbase import AbstractUgridAccessor
-from xugrid_tpu_torch.core.wrap import UgridDataset
+from xugrid_tpu_torch.core.accessorbase import AbstractUgridAccessor, payload_device, raster
+from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset
 
 
 class UgridDatasetAccessor(AbstractUgridAccessor):
@@ -110,15 +110,92 @@ class UgridDatasetAccessor(AbstractUgridAccessor):
         grid = self._single_grid_for("set_node_coords") if topology is None else self.topology[topology]
         grid.set_node_coords(node_x, node_y, self.obj)
 
-    def sel(self, x=None, y=None) -> UgridDataset:
-        """The data and every topology in a box of UGRID x and y (two
-        slices).  Selections along a line or at points are not ported."""
+    def sel(self, x=None, y=None):
+        """Selection in UGRID x and y over every topology: a box (two
+        slices) gives a UgridDataset; a line (a slice and a value) or
+        points (values) a Dataset with the section's or the points'
+        coordinates."""
         result = self.obj
         new_grids = []
         for grid in self.grids:
-            result, new_grid = grid.sel(result, x, y)
-            new_grids.append(new_grid)
-        return UgridDataset(result, new_grids)
+            out = grid.sel(result, x, y)
+            if isinstance(out, tuple):
+                result, new_grid = out
+                new_grids.append(new_grid)
+            else:
+                result = out
+        if new_grids:
+            return UgridDataset(result, new_grids)
+        return result
+
+    def sel_points(self, x, y, method=None, out_of_bounds="warn", fill_value=np.nan, tolerance=None):
+        """The values at the points (x[i], y[i]) over every topology, the
+        nearest searches on the payload's device."""
+        device = payload_device(self.obj)
+        result = self.obj
+        for grid in self.grids:
+            result = grid.sel_points(result, x, y, method, out_of_bounds, fill_value, tolerance, device=device)
+        return result
+
+    def rasterize(self, resolution: float):
+        """Every face variable sampled on a regular raster of cell size
+        ``resolution`` over the single grid: a Dataset (..., y, x)."""
+        grid = self._single_grid_for("rasterize")
+        x, y, index = grid.rasterize(resolution)
+        return self._raster_dataset(grid, x, y, index)
+
+    def rasterize_like(self, other):
+        """Every face variable sampled at the x and y coordinates of
+        ``other``."""
+        grid = self._single_grid_for("rasterize_like")
+        x, y, index = grid.rasterize_like(x=np.asarray(other["x"].values), y=np.asarray(other["y"].values))
+        return self._raster_dataset(grid, x, y, index)
+
+    def _raster_dataset(self, grid, x, y, index):
+        return raster(self.obj, grid, x, y, index)
+
+    def intersect_line(self, start: Sequence[float], end: Sequence[float]):
+        """The values along the line from start to end, for every topology."""
+        result = self.obj
+        for grid in self.grids:
+            result = grid.intersect_line(result, start, end)
+        return result
+
+    def intersect_linestring(self, linestring):
+        """The values along a linestring, for every topology."""
+        result = self.obj
+        for grid in self.grids:
+            result = grid.intersect_linestring(result, linestring)
+        return result
+
+    def reindex_like(self, other, tolerance: float = 0.0) -> UgridDataset:
+        """The dataset on ``other``'s topologies (a grid, UgridDataArray or
+        UgridDataset), matched by name: the same entities in another
+        order, matched by coordinates within ``tolerance``."""
+        from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
+        from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
+
+        if isinstance(other, (Ugrid1d, Ugrid2d)):
+            other_grids = {other.name: other}
+        elif isinstance(other, UgridDataset):
+            other_grids = {grid.name: grid for grid in other.grids}
+        elif isinstance(other, UgridDataArray):
+            other_grids = {other.grid.name: other.grid}
+        else:
+            raise TypeError(
+                "Expected Ugrid1d, Ugrid2d, UgridDataArray, or UgridDataset, "
+                f"received instead: {type(other).__name__}"
+            )
+        obj = self.obj
+        new_grids = []
+        for grid in self.grids:
+            other_grid = other_grids.get(grid.name)
+            if other_grid is not None:
+                obj = grid.reindex_like(other_grid, obj=obj, tolerance=tolerance)
+                new_grids.append(other_grid)
+            else:
+                new_grids.append(grid)
+        return UgridDataset(obj, new_grids)
 
     def to_dataset(self, optional_attributes: bool = False):
         """The data and every topology's UGRID variables as one Dataset."""

@@ -1,4 +1,4 @@
-"""Bounding boxes of mesh faces (host, numpy)."""
+"""Bounding boxes of mesh faces and network edges (host, numpy)."""
 
 from __future__ import annotations
 
@@ -29,3 +29,12 @@ def face_bounding_boxes(
                 np.nanmax(y, axis=1),
             ]
         )
+
+
+def edge_bounding_boxes(
+    edge_node_connectivity: np.ndarray, node_x: np.ndarray, node_y: np.ndarray
+) -> np.ndarray:
+    """AABB per edge (n, 4) as (xmin, ymin, xmax, ymax)."""
+    x = node_x[edge_node_connectivity]
+    y = node_y[edge_node_connectivity]
+    return np.column_stack([x.min(axis=1), y.min(axis=1), x.max(axis=1), y.max(axis=1)])

@@ -1,7 +1,9 @@
 """
 CellTree2d: the spatial index over the faces of a 2D mesh, reduced to
 the joins of the regridders: area of overlap, point location, segment
-clip and mean-value (barycentric) weights.
+clip and mean-value (barycentric) weights.  EdgeCellTree2d: the index
+over the edges of a 1D network: points on edges within a tolerance, and
+segment-edge intersections (host numpy over the grid hash).
 
 The candidate joins run on the host grid hash (``spatial/grid_hash.py``)
 and the exact geometry on the native host kernels
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from xugrid_tpu_torch.spatial import geometry
-from xugrid_tpu_torch.spatial.bvh import face_bounding_boxes
+from xugrid_tpu_torch.spatial.bvh import edge_bounding_boxes, face_bounding_boxes
 from xugrid_tpu_torch.spatial.geometry import pad_polygons
 from xugrid_tpu_torch.spatial.grid_hash import GridHash
 from xugrid_tpu_torch.utils.device import resolve_device
@@ -244,3 +246,110 @@ class CellTree2d:
                     points, face_index, self._poly_xy_host, self._tol(tolerance), device
                 )
         return face_index, weights
+
+
+class EdgeCellTree2d:
+    """Spatial index over the edges of a 1D network."""
+
+    def __init__(self, vertices: np.ndarray, edge_node_connectivity: np.ndarray):
+        vertices = np.asarray(vertices, dtype=np.float64)
+        conn = np.asarray(edge_node_connectivity)
+        self.vertices = vertices
+        self.edges = conn
+        self.n_edge = len(conn)
+        self.bb_coords = edge_bounding_boxes(conn, vertices[:, 0], vertices[:, 1])
+        self.grid_hash = GridHash(self.bb_coords)
+        self._edge_xy = vertices[conn]
+
+    @property
+    def bb_distances(self) -> np.ndarray:
+        """(n_edge, 3): bounding box width, height and diagonal."""
+        dx = self.bb_coords[:, 2] - self.bb_coords[:, 0]
+        dy = self.bb_coords[:, 3] - self.bb_coords[:, 1]
+        return np.column_stack([dx, dy, np.hypot(dx, dy)])
+
+    def default_tolerance(self) -> float:
+        """On-edge tolerance: 1e-12 of the largest bounding-box diagonal."""
+        return float(np.nanmax(self.bb_distances[:, 2])) * 1e-12
+
+    def _tol(self, tolerance: Optional[float]) -> float:
+        return self.default_tolerance() if tolerance is None else float(tolerance)
+
+    def locate_points(self, points: np.ndarray, tolerance: Optional[float] = None) -> np.ndarray:
+        """Index of the edge each point lies on within the tolerance, the
+        lowest one where several do, -1 where none does."""
+        points = np.atleast_2d(np.asarray(points, dtype=np.float64))
+        n = len(points)
+        tol = self._tol(tolerance)
+        boxes = np.column_stack([points - tol, points + tol])
+        pair_q, pair_p = self.grid_hash.query_boxes(boxes)
+        out = np.full(n, -1, dtype=np.int32)
+        if len(pair_q) == 0:
+            return out
+        # Distance of each point to each candidate segment.
+        seg = self._edge_xy[pair_p]
+        a = seg[:, 0]
+        d = seg[:, 1] - a
+        len2 = np.maximum((d * d).sum(axis=1), 1e-300)
+        t = np.clip(((points[pair_q] - a) * d).sum(axis=1) / len2, 0.0, 1.0)
+        closest = a + t[:, None] * d
+        dist2 = ((points[pair_q] - closest) ** 2).sum(axis=1)
+        on = dist2 <= tol * tol
+        big = np.iinfo(np.int32).max
+        best = np.full(n, big, dtype=np.int64)
+        np.minimum.at(best, pair_q[on], pair_p[on])
+        found = best != big
+        out[found] = best[found]
+        return out
+
+    def intersect_edges(self, edges: np.ndarray):
+        """
+        Intersect query segments (n, 2, 2) with the network's edges.
+
+        Returns (query_index, tree_edge_index, intersections (k, 2)).
+        """
+        edges = np.asarray(edges, dtype=np.float64)
+        boxes = np.concatenate([edges.min(axis=1), edges.max(axis=1)], axis=1)
+        query_index, tree_index = self.grid_hash.query_boxes(boxes)
+        if len(query_index) == 0:
+            return query_index, tree_index, np.empty((0, 2), dtype=np.float64)
+        p0 = edges[query_index, 0]
+        p1 = edges[query_index, 1]
+        q0 = self._edge_xy[tree_index, 0]
+        q1 = self._edge_xy[tree_index, 1]
+        hits, pts = _segment_intersections(p0, p1, q0, q1)
+        return query_index[hits], tree_index[hits], pts[hits]
+
+
+def _segment_intersections(p0, p1, q0, q1):
+    """Segments p0-p1 against q0-q1, pair by pair: (hit (k,), the point
+    on p (k, 2)).  A collinear overlap reports its entry point on p."""
+    r = p1 - p0
+    s = q1 - q0
+    denom = r[:, 0] * s[:, 1] - r[:, 1] * s[:, 0]
+    qp = q0 - p0
+    t_num = qp[:, 0] * s[:, 1] - qp[:, 1] * s[:, 0]
+    u_num = qp[:, 0] * r[:, 1] - qp[:, 1] * r[:, 0]
+    parallel = denom == 0.0
+    safe = np.where(parallel, 1.0, denom)
+    t = t_num / safe
+    u = u_num / safe
+    hit = ~parallel & (t >= 0.0) & (t <= 1.0) & (u >= 0.0) & (u <= 1.0)
+
+    # Collinear overlap (parallel and q0 on p's line): intersect the
+    # projected parameter intervals; the q0-side entry point represents
+    # the overlap.
+    rr = np.einsum("ij,ij->i", r, r)
+    safe_rr = np.where(rr == 0.0, 1.0, rr)
+    s0 = np.einsum("ij,ij->i", q0 - p0, r) / safe_rr
+    s1 = np.einsum("ij,ij->i", q1 - p0, r) / safe_rr
+    lo = np.maximum(np.minimum(s0, s1), 0.0)
+    hi = np.minimum(np.maximum(s0, s1), 1.0)
+    # t_num == 0 is NOT sufficient: a degenerate tree edge (q0 == q1,
+    # s == 0) zeroes t_num wherever q0 lies.  q0 is on p's line iff
+    # qp x r == 0 (u_num), which also implies t_num == 0 when r ∥ s.
+    collinear = parallel & (t_num == 0.0) & (u_num == 0.0) & (rr > 0.0)
+    col_hit = collinear & (lo <= hi)
+    t = np.where(col_hit, lo, t)
+    hit = hit | col_hit
+    return hit, p0 + t[:, None] * r

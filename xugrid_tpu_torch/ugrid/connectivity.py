@@ -23,6 +23,37 @@ def cross2d(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
 
 
+def argsort_rows(array: np.ndarray) -> np.ndarray:
+    """Lexicographic argsort over the rows of a 2D array, the first
+    column the primary key."""
+    if array.ndim != 2:
+        raise ValueError(f"Array is not 2D, but has shape: {array.shape}")
+    return np.lexsort(array.T[::-1])
+
+
+def index_like(xy_a: np.ndarray, xy_b: np.ndarray, tolerance: float = 0.0) -> np.ndarray:
+    """
+    The permutation taking the coordinates ``xy_a`` onto ``xy_b``:
+    ``xy_a[result]`` equals ``xy_b`` within ``tolerance``.  Both sets must
+    hold the same points; raises otherwise.
+    """
+    xy_a = np.asarray(xy_a)
+    xy_b = np.asarray(xy_b)
+    if xy_a.shape != xy_b.shape:
+        raise ValueError("coordinates do not match in shape")
+    if tolerance != 0.0:
+        # Quantize so that nearly equal coordinates sort alike.
+        sorter_a = argsort_rows(np.round(xy_a / tolerance))
+        sorter_b = argsort_rows(np.round(xy_b / tolerance))
+    else:
+        sorter_a = argsort_rows(xy_a)
+        sorter_b = argsort_rows(xy_b)
+    if not np.allclose(xy_a[sorter_a], xy_b[sorter_b], rtol=0.0, atol=tolerance):
+        raise ValueError("coordinates are not identical after sorting")
+    inverse_b = np.argsort(sorter_b)
+    return sorter_a[inverse_b]
+
+
 # Dense <-> sparse conversion
 # ---------------------------
 def _connectivity_ij(conn: np.ndarray, invert: bool) -> Tuple[np.ndarray, np.ndarray]:

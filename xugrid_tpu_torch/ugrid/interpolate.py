@@ -1,5 +1,7 @@
 """
-Laplace interpolation of missing values on UGRID topologies, on the card.
+Interpolation of missing values on UGRID topologies: the Laplace fill on
+the card, and the nearest fill (``nearest_interpolate``, whose search is
+``spatial/nearest.py``'s).
 
 ``laplace_interpolate`` solves Laplace's equation over the unknown nodes
 (or faces), with the known values as Dirichlet boundaries, by a
@@ -411,6 +413,26 @@ def laplace_interpolate(
     return out
 
 
+def nearest_interpolate(coordinates: np.ndarray, data: np.ndarray, max_distance: float, device=None) -> np.ndarray:
+    """``data`` (1D float) with each NaN replaced by the value at the
+    nearest non-NaN coordinate (NaN beyond ``max_distance``); the search
+    may run on ``device`` (``spatial/nearest.py``)."""
+    from xugrid_tpu_torch.spatial.nearest import nearest_points
+
+    isnull = np.isnan(data)
+    if isnull.all():
+        raise ValueError("All values are NA.")
+    if not isnull.any():
+        return data.copy()
+    i_source = np.flatnonzero(~isnull)
+    i_target = np.flatnonzero(isnull)
+    index = nearest_points(coordinates[i_source], coordinates[i_target], max_distance, device=device)
+    keep = index >= 0
+    out = data.copy()
+    out[i_target[keep]] = data[i_source[index[keep]]]
+    return out
+
+
 def interpolate_na_helper(da, ugrid_dim: str, func, kwargs: dict, device=None):
     """
     Apply a 1D fill function along ``ugrid_dim`` of an xdata DataArray,
@@ -418,15 +440,19 @@ def interpolate_na_helper(da, ugrid_dim: str, func, kwargs: dict, device=None):
     fill takes the slices that share one NaN pattern in one call (one
     batched solve); with mixed patterns it fills slice by slice.
 
-    ``func`` takes and returns host numpy, and ``device=`` (resolved
-    against the payload: a tensor's device, else the CUDA card).  A
-    tensor payload is copied to the host for it, explicitly, and the
-    result goes back to the payload's device as a float64 tensor.
+    ``func`` takes and returns host numpy, and ``device=``: the one given,
+    else a tensor payload's device, else None, which ``func`` resolves
+    (the Laplace fill to the CUDA card; the nearest fill only where it
+    searches on a device).  A tensor payload is copied to the host for
+    it, explicitly, and the result goes back to the payload's device as
+    a float64 tensor.
     """
     extra_dims = [d for d in da.dims if d != ugrid_dim]
     transposed = da.transpose(*extra_dims, ugrid_dim)
     payload = transposed.data
-    kwargs = dict(kwargs, device=resolve_device(payload, device))
+    if device is None and is_tensor(payload):
+        device = payload.device
+    kwargs = dict(kwargs, device=device)
     values = np.asarray(transposed.values, dtype=np.float64)
     flat = values.reshape(-1, values.shape[-1])
 

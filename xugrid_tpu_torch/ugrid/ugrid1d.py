@@ -1,8 +1,9 @@
 """
 Ugrid1d: topology of a 1D network (connected line elements, such as a
 river or channel network), reduced to what ``NetworkGridder``, the
-UGRID file round trip, the topology subsets and the partition merge
-read.
+UGRID file round trip, the topology subsets, the partition merge, the
+point and line selections and the nearest fill (Dijkstra along the
+network) read.
 """
 
 from __future__ import annotations
@@ -12,10 +13,12 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import pandas as pd
+from scipy.sparse.csgraph import dijkstra
 
 from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.constants import FILL_VALUE, FloatDType, IntDType
 from xugrid_tpu_torch.ugrid import connectivity, conventions
+from xugrid_tpu_torch.ugrid.selection_utils import section_coordinates_1d
 from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, _strip_dim_coords, as_pandas_index
 from xugrid_tpu_torch.utils.profiling import timed
 
@@ -65,6 +68,9 @@ class Ugrid1d(AbstractUgrid):
         """Drop the cached geometry (after the node coordinates change)."""
         self._edge_x = None
         self._edge_y = None
+        self._celltree = None
+        self._node_kdtree = None
+        self._edge_kdtree = None
 
     # -- UGRID datasets ----------------------------------------------------------
     @classmethod
@@ -179,6 +185,27 @@ class Ugrid1d(AbstractUgrid):
             return self.edge_coordinates
         raise ValueError(f"Expected {self.node_dimension} or {self.edge_dimension}; got: {dim}")
 
+    # -- spatial queries -----------------------------------------------------------
+    @property
+    def celltree(self):
+        """The spatial index over the edges, built on first use."""
+        if self._celltree is None:
+            from xugrid_tpu_torch.spatial.celltree import EdgeCellTree2d
+
+            self._celltree = EdgeCellTree2d(self.node_coordinates, self.edge_node_connectivity)
+        return self._celltree
+
+    def _locate_nearest(self, facet: str, points: np.ndarray, max_distance=np.inf, device=None) -> np.ndarray:
+        if facet == "node":
+            return self.locate_nearest_node(points, max_distance, device=device)
+        elif facet == "edge":
+            return self.locate_nearest_edge(points, max_distance, device=device)
+        raise ValueError(f"Expected facet as one of node, edge; received: {facet}")
+
+    @staticmethod
+    def _section_coordinates(edges, xy, dim, index, name):
+        return section_coordinates_1d(edges, xy, dim, index, name)
+
     # -- subsets -------------------------------------------------------------------
     def isel(self, indexers=None, return_index: bool = False, **indexers_kwargs):
         """The network of a selection by node or edge positions.  An edge
@@ -277,6 +304,50 @@ class Ugrid1d(AbstractUgrid):
             (self.edge_x >= xmin) & (self.edge_x <= xmax) & (self.edge_y >= ymin) & (self.edge_y <= ymax)
         )[0]
         return self.topology_subset(edge_index)
+
+    # -- reindexing and the nearest fill -----------------------------------------------
+    def reindex_like(self, other: "Ugrid1d", obj, tolerance: float = 0.0):
+        """``obj`` reordered onto ``other``, the same network with its nodes
+        and edges permuted: matched by coordinates within ``tolerance``."""
+        if not isinstance(other, Ugrid1d):
+            raise TypeError(f"Expected Ugrid1d, received: {type(other).__name__}")
+        indexers = {
+            self.node_dimension: connectivity.index_like(self.node_coordinates, other.node_coordinates, tolerance),
+            self.edge_dimension: connectivity.index_like(self.edge_coordinates, other.edge_coordinates, tolerance),
+        }
+        return obj.isel(indexers, missing_dims="ignore")
+
+    def _nearest_interpolate(self, data: np.ndarray, ugrid_dim: str, max_distance: float, device=None) -> np.ndarray:
+        """``data`` (1D float, host) with each NaN replaced by the value of
+        the nearest non-NaN node or edge along the network (scipy's
+        Dijkstra over edge lengths; NaN beyond ``max_distance``).  Runs
+        on the host: ``device`` is accepted for the 2D grid's signature."""
+        isnull = np.isnan(data)
+        if isnull.all():
+            raise ValueError("All values are NA.")
+
+        edge_length = self.edge_length
+        if ugrid_dim == self.node_dimension:
+            conn = self.node_node_connectivity.copy()
+            conn.data = edge_length[conn.data]
+        elif ugrid_dim == self.edge_dimension:
+            conn = self.edge_edge_connectivity.tocoo()
+            conn.data = 0.5 * (edge_length[conn.row] + edge_length[conn.col])
+        else:
+            raise ValueError(
+                f"Expected {self.node_dimension} or {self.edge_dimension}, received instead: {ugrid_dim}"
+            )
+        _, _, index = dijkstra(
+            csgraph=conn,
+            indices=np.flatnonzero(~isnull),
+            return_predecessors=True,
+            limit=max_distance,
+            min_only=True,
+        )
+        found = index != -9999
+        out = data.copy()
+        out[found] = data[index[found]]
+        return out
 
     # -- partition merge -------------------------------------------------------------
     @staticmethod

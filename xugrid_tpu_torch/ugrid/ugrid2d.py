@@ -1,13 +1,14 @@
 """
 Ugrid2d: topology of a 2D unstructured mesh (UGRID conventions),
-reduced to what the regridders, the Laplace fill, the UGRID file
-round trip, the topology subsets and the partition merge read.
+reduced to what the regridders, the Laplace and nearest fills, the
+UGRID file round trip, the topology subsets, the partition merge, the
+point and line selections and rasterization read.
 
 The canonical storage is a padded dense int64 ``face_node_connectivity``
 (fill -1, 0-based) plus float64 node x/y; the fill value and start index
 of the file it came from are kept and restored on writing.  Face areas,
-centroids, the derived connectivities and the spatial index are
-computed on first use and cached.
+centroids, the derived connectivities, the spatial index and the
+KDTrees are computed on first use and cached.
 """
 
 from __future__ import annotations
@@ -22,8 +23,22 @@ from scipy.sparse import coo_matrix, csr_matrix
 from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.constants import FILL_VALUE, FloatDType, IntDType
 from xugrid_tpu_torch.ugrid import connectivity, conventions
+from xugrid_tpu_torch.ugrid.selection_utils import section_coordinates_2d
 from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, _strip_dim_coords, as_pandas_index, numeric_bound
 from xugrid_tpu_torch.utils.profiling import timed
+
+
+def raster_xy(bounds, resolution: float):
+    """Cell centres of a raster of cell size ``resolution`` over ``bounds``
+    (xmin, ymin, xmax, ymax), snapped outward to whole cells: (x
+    ascending, y descending)."""
+    xmin, ymin, xmax, ymax = bounds
+    d = abs(resolution)
+    xmin = np.floor(xmin / d) * d
+    xmax = np.ceil(xmax / d) * d
+    ymin = np.floor(ymin / d) * d
+    ymax = np.ceil(ymax / d) * d
+    return np.arange(xmin + 0.5 * d, xmax, d), np.arange(ymax - 0.5 * d, ymin, -d)
 
 
 class Ugrid2d(AbstractUgrid):
@@ -107,6 +122,9 @@ class Ugrid2d(AbstractUgrid):
         self._area = None
         self._centroids = None
         self._celltree = None
+        self._node_kdtree = None
+        self._edge_kdtree = None
+        self._face_kdtree = None
         self._edge_x = None
         self._edge_y = None
 
@@ -544,6 +562,48 @@ class Ugrid2d(AbstractUgrid):
         the native kernel's 64 nodes are weighed on ``device``."""
         return self.celltree.compute_barycentric_weights(points, tolerance, device=device)
 
+    @property
+    def face_kdtree(self):
+        """scipy KDTree over the face centroids, built on first use."""
+        if self._face_kdtree is None:
+            from scipy.spatial import KDTree
+
+            self._face_kdtree = KDTree(self.face_coordinates)
+        return self._face_kdtree
+
+    def locate_nearest_face(self, points: np.ndarray, max_distance: float = np.inf, device=None) -> np.ndarray:
+        """Nearest face (by centroid) per point; -1 beyond ``max_distance``."""
+        from xugrid_tpu_torch.spatial.nearest import nearest_points
+
+        return nearest_points(self.face_coordinates, points, max_distance, tree=self.face_kdtree, device=device)
+
+    def _locate_nearest(self, facet: str, points: np.ndarray, max_distance=np.inf, device=None) -> np.ndarray:
+        if facet == "node":
+            return self.locate_nearest_node(points, max_distance, device=device)
+        elif facet == "edge":
+            return self.locate_nearest_edge(points, max_distance, device=device)
+        elif facet == "face":
+            return self.locate_nearest_face(points, max_distance, device=device)
+        raise ValueError(f"Expected facet as one of node, edge, face; received: {facet}")
+
+    @staticmethod
+    def _section_coordinates(edges, xy, dim, index, name):
+        return section_coordinates_2d(edges, xy, dim, index, name)
+
+    # -- rasterization ------------------------------------------------------------
+    def rasterize_like(self, x: np.ndarray, y: np.ndarray):
+        """The face holding each point of the raster of x and y cell
+        centres: (x, y, index (y.size, x.size), -1 outside)."""
+        yy, xx = np.meshgrid(y, x, indexing="ij")
+        nodes = np.column_stack([xx.ravel(), yy.ravel()])
+        index = self.celltree.locate_points(nodes).reshape((y.size, x.size))
+        return x, y, index
+
+    def rasterize(self, resolution: float, bounds: Optional[tuple] = None):
+        """``rasterize_like`` on a raster of cell size ``resolution`` over
+        ``bounds`` (the grid's by default)."""
+        return self.rasterize_like(*raster_xy(self.bounds if bounds is None else bounds, resolution))
+
     # -- subsets -------------------------------------------------------------------
     def locate_bounding_box(self, xmin, ymin, xmax, ymax) -> np.ndarray:
         """Faces whose centroid lies in the half-open bounding box."""
@@ -685,6 +745,42 @@ class Ugrid2d(AbstractUgrid):
         )
         grid, indexes = self.topology_subset(face_index, return_index=True)
         return obj.isel({k: v.to_numpy() for k, v in indexes.items() if k in obj.dims}), grid
+
+    # -- reindexing and the nearest fill -----------------------------------------------
+    def reindex_like(self, other: "Ugrid2d", obj, tolerance: float = 0.0):
+        """``obj`` reordered onto ``other``, the same topology with its
+        nodes, faces (and edges, where ``other`` has them) permuted:
+        matched by coordinates within ``tolerance``."""
+        if not isinstance(other, Ugrid2d):
+            raise TypeError(f"Expected Ugrid2d, received: {type(other).__name__}")
+        indexers = {
+            self.node_dimension: connectivity.index_like(self.node_coordinates, other.node_coordinates, tolerance),
+            self.face_dimension: connectivity.index_like(self.centroids, other.centroids, tolerance),
+        }
+        if other._edge_node_connectivity is not None:
+            indexers[self.edge_dimension] = connectivity.index_like(
+                self.edge_coordinates, other.edge_coordinates, tolerance
+            )
+        return obj.isel(indexers, missing_dims="ignore")
+
+    def _nearest_interpolate(self, data: np.ndarray, ugrid_dim: str, max_distance: float, device=None) -> np.ndarray:
+        """``data`` (1D float, host) with each NaN replaced by the value of
+        the nearest non-NaN entity of ``ugrid_dim`` (NaN beyond
+        ``max_distance``); the search may run on ``device``
+        (``spatial/nearest.py``)."""
+        from xugrid_tpu_torch.spatial.nearest import nearest_points
+
+        coordinates = self.get_coordinates(ugrid_dim)
+        isnull = np.isnan(data)
+        if isnull.all():
+            raise ValueError("All values are NA.")
+        i_source = np.flatnonzero(~isnull)
+        i_target = np.flatnonzero(isnull)
+        index = nearest_points(coordinates[i_source], coordinates[i_target], max_distance, device=device)
+        keep = index >= 0
+        out = data.copy()
+        out[i_target[keep]] = data[i_source[index[keep]]]
+        return out
 
     # -- partition merge -------------------------------------------------------------
     @staticmethod

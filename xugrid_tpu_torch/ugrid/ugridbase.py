@@ -2,9 +2,10 @@
 What ``Ugrid1d`` and ``Ugrid2d`` share: the UGRID attributes and
 dimension names, the conversion to and from a UGRID dataset (fill value
 and start index, connectivity layout, coordinate attributes, the CRS and
-its grid mapping), renaming, the bounding box, and the construction of
-a UgridDataArray on a facet.  The port of ``xugrid_tpu/ugrid/
-ugridbase.py``'s serialization part.
+its grid mapping), renaming, the bounding box, the construction of a
+UgridDataArray on a facet, and the spatial queries: nearest node and
+edge (``spatial/nearest.py``), point location, line sections and the
+selection at points.  The port of ``xugrid_tpu/ugrid/ugridbase.py``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import abc
 import copy
 import warnings
 from itertools import chain
-from typing import Any, Optional, Union
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 import pandas as pd
@@ -23,6 +24,7 @@ from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.constants import FILL_VALUE
 from xugrid_tpu_torch.ugrid import connectivity, conventions
 from xugrid_tpu_torch.ugrid.crs import CrsPlaceholder, crs_from_attrs, crs_to_attrs
+from xugrid_tpu_torch.ugrid.selection_utils import get_sorted_section_coords
 from xugrid_tpu_torch.utils.profiling import timed
 
 
@@ -512,6 +514,11 @@ class AbstractUgrid(abc.ABC):
         return connectivity.invert_dense_to_sparse(self.edge_node_connectivity)
 
     @property
+    def node_node_connectivity(self) -> csr_matrix:
+        """Node adjacency (CSR); data holds the connecting edge index."""
+        return connectivity.node_node_connectivity(self.edge_node_connectivity)
+
+    @property
     def edge_edge_connectivity(self) -> csr_matrix:
         """Edge adjacency (CSR); data holds the shared node index."""
         return connectivity.edge_edge_connectivity(self.edge_node_connectivity, self.node_edge_connectivity)
@@ -582,24 +589,195 @@ class AbstractUgrid(abc.ABC):
             )
         return UgridDataArray(xdata.DataArray(data, dims=(dimension,)), self)
 
-    # -- selection -----------------------------------------------------------------
+    # -- spatial queries -----------------------------------------------------------
+    @property
+    def node_kdtree(self):
+        """scipy KDTree over the nodes, built on first use."""
+        if self._node_kdtree is None:
+            from scipy.spatial import KDTree
+
+            self._node_kdtree = KDTree(self.node_coordinates)
+        return self._node_kdtree
+
+    @property
+    def edge_kdtree(self):
+        """scipy KDTree over the edge midpoints, built on first use."""
+        if self._edge_kdtree is None:
+            from scipy.spatial import KDTree
+
+            self._edge_kdtree = KDTree(self.edge_coordinates)
+        return self._edge_kdtree
+
+    def locate_nearest_node(self, points: np.ndarray, max_distance: float = np.inf, device=None) -> np.ndarray:
+        """Nearest node per point; -1 beyond ``max_distance``.  Large
+        batches scan on ``device`` (``spatial/nearest.py``), small ones
+        query the cached KDTree."""
+        from xugrid_tpu_torch.spatial.nearest import nearest_points
+
+        return nearest_points(self.node_coordinates, points, max_distance, tree=self.node_kdtree, device=device)
+
+    def locate_nearest_edge(self, points: np.ndarray, max_distance: float = np.inf, device=None) -> np.ndarray:
+        """Nearest edge (by midpoint) per point; -1 beyond ``max_distance``."""
+        from xugrid_tpu_torch.spatial.nearest import nearest_points
+
+        return nearest_points(self.edge_coordinates, points, max_distance, tree=self.edge_kdtree, device=device)
+
+    def locate_points(self, points: np.ndarray, tolerance: Optional[float] = None) -> np.ndarray:
+        """Index of the core entity holding each point (-1 outside)."""
+        return self.celltree.locate_points(points, tolerance)
+
+    def intersect_edges(self, edges: np.ndarray):
+        """Segments (n, 2, 2) against the grid: (segment index, core
+        entity index, intersections)."""
+        return self.celltree.intersect_edges(edges)
+
+    def intersect_line(self, obj, start: Sequence[float], end: Sequence[float]):
+        """Cross-section of ``obj`` along the line from start to end."""
+        if len(start) != 2 or len(end) != 2:
+            raise ValueError("Start and end coordinate pairs must have length two")
+        return self._sel_line(obj, start, end)
+
+    def _sel_line(self, obj, start, end):
+        dim = self.core_dimension
+        edges = np.array([[start, end]])
+        _, index, xy = self.intersect_edges(edges)
+        coords, index = self._section_coordinates(edges, xy, dim, index, self.name)
+        return obj.isel({dim: index}).assign_coords(coords)
+
     def _sel_yline(self, obj, x: slice, y: np.ndarray):
-        raise NotImplementedError(
-            "selection along a line is not ported yet: it waits in ROADMAP.md queue 1 item 2"
-        )
+        xmin, _, xmax, _ = self.bounds
+        if y.size != 1:
+            raise ValueError("If x is a slice without steps, y should be a single value")
+        y = y[0]
+        return self._sel_line(obj, start=(numeric_bound(x.start, xmin), y), end=(numeric_bound(x.stop, xmax), y))
 
-    _sel_xline = _sel_yline
+    def _sel_xline(self, obj, x: np.ndarray, y: slice):
+        _, ymin, _, ymax = self.bounds
+        if x.size != 1:
+            raise ValueError("If y is a slice without steps, x should be a single value")
+        x = x[0]
+        return self._sel_line(obj, start=(x, numeric_bound(y.start, ymin)), end=(x, numeric_bound(y.stop, ymax)))
 
-    def sel_points(self, obj, x, y, method=None, out_of_bounds="warn", fill_value=np.nan, tolerance=None):
-        raise NotImplementedError(
-            "selection at points is not ported yet: it waits in ROADMAP.md queue 1 item 2"
+    def intersect_linestring(self, obj, linestring):
+        """Cross-section along a linestring: a shapely LineString, or its
+        (n, 2) vertices as an array (without shapely)."""
+        if isinstance(linestring, np.ndarray) or (
+            isinstance(linestring, (list, tuple)) and len(linestring) and not hasattr(linestring, "coords")
+        ):
+            xy = np.asarray(linestring, dtype=np.float64)
+            if xy.ndim != 2 or xy.shape[1] != 2:
+                raise ValueError(f"linestring array must have shape (n_vertex, 2); got {xy.shape}")
+        else:
+            import shapely
+
+            xy = shapely.get_coordinates([linestring])
+        return self.intersect_segments(obj, np.stack((xy[:-1], xy[1:]), axis=1))
+
+    def intersect_segments(self, obj, edges: np.ndarray):
+        """Cross-section along a polyline given as (n, 2, 2) segments; ``s``
+        is the distance along the polyline."""
+        edge_index, core_index, intersections = self.intersect_edges(edges)
+
+        edge_length = np.linalg.norm(edges[:, 1] - edges[:, 0], axis=1)
+        cumulative = np.concatenate([[0.0], np.cumsum(edge_length[:-1])])
+        if self.topology_dimension == 2:
+            xy = intersections.mean(axis=1)
+        else:
+            xy = intersections
+        distance = np.linalg.norm(xy - edges[edge_index, 0], axis=1)
+        s = distance + cumulative[edge_index]
+
+        dim = self.core_dimension
+        coords, core_index = get_sorted_section_coords(s, xy, dim, core_index, self.name)
+        return obj.isel({dim: core_index}).assign_coords(coords)
+
+    def sel_points(
+        self,
+        obj,
+        x,
+        y,
+        method: Optional[str] = None,
+        out_of_bounds: str = "warn",
+        fill_value=np.nan,
+        tolerance: Optional[float] = None,
+        device=None,
+    ):
+        """
+        Values of ``obj`` at points, along a new ``{name}_points``
+        dimension with ``{name}_x`` and ``{name}_y`` coordinates.  Data on
+        the core dimension takes the entity holding each point (the
+        nearest with ``method="nearest"``), data on the other dimensions
+        the nearest entity (searched on ``device``, see
+        ``locate_nearest_node``).  Points on no entity: ``out_of_bounds``
+        "warn" (and fill), "raise", "ignore" (fill silently) or "drop".
+        """
+        if method not in (None, "nearest"):
+            raise ValueError(f"method must be None or 'nearest', got: {method}")
+        options = ("warn", "raise", "ignore", "drop")
+        if out_of_bounds not in options:
+            raise ValueError(f"out_of_bounds must be one of {', '.join(options)}, received: {out_of_bounds}")
+
+        x = np.atleast_1d(np.asarray(x, dtype=float))
+        y = np.atleast_1d(np.asarray(y, dtype=float))
+        if x.shape != y.shape:
+            raise ValueError("shape of x does not match shape of y")
+        if x.ndim != 1:
+            raise ValueError("x and y must be 1d")
+        xy = np.column_stack([x, y])
+
+        point_dim = f"{self.name}_points"
+        core_indexer = self.locate_points(xy, tolerance)
+        keep = slice(None, None)
+        condition = None
+        valid = core_indexer != -1
+        if not valid.all():
+            msg = "Not all points are located on the topology."
+            if out_of_bounds == "raise":
+                raise ValueError(msg)
+            elif out_of_bounds == "warn":
+                warnings.warn(msg, UserWarning, stacklevel=2)
+                condition = xdata.DataArray(valid, dims=(point_dim,))
+            elif out_of_bounds == "ignore":
+                condition = xdata.DataArray(valid, dims=(point_dim,))
+            else:  # drop
+                core_indexer = core_indexer[valid]
+                keep = valid
+        xy_sel = xy[keep]
+
+        core_dim = self.core_dimension
+        other_dims = self.dims.intersection(obj.dims) - {core_dim}
+        facets = {v: k for k, v in self.facets.items()}
+        if core_dim in obj.dims:
+            if method == "nearest":
+                core_indexer = self._locate_nearest(facets[core_dim], xy_sel, device=device)
+            indexers = {core_dim: xdata.DataArray(core_indexer, dims=(point_dim,))}
+        else:
+            indexers = {}
+        for dim in other_dims:
+            indexer = self._locate_nearest(facets[dim], xy_sel, device=device)
+            indexers[dim] = xdata.DataArray(indexer, dims=(point_dim,))
+
+        selection = obj.isel(indexers).assign_coords(
+            {f"{self.name}_x": (point_dim, xy[keep, 0]), f"{self.name}_y": (point_dim, xy[keep, 1])}
         )
+        if condition is not None:
+            if isinstance(selection, xdata.Dataset):
+                out = selection.copy(deep=False)
+                for varname in list(out.data_vars):
+                    if point_dim in out._variables[varname].dims:
+                        out[varname] = out[varname].where(condition, other=fill_value)
+                selection = out
+            else:
+                selection = selection.where(condition, other=fill_value)
+        return selection
 
     def sel(self, obj, x=None, y=None):
         """
         Orthogonal selection in UGRID x and y.  Two slices select a box:
-        returns (the subset of ``obj``, the subset grid).  A slice and
-        values (a line) or values for both (points) are not ported.
+        returns (the subset of ``obj``, the subset grid).  A slice and a
+        value select along a line (``intersect_line``), values for both
+        the points of their outer product (``sel_points``): each returns
+        the selection of ``obj`` alone.
         """
         if x is None:
             x = slice(None, None)

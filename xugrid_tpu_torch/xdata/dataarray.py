@@ -22,6 +22,7 @@ from xugrid_tpu_torch.xdata.variable import (
     broadcast_variables,
     common_operands,
     is_tensor,
+    to_numpy,
 )
 
 
@@ -329,8 +330,12 @@ class DataArray:
             if missing_dims == "raise":
                 raise ValueError(f"dimensions {unknown} do not exist")
             indexers = {k: v for k, v in indexers.items() if k in self.dims}
-        if sum(isinstance(v, DataArray) and v.ndim >= 1 for v in indexers.values()) > 1:
-            raise NotImplementedError("pointwise indexing by several DataArray indexers")
+        da_idx = {k: v for k, v in indexers.items() if isinstance(v, DataArray) and v.ndim >= 1}
+        if len(da_idx) > 1:
+            # Several DataArray indexers select jointly (pointwise), as
+            # xarray's vectorized indexing does: not an outer product.
+            rest = {k: v for k, v in indexers.items() if k not in da_idx}
+            return self._isel_pointwise(da_idx, rest, drop)
         clean = {}
         renames = {}
         for k, v in indexers.items():
@@ -356,6 +361,46 @@ class DataArray:
                 if new in out._coords and out._coords[new].dims == (new,):
                     del out._coords[new]
         return out
+
+    def _isel_pointwise(self, da_idx, rest, drop):
+        """Joint indexing by several DataArray indexers: they broadcast
+        against each other by dimension name, and their dimensions take
+        the place of the indexed ones, first.  A tensor payload is
+        gathered on its device."""
+        out = self.isel(rest, drop=drop) if rest else self
+        axes_dims = list(da_idx)
+        bvars = broadcast_variables(*[v.variable for v in da_idx.values()])
+        idx_arrays = [to_numpy(b.data).astype(np.int64) for b in bvars]
+        new_idx_dims = bvars[0].dims
+        for d in new_idx_dims:
+            if d in out.dims and d not in axes_dims:
+                raise ValueError(f"pointwise indexer dim {d!r} collides with a remaining array dim")
+        data = out.data
+        axes = [out.dims.index(k) for k in axes_dims]
+        front = list(range(len(axes)))
+        if is_tensor(data):
+            key = tuple(torch.from_numpy(i).to(data.device) for i in idx_arrays)
+            result = torch.movedim(data, axes, front)[key]
+        else:
+            result = np.moveaxis(np.asarray(data), axes, front)[tuple(idx_arrays)]
+        rest_dims = tuple(d for d in out.dims if d not in axes_dims)
+        coords = {}
+        for name, cvar in out._coords.items():
+            hit = [d for d in cvar.dims if d in axes_dims]
+            if not hit:
+                coords[name] = cvar
+                continue
+            c_axes = [cvar.dims.index(d) for d in hit]
+            c_moved = np.moveaxis(to_numpy(cvar.data), c_axes, range(len(c_axes)))
+            c_idx = tuple(idx_arrays[axes_dims.index(d)] for d in hit)
+            c_rest = tuple(d for d in cvar.dims if d not in axes_dims)
+            coords[name] = Variable(new_idx_dims + c_rest, c_moved[c_idx])
+        # The indexers' own coordinates come along.
+        for v in da_idx.values():
+            for cname, cvar in v._coords.items():
+                if cname not in coords and set(cvar.dims) <= set(new_idx_dims):
+                    coords[cname] = cvar
+        return DataArray._construct(Variable(new_idx_dims + rest_dims, result, self.attrs), coords, self.name)
 
     def sel(self, indexers=None, method=None, tolerance=None, drop: bool = False, **kwargs) -> "DataArray":
         """Label selection on 1-D index coordinates; a dimension without
