@@ -167,6 +167,36 @@ With no argument it runs these phases:
    network ``sel_points`` onto its edges, ``intersect_line`` across it and
    ``interpolate_na`` of 10 % NaN node data by Dijkstra, bit-equal to
    scipy's ``dijkstra`` called directly.
+12. The topology operations at the 1M config, each result held to a host
+   computation written here from the arrays: ``triangulate()`` and
+   ``triangulation`` (the first-node fans, 2,000,000 triangles whose
+   areas sum to each face's within 1e-12 relative), ``exterior_edges``
+   and ``exterior_faces`` (the sides held by one face), ``perimeter``,
+   ``face_bounds``, ``edge_bounds``, ``face_node_coordinates``,
+   ``validate_edge_node_connectivity``; ``tesselate_centroidal_voronoi``
+   of the mesh and ``tesselate_circumcenter_voronoi`` of its
+   triangulation with the angle sort on the card, equal to the CPU's in
+   every array but rows of angle ties (same vertices, angles within
+   1e-12, areas within 1e-9 relative), then the mesh regridded onto the
+   centroidal dual by ``OverlapRegridder`` mean (window_reduce);
+   ``binary_dilation`` and ``binary_erosion`` (5 iterations, with and
+   without a mask, both border values) of the wet faces (phase 11's
+   patches dry) as a bool payload on the card, bit-equal to
+   scipy.ndimage step by step, the eroded faces taken with ``isel``,
+   their ``connected_components`` equal to scipy's and regridded by mode
+   onto the raster (window_select); ``reverse_cuthill_mckee`` with the
+   (time=20, face) payload, bit-equal to the payload in the new order,
+   regridded by mean (window_reduce) within the float32 summation bound
+   of phase 3's regrid; ``to_periodic`` of node, edge and face payloads
+   on the card (1,001 fewer nodes, 1,000 fewer edges), a Laplace fill of
+   the periodic nodes through the accessor (csr_matvec; phase 5's 2 %
+   known, every residual within 10 atol in scipy float64), and
+   ``to_nonperiodic`` back (the face payload bit-equal, node and edge
+   payloads bit-equal but at x = 1000, which carries the x = 0
+   survivor's); on phase 7's network ``is_cyclic`` against Kahn's
+   algorithm, ``topological_sort_by_dfs``, ``contract_vertices``,
+   ``refine_by_vertices`` and ``remove_self_loops``.  Prints the back-to-
+   back overlap mean pass in the original and the reordered face order.
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
@@ -2626,6 +2656,534 @@ def phase_queries(device, card, inputs):
     return counts, {"window_reduce": err}, timed
 
 
+MORPH_ITERATIONS, MASK_FRACTION = 5, 0.05
+
+
+def ring_pairs(faces):
+    """Each face's sides as sorted node pairs: (keys a * n + b with a < b
+    (n_face, n_side), the node count n)."""
+    n = int(faces.max()) + 1
+    a, b = faces, np.roll(faces, -1, axis=1)
+    return np.minimum(a, b) * n + np.maximum(a, b), n
+
+
+def shoelace(xy):
+    """Signed area of each polygon row (..., k, 2)."""
+    x, y = xy[..., 0], xy[..., 1]
+    return 0.5 * (x * np.roll(y, -1, axis=-1) - np.roll(x, -1, axis=-1) * y).sum(axis=-1)
+
+
+def tessellation_ties(label, card_grid, host_grid, nodes):
+    """Hold a tessellation whose angle sort ran on the card to the same
+    one sorted on the CPU: every array equal, but for rows where two
+    vertices lie on the same angle from the row's node (within 1e-12
+    rad) and the card's atan2 and numpy's order them apart.  Such a row
+    holds the same vertices, in swapped runs, with the same area within
+    1e-9 relative.  Returns the count of such rows."""
+    for name in ("node_x", "node_y"):
+        np.testing.assert_array_equal(getattr(card_grid, name), getattr(host_grid, name), err_msg=f"{label} {name}")
+    a, b = card_grid.face_node_connectivity, host_grid.face_node_connectivity
+    if a.shape != b.shape:
+        raise AssertionError(f"{label}: face_node_connectivity {a.shape} against {b.shape} sorted on the CPU")
+    rows = np.flatnonzero((a != b).any(axis=1))
+    xy = card_grid.node_coordinates
+    for r in rows:
+        ra, rb = a[r][a[r] >= 0], b[r][b[r] >= 0]
+        if r >= len(nodes) or not np.array_equal(np.sort(ra), np.sort(rb)):
+            raise AssertionError(f"{label}: row {r} differs in its vertices from the CPU's")
+        area_a, area_b = shoelace(xy[ra]), shoelace(xy[rb])
+        if abs(area_a - area_b) > 1e-9 * abs(area_b):
+            raise AssertionError(f"{label}: row {r} area {area_a!r} against {area_b!r}")
+        angle = np.arctan2(xy[ra, 1] - nodes[r, 1], xy[ra, 0] - nodes[r, 0])
+        differ = np.flatnonzero(ra != rb)
+        runs = np.split(differ, np.flatnonzero(np.diff(differ) > 1) + 1)
+        spread = max(np.ptp(angle[run]) for run in runs)
+        if spread > 1e-12:
+            raise AssertionError(f"{label}: row {r} ordered apart at angles {spread:.3e} rad apart")
+    return len(rows)
+
+
+def morphology_reference(start, value, iterations, mask, border_value):
+    """Independent reference of the accessor's binary dilation (``value``
+    True) or erosion on the structured face layout of phase 3's mesh,
+    (ny, nx) faces: scipy.ndimage one step at a time with the four-
+    neighbour cross (outside the mesh False for a dilation, True for an
+    erosion, so it takes no part), ``mask`` set to ``not value`` after
+    every step, the boundary faces set to ``value`` after the first step
+    where ``border_value`` equals ``value``."""
+    from scipy import ndimage
+
+    cross = ndimage.generate_binary_structure(2, 1)
+    border = np.zeros_like(start)
+    border[0, :] = border[-1, :] = border[:, 0] = border[:, -1] = True
+    out = start.copy()
+    for step in range(max(iterations, 1)):
+        if value:
+            out = ndimage.binary_dilation(out, cross)
+        else:
+            out = ndimage.binary_erosion(out, cross, border_value=1)
+        if mask is not None:
+            out[mask] = not value
+        if step == 0 and border_value == value:
+            out[border] = value
+    return out
+
+
+def edge_rows(xy):
+    """Each edge's end coordinates (n, 2, 2) as one row (x0, y0, x1, y1),
+    the lesser end (by x, then y) first: a key that ignores direction."""
+    a, b = xy[:, 0], xy[:, 1]
+    swap = ((a[:, 0] > b[:, 0]) | ((a[:, 0] == b[:, 0]) & (a[:, 1] > b[:, 1])))[:, None]
+    return np.concatenate([np.where(swap, b, a), np.where(swap, a, b)], axis=1)
+
+
+def kahn_is_cyclic(n, edges):
+    """Independent reference: whether a directed graph holds a cycle
+    (Kahn's algorithm: some vertex is never freed of incoming edges)."""
+    from collections import deque
+
+    order = np.argsort(edges[:, 0], kind="stable")
+    starts = np.searchsorted(edges[order, 0], np.arange(n + 1))
+    heads = edges[order, 1]
+    indegree = np.bincount(edges[:, 1], minlength=n)
+    queue = deque(np.flatnonzero(indegree == 0).tolist())
+    seen = 0
+    while queue:
+        v = queue.popleft()
+        seen += 1
+        for u in heads[starts[v]:starts[v + 1]].tolist():
+            indegree[u] -= 1
+            if indegree[u] == 0:
+                queue.append(u)
+    return seen < n
+
+
+def phase_topology(device, card, inputs, main_results):
+    """Phase 12: the topology operations at the 1M config, through
+    ``Ugrid2d``, ``Ugrid1d`` and the ``.ugrid`` accessors with payloads on
+    the card, and their results regridded and filled through the three
+    kernels: the centroidal dual as an overlap target (window_reduce),
+    the connected components of the eroded wet faces by mode
+    (window_select), the reordered faces by mean (window_reduce), the
+    periodic mesh's Laplace fill (csr_matvec).  Every result is held to a
+    host computation written here from the arrays.  Returns (launch
+    counts, largest |kernel - plain|)."""
+    import torch
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain, window_reduce
+    from xugrid_tpu_torch.regrid.apply import device_weights
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.ugrid import connectivity, interpolate
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    (verts, faces), (tverts, tfaces), mesh_data = inputs
+    t_phase = t0 = time.perf_counter()
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    target = xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)
+    n_edge = mesh.n_edge
+    print(
+        f"phase 12: topology operations on the 1M mesh ({mesh.n_face} faces, {mesh.n_node} nodes, {n_edge} edges "
+        f"derived in {time.perf_counter() - t0:.3f} s), then regrid and fill [{card}]"
+    )
+    rng = np.random.default_rng(12)
+    kernels = (window_reduce, window_select, csr_matvec)
+    for k in kernels:
+        k.launches = 0
+    max_err = {"window_reduce": 0.0, "window_select": 0.0, "csr_matvec": 0.0}
+    scale = float(np.nanmax(np.abs(mesh_data)))
+    face_dim, node_dim, edge_dim = mesh.face_dimension, mesh.node_dimension, mesh.edge_dimension
+
+    def timed_call(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # 12.1: triangulation, exterior edges and faces, derived geometry.
+    tri_grid, tri_s = timed_call(mesh.triangulate)
+    ((tri_x, tri_y, triangles), tri_face), triangulation_s = timed_call(lambda: mesh.triangulation)
+    fan = np.stack([faces[:, [0, 1, 2]], faces[:, [0, 2, 3]]], axis=1).reshape(-1, 3)
+    np.testing.assert_array_equal(tri_grid.face_node_connectivity, fan, err_msg="triangulate: not the fans")
+    np.testing.assert_array_equal(triangles, fan)
+    np.testing.assert_array_equal(tri_face, np.repeat(np.arange(len(faces)), 2))
+    if tri_x is not mesh.node_x or tri_y is not mesh.node_y or mesh.triangulation is not mesh.triangulation:
+        raise AssertionError("triangulation: not the grid's node arrays, or not cached")
+    face_area = np.abs(shoelace(verts[faces]))
+    tri_area = np.bincount(tri_face, weights=np.abs(shoelace(verts[triangles])), minlength=len(faces))
+    area_err = float(np.max(np.abs(tri_area - face_area) / face_area))
+    if area_err > 1e-12:
+        raise AssertionError(f"triangulate: triangle areas off their face's by {area_err:.3e} relative")
+    keys, n_key = ring_pairs(faces)
+    unique_keys, counts = np.unique(keys, return_counts=True)
+    exterior_keys = unique_keys[counts == 1]
+    exterior_edges, exterior_s = timed_call(lambda: mesh.exterior_edges)
+    exterior_faces = mesh.exterior_faces
+    got_keys = np.sort(mesh.edge_node_connectivity[exterior_edges], axis=1)
+    got_keys = np.sort(got_keys[:, 0] * n_key + got_keys[:, 1])
+    np.testing.assert_array_equal(got_keys, exterior_keys, err_msg="exterior_edges")
+    want_faces = np.flatnonzero(np.isin(keys, exterior_keys).any(axis=1))
+    np.testing.assert_array_equal(exterior_faces, want_faces, err_msg="exterior_faces")
+    if len(exterior_edges) != 4 * N_SIDE or len(exterior_faces) != 4 * N_SIDE - 4:
+        raise AssertionError(f"{len(exterior_edges)} exterior edges, {len(exterior_faces)} exterior faces")
+    ring = verts[np.concatenate([faces, faces[:, :1]], axis=1)]
+    perimeter_want = np.hypot(*np.diff(ring, axis=1).transpose(2, 0, 1)).sum(axis=1)
+    perimeter, perimeter_s = timed_call(lambda: mesh.perimeter)
+    np.testing.assert_allclose(perimeter, perimeter_want, rtol=1e-12, atol=0.0, err_msg="perimeter")
+    corners = verts[faces]
+    face_bounds, bounds_s = timed_call(lambda: mesh.face_bounds)
+    np.testing.assert_array_equal(face_bounds, np.column_stack([corners.min(axis=1), corners.max(axis=1)]))
+    edge_corners = verts[mesh.edge_node_connectivity]
+    np.testing.assert_array_equal(mesh.edge_bounds, np.column_stack([edge_corners.min(axis=1), edge_corners.max(axis=1)]))
+    np.testing.assert_array_equal(mesh.face_node_coordinates, corners)
+    valid, validate_s = timed_call(mesh.validate_edge_node_connectivity)
+    if not valid.all() or len(valid) != n_edge:
+        raise AssertionError(f"validate_edge_node_connectivity: {int((~valid).sum())} of {len(valid)} invalid")
+    shuffled = mesh.edge_node_connectivity[rng.permutation(n_edge)][:, ::-1]
+    duplicated = np.concatenate([shuffled, shuffled[:10]])
+    checked = connectivity.validate_edge_node_connectivity(faces, duplicated)
+    if not checked[:n_edge].all() or checked[n_edge:].any():
+        raise AssertionError("validate_edge_node_connectivity: the appended duplicates were not refused")
+    print(
+        f"  12.1 triangulate(): {tri_grid.n_face} triangles in {tri_s:.3f} s (triangulation {triangulation_s:.3f} s), "
+        f"the fans of the faces' first nodes, areas summing to each face's within {area_err:.3e} relative; "
+        f"exterior_edges {len(exterior_edges)} ({exterior_s:.3f} s), exterior_faces {len(exterior_faces)}, equal to "
+        f"the sides held by one face; perimeter ({perimeter_s:.3f} s) within rtol 1e-12, face_bounds "
+        f"({bounds_s:.3f} s), edge_bounds, face_node_coordinates equal; validate_edge_node_connectivity "
+        f"{validate_s:.3f} s, all {n_edge} valid, 10 appended duplicates refused [{card}]"
+    )
+
+    # 12.2: the centroidal and circumcenter tessellations with the angle
+    # sort on the card against the CPU's, then the mesh regridded onto the
+    # centroidal dual.
+    duals = {}
+    for label, grid, method in (
+        ("centroidal", mesh, "tesselate_centroidal_voronoi"),
+        ("circumcenter (of the triangulation)", tri_grid, "tesselate_circumcenter_voronoi"),
+    ):
+        # The grid's cached connectivity and centres first, so that both
+        # timed calls find them.
+        _, cache_s = timed_call(lambda: (
+            grid.node_face_connectivity, grid.edge_face_connectivity,
+            grid.centroids if grid is mesh else grid.circumcenters,
+        ))
+        sort_s = {}
+        for where in ("card", "cpu"):
+            timings.reset()
+            if where == "card":
+                on_card, card_s = timed_call(getattr(grid, method))
+            else:
+                on_host, host_s = timed_call(lambda: getattr(grid, method)(device="cpu"))
+            sort_s[where] = timings.summary()["voronoi.angle_sort"]["total_s"]
+        ties = tessellation_ties(label, on_card, on_host, grid.node_coordinates)
+        duals[label] = on_card
+        print(
+            f"  12.2 {method}: {on_card.n_face} cells, {on_card.n_node} vertices, {on_card.n_max_node_per_face} "
+            f"nodes at most; the grid's connectivity and centres {cache_s:.3f} s, then the tessellation "
+            f"{card_s:.3f} s with the angle sort on the card (the sort {sort_s['card']:.3f} s), "
+            f"{host_s:.3f} s on the CPU (the sort {sort_s['cpu']:.3f} s); equal in every array but {ties} rows of "
+            f"angle ties [{card}]"
+        )
+    dual = duals["centroidal"]
+    if dual.n_face != mesh.n_node:
+        raise AssertionError(f"centroidal dual: {dual.n_face} cells for {mesh.n_node} nodes")
+    source = torch.from_numpy(mesh_data).to(device)
+    uda = xt.UgridDataArray(xt.xdata.DataArray(source, dims=("time", face_dim), name="v"), mesh)
+    t0 = time.perf_counter()
+    regridder = xt.OverlapRegridder(mesh, dual, method="mean")
+    build_s = time.perf_counter() - t0
+    before = {k.__name__: k.launches for k in kernels}
+    out, first_s = timed_call(lambda: regridder.regrid(uda))
+    rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    if out.data.device != device or tuple(out.data.shape) != (N_EXTRA, dual.n_face):
+        raise AssertionError(f"regrid onto the dual: {tuple(out.data.shape)} on {out.data.device}")
+    err = check_apply(
+        "12.2 the mesh onto its centroidal dual (mean)", regridder, source, out.data, window_reduce, rose, scale,
+        lambda got, csr=regridder._weights: (got, reference_linear(csr, mesh_data, relative=False)),
+    )
+    max_err["window_reduce"] = max(max_err["window_reduce"], err)
+    print(f"       weights {build_s:.3f} s, first pass {first_s:.4f} s [{card}]")
+
+    # 12.3: dilate and erode the wet faces, take the eroded ones, label
+    # their components and regrid the labels by mode.
+    side = (N_SIDE, N_SIDE)
+    dry = nan_patches(mesh.centroids, FILL_FRACTION, rng)
+    wet = ~dry
+    mask = nan_patches(mesh.centroids, MASK_FRACTION, rng)
+    wet_uda = xt.UgridDataArray(
+        xt.xdata.DataArray(torch.from_numpy(wet).to(device), dims=(face_dim,), name="wet"), mesh
+    )
+    mask_tensor = torch.from_numpy(mask).to(device)
+    mask_uda = xt.UgridDataArray(xt.xdata.DataArray(mask_tensor, dims=(face_dim,)), mesh)
+    morphology = {}
+    for op, value in (("binary_dilation", True), ("binary_erosion", False)):
+        for masked in (False, True):
+            for border_value in (False, True):
+                given = None if not masked else (mask_tensor if value else mask_uda)
+                result, op_s = timed_call(lambda: getattr(wet_uda.ugrid, op)(
+                    iterations=MORPH_ITERATIONS, mask=given, border_value=border_value
+                ))
+                want = morphology_reference(
+                    wet.reshape(side), value, MORPH_ITERATIONS, mask.reshape(side) if masked else None, border_value
+                ).ravel()
+                if not isinstance(result, xt.UgridDataArray) or result.data.dtype != torch.bool:
+                    raise AssertionError(f"{op}: {type(result).__name__} {result.data.dtype}")
+                bit_equal(f"{op} mask={masked} border_value={border_value}", result.data, want, device)
+                morphology[(op, masked, border_value)] = result
+                print(
+                    f"  12.3 {op}(iterations={MORPH_ITERATIONS}, mask={'a ' + type(given).__name__ if masked else None}, "
+                    f"border_value={border_value}): {op_s:.3f} s; {int(want.sum())} True of {len(want)}, bit-equal to "
+                    f"scipy.ndimage step by step, a bool tensor on the card [{card}]"
+                )
+    eroded = morphology[("binary_erosion", False, False)]
+    keep = np.flatnonzero(eroded.data.cpu().numpy())
+    subset, subset_s = timed_call(lambda: eroded.isel({face_dim: keep}))
+    labels, labels_s = timed_call(lambda: subset.ugrid.connected_components())
+    if subset.ugrid.grid.n_face != len(keep) or labels.data.device != device:
+        raise AssertionError(f"subset {subset.ugrid.grid.n_face} faces, labels on {labels.data.device}")
+    kept = np.zeros(side, dtype=bool)
+    kept.ravel()[keep] = True
+    position = np.full(mesh.n_face, -1)
+    position[keep] = np.arange(len(keep))
+    grid_index = np.arange(mesh.n_face).reshape(side)
+    pairs = [
+        (grid_index[:, :-1][kept[:, :-1] & kept[:, 1:]], grid_index[:, 1:][kept[:, :-1] & kept[:, 1:]]),
+        (grid_index[:-1][kept[:-1] & kept[1:]], grid_index[1:][kept[:-1] & kept[1:]]),
+    ]
+    i = position[np.concatenate([p[0] for p in pairs])]
+    j = position[np.concatenate([p[1] for p in pairs])]
+    adjacency = coo_matrix((np.ones(len(i)), (i, j)), shape=(len(keep), len(keep))).tocsr()
+    n_components, want_labels = connected_components(adjacency, directed=False)
+    bit_equal("connected_components", labels.data, want_labels, device)
+    print(
+        f"  12.3 isel of the {len(keep)} eroded wet faces {subset_s:.3f} s; connected_components {labels_s:.3f} s: "
+        f"{n_components} components, equal to scipy's of the four-neighbour adjacency, on the card [{card}]"
+    )
+    label_source = labels.data.to(torch.float32)[None, :]
+    label_uda = xt.UgridDataArray(
+        xt.xdata.DataArray(label_source, dims=("time", subset.ugrid.grid.face_dimension), name="label"),
+        subset.ugrid.grid,
+    )
+    regridder = xt.OverlapRegridder(subset.ugrid.grid, target, method="mode")
+    before = {k.__name__: k.launches for k in kernels}
+    out, first_s = timed_call(lambda: regridder.regrid(label_uda))
+    rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    sample = np.sort(rng.choice(target.n_face, size=min(400, target.n_face), replace=False))
+    label_np = label_source.cpu().numpy()
+    err = check_apply(
+        "12.3 the component labels onto the raster (mode)", regridder, label_source, out.data, window_select, rose,
+        float(label_np.max()),
+        lambda got, csr=regridder._weights: (got[:, sample], reference_select(csr, label_np, sample, "mode")),
+    )
+    max_err["window_select"] = max(max_err["window_select"], err)
+
+    # 12.4: the faces in reverse Cuthill-McKee order, regridded.
+    reordered, rcm_s = timed_call(uda.ugrid.reverse_cuthill_mckee)
+    _, order = mesh.reverse_cuthill_mckee()
+    if not np.array_equal(np.sort(order), np.arange(mesh.n_face)):
+        raise AssertionError("reverse_cuthill_mckee: the order is not a permutation of the faces")
+    np.testing.assert_array_equal(reordered.ugrid.grid.face_node_connectivity, faces[order])
+    bit_equal("reverse_cuthill_mckee payload", reordered.data, mesh_data[:, order], device)
+    ff = mesh.face_face_connectivity.tocoo()
+    inverse = np.empty_like(order)
+    inverse[order] = np.arange(len(order))
+    bandwidth = (int(np.abs(ff.row - ff.col).max()), int(np.abs(inverse[ff.row] - inverse[ff.col]).max()))
+    rcm_regridder = xt.OverlapRegridder(reordered.ugrid.grid, target, method="mean")
+    before = {k.__name__: k.launches for k in kernels}
+    rcm_out, first_s = timed_call(lambda: rcm_regridder.regrid(reordered))
+    rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    rcm_source = reordered.data
+    err = check_apply(
+        "12.4 the reordered mesh onto the raster (mean)", rcm_regridder, rcm_source, rcm_out.data, window_reduce, rose,
+        scale, lambda got, csr=rcm_regridder._weights: (got, reference_linear(csr, mesh_data[:, order], relative=False)),
+    )
+    max_err["window_reduce"] = max(max_err["window_reduce"], err)
+    (_, _, _, mean_regridder, mean_out, *_), = (r for r in main_results if r[1] == "mean")
+    rtol, atol = tolerance(torch.float32, scale)
+    idx, w = device_weights(rcm_regridder._padded, torch.float32, device, rcm_regridder._device_weights)
+    bound = torch.clamp(summation_bound(rcm_source, idx, w, rcm_regridder._reduction), min=atol)
+    diff = compare(rcm_out.data, mean_out, False, rtol, bound)
+    # How far apart neighbouring raster cells read the source: the step
+    # between consecutive cells' lowest source faces.
+    steps = []
+    for csr in (mean_regridder._weights, rcm_regridder._weights):
+        starts = csr.indptr[np.flatnonzero(np.diff(csr.indptr) > 0)]
+        steps.append(np.median(np.abs(np.diff(np.minimum.reduceat(csr.indices, starts)))))
+    print(
+        f"  12.4 reverse_cuthill_mckee: {rcm_s:.3f} s, face adjacency bandwidth {bandwidth[0]} -> {bandwidth[1]}, "
+        f"median step between neighbouring raster cells' first source faces {steps[0]:.0f} -> {steps[1]:.0f}; "
+        f"payload bit-equal to "
+        f"payload[:, order] on the card; the regrid within rtol {rtol} and the float32 summation bound of phase "
+        f"3's in the original order, max |diff| {diff:.3e} [{card}]"
+    )
+
+    # 12.5: periodic, a Laplace fill across the seam, and back.
+    xmax = float(N_SIDE)
+    node_values = rng.normal(size=(2, mesh.n_node))
+    edge_values = rng.normal(size=n_edge)
+    ds = xt.xdata.Dataset()
+    ds["face_v"] = (("time", face_dim), source)
+    ds["node_v"] = (("layer", node_dim), torch.from_numpy(node_values).to(device))
+    ds["edge_v"] = ((edge_dim,), torch.from_numpy(edge_values).to(device))
+    uds = xt.UgridDataset(ds, [mesh])
+    periodic, periodic_s = timed_call(uds.ugrid.to_periodic)
+    pgrid = periodic.ugrid.grid
+    right = verts[:, 0] == xmax
+    edge_nodes = mesh.edge_node_connectivity
+    right_edges = right[edge_nodes].all(axis=1)
+    if pgrid.n_node != mesh.n_node - (N_SIDE + 1) or pgrid.n_edge != n_edge - N_SIDE:
+        raise AssertionError(f"to_periodic: {pgrid.n_node} nodes, {pgrid.n_edge} edges")
+    bit_equal("to_periodic face payload", periodic["face_v"].data, mesh_data, device)
+    bit_equal("to_periodic node payload", periodic["node_v"].data, node_values[:, ~right], device)
+    bit_equal("to_periodic edge payload", periodic["edge_v"].data, edge_values[~right_edges], device)
+    pkeys, pn = ring_pairs(pgrid.face_node_connectivity)
+    pkeys = np.unique(pkeys)
+    a, b = pkeys // pn, pkeys % pn
+    seam = int((np.abs(pgrid.node_x[a] - pgrid.node_x[b]) > 0.5 * xmax).sum())
+    W = coo_matrix(
+        (np.ones(2 * len(a)), (np.concatenate([a, b]), np.concatenate([b, a]))), shape=(pgrid.n_node,) * 2
+    ).tocsr()
+    truth, known = laplace_inputs(pgrid.node_coordinates)
+    fill_uda = xt.UgridDataArray(
+        xt.xdata.DataArray(torch.from_numpy(known).to(device), dims=(pgrid.node_dimension,), name="h"), pgrid
+    )
+    before = csr_matvec.launches
+    filled, fill_s = timed_call(lambda: fill_uda.ugrid.laplace_interpolate(xy_weights=False, **LAPLACE_SOLVE))
+    info = dict(interpolate.last_solve_info)
+    launches = csr_matvec.launches - before
+    if launches != 1 + (info["degree"] - 1) + info["iterations"] * info["degree"]:
+        raise AssertionError(f"periodic fill: {launches} csr_matvec launches for {info['iterations']} iterations")
+    if filled.data.device != device or not torch.isfinite(filled.data).all():
+        raise AssertionError("periodic fill: not finite, or not on the card")
+    residual = unknown_residuals(W, known[None, :], filled.data.cpu().numpy()[None, :])
+    if residual.max() > 10 * LAPLACE_SOLVE["atol"]:
+        raise AssertionError(f"periodic fill: host residual {residual.max():.3e} > 10 * atol")
+    prep = [v for k, v in interpolate._SYSTEMS.items() if k[0] == "laplace"][-1]
+    indptr, indices, data64 = (prep["system"][k] for k in ("indptr", "indices", "data"))
+    x = torch.from_numpy(rng.normal(size=(indptr.numel() - 1, 1))).to(device)
+    path_launches = csr_matvec.launches  # the comparison's launch is no launch of the path
+    max_err["csr_matvec"] = compare(
+        csr_matvec(indptr, indices, data64, x), csr_matvec_plain(indptr, indices, data64, x), True, 0.0, 0.0
+    )
+    csr_matvec.launches = path_launches
+    back, back_s = timed_call(lambda: periodic.ugrid.to_nonperiodic(xmax=xmax))
+    bgrid = back.ugrid.grid
+    if bgrid.n_node != mesh.n_node or bgrid.n_edge != n_edge:
+        raise AssertionError(f"to_nonperiodic: {bgrid.n_node} nodes, {bgrid.n_edge} edges")
+    node_match = connectivity.index_like(bgrid.node_coordinates, verts)
+    bit_equal("to_nonperiodic face payload", back["face_v"].data, mesh_data, device)
+    left_ids = np.flatnonzero(verts[:, 0] == 0.0)
+    right_ids = np.flatnonzero(right)
+    partner = np.arange(mesh.n_node)
+    partner[right_ids[np.argsort(verts[right_ids, 1])]] = left_ids[np.argsort(verts[left_ids, 1])]
+    back_nodes = back["node_v"].data[:, torch.from_numpy(node_match).to(device)]
+    bit_equal("to_nonperiodic node payload", back_nodes, node_values[:, partner], device)
+    edge_match = connectivity.index_like(
+        edge_rows(bgrid.node_coordinates[bgrid.edge_node_connectivity]), edge_rows(verts[edge_nodes])
+    )
+    edge_partner = np.arange(n_edge)
+    left_edges = (verts[edge_nodes, 0] == 0.0).all(axis=1)
+    lo = np.flatnonzero(left_edges)[np.argsort(verts[edge_nodes[left_edges]][:, :, 1].min(axis=1))]
+    hi = np.flatnonzero(right_edges)[np.argsort(verts[edge_nodes[right_edges]][:, :, 1].min(axis=1))]
+    edge_partner[hi] = lo
+    back_edges = back["edge_v"].data[torch.from_numpy(edge_match).to(device)]
+    bit_equal("to_nonperiodic edge payload", back_edges, edge_values[edge_partner], device)
+    print(
+        f"  12.5 to_periodic: {periodic_s:.3f} s, {pgrid.n_node} nodes ({N_SIDE + 1} fewer), {pgrid.n_edge} edges "
+        f"({N_SIDE} fewer), node, edge and face payloads bit-equal to the survivors' on the card; Laplace fill of "
+        f"the periodic nodes ({int(np.isnan(known).sum())} unknown, {seam} seam sides): {fill_s:.3f} s, "
+        f"{info['iterations']} iterations, csr_matvec +{launches}, host residual max {residual.max():.3e} (scipy, "
+        f"float64); to_nonperiodic(xmax={xmax}): {back_s:.3f} s, node coordinates restored as a set, the face "
+        f"payload bit-equal to the original, node and edge payloads bit-equal to it but at x = {xmax}, which "
+        f"carries the x = 0 survivor's [{card}]"
+    )
+
+    # 12.6: phase 7's network: order, cycles, contraction, refinement.
+    network, _ = phase7_network()
+    net_edges = network.edge_node_connectivity
+    line_nodes = NETWORK_SEGMENTS + 1
+    firsts = np.arange(NETWORK_LINES) * line_nodes
+    loops = np.column_stack([firsts + NETWORK_SEGMENTS, firsts])
+    xy = network.node_coordinates
+    cases = [("the network", xy, net_edges), ("the network, each line closed", xy, np.concatenate([net_edges, loops]))]
+    for k in range(3):
+        line = net_edges[k * NETWORK_SEGMENTS:(k + 1) * NETWORK_SEGMENTS] - k * line_nodes
+        line_xy = xy[k * line_nodes:(k + 1) * line_nodes]
+        cases += [(f"line {k}", line_xy, line),
+                  (f"line {k} closed", line_xy, np.concatenate([line, [[NETWORK_SEGMENTS, 0]]]))]
+    for label, node_xy, edges in cases:
+        n = len(node_xy)
+        net = xt.Ugrid1d(node_xy[:, 0], node_xy[:, 1], -1, edges)
+        cyclic, cyclic_s = timed_call(lambda: net.is_cyclic)
+        if cyclic != kahn_is_cyclic(n, edges) or cyclic != label.endswith("closed"):
+            raise AssertionError(f"is_cyclic of {label}: {cyclic}")
+        if cyclic:
+            try:
+                net.topological_sort_by_dfs()
+                raise AssertionError(f"topological_sort_by_dfs of {label} did not raise")
+            except ValueError as e:
+                if str(e) != "The graph contains at least one cycle":
+                    raise
+        else:
+            order = net.topological_sort_by_dfs()
+            position = np.empty(n, dtype=np.int64)
+            position[order] = np.arange(n)
+            if not (position[edges[:, 0]] < position[edges[:, 1]]).all():
+                raise AssertionError(f"topological_sort_by_dfs of {label}: an edge points backward")
+        print(f"  12.6 {label}: is_cyclic {cyclic} in {cyclic_s:.4f} s, as Kahn's algorithm finds; "
+              f"{'the sort raises the cycle error' if cyclic else 'every edge forward in the order'} [{card}]")
+    kept_nodes = (firsts[:, None] + np.arange(0, line_nodes, 10)[None, :]).ravel()
+    contracted, contract_s = timed_call(lambda: network.contract_vertices(kept_nodes))
+    np.testing.assert_array_equal(contracted.node_coordinates, network.node_coordinates[kept_nodes])
+    consecutive = np.column_stack([kept_nodes.reshape(NETWORK_LINES, -1)[:, :-1].ravel(),
+                                   kept_nodes.reshape(NETWORK_LINES, -1)[:, 1:].ravel()])
+    joined = kept_nodes[contracted.edge_node_connectivity]
+    np.testing.assert_array_equal(joined[np.argsort(joined[:, 0], kind="stable")], consecutive)
+    n_refine = min(1000, network.n_edge // 2)
+    chosen = np.sort(rng.choice(network.n_edge, size=n_refine, replace=False))
+    p, q = (network.node_coordinates[net_edges[chosen, k]] for k in (0, 1))
+    vertices = 0.7 * p + 0.3 * q
+    refined, refine_s = timed_call(lambda: network.refine_by_vertices(vertices))
+    np.testing.assert_array_equal(refined.node_coordinates[network.n_node:], vertices)
+    np.testing.assert_array_equal(refined.node_coordinates[:network.n_node], network.node_coordinates)
+    degree = np.bincount(refined.edge_node_connectivity.ravel(), minlength=refined.n_node)
+    if refined.n_edge != network.n_edge + n_refine or (degree[network.n_node:] != 2).any():
+        raise AssertionError(f"refine_by_vertices: {refined.n_edge} edges")
+    self_loops = rng.choice(network.n_node, size=100, replace=False)
+    looped = xt.Ugrid1d(network.node_x, network.node_y, -1,
+                        np.concatenate([net_edges, np.column_stack([self_loops, self_loops])]))
+    cleaned, clean_s = timed_call(looped.remove_self_loops)
+    np.testing.assert_array_equal(cleaned.edge_node_connectivity, net_edges)
+    np.testing.assert_array_equal(cleaned.node_coordinates, network.node_coordinates)
+    print(
+        f"  12.6 contract_vertices onto {len(kept_nodes)} nodes {contract_s:.4f} s: exactly those, each joined to "
+        f"the next on its line; refine_by_vertices of {n_refine} vertices {refine_s:.4f} s: exactly those added, each "
+        f"splitting its edge; remove_self_loops of 100 added loops {clean_s:.4f} s: the network back [{card}]"
+    )
+
+    counts = {k.__name__: k.launches for k in kernels}
+    if counts["window_reduce"] != 2 or counts["window_select"] != 1 or counts["csr_matvec"] != launches:
+        raise AssertionError(f"phase 12 launched {counts}")
+    checks_s = time.perf_counter() - t_phase
+    # 12.4's passes back to back, the original and the reordered face
+    # order in turns.
+    passes = {"original": [], "reordered": []}
+    for which in ("original", "reordered", "reordered", "original"):
+        if which == "original":
+            passes[which].append(cuda_time_ms(lambda: mean_regridder.regrid(source)))
+        else:
+            passes[which].append(cuda_time_ms(lambda: rcm_regridder.regrid(rcm_source)))
+    print(
+        f"  12.4 overlap mean pass back to back, two runs each in turns: original face order "
+        f"{passes['original'][0]:.6f} / {passes['original'][1]:.6f} ms, reverse Cuthill-McKee order "
+        f"{passes['reordered'][0]:.6f} / {passes['reordered'][1]:.6f} ms [{card}]"
+    )
+    print(f"phase 12: {checks_s:.1f} s to the launch counts, {time.perf_counter() - t_phase:.1f} s in all [{card}]")
+    return counts, max_err
+
+
 def main() -> int:
     import torch
 
@@ -2656,6 +3214,7 @@ def main() -> int:
     files_counts, files_err = phase_files(device, card, inputs, timed)
     partition_counts, partition_err = phase_partitions(device, card, inputs, results)
     query_counts, query_err, _ = phase_queries(device, card, inputs)
+    topology_counts, topology_err = phase_topology(device, card, inputs, results)
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
@@ -2667,13 +3226,14 @@ def main() -> int:
             "UGRID files and stored weights (phase 9)": files_counts[name],
             "merge_partitions then regrid (phase 10)": partition_counts[name],
             "queries and the nearest fill, then regrid (phase 11)": query_counts[name],
+            "topology operations, then regrid and fill (phase 12)": topology_counts[name],
         }
         return {
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(
                 check_err[name], main_err[name], regrid_err[name], labelled_err[name], files_err[name],
-                partition_err[name], query_err.get(name, 0.0),
+                partition_err[name], query_err.get(name, 0.0), topology_err[name],
             ),
             **timed_at,
         }
@@ -2681,6 +3241,7 @@ def main() -> int:
     matvec_by_path = {
         "Laplace fill (phase 5)": laplace_counts["csr_matvec"],
         "labelled arrays and structured grids (phase 8)": labelled_counts["csr_matvec"],
+        "topology operations, then regrid and fill (phase 12)": topology_counts["csr_matvec"],
     }
 
     kernels = [
@@ -2709,7 +3270,9 @@ def main() -> int:
             "launches": sum(matvec_by_path.values()),
             "launches_by_path": matvec_by_path,
             **main_matvec,
-            "max_abs_err": max(check_err["csr_matvec"], *(t["max_abs_err"] for t in matvec_timed.values())),
+            "max_abs_err": max(
+                check_err["csr_matvec"], topology_err["csr_matvec"], *(t["max_abs_err"] for t in matvec_timed.values())
+            ),
         },
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

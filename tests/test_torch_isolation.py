@@ -10,7 +10,9 @@ a UgridDataArray partitioned, merged with ``merge_partitions`` and
 regridded, and the queries (the nearest scan forced on the CPU, the
 KDTree lookups, ``sel_points``, the line selections, ``rasterize``,
 ``to_node``, ``reindex_like``, ``interpolate_na`` on a mesh and along a
-network's edge index) load neither jax nor xugrid_tpu, and launch no
+network's edge index), and the topology operations (erosion, components,
+reordering, the periodic conversion, triangulation, a tessellation, a
+network's cycle test) load neither jax nor xugrid_tpu, and launch no
 kernel.
 A subprocess is needed because the test session itself imports jax.
 
@@ -130,6 +132,12 @@ REGRID_ON_CPU = textwrap.dedent(
                               dims=(source.face_dimension,)), source)
     assert np.isfinite(gappy.ugrid.interpolate_na().values).all()
     assert network.locate_points([[3.25, 3.75]])[0] == 0
+    wet = xt.UgridDataArray(xt.xdata.DataArray(torch.from_numpy(np.arange(source.n_face) % 4 > 0),
+                            dims=(source.face_dimension,)), source)
+    assert wet.ugrid.binary_erosion(border_value=True).ugrid.connected_components().data.dtype == torch.int32
+    assert uda.ugrid.reverse_cuthill_mckee().ugrid.to_periodic().ugrid.grid.n_face == source.n_face
+    assert source.triangulate().tesselate_circumcenter_voronoi(device="cpu").n_face == source.n_node
+    assert not network.is_cyclic
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "xugrid_tpu" or m.startswith("xugrid_tpu."))
     assert not loaded, loaded

@@ -455,3 +455,40 @@ def test_nearest_scan_on_the_card(device):
                             grid)
     assert uda.ugrid.interpolate_na().data.device == device
     assert uda.ugrid.sel_points(x=[1.5, 7.2], y=[3.3, 9.1]).data.device == device
+
+
+def test_topology_operations_keep_a_cuda_payload(device):
+    """The topology operations of the accessor on a CUDA payload: each
+    result on the card and equal to the same call on the CPU; the
+    tessellation sorted on the card equal to the one sorted on the CPU."""
+    rng = np.random.default_rng(8)
+    (verts, faces), _ = chip_smoke.bench_meshes(100, 2, rng)
+    grid = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    grid.edge_node_connectivity
+    wet = rng.random(grid.n_face) < 0.7
+    mask = rng.random(grid.n_face) < 0.1
+    values = rng.normal(size=(3, grid.n_face))
+    results = {}
+    for where in (device, torch.device("cpu")):
+        wet_uda = xt.UgridDataArray(
+            xt.xdata.DataArray(torch.from_numpy(wet).to(where), dims=(grid.face_dimension,)), grid
+        )
+        uda = xt.UgridDataArray(
+            xt.xdata.DataArray(torch.from_numpy(values).to(where), dims=("t", grid.face_dimension)), grid
+        )
+        periodic = uda.ugrid.to_periodic()
+        results[where.type] = [
+            wet_uda.ugrid.binary_dilation(iterations=3, mask=torch.from_numpy(mask).to(where), border_value=True),
+            wet_uda.ugrid.binary_erosion(iterations=3),
+            wet_uda.ugrid.connected_components(),
+            uda.ugrid.reverse_cuthill_mckee(),
+            periodic,
+            periodic.ugrid.to_nonperiodic(xmax=100.0),
+        ]
+    for on_card, on_host in zip(results["cuda"], results["cpu"]):
+        assert on_card.data.device == device
+        assert torch.equal(on_card.data.cpu(), on_host.data)
+    card = grid.tesselate_centroidal_voronoi(device=device)
+    host = grid.tesselate_centroidal_voronoi(device="cpu")
+    np.testing.assert_array_equal(card.face_node_connectivity, host.face_node_connectivity)
+    np.testing.assert_array_equal(card.node_x, host.node_x)

@@ -2,7 +2,9 @@
 The ``.ugrid`` accessor of a UgridDataArray: its topology, renaming,
 coordinate assignment, the conversion to a UGRID dataset and file, box,
 line and point selections, rasterization, the remaps between facets,
-reindexing, partitions, and the nearest and Laplace fills.  The port of
+reindexing, partitions, the periodic conversion, the binary morphology
+of face masks, connected components, the face reordering, and the
+nearest and Laplace fills.  The port of
 ``xugrid_tpu/core/dataarray_accessor.py`` reduced to these; the rest of
 the accessor is not ported.  A tensor payload stays on its device.
 """
@@ -18,7 +20,8 @@ import torch
 from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.core.accessorbase import AbstractUgridAccessor, payload_device, where_nan
 from xugrid_tpu_torch.utils.profiling import timed
-from xugrid_tpu_torch.xdata.variable import is_tensor
+from xugrid_tpu_torch.ugrid import connectivity
+from xugrid_tpu_torch.xdata.variable import is_tensor, to_numpy
 
 
 class UgridDataArrayAccessor(AbstractUgridAccessor):
@@ -87,6 +90,11 @@ class UgridDataArrayAccessor(AbstractUgridAccessor):
             raise TypeError("Cannot set face coords from a Ugrid1D topology")
         return UgridDataArray(self.grid.assign_face_coords(self.obj), self.grid)
 
+    def set_node_coords(self, node_x: str, node_y: str):
+        """Use the coordinates ``node_x`` and ``node_y`` of the array as the
+        grid's node coordinates."""
+        self.grid.set_node_coords(node_x, node_y, self.obj)
+
     def sel(self, x=None, y=None):
         """Selection in UGRID x and y: a box (two slices) gives a
         UgridDataArray; a line (a slice and a value) or points (values)
@@ -115,6 +123,22 @@ class UgridDataArrayAccessor(AbstractUgridAccessor):
         """The face data sampled at the x and y coordinates of ``other``."""
         x, y, index = self.grid.rasterize_like(x=np.asarray(other["x"].values), y=np.asarray(other["y"].values))
         return self._raster(x, y, index)
+
+    def to_periodic(self):
+        """The array on the periodic grid (``Ugrid2d.to_periodic``), its
+        payload aligned on its device."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        grid, obj = self.grid.to_periodic(obj=self.obj)
+        return UgridDataArray(obj, grid)
+
+    def to_nonperiodic(self, xmax: float):
+        """The array on the grid split at its periodic boundary, the new
+        nodes at x = ``xmax`` (``Ugrid2d.to_nonperiodic``)."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        grid, obj = self.grid.to_nonperiodic(xmax=xmax, obj=self.obj)
+        return UgridDataArray(obj, grid)
 
     def intersect_line(self, start: Sequence[float], end: Sequence[float]):
         """The values along the line from start to end, with the distance
@@ -220,6 +244,63 @@ class UgridDataArrayAccessor(AbstractUgridAccessor):
             kwargs={"ugrid_dim": ugrid_dim, "max_distance": max_distance},
         )
         return UgridDataArray(filled, grid)
+
+    def _binary_iterate(self, iterations, mask, value, border_value):
+        """The bool face payload dilated (``value`` True) or eroded along
+        the face adjacency: scipy on the host (a tensor payload and mask
+        copied there explicitly), the result on the payload's device."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        if border_value == value:
+            exterior = self.grid.exterior_faces
+        else:
+            exterior = None
+        if mask is not None:
+            mask = to_numpy(mask.data if hasattr(mask, "data") else mask)
+        obj = self.obj
+        if not isinstance(obj, xdata.DataArray):
+            raise ValueError("object should be an xdata.DataArray")
+        output = connectivity._binary_iterate(
+            self.grid.face_face_connectivity, to_numpy(obj.data), value, iterations, mask, exterior, border_value
+        )
+        if is_tensor(obj.data):
+            output = torch.from_numpy(output).to(obj.data.device)
+        da = xdata.DataArray(output, dims=obj.dims, name=obj.name, attrs=dict(obj.attrs))
+        da._coords.update(obj._coords)
+        return UgridDataArray(da, self.grid.copy())
+
+    def binary_dilation(self, iterations: int = 1, mask=None, border_value=False):
+        """True faces grown by ``iterations`` steps along the face
+        adjacency; ``mask`` faces forced False after every step, the
+        exterior faces set True after the first where ``border_value``."""
+        return self._binary_iterate(iterations, mask, True, border_value)
+
+    def binary_erosion(self, iterations: int = 1, mask=None, border_value=False):
+        """True faces shrunk by ``iterations`` steps along the face
+        adjacency; ``mask`` faces forced True after every step, the
+        exterior faces set False after the first unless ``border_value``."""
+        return self._binary_iterate(iterations, mask, False, border_value)
+
+    def connected_components(self):
+        """The label of each face's connected component of the face
+        adjacency (scipy), on the payload's device."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        _, labels = scipy.sparse.csgraph.connected_components(self.grid.face_face_connectivity)
+        device = payload_device(self.obj)
+        if device is not None:
+            labels = torch.from_numpy(labels).to(device)
+        return UgridDataArray(xdata.DataArray(labels, dims=(self.grid.face_dimension,)), self.grid)
+
+    def reverse_cuthill_mckee(self):
+        """The array on the grid with its faces in reverse Cuthill-McKee
+        order (``Ugrid2d.reverse_cuthill_mckee``), its payload reordered
+        on its device."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        grid = self.grid
+        reordered_grid, reordering = grid.reverse_cuthill_mckee()
+        return UgridDataArray(self.obj.isel({grid.face_dimension: reordering}), reordered_grid)
 
     def label_partitions(self, n_part: int):
         """Partition labels of the grid with this array's integer values

@@ -1,7 +1,8 @@
 """
 The ``.ugrid`` accessor of a UgridDataset: its topologies, renaming,
 coordinate assignment, the conversion to a UGRID dataset, box, line and
-point selections, rasterization, reindexing and partitions.  The port
+point selections, rasterization, the periodic conversion, reindexing
+and partitions.  The port
 of ``xugrid_tpu/core/dataset_accessor.py`` reduced to these; the rest of
 the accessor is not ported.
 """
@@ -153,6 +154,26 @@ class UgridDatasetAccessor(AbstractUgridAccessor):
 
     def _raster_dataset(self, grid, x, y, index):
         return raster(self.obj, grid, x, y, index)
+
+    def to_periodic(self) -> UgridDataset:
+        """The dataset on every grid made periodic, its payloads aligned
+        on their devices."""
+        obj = self.obj
+        new_grids = []
+        for grid in self.grids:
+            new_grid, obj = grid.to_periodic(obj=obj)
+            new_grids.append(new_grid)
+        return UgridDataset(obj, new_grids)
+
+    def to_nonperiodic(self, xmax: float) -> UgridDataset:
+        """The dataset on every grid split at its periodic boundary, the
+        new nodes at x = ``xmax``."""
+        obj = self.obj
+        new_grids = []
+        for grid in self.grids:
+            new_grid, obj = grid.to_nonperiodic(xmax=xmax, obj=obj)
+            new_grids.append(new_grid)
+        return UgridDataset(obj, new_grids)
 
     def intersect_line(self, start: Sequence[float], end: Sequence[float]):
         """The values along the line from start to end, for every topology."""

@@ -2,8 +2,9 @@
 Ugrid1d: topology of a 1D network (connected line elements, such as a
 river or channel network), reduced to what ``NetworkGridder``, the
 UGRID file round trip, the topology subsets, the partition merge, the
-point and line selections and the nearest fill (Dijkstra along the
-network) read.
+point and line selections, the nearest fill (Dijkstra along the
+network) and the graph edits (topological order, self-loops, vertex
+contraction, refinement) read.
 """
 
 from __future__ import annotations
@@ -21,6 +22,14 @@ from xugrid_tpu_torch.ugrid import connectivity, conventions
 from xugrid_tpu_torch.ugrid.selection_utils import section_coordinates_1d
 from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, _strip_dim_coords, as_pandas_index
 from xugrid_tpu_torch.utils.profiling import timed
+
+
+def _alt_cumsum(a: np.ndarray) -> np.ndarray:
+    """Exclusive cumulative sum: [0, a0, a0 + a1, ...]."""
+    out = np.empty_like(a)
+    out[0] = 0
+    np.cumsum(a[:-1], out=out[1:])
+    return out
 
 
 class Ugrid1d(AbstractUgrid):
@@ -205,6 +214,121 @@ class Ugrid1d(AbstractUgrid):
     @staticmethod
     def _section_coordinates(edges, xy, dim, index, name):
         return section_coordinates_1d(edges, xy, dim, index, name)
+
+    # -- graph edits ---------------------------------------------------------------
+    @property
+    def is_cyclic(self) -> bool:
+        """Whether the directed node graph (first node to second) holds a
+        cycle."""
+        try:
+            self.topological_sort_by_dfs()
+            return False
+        except ValueError as e:
+            if "cycle" in str(e):
+                return True
+            raise
+
+    def topological_sort_by_dfs(self) -> np.ndarray:
+        """The nodes in topological order; raises ValueError on a cycle."""
+        return connectivity.topological_sort_by_dfs(self.directed_node_node_connectivity)
+
+    def remove_self_loops(self) -> "Ugrid1d":
+        """The network without the edges from a node to itself (and the
+        nodes no other edge uses)."""
+        a, b = self.edge_node_connectivity.T
+        edge_subset = self.edge_node_connectivity[a != b]
+        valid = np.bincount(edge_subset.ravel(), minlength=self.n_node) > 0
+        return Ugrid1d(
+            node_x=self.node_x[valid],
+            node_y=self.node_y[valid],
+            fill_value=self.fill_value,
+            edge_node_connectivity=connectivity.renumber(edge_subset),
+            name=self.name,
+            indexes=self._indexes,
+            is_projected=self.is_projected,
+            crs=self.crs,
+            attrs=self._attrs,
+        )
+
+    def contract_vertices(self, indices: np.ndarray) -> "Ugrid1d":
+        """The network simplified to the vertices ``indices``, each joined
+        to the next ones it reaches downstream."""
+        edges = connectivity.contract_vertices(self.directed_node_node_connectivity, indices)
+        node_index = np.unique(edges.ravel())
+        return Ugrid1d(
+            node_x=self.node_x[node_index],
+            node_y=self.node_y[node_index],
+            fill_value=self.fill_value,
+            edge_node_connectivity=connectivity.renumber(edges),
+            name=self.name,
+            indexes=self._indexes,
+            is_projected=self.is_projected,
+            crs=self.crs,
+            attrs=self._attrs,
+        )
+
+    def refine_by_vertices(self, vertices: np.ndarray, return_index: bool = False, tolerance: Optional[float] = None):
+        """
+        The network with ``vertices`` (which must lie on its edges)
+        inserted as nodes, each edge split at the vertices on it, in
+        order along it; vertices that are already nodes are skipped.
+        ``return_index`` also returns the new nodes' indices.
+        """
+        vertices = np.atleast_2d(np.asarray(vertices, dtype=float))
+        edge_index = self.celltree.locate_points(vertices, tolerance)
+        invalid = edge_index == -1
+        if invalid.any():
+            raise ValueError(f"The following vertices are not located on any edge:\n{vertices[invalid]}")
+
+        # Drop the vertices that already exist as nodes.
+        node_xy = self.node_coordinates
+        combined = np.concatenate((node_xy, vertices))
+        _, index, inverse = np.unique(combined, return_index=True, return_inverse=True, axis=0)
+        index_to_vertices = index[inverse.ravel()][self.n_node :]
+        not_duplicated = index_to_vertices >= self.n_node
+        new_vertices = vertices[not_duplicated]
+        edge_index = edge_index[not_duplicated]
+
+        first_node = self.edge_node_connectivity[edge_index, 0]
+        distance = np.linalg.norm(new_vertices - node_xy[first_node], axis=1)
+        repeats = np.bincount(np.concatenate((np.arange(self.n_edge), edge_index)))
+        new_edges = np.repeat(self.edge_node_connectivity, repeats, axis=0)
+        order = np.lexsort((distance, edge_index))
+        node_index = np.arange(self.n_node, self.n_node + len(edge_index))[order]
+
+        # Splice: of the sub-edges of a split edge, all but the last end
+        # at a new node, and all but the first start at one.
+        i = np.arange(len(new_edges))
+        mask0 = np.repeat(_alt_cumsum(repeats), repeats)
+        mask1 = np.repeat(np.cumsum(repeats), repeats) - 1
+        new_edges[i > mask0, 0] = node_index
+        new_edges[i < mask1, 1] = node_index
+
+        grid = Ugrid1d(
+            np.concatenate((self.node_x, new_vertices[:, 0])),
+            np.concatenate((self.node_y, new_vertices[:, 1])),
+            self.fill_value,
+            new_edges,
+            name=self.name,
+            is_projected=self.is_projected,
+            crs=self.crs,
+        )
+        self._propagate_properties(grid)
+        if return_index:
+            return grid, node_index
+        return grid
+
+    def to_periodic(self, obj=None):
+        """A network is left as it is (for the accessors' symmetry)."""
+        if obj is not None:
+            return self, obj
+        return self
+
+    def to_nonperiodic(self, xmax, obj=None):
+        """A network is left as it is (for the accessors' symmetry)."""
+        if obj is not None:
+            return self, obj
+        return self
 
     # -- subsets -------------------------------------------------------------------
     def isel(self, indexers=None, return_index: bool = False, **indexers_kwargs):

@@ -2,13 +2,16 @@
 Ugrid2d: topology of a 2D unstructured mesh (UGRID conventions),
 reduced to what the regridders, the Laplace and nearest fills, the
 UGRID file round trip, the topology subsets, the partition merge, the
-point and line selections and rasterization read.
+point and line selections, rasterization and the topology operations
+(triangulation, voronoi tessellations, periodic conversion, reordering)
+read.
 
 The canonical storage is a padded dense int64 ``face_node_connectivity``
 (fill -1, 0-based) plus float64 node x/y; the fill value and start index
 of the file it came from are kept and restored on writing.  Face areas,
-centroids, the derived connectivities, the spatial index and the
-KDTrees are computed on first use and cached.
+perimeters, centroids, circumcenters, the derived connectivities, the
+triangulations, the voronoi topology, the spatial index and the KDTrees
+are computed on first use and cached.
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import pandas as pd
 from scipy.sparse import coo_matrix, csr_matrix
+from scipy.sparse.csgraph import reverse_cuthill_mckee
 
 from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.constants import FILL_VALUE, FloatDType, IntDType
 from xugrid_tpu_torch.ugrid import connectivity, conventions
 from xugrid_tpu_torch.ugrid.selection_utils import section_coordinates_2d
 from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, _strip_dim_coords, as_pandas_index, numeric_bound
+from xugrid_tpu_torch.utils.device import resolve_device
 from xugrid_tpu_torch.utils.profiling import timed
 
 
@@ -120,13 +125,18 @@ class Ugrid2d(AbstractUgrid):
     def _clear_geometry_properties(self):
         """Drop the cached geometry (after the node coordinates change)."""
         self._area = None
+        self._perimeter = None
         self._centroids = None
+        self._circumcenters = None
         self._celltree = None
         self._node_kdtree = None
         self._edge_kdtree = None
         self._face_kdtree = None
         self._edge_x = None
         self._edge_y = None
+        self._triangulation = None
+        self._voronoi_topology = None
+        self._centroid_triangulation = None
 
     # -- UGRID datasets ----------------------------------------------------------
     @classmethod
@@ -476,6 +486,10 @@ class Ugrid2d(AbstractUgrid):
             )
         return self._node_face_connectivity
 
+    def validate_edge_node_connectivity(self) -> np.ndarray:
+        """Per edge: whether the faces define it and it is not a duplicate."""
+        return connectivity.validate_edge_node_connectivity(self.face_node_connectivity, self.edge_node_connectivity)
+
     def get_connectivity_matrix(self, dim: str, xy_weights: bool) -> csr_matrix:
         """Adjacency matrix (CSR) of the nodes or the faces.  With
         ``xy_weights`` its data are normalized inverse distances between
@@ -522,6 +536,31 @@ class Ugrid2d(AbstractUgrid):
         return self._centroids
 
     @property
+    def circumcenters(self) -> np.ndarray:
+        """(n_face, 2) circumcenter per face (triangles only)."""
+        if self._circumcenters is None:
+            self._circumcenters = connectivity.circumcenters(
+                self.face_node_connectivity, self.node_x, self.node_y
+            )
+        return self._circumcenters
+
+    @property
+    def perimeter(self) -> np.ndarray:
+        """Perimeter of every face."""
+        if self._perimeter is None:
+            self._perimeter = connectivity.perimeter(
+                self.face_node_connectivity, self.node_x, self.node_y
+            )
+        return self._perimeter
+
+    @property
+    def face_bounds(self) -> np.ndarray:
+        """(n_face, 4): minx, miny, maxx, maxy per face."""
+        from xugrid_tpu_torch.spatial.bvh import face_bounding_boxes
+
+        return face_bounding_boxes(self.face_node_connectivity, self.node_x, self.node_y)
+
+    @property
     def face_x(self) -> np.ndarray:
         """x-coordinate of the face centroids."""
         return self.centroids[:, 0]
@@ -535,6 +574,69 @@ class Ugrid2d(AbstractUgrid):
     def face_coordinates(self) -> np.ndarray:
         """(n_face, 2) face centroids."""
         return self.centroids
+
+    @property
+    def face_node_coordinates(self) -> np.ndarray:
+        """(n_face, n_max_node, 2) vertex coordinates; NaN in the fill slots."""
+        coords = np.full((self.n_face, self.n_max_node_per_face, 2), np.nan, dtype=FloatDType)
+        is_node = self.face_node_connectivity != FILL_VALUE
+        coords[is_node, :] = self.node_coordinates[self.face_node_connectivity[is_node]]
+        return coords
+
+    @property
+    def exterior_edges(self) -> np.ndarray:
+        """Indices of the edges bordering one face."""
+        return np.nonzero(self.edge_face_connectivity[:, 1] == FILL_VALUE)[0]
+
+    @property
+    def exterior_faces(self) -> np.ndarray:
+        """Indices of the faces with at least one exterior edge."""
+        exterior_faces = self.edge_face_connectivity[self.exterior_edges].ravel()
+        return np.unique(exterior_faces[exterior_faces != FILL_VALUE])
+
+    # -- triangulations and the voronoi topology -----------------------------------
+    @property
+    def triangulation(self):
+        """((node_x, node_y, triangles), triangle_face_connectivity): the
+        faces fanned from their first node."""
+        if self._triangulation is None:
+            triangles, triangle_face = connectivity.triangulate(self.face_node_connectivity)
+            self._triangulation = ((self.node_x, self.node_y, triangles), triangle_face)
+        return self._triangulation
+
+    @property
+    def voronoi_topology(self):
+        """(vertices, face_node_connectivity, face_index) of the centroidal
+        voronoi tessellation with its exterior: one cell per node.  Its
+        angle sort of a large table runs on the CUDA card
+        (``voronoi.angle_sort_rows``)."""
+        from xugrid_tpu_torch.ugrid.voronoi import voronoi_topology
+
+        if self._voronoi_topology is None:
+            vertices, faces, face_index, _ = voronoi_topology(
+                self.node_face_connectivity,
+                self.node_coordinates,
+                self.centroids,
+                self.edge_face_connectivity,
+                self.edge_node_connectivity,
+                add_exterior=True,
+                add_vertices=False,
+                device=None,
+            )
+            self._voronoi_topology = vertices, faces, face_index
+        return self._voronoi_topology
+
+    @property
+    def centroid_triangulation(self):
+        """((x, y, triangles), face_index): the voronoi topology's cells
+        fanned into triangles over the face centroids, for contouring face
+        data."""
+        if self._centroid_triangulation is None:
+            nodes, faces, face_index = self.voronoi_topology
+            triangles, _ = connectivity.triangulate(faces)
+            triangulation = (nodes[:, 0].copy(), nodes[:, 1].copy(), triangles)
+            self._centroid_triangulation = (triangulation, face_index)
+        return self._centroid_triangulation
 
     def assign_face_coords(self, obj):
         """``obj`` with this grid's face centroids as coordinates."""
@@ -781,6 +883,205 @@ class Ugrid2d(AbstractUgrid):
         out = data.copy()
         out[i_target[keep]] = data[i_source[index[keep]]]
         return out
+
+    # -- periodic conversion -------------------------------------------------------
+    def to_periodic(self, obj=None):
+        """
+        The grid with its rightmost nodes merged into the leftmost ones
+        (a global grid that wraps around): the boundary nodes are paired
+        by their y coordinates, and the lower id of each pair survives.
+        With ``obj``, also ``obj`` aligned on the new grid (its node and
+        edge payloads taken at the survivors, on the payload's device).
+        """
+        xmin, _, xmax, _ = self.bounds
+        coordinates = self.node_coordinates
+        is_right = np.isclose(coordinates[:, 0], xmax)
+        is_left = np.isclose(coordinates[:, 0], xmin)
+        node_y = coordinates[:, 1]
+        left_ids = np.flatnonzero(is_left)
+        right_ids = np.flatnonzero(is_right)
+        left_sorted = left_ids[np.argsort(node_y[left_ids], kind="stable")]
+        right_sorted = right_ids[np.argsort(node_y[right_ids], kind="stable")]
+        if len(left_sorted) != len(right_sorted) or not np.allclose(node_y[left_sorted], node_y[right_sorted]):
+            raise ValueError("y-coordinates of the left and right boundaries do not match")
+
+        survivor = np.minimum(left_sorted, right_sorted)
+        dropped = np.maximum(left_sorted, right_sorted)
+        remap = np.arange(self.n_node)
+        remap[dropped] = survivor
+        keep = np.ones(self.n_node, dtype=bool)
+        keep[dropped] = False
+        node_index = np.flatnonzero(keep)
+        new_of_old = np.full(self.n_node, FILL_VALUE, dtype=IntDType)
+        new_of_old[node_index] = np.arange(len(node_index))
+        full_map = new_of_old[remap]
+
+        fnc = self.face_node_connectivity
+        new_faces = np.where(fnc == FILL_VALUE, FILL_VALUE, full_map[np.maximum(fnc, 0)]).astype(IntDType)
+        new_xy = coordinates[node_index].copy()
+        # Survivors that sat on the right boundary move to x = xmin.
+        new_xy[np.isclose(new_xy[:, 0], xmax), 0] = xmin
+
+        new_edges = None
+        edge_index = None
+        if self._edge_node_connectivity is not None:
+            mapped = np.sort(remap[self.edge_node_connectivity], axis=1)
+            # The boundary edges that now coincide: the first of each
+            # pair survives, in the original order.
+            key = mapped[:, 0].astype(np.int64) * self.n_node + mapped[:, 1]
+            _, edge_index = np.unique(key, return_index=True)
+            edge_index.sort()
+            new_edges = full_map[mapped[edge_index]]
+
+        new = Ugrid2d(
+            new_xy[:, 0],
+            new_xy[:, 1],
+            FILL_VALUE,
+            new_faces,
+            name=self.name,
+            edge_node_connectivity=new_edges,
+            indexes=self._indexes,
+            is_projected=self.is_projected,
+            crs=self.crs,
+            attrs=self.attrs,
+        )
+        self._propagate_properties(new)
+        if obj is not None:
+            indexes = {
+                self.face_dimension: pd.RangeIndex(0, self.n_face),
+                self.node_dimension: pd.Index(node_index),
+            }
+            if edge_index is not None:
+                indexes[self.edge_dimension] = pd.Index(edge_index)
+            indexes = {k: v.to_numpy() for k, v in indexes.items() if k in obj.dims}
+            return new, obj.isel(indexes)
+        return new
+
+    def to_nonperiodic(self, xmax: float, obj=None):
+        """
+        The periodic grid split at its shared boundary: the nodes of the
+        faces that wrap around (spanning over half the domain in x) are
+        duplicated at x = ``xmax``.  With ``obj``, also ``obj`` aligned on
+        the new grid (each new node and edge takes its periodic
+        counterpart's value, on the payload's device).
+        """
+        xleft, _, xright, _ = self.bounds
+        half_domain = 0.5 * (xright - xleft)
+        x = self.face_node_coordinates[..., 0]
+        with np.errstate(invalid="ignore"):
+            is_periodic = (np.nanmax(x, axis=1)[:, np.newaxis] - x) > half_domain
+        periodic_nodes = self.face_node_connectivity[is_periodic]
+
+        uniques, new_nodes = np.unique(periodic_nodes, return_inverse=True)
+        new_x = np.full(uniques.size, xmax)
+        new_y = self.node_y[uniques]
+        new_faces = self.face_node_connectivity.copy()
+        new_faces[is_periodic] = new_nodes + self.n_node
+
+        new = Ugrid2d(
+            np.concatenate((self.node_x, new_x)),
+            np.concatenate((self.node_y, new_y)),
+            FILL_VALUE,
+            new_faces,
+            name=self.name,
+            edge_node_connectivity=None,
+            indexes=self._indexes,
+            is_projected=self.is_projected,
+            crs=self.crs,
+            attrs=self.attrs,
+        )
+        self._propagate_properties(new)
+
+        edge_index = None
+        if self._edge_node_connectivity is not None:
+            # Each new edge's periodic counterpart, by its sorted (old
+            # node) pair packed into one key.
+            def pack(pairs):
+                s = np.sort(pairs, axis=1)
+                return s[:, 0].astype(np.int64) << 32 | s[:, 1].astype(np.uint32)
+
+            old_keys = pack(self.edge_node_connectivity)
+            mapping = np.concatenate((np.arange(self.n_node), uniques))
+            new_keys = pack(mapping[new.edge_node_connectivity])
+            order = np.argsort(old_keys)
+            position = np.searchsorted(old_keys, new_keys, sorter=order)
+            edge_index = order[np.clip(position, 0, old_keys.size - 1)]
+            if not np.array_equal(old_keys[edge_index], new_keys):
+                raise ValueError(
+                    "Cannot map edge-associated data onto the non-periodic "
+                    "grid: the new grid has edges with no counterpart in "
+                    "the periodic grid (degenerate periodic topology)."
+                )
+
+        if obj is not None:
+            indexes = {
+                self.face_dimension: pd.RangeIndex(0, self.n_face),
+                self.node_dimension: pd.Index(np.concatenate((np.arange(self.n_node), uniques))),
+            }
+            if edge_index is not None:
+                indexes[self.edge_dimension] = pd.Index(edge_index)
+            indexes = {k: v.to_numpy() for k, v in indexes.items() if k in obj.dims}
+            return new, obj.isel(indexes)
+        return new
+
+    # -- tessellation and reordering ---------------------------------------------------
+    def triangulate(self) -> "Ugrid2d":
+        """The grid of the faces fanned into triangles from their first node."""
+        triangles, _ = connectivity.triangulate(self.face_node_connectivity)
+        grid = Ugrid2d(self.node_x, self.node_y, FILL_VALUE, triangles)
+        self._propagate_properties(grid)
+        return grid
+
+    def _tesselate_voronoi(self, centroids, add_exterior, add_vertices, skip_concave, device):
+        from xugrid_tpu_torch.ugrid.voronoi import voronoi_topology
+
+        device = resolve_device(None, device)
+
+        if add_exterior:
+            edge_face_connectivity = self.edge_face_connectivity
+            edge_node_connectivity = self.edge_node_connectivity
+        else:
+            edge_face_connectivity = None
+            edge_node_connectivity = None
+        vertices, faces, _, _ = voronoi_topology(
+            self.node_face_connectivity,
+            self.node_coordinates,
+            centroids,
+            edge_face_connectivity,
+            edge_node_connectivity,
+            add_exterior,
+            add_vertices,
+            skip_concave,
+            device=device,
+        )
+        grid = Ugrid2d(vertices[:, 0], vertices[:, 1], FILL_VALUE, faces)
+        self._propagate_properties(grid)
+        return grid
+
+    def tesselate_centroidal_voronoi(
+        self, add_exterior=True, add_vertices=True, skip_concave=False, device=None
+    ) -> "Ugrid2d":
+        """The centroidal voronoi tessellation of this grid: one cell per
+        node around the face centroids.  The angle sort of a large table
+        runs on ``device``: None means the CUDA card, and raises without
+        one; pass ``device="cpu"`` to sort on the CPU."""
+        return self._tesselate_voronoi(self.centroids, add_exterior, add_vertices, skip_concave, device)
+
+    def tesselate_circumcenter_voronoi(
+        self, add_exterior=True, add_vertices=True, skip_concave=False, device=None
+    ) -> "Ugrid2d":
+        """The circumcenter voronoi tessellation of this (triangular) grid,
+        its angle sort on ``device`` as for the centroidal one."""
+        return self._tesselate_voronoi(self.circumcenters, add_exterior, add_vertices, skip_concave, device)
+
+    def reverse_cuthill_mckee(self, dimension=None):
+        """The grid with its faces reordered by scipy's reverse
+        Cuthill-McKee over the face adjacency, to narrow its bandwidth:
+        (grid, the new order)."""
+        reordering = reverse_cuthill_mckee(graph=self.face_face_connectivity, symmetric_mode=True)
+        reordered = Ugrid2d(self.node_x, self.node_y, FILL_VALUE, self.face_node_connectivity[reordering])
+        self._propagate_properties(reordered)
+        return reordered, reordering
 
     # -- partition merge -------------------------------------------------------------
     @staticmethod

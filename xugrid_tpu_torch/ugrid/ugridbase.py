@@ -507,6 +507,13 @@ class AbstractUgrid(abc.ABC):
         """(xmin, ymin, xmax, ymax) of the nodes."""
         return (self.node_x.min(), self.node_y.min(), self.node_x.max(), self.node_y.max())
 
+    @property
+    def edge_bounds(self) -> np.ndarray:
+        """(n_edge, 4): minx, miny, maxx, maxy per edge."""
+        x = self.node_x[self.edge_node_connectivity]
+        y = self.node_y[self.edge_node_connectivity]
+        return np.column_stack([x.min(axis=1), y.min(axis=1), x.max(axis=1), y.max(axis=1)])
+
     # -- derived connectivity ----------------------------------------------------
     @property
     def node_edge_connectivity(self) -> csr_matrix:
@@ -522,6 +529,17 @@ class AbstractUgrid(abc.ABC):
     def edge_edge_connectivity(self) -> csr_matrix:
         """Edge adjacency (CSR); data holds the shared node index."""
         return connectivity.edge_edge_connectivity(self.edge_node_connectivity, self.node_edge_connectivity)
+
+    @property
+    def directed_node_node_connectivity(self) -> csr_matrix:
+        """Node adjacency along each edge's direction (CSR); data holds the
+        edge index."""
+        return connectivity.directed_node_node_connectivity(self.edge_node_connectivity)
+
+    @property
+    def directed_edge_edge_connectivity(self) -> csr_matrix:
+        """Each edge's downstream edges (CSR); data holds the shared node."""
+        return connectivity.directed_edge_edge_connectivity(self.edge_node_connectivity, self.node_edge_connectivity)
 
     # -- coordinate assignment ---------------------------------------------------
     def set_node_coords(self, node_x: str, node_y: str, obj, is_projected=True, crs=None):

@@ -32,6 +32,7 @@ from scipy import sparse
 
 from xugrid_tpu_torch.constants import FILL_VALUE, X_EPSILON
 from xugrid_tpu_torch.ugrid.connectivity import renumber, to_dense
+from xugrid_tpu_torch.utils.device import resolve_device
 from xugrid_tpu_torch.utils.profiling import timed
 
 #: Size of the (R, C, 2) table of candidate offsets from which the angle
@@ -119,7 +120,8 @@ def angle_sort_rows(
     coords: (V, 2); anchors: (R, 2).
     device: where the sort runs when the (R, C, 2) offsets hold at least
         ``DEVICE_MIN`` values (torch ``atan2`` and a stable ``argsort``);
-        smaller tables sort in numpy.
+        None means the CUDA card, and raises without one.  Smaller tables
+        sort in numpy, and resolve no device.
     """
     valid = cand >= 0
     pts = coords[np.maximum(cand, 0)]
@@ -128,6 +130,7 @@ def angle_sort_rows(
     deltas = pts - anchors[:, None, :]
     with timed("voronoi.angle_sort"):
         if deltas.size >= DEVICE_MIN:
+            device = resolve_device(None, device)
             d = torch.from_numpy(deltas).to(device)
             ang = torch.atan2(d[..., 1], d[..., 0])
             key = torch.where(torch.from_numpy(valid).to(device), ang, torch.inf)

@@ -4,8 +4,9 @@ ctypes bindings for the repository's native host kernels
 
 Bound are the entry points of the regridders' weight builds (grid hash,
 polygon clips, point location, point in polygon, segment clip,
-mean-value weights, CSR build), the face centroids, and the partition
-and merge kernels (Hilbert distances, the hashed row deduplication).  The library is
+mean-value weights, CSR build), the face centroids, the partition
+and merge kernels (Hilbert distances, the hashed row deduplication) and
+the network's graph walks (topological sort, vertex contraction).  The library is
 compiled with g++ into the port's build directory on first use.  Every
 binding returns None when the library is unavailable (or refuses the
 input, as each one says); its caller then takes a numpy fallback where
@@ -86,6 +87,10 @@ def _bind(lib):
     lib.unique_rows_hash.restype = ctypes.c_int64
     lib.unique_sorted_rows_hash.argtypes = [_ip, _i64, _i64, _ip, _ip]
     lib.unique_sorted_rows_hash.restype = ctypes.c_int64
+    lib.topo_sort_dfs.argtypes = [_ip, _ip, _i64, _ip]
+    lib.topo_sort_dfs.restype = ctypes.c_int64
+    lib.contract_vertices_walk.argtypes = [_ip, _ip, _i64, _ip, _i64, _ip, _i64]
+    lib.contract_vertices_walk.restype = ctypes.c_int64
 
 
 def get_lib():
@@ -444,3 +449,46 @@ def unique_sorted_rows_native(rows: np.ndarray):
     inverse = np.empty(n, dtype=np.int64)
     count = lib.unique_sorted_rows_hash(_ptr(rows, _ip), n, width, _ptr(rep, _ip), _ptr(inverse, _ip))
     return rep[:count], inverse, int(count)
+
+
+def topo_sort_dfs_native(indptr: np.ndarray, indices: np.ndarray, m: int):
+    """Topological order of a directed graph (CSR) by depth-first search,
+    its postorder reversed, or None when the library is unavailable.
+    Raises ValueError on a cycle."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int64)
+    out = np.empty(m, dtype=np.int64)
+    if lib.topo_sort_dfs(_ptr(indptr, _ip), _ptr(indices, _ip), m, _ptr(out, _ip)) == -1:
+        raise ValueError("The graph contains at least one cycle")
+    return out
+
+
+def contract_vertices_native(indptr: np.ndarray, indices: np.ndarray, m: int, keep: np.ndarray):
+    """The directed graph (CSR) contracted onto the vertices ``keep``: a
+    (v, u) pair for every kept u reached downstream of a kept v without
+    passing another kept vertex, in the walk's order; or None when the
+    library is unavailable.  Raises ValueError on a cycle."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int64)
+    keep = np.ascontiguousarray(keep, dtype=np.int64)
+    # The kernel writes the keep flags unchecked: an index out of range
+    # must raise here, as the numpy walk does.
+    if len(keep) and (keep.min() < 0 or keep.max() >= m):
+        raise IndexError(f"contract_vertices: keep indices out of range [0, {m})")
+    cap = max(4 * len(indices), 4 * len(keep), 1024)
+    while True:
+        out = np.empty((cap, 2), dtype=np.int64)
+        rc = lib.contract_vertices_walk(
+            _ptr(indptr, _ip), _ptr(indices, _ip), m, _ptr(keep, _ip), len(keep), _ptr(out, _ip), cap
+        )
+        if rc == -1:
+            raise ValueError("The graph contains at least one cycle")
+        if rc != -2:
+            return out[:rc]
+        cap *= 4
