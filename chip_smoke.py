@@ -197,6 +197,30 @@ With no argument it runs these phases:
    algorithm, ``topological_sort_by_dfs``, ``contract_vertices``,
    ``refine_by_vertices`` and ``remove_self_loops``.  Prints the back-to-
    back overlap mean pass in the original and the reordered face order.
+13. The payload methods of labelled arrays at the 1M config: phase 3's
+   mesh with a (time=20, face) float32 ``UgridDataset`` of two variables
+   (1 % NaN, one with half-step ties) and an uneven time coordinate on
+   the card.  ``mean``, ``std``, ``median``, ``quantile([0.1, 0.9])`` and
+   ``count`` over time; ``cumsum``, ``diff``, ``shift``, ``roll``,
+   ``ffill``/``bfill`` with a limit, ``interpolate_na``, ``rank``,
+   ``idxmax``, ``clip``, ``round``, ``isin``, ``where(drop=True)`` over
+   the faces, ``fillna``, ``sortby`` and ``reindex`` on time, ``dot``
+   with a (time,) weight vector (TF32 allowed globally) and
+   ``to_dataframe`` of 10,000 faces.  Each result a tensor on the card,
+   held to a host reference (numpy, scipy's ``rankdata``, pandas'
+   ``ffill``/``bfill``, ``np.interp``): bit-equal, or within the float32
+   summation bound (mean, cumsum, dot), rtol 1e-5 (std), 1e-6 (median),
+   float64 rtol 1e-12 (quantile, interpolate_na), 1 ulp (round); each
+   timed (CUDA events; wall seconds for the host-bound ones).  The
+   time-mean regridded onto the 512 x 512 raster by phase 3's overlap
+   mean (window_reduce) and the (quantile=2, face) stack by its median
+   (window_select), one launch each, held to the plain version and the
+   host references; ``OverlapRegridder.from_weights(r.weights, target)``
+   regrids bit-equal in one launch.  Phase 7's network with node data 2 %
+   known and one line without a known node filled through
+   ``.ugrid.laplace_interpolate``: csr_matvec's launches the formula's,
+   that line NaN, every other line's residual within 10 atol (scipy,
+   float64).
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
@@ -3184,6 +3208,378 @@ def phase_topology(device, card, inputs, main_results):
     return counts, max_err
 
 
+PAYLOAD_FACES_FRAME = 10_000
+
+
+def f32_summation(label, got, want, magnitude, terms):
+    """A float32 result on the card against its float64 host value: within
+    ``terms`` * 2^-24 * ``magnitude`` (the same sum of |x|) plus one
+    float32 rounding of the result, NaN where NaN.  Returns the largest
+    |diff|."""
+    import torch
+
+    bound = torch.from_numpy(terms * 2.0**-24 * np.asarray(magnitude, dtype=np.float64))
+    bound = bound + 2.0**-24 * torch.from_numpy(np.abs(want))
+    try:
+        return compare(got, torch.from_numpy(want), False, 0.0, torch.nan_to_num(bound, nan=0.0))
+    except AssertionError as e:
+        raise AssertionError(f"{label}: {e}") from None
+
+
+def host_nanquantile(x, q):
+    """numpy's linear nanquantile along axis 0, vectorised over the other
+    axis (numpy's own loops over it when NaN are present): the sorted
+    column (NaN last) read between the floor and the ceiling of q *
+    (count - 1), NaN where the column has no value.  (len(q), n)."""
+    ordered = np.sort(x, axis=0)
+    count = (~np.isnan(x)).sum(axis=0)
+    out = []
+    for quantile in q:
+        virtual = quantile * np.maximum(count - 1, 0)
+        lo = np.floor(virtual).astype(np.int64)
+        hi = np.minimum(lo + 1, np.maximum(count - 1, 0))
+        a = np.take_along_axis(ordered, lo[None], axis=0)[0]
+        b = np.take_along_axis(ordered, hi[None], axis=0)[0]
+        out.append(np.where(count > 0, a + (b - a) * (virtual - lo), np.nan))
+    return np.stack(out)
+
+
+def component_residuals(W, values, filled, labels):
+    """Per connected component, the norm of the residual of its unknown
+    system (D - W)_uu x_u - W_uk x_k, in float64 with scipy on the host
+    (``unknown_residuals`` by component).  ``values`` (n,) holds NaN at
+    the unknowns."""
+    import scipy.sparse
+
+    unknown = np.isnan(values)
+    W = W.tocsr()
+    L = scipy.sparse.diags(np.asarray(W.sum(axis=1)).ravel()) - W
+    r = L[unknown][:, unknown] @ filled[unknown] - W[unknown][:, ~unknown] @ values[~unknown]
+    return np.sqrt(np.bincount(labels[unknown], weights=r * r, minlength=labels.max() + 1))
+
+
+def phase_payload(device, card, inputs, main_results):
+    """Phase 13: the payload methods of labelled arrays at the 1M config
+    on the card, then their results regridded and a network filled.  A
+    (time=20, face) float32 UgridDataset of two variables with 1 % NaN on
+    phase 3's mesh: Dataset reductions over time, DataArray methods along
+    time, each result a tensor on the card held to a host numpy, scipy or
+    pandas reference computed here; the time-mean regridded by phase 3's
+    overlap mean (window_reduce) and the quantile stack by its median
+    (window_select), each held to the plain version and the host
+    reference, and the mean again through ``from_weights(r.weights)``
+    (bit-equal); phase 7's network filled through
+    ``.ugrid.laplace_interpolate`` (csr_matvec).  Returns (launch counts,
+    largest |kernel - plain|)."""
+    import pandas as pd
+    import scipy.sparse.csgraph
+    import torch
+    from scipy.stats import rankdata
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain, window_reduce
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.ugrid import interpolate
+
+    (verts, faces), _, _ = inputs
+    regridders = {method: regridder for _, method, _, regridder, *_ in main_results}
+    t_phase = time.perf_counter()
+    mesh = regridders["mean"]._source.ugrid_topology
+    face_dim = mesh.face_dimension
+    rng = np.random.default_rng(13)
+    n_face = mesh.n_face
+    h = rng.normal(size=(N_EXTRA, n_face)).astype(np.float32)
+    v = (np.round(rng.normal(size=(N_EXTRA, n_face)) * 2.0) / 2.0).astype(np.float32)  # ties
+    for x in (h, v):
+        x[rng.random(x.shape) < 0.01] = np.nan
+    time_coord = np.cumsum(rng.uniform(0.5, 1.5, N_EXTRA))  # uneven, increasing (days)
+    ds = xt.xdata.Dataset(
+        {"h": (("time", face_dim), torch.from_numpy(h).to(device)), "v": (("time", face_dim), torch.from_numpy(v).to(device))},
+        coords={"time": ("time", time_coord)},
+    )
+    uds = xt.UgridDataset(ds, [mesh])
+    torch.cuda.synchronize()
+    print(
+        f"phase 13: payload methods of a (time={N_EXTRA}, face={n_face}) float32 UgridDataset of two variables "
+        f"(1 % NaN, {h.nbytes / 1e6:.0f} MB each) on the card, then regrid and fill [{card}]"
+    )
+    kernels = (window_reduce, window_select, csr_matvec)
+    for k in kernels:
+        k.launches = 0
+    max_err = {"window_reduce": 0.0, "window_select": 0.0, "csr_matvec": 0.0}
+    scale = float(np.nanmax(np.abs(h)))
+    h64 = h.astype(np.float64)
+
+    def report(line):
+        print(f"  {line} [{card}]")
+
+    def on_card(label, obj):
+        """The payload of a result: a tensor on the card."""
+        data = obj.obj.data if isinstance(obj, (xt.UgridDataArray, xt.UgridDataset)) else obj.data
+        if not isinstance(data, torch.Tensor) or data.device != device:
+            raise AssertionError(f"{label}: the result is not a tensor on {device}")
+        return data
+
+    def card_ms(fn):
+        """CUDA event milliseconds of one call after a warm-up (median of 3)."""
+        return cuda_time_ms(fn, reps=3, warmup=1, inner=1)
+
+    def wall_s(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    host_s = [0.0]
+
+    def host(fn):
+        """A host reference, its seconds counted apart."""
+        t0 = time.perf_counter()
+        value = fn()
+        host_s[0] += time.perf_counter() - t0
+        return value
+
+    # 13.2: Dataset reductions over time.
+    h_abs = host(lambda: np.nanmean(np.abs(h64), axis=0))
+    mean_ref = host(lambda: np.nanmean(h64, axis=0))
+    std_ref = host(lambda: np.nanstd(h64, axis=0))
+    median_ref = host(lambda: np.nanmedian(h64, axis=0))
+    quantile_ref = host(lambda: host_nanquantile(h64, [0.1, 0.9]))
+    count_ref = (~np.isnan(h)).sum(axis=0)
+    reductions = {
+        "mean": lambda: uds.mean("time"),
+        "std": lambda: uds.std("time"),
+        "median": lambda: uds.median("time"),
+        "quantile([0.1, 0.9])": lambda: uds.quantile([0.1, 0.9], "time"),
+        "count": lambda: uds.count("time"),
+    }
+    out = {name: fn() for name, fn in reductions.items()}
+    for name, result in out.items():
+        if not isinstance(result, xt.UgridDataset) or "time" in result.obj.dims:
+            raise AssertionError(f"Dataset.{name}: {type(result).__name__} over {result.obj.dims}")
+        for var in ("h", "v"):
+            on_card(f"Dataset.{name} {var}", result[var])
+    mean = on_card("mean", out["mean"]["h"])
+    f32_summation("Dataset.mean", mean, mean_ref, h_abs, N_EXTRA)
+    compare(on_card("std", out["std"]["h"]), torch.from_numpy(std_ref), False, *tolerance(torch.float32, scale))
+    compare(on_card("median", out["median"]["h"]), torch.from_numpy(median_ref), False, 1e-6, 1e-7 * scale)
+    quantile = on_card("quantile", out["quantile([0.1, 0.9])"]["h"])
+    if quantile.dtype != torch.float64 or out["quantile([0.1, 0.9])"].obj["h"].dims != ("quantile", face_dim):
+        raise AssertionError(f"quantile: {quantile.dtype} {out['quantile([0.1, 0.9])'].obj['h'].dims}")
+    compare(quantile, torch.from_numpy(quantile_ref), False, 1e-12, 1e-12 * scale)
+    count = on_card("count", out["count"]["h"])
+    bit_equal("Dataset.count", count, count_ref.astype(np.int64), device)
+    bit_equal("Dataset.count v", on_card("count v", out["count"]["v"]), (~np.isnan(v)).sum(axis=0).astype(np.int64), device)
+    times = {name: card_ms(fn) for name, fn in reductions.items()}
+    report(
+        "13.2 Dataset reductions over time, both variables, each within its host reference (numpy float64: mean "
+        "within the float32 summation bound, std rtol 1e-5, median rtol 1e-6, quantile float64 rtol 1e-12, count "
+        "bit-equal): " + ", ".join(f"{k} {t:.3f} ms" for k, t in times.items())
+    )
+
+    # 13.3: DataArray methods along time.
+    uda = uds["h"]
+    vda = uds["v"]
+    if not isinstance(uda, xt.UgridDataArray):
+        raise AssertionError(f"uds['h'] is a {type(uda).__name__}")
+    timed_ops = {}
+
+    def check(label, fn, want, tol=None, host=False):
+        """A method's result on the card, bit-equal to ``want`` (or held by
+        ``tol``), and its time: CUDA events, or the first call's wall
+        seconds for ``host``-bound ones."""
+        result, first_s = wall_s(fn)
+        got = on_card(label, result)
+        if tol is None:
+            bit_equal(label, got, want, device)
+        else:
+            tol(label, got, want)
+        timed_ops[label] = ("s", first_s) if host else ("ms", card_ms(fn))
+        return result
+
+    cum_abs = np.cumsum(np.nan_to_num(np.abs(h64)), axis=0)
+    check("cumsum", lambda: uda.cumsum("time"), host(lambda: np.cumsum(h64, axis=0)),
+          tol=lambda label, got, want: f32_summation(label, got, want, cum_abs, N_EXTRA))
+    check("diff", lambda: uda.diff("time"), np.diff(h, axis=0))
+    shifted = np.full_like(h, np.nan)
+    shifted[3:] = h[:-3]
+    check("shift(time=3)", lambda: uda.shift(time=3), shifted)
+    check("roll(time=-2)", lambda: uda.roll(time=-2), np.roll(h, -2, axis=0))
+    frame = pd.DataFrame(h64)
+    check("ffill(limit=2)", lambda: uda.ffill("time", limit=2), host(lambda: frame.ffill(axis=0, limit=2).to_numpy()))
+    check("bfill(limit=2)", lambda: uda.bfill("time", limit=2), host(lambda: frame.bfill(axis=0, limit=2).to_numpy()))
+    interpolated = check("interpolate_na", lambda: uda.interpolate_na("time"), None, tol=lambda *a: None)
+    got = interpolated.obj.data.cpu().numpy()
+    rows = np.flatnonzero(np.isnan(h).any(axis=0))
+    sample = np.sort(rng.choice(rows, size=min(5000, len(rows)), replace=False))
+    interp_ref = h64[:, sample].copy()
+    t0 = time.perf_counter()
+    for col in range(len(sample)):
+        y = interp_ref[:, col]
+        ok = ~np.isnan(y)
+        if ok.any():
+            y[~ok] = np.interp(time_coord[~ok], time_coord[ok], y[ok], left=np.nan, right=np.nan)
+    host_s[0] += time.perf_counter() - t0
+    compare(torch.from_numpy(got[:, sample]), torch.from_numpy(interp_ref), False, 1e-12, 1e-12 * scale)
+    np.testing.assert_array_equal(got[~np.isnan(h64)], h64[~np.isnan(h64)])
+    rank_ref = host(lambda: rankdata(v.astype(np.float64), method="average", axis=0, nan_policy="omit"))
+    ranked = check("rank", lambda: vda.rank("time"), np.where(np.isnan(v), np.nan, rank_ref))
+    v_clean = np.where(np.isnan(v), -np.inf, v)
+    idx_ref = time_coord[np.argmax(v_clean, axis=0)]
+    idx_ref = np.where(np.isnan(v).all(axis=0), np.nan, idx_ref)
+    check("idxmax", lambda: vda.idxmax("time"), idx_ref)
+    check("clip(-1, 1.5)", lambda: uda.clip(-1.0, 1.5), np.clip(h, -1.0, 1.5))
+    def within_ulp(label, got, want):
+        got = got.cpu().numpy()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=label)
+        np.testing.assert_array_max_ulp(got[~np.isnan(want)], want[~np.isnan(want)], maxulp=1)
+
+    check("round(1)", lambda: uda.round(1), np.round(h, 1), tol=within_ulp)
+    check("isin", lambda: vda.isin([0.0, 0.5, 0.1, 2.0]), np.isin(v, np.array([0.0, 0.5, 0.1, 2.0])))
+    wet = uds["v"].isel(time=0) > 1.5
+    wet_faces = np.flatnonzero(v[0] > 1.5)
+    dropped = check("where(drop=True)", lambda: uda.where(wet, drop=True), np.where(v[0] > 1.5, h, np.nan)[:, wet_faces],
+                    host=True)
+    if dropped.grid.n_face != len(wet_faces):
+        raise AssertionError(f"where(drop=True): {dropped.grid.n_face} faces, expected {len(wet_faces)}")
+    np.testing.assert_array_equal(dropped.obj[face_dim].values, wet_faces)
+    check("fillna(0)", lambda: uda.fillna(0.0), np.where(np.isnan(h), np.float32(0.0), h))
+    order = np.argsort(-time_coord, kind="stable")
+    check("sortby(time, descending)", lambda: uda.sortby("time", ascending=False), h[order], host=True)
+    labels = np.concatenate([time_coord[[5, 0, 19]], [time_coord[3] + 0.25]])
+    reindex_ref = np.concatenate([h[[5, 0, 19]], np.full((1, n_face), np.nan, dtype=np.float32)])
+    check("reindex(time)", lambda: uda.reindex(time=labels), reindex_ref, host=True)
+    weights = rng.uniform(0.0, 1.0, N_EXTRA).astype(np.float32)
+    wda = xt.xdata.DataArray(torch.from_numpy(weights).to(device), dims=("time",), name="w")
+    h_zero = np.nan_to_num(h64)
+    dot_ref = weights.astype(np.float64) @ h_zero
+    filled = uda.fillna(0.0)
+    # Allow TF32 globally: the product must still be IEEE float32.
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        check("dot(w)", lambda: filled.dot(wda), dot_ref,
+              tol=lambda label, got, want: f32_summation(label, got, want, weights @ np.abs(h_zero), N_EXTRA))
+    finally:
+        torch.set_float32_matmul_precision(previous)
+    subset = np.sort(rng.choice(n_face, size=PAYLOAD_FACES_FRAME, replace=False))
+    frame_out, frame_s = wall_s(lambda: uds.isel({face_dim: subset}).to_dataframe())
+    want_h = h[:, subset].T.ravel() if frame_out.index.names[0] == face_dim else h[:, subset].ravel()
+    if len(frame_out) != N_EXTRA * PAYLOAD_FACES_FRAME or list(frame_out.columns) != ["h", "v"]:
+        raise AssertionError(f"to_dataframe: {frame_out.shape}, columns {list(frame_out.columns)}")
+    np.testing.assert_array_equal(frame_out["h"].to_numpy(), want_h)
+    timed_ops["to_dataframe (10,000 faces)"] = ("s", frame_s)
+    report(
+        "13.3 DataArray methods along time, each result a tensor on the card; cumsum and dot (TF32 allowed "
+        "globally, IEEE float32 kept) within the float32 summation bound of float64 host values, interpolate_na "
+        "within float64 rtol 1e-12 of np.interp on 5,000 gappy faces, round(1) within 1 ulp of numpy, the rest "
+        "bit-equal to numpy, scipy's rankdata and pandas' ffill/bfill: "
+        + ", ".join(f"{k} {t:.3f} {unit}" for k, (unit, t) in timed_ops.items())
+    )
+    if ranked.obj.data.dtype != torch.float64:
+        raise AssertionError(f"rank: {ranked.obj.data.dtype}")
+
+    # 13.5-13.6: the results regridded, and the weights round trip.
+    mean_regridder, median_regridder = regridders["mean"], regridders["median"]
+    time_mean = out["mean"]["h"]
+    stack = out["quantile([0.1, 0.9])"]["h"]
+    csr = mean_regridder._weights
+    before = {k.__name__: k.launches for k in kernels}
+    regridded = mean_regridder.regrid(time_mean)
+    torch.cuda.synchronize()
+    rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    source = time_mean.obj.data.reshape(1, -1)
+    max_err["window_reduce"] = check_apply(
+        "13.5 time-mean -> 512 x 512 by overlap mean", mean_regridder, source, regridded.obj.data.reshape(1, -1),
+        window_reduce, rose, scale, lambda got: (got, reference_linear(csr, source.cpu().numpy(), relative=False)),
+    )
+    targets = np.sort(rng.choice(csr.n, size=400, replace=False))
+    before = {k.__name__: k.launches for k in kernels}
+    stacked = median_regridder.regrid(stack)
+    torch.cuda.synchronize()
+    rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    if stacked.obj.dims != ("quantile", stacked.grid.face_dimension) or stacked.obj.data.dtype != torch.float64:
+        raise AssertionError(f"median regrid of the quantiles: {stacked.obj.dims} {stacked.obj.data.dtype}")
+    max_err["window_select"] = check_apply(
+        "13.5 quantile stack (2, face) -> 512 x 512 by overlap median", median_regridder, stack.obj.data,
+        stacked.obj.data, window_select, rose, scale,
+        lambda got: (got[:, targets], reference_select(median_regridder._weights, stack.obj.data.cpu().numpy(), targets, "median")),
+    )
+    weights_ds, weights_s = wall_s(lambda: mean_regridder.weights)
+    target = regridders["mean"]._target.ugrid_topology
+    reloaded, reload_s = wall_s(lambda: xt.OverlapRegridder.from_weights(weights_ds, target, method="mean"))
+    before = window_reduce.launches
+    again = reloaded.regrid(time_mean)
+    torch.cuda.synchronize()
+    if window_reduce.launches != before + 1:
+        raise AssertionError("weights round trip: not one window_reduce launch")
+    bit_equal("weights round trip", again.obj.data, regridded.obj.data.cpu().numpy(), device)
+    try:
+        mean_regridder.weights = weights_ds
+        raise AssertionError("the weights setter took a dataset")
+    except TypeError:
+        pass
+    path_launches = {k: k.launches for k in kernels}  # the timing passes are no launches of the path
+    regrid_ms = {
+        "time-mean by mean": card_ms(lambda: mean_regridder.regrid(time_mean)),
+        "quantile stack by median": card_ms(lambda: median_regridder.regrid(stack)),
+    }
+    for k, n in path_launches.items():
+        k.launches = n
+    report(
+        f"13.6 weights round trip: .weights {weights_s:.3f} s, from_weights {reload_s:.3f} s, its regrid one "
+        f"window_reduce launch bit-equal to the original's; the setter refuses a dataset; regrid passes "
+        + ", ".join(f"{k} {t:.3f} ms" for k, t in regrid_ms.items())
+    )
+
+    # 13.7: the network Laplace fill.
+    network, _ = phase7_network()
+    node_dim = network.node_dimension
+    truth, known = laplace_inputs(network.node_coordinates)
+    line_nodes = NETWORK_SEGMENTS + 1
+    known[:line_nodes] = np.nan  # line 0: a component with no known node
+    fill_uda = xt.UgridDataArray(
+        xt.xdata.DataArray(torch.from_numpy(known).to(device), dims=(node_dim,), name="h"), network
+    )
+    before = csr_matvec.launches
+    filled_net, fill_s = wall_s(lambda: fill_uda.ugrid.laplace_interpolate(**LAPLACE_SOLVE))
+    info = dict(interpolate.last_solve_info)
+    launches = csr_matvec.launches - before
+    if launches != 1 + (info["degree"] - 1) + info["iterations"] * info["degree"]:
+        raise AssertionError(f"network fill: {launches} csr_matvec launches for {info['iterations']} iterations")
+    got = on_card("network fill", filled_net).cpu().numpy()
+    W = network.get_connectivity_matrix(node_dim, xy_weights=True)
+    n_comp, comp = scipy.sparse.csgraph.connected_components(W)
+    has_known = np.bincount(comp, weights=(~np.isnan(known)).astype(np.float64), minlength=n_comp) > 0
+    empty = ~has_known[comp]
+    if not np.isnan(got[empty]).all() or not np.isfinite(got[~empty]).all() or not empty[:line_nodes].all():
+        raise AssertionError("network fill: components without a known node must stay NaN, the rest finite")
+    np.testing.assert_array_equal(got[~np.isnan(known)], known[~np.isnan(known)])
+    residual = component_residuals(W, np.where(empty, 0.0, known), np.where(empty, 0.0, got), comp)
+    if residual[has_known].max() > 10 * LAPLACE_SOLVE["atol"]:
+        raise AssertionError(f"network fill: component residual {residual[has_known].max():.3e} > 10 * atol")
+    prep = [v for k, v in interpolate._SYSTEMS.items() if k[0] == "laplace"][-1]
+    indptr, indices, data64 = (prep["system"][k] for k in ("indptr", "indices", "data"))
+    x = torch.from_numpy(rng.normal(size=(indptr.numel() - 1, 1))).to(device)
+    path_launches = csr_matvec.launches  # the comparison's launch is no launch of the path
+    max_err["csr_matvec"] = compare(
+        csr_matvec(indptr, indices, data64, x), csr_matvec_plain(indptr, indices, data64, x), True, 0.0, 0.0
+    )
+    csr_matvec.launches = path_launches
+    report(
+        f"13.7 network Laplace fill of {network.n_node} nodes ({n_comp} lines, {int(has_known.sum())} with a known "
+        f"node, 2 % known): {fill_s:.3f} s, {info['iterations']} iterations at degree {info['degree']}, csr_matvec "
+        f"+{launches} (the formula's), the line without a known node NaN, every other component's host residual "
+        f"at most {residual[has_known].max():.3e} (scipy, float64), csr_matvec bit-equal to its plain version"
+    )
+
+    counts = {k.__name__: k.launches for k in kernels}
+    if counts["window_reduce"] != 2 or counts["window_select"] != 1 or counts["csr_matvec"] != launches:
+        raise AssertionError(f"phase 13 launched {counts}")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s, {host_s[0]:.1f} s of it host references [{card}]")
+    return counts, max_err
+
+
 def main() -> int:
     import torch
 
@@ -3215,6 +3611,7 @@ def main() -> int:
     partition_counts, partition_err = phase_partitions(device, card, inputs, results)
     query_counts, query_err, _ = phase_queries(device, card, inputs)
     topology_counts, topology_err = phase_topology(device, card, inputs, results)
+    payload_counts, payload_err = phase_payload(device, card, inputs, results)
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
@@ -3227,13 +3624,14 @@ def main() -> int:
             "merge_partitions then regrid (phase 10)": partition_counts[name],
             "queries and the nearest fill, then regrid (phase 11)": query_counts[name],
             "topology operations, then regrid and fill (phase 12)": topology_counts[name],
+            "payload methods, then regrid and fill (phase 13)": payload_counts[name],
         }
         return {
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(
                 check_err[name], main_err[name], regrid_err[name], labelled_err[name], files_err[name],
-                partition_err[name], query_err.get(name, 0.0), topology_err[name],
+                partition_err[name], query_err.get(name, 0.0), topology_err[name], payload_err[name],
             ),
             **timed_at,
         }
@@ -3242,6 +3640,7 @@ def main() -> int:
         "Laplace fill (phase 5)": laplace_counts["csr_matvec"],
         "labelled arrays and structured grids (phase 8)": labelled_counts["csr_matvec"],
         "topology operations, then regrid and fill (phase 12)": topology_counts["csr_matvec"],
+        "payload methods, then regrid and fill (phase 13)": payload_counts["csr_matvec"],
     }
 
     kernels = [
@@ -3271,7 +3670,8 @@ def main() -> int:
             "launches_by_path": matvec_by_path,
             **main_matvec,
             "max_abs_err": max(
-                check_err["csr_matvec"], topology_err["csr_matvec"], *(t["max_abs_err"] for t in matvec_timed.values())
+                check_err["csr_matvec"], topology_err["csr_matvec"], payload_err["csr_matvec"],
+                *(t["max_abs_err"] for t in matvec_timed.values()),
             ),
         },
     ]

@@ -1,0 +1,229 @@
+"""
+Public names of ported classes that the JAX package has, held on the CPU
+against it on the same seeded inputs:
+
+- the Laplace fill of node data on a network (``Ugrid1d``'s
+  ``get_connectivity_matrix`` and the grids' shared
+  ``_connectivity_weights``): a line, a branching network, and a network
+  with a component that holds no known node (which stays NaN), both
+  solves run to atol 1e-11 and agreeing within 1e-8;
+- every regridder's ``weights``: the getter is ``to_dataset()``, the
+  setter takes only the class's matrix type and drops every cached
+  layout (the device weights included), and ``from_weights(r.weights,
+  target)`` regrids bit-equal to ``r``;
+- ``Ugrid1d``/``Ugrid2d.coords``, the accessors' ``crs``, ``FILL_VALUE``
+  and ``Network1d.length``.
+"""
+
+import numpy as np
+import pytest
+
+import xugrid_tpu as xu
+import xugrid_tpu_torch as xt
+from tests.test_torch_serialize import assert_weights_bit_equal, build, sources
+from tests.test_torch_wrap import inputs, values_of  # noqa: F401
+from xugrid_tpu.regrid.unstructured import Network1d as JaxNetwork1d
+from xugrid_tpu_torch.core.sparse import MatrixCOO, MatrixCSR
+from xugrid_tpu_torch.regrid.unstructured import Network1d
+
+PACKAGES = (xu, xt)
+
+NETWORKS = {
+    # A line of 5 nodes, the ends known: the fill is linear.
+    "line": (
+        np.arange(5.0), np.zeros(5), [[0, 1], [1, 2], [2, 3], [3, 4]],
+        [0.0, np.nan, np.nan, np.nan, 4.0],
+    ),
+    # A junction at node 1 with three branches.
+    "branching": (
+        np.array([0.0, 1.0, 2.0, 3.0, 1.0, 1.0]), np.array([0.0, 0.0, 0.0, 0.0, 1.0, 2.5]),
+        [[0, 1], [1, 2], [2, 3], [1, 4], [4, 5]],
+        [0.0, np.nan, np.nan, 3.0, np.nan, 5.0],
+    ),
+    # Two lines; the second holds no known node and stays NaN.
+    "unknown component": (
+        np.array([0.0, 1.0, 2.0, 3.0, 4.0, 0.0, 1.0, 2.0]), np.array([0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 1.0]),
+        [[0, 1], [1, 2], [2, 3], [3, 4], [5, 6], [6, 7]],
+        [1.0, np.nan, 3.0, np.nan, np.nan, np.nan, np.nan, np.nan],
+    ),
+}
+
+
+def network_fill(pkg, name, xy_weights, stacked):
+    x, y, edges, values = NETWORKS[name]
+    grid = pkg.Ugrid1d(x, y, -1, np.array(edges))
+    values = np.array(values)
+    if stacked:
+        da = pkg.xdata.DataArray(np.stack([values, 2.0 * values]), dims=("time", grid.node_dimension), name="h")
+    else:
+        da = pkg.xdata.DataArray(values, dims=(grid.node_dimension,), name="h")
+    kwargs = {"xy_weights": xy_weights, "atol": 1e-11, "maxiter": 2000}
+    if pkg is xt:
+        kwargs["device"] = "cpu"
+    return pkg.UgridDataArray(da, grid).ugrid.laplace_interpolate(**kwargs)
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["1d", "time stack"])
+@pytest.mark.parametrize("xy_weights", [True, False])
+@pytest.mark.parametrize("name", list(NETWORKS))
+def test_network_laplace_fill_matches_jax(name, xy_weights, stacked):
+    want, got = (network_fill(pkg, name, xy_weights, stacked) for pkg in PACKAGES)
+    assert isinstance(got, xt.UgridDataArray) and isinstance(got.grid, xt.Ugrid1d)
+    assert got.dims == want.dims and got.name == want.name
+    w, g = np.asarray(want.obj.values), got.values
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g, w, rtol=0, atol=1e-8)
+    if name == "line":
+        np.testing.assert_allclose(g.reshape(-1, 5)[0], [0.0, 1.0, 2.0, 3.0, 4.0], rtol=0, atol=1e-8)
+    if name == "unknown component":
+        assert np.isnan(g[..., 5:]).all() and np.isfinite(g[..., :5]).all()
+
+
+@pytest.mark.parametrize("xy_weights", [True, False])
+def test_network_connectivity_matrix_matches_jax(xy_weights):
+    x, y, edges, _ = NETWORKS["branching"]
+    want, got = (
+        pkg.Ugrid1d(x, y, -1, np.array(edges)).get_connectivity_matrix("network1d_nNodes", xy_weights)
+        for pkg in PACKAGES
+    )
+    np.testing.assert_array_equal(got.indptr, want.indptr)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.data, want.data)
+    grid = xt.Ugrid1d(x, y, -1, np.array(edges))
+    with pytest.raises(ValueError, match="Expected network1d_nNodes"):
+        grid.get_connectivity_matrix(grid.edge_dimension, xy_weights)
+
+
+def test_grid_connectivity_weights_are_shared():
+    assert xt.Ugrid1d._connectivity_weights is xt.Ugrid2d._connectivity_weights
+    assert "_connectivity_weights" not in vars(xt.Ugrid2d)
+
+
+CLASSES = [
+    ("OverlapRegridder", "mean", "mesh", "raster", MatrixCSR),
+    ("RelativeOverlapRegridder", None, "mesh", "raster", MatrixCSR),
+    ("CentroidLocatorRegridder", None, "mesh", "raster", MatrixCOO),
+    ("BarycentricInterpolator", None, "fine raster", "mesh", MatrixCSR),
+    ("NetworkGridder", "mean", "network", "mesh", MatrixCSR),
+]
+CLASS_IDS = [case[0] for case in CLASSES]
+
+
+def regridders(data, cls, method, src, tgt):
+    objs = {pkg: sources(pkg, data) for pkg in PACKAGES}
+    return objs, {pkg: build(pkg, cls, method, objs[pkg][src], objs[pkg][tgt]) for pkg in PACKAGES}
+
+
+@pytest.mark.parametrize("cls, method, src, tgt, matrix", CLASSES, ids=CLASS_IDS)
+def test_weights_getter_is_the_dataset(inputs, cls, method, src, tgt, matrix):  # noqa: F811
+    _, made = regridders(inputs, cls, method, src, tgt)
+    got, want = made[xt].weights, made[xu].weights
+    assert isinstance(got, xt.xdata.Dataset)
+    assert sorted(got._variables) == sorted(made[xt].to_dataset()._variables)
+    for name in want._variables:
+        if name.startswith("__regrid_"):
+            np.testing.assert_array_equal(got[name].values, np.asarray(want[name].values), err_msg=name)
+
+
+@pytest.mark.parametrize("cls, method, src, tgt, matrix", CLASSES, ids=CLASS_IDS)
+def test_weights_setter_checks_the_type_and_drops_the_cache(inputs, cls, method, src, tgt, matrix):  # noqa: F811
+    objs, made = regridders(inputs, cls, method, src, tgt)
+    regridder = made[xt]
+    source = objs[xt][src]
+    before = values_of(regridder.regrid(source, device="cpu"))
+    assert regridder._device_weights
+    other = MatrixCOO if matrix is MatrixCSR else MatrixCSR
+    wrong = regridder._weights.to_coo() if matrix is MatrixCSR else regridder._weights.to_csr()
+    assert isinstance(wrong, other)
+    for bad in (wrong, regridder.to_dataset(), None):
+        for pkg in PACKAGES:
+            with pytest.raises(TypeError, match=f"Expected {matrix.__name__}"):
+                made[pkg].weights = bad
+    # Scaled weights: the regrid follows them, in both packages alike.
+    w = regridder._weights
+    scaled = w._replace(data=w.data * 0.5)
+    regridder.weights = scaled
+    assert regridder._device_weights == {}
+    assert regridder._weights is scaled
+    if matrix is MatrixCSR:
+        np.testing.assert_array_equal(regridder._padded.weights[regridder._padded.indices >= 0], scaled.data)
+    jw = made[xu]._weights
+    made[xu].weights = jw._replace(data=jw.data * 0.5)
+    got = values_of(regridder.regrid(source, device="cpu"))
+    want = values_of(made[xu].regrid(objs[xu][src]))
+    if cls == "CentroidLocatorRegridder":
+        # The row gather takes no weight: the values stay.
+        np.testing.assert_array_equal(got, before)
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("cls, method, src, tgt, matrix", CLASSES, ids=CLASS_IDS)
+def test_from_weights_round_trip_is_bit_equal(inputs, cls, method, src, tgt, matrix):  # noqa: F811
+    objs, made = regridders(inputs, cls, method, src, tgt)
+    regridder = made[xt]
+    klass = getattr(xt, cls)
+    kwargs = {} if method is None else {"method": method}
+    again = klass.from_weights(regridder.weights, objs[xt][tgt], **kwargs)
+    assert_weights_bit_equal(again._weights, regridder._weights)
+    source = objs[xt][src]
+    np.testing.assert_array_equal(
+        values_of(again.regrid(source, device="cpu")), values_of(regridder.regrid(source, device="cpu"))
+    )
+    jax_again = getattr(xu, cls).from_weights(made[xu].weights, objs[xu][tgt], **kwargs)
+    np.testing.assert_allclose(
+        values_of(again.regrid(source, device="cpu")), values_of(jax_again.regrid(objs[xu][src])),
+        rtol=1e-12, atol=1e-14,
+    )
+
+
+def test_grid_coords_match_jax(inputs):  # noqa: F811
+    verts, faces = inputs["verts"], inputs["faces"]
+    nodes, edges = inputs["nodes"], inputs["edges"]
+    for make in (
+        lambda pkg: pkg.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces),
+        lambda pkg: pkg.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges),
+    ):
+        want, got = make(xu).coords, make(xt).coords
+        assert list(got) == list(want)
+        for dim in want:
+            np.testing.assert_array_equal(got[dim], want[dim])
+
+
+def test_accessor_crs_matches_jax(inputs):  # noqa: F811
+    verts, faces = inputs["verts"], inputs["faces"]
+    nodes, edges = inputs["nodes"], inputs["edges"]
+    out = {}
+    for pkg in PACKAGES:
+        mesh = pkg.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+        network = pkg.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges)
+        uda = pkg.UgridDataArray(pkg.xdata.DataArray(np.zeros(mesh.n_face), dims=(mesh.face_dimension,)), mesh)
+        ds = pkg.xdata.Dataset()
+        ds["a"] = ((mesh.face_dimension,), np.zeros(mesh.n_face))
+        ds["b"] = ((network.edge_dimension,), np.zeros(network.n_edge))
+        uds = pkg.UgridDataset(ds, [mesh, network])
+        out[pkg] = (uda.ugrid.crs, uds.ugrid.crs)
+    assert out[xt] == out[xu] == ({"mesh2d": None}, {"mesh2d": None, "network1d": None})
+
+
+def test_crs_read_from_a_file_is_reported(tmp_path, inputs):  # noqa: F811
+    verts, faces = inputs["verts"], inputs["faces"]
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    ds = mesh.to_dataset()
+    ds["crs"] = ((), np.int32(0), {"epsg": 28992, "grid_mapping_name": "oblique_stereographic"})
+    ds["v"] = ((mesh.face_dimension,), np.arange(mesh.n_face, dtype=np.float64), {"grid_mapping": "crs"})
+    ds.to_netcdf(tmp_path / "crs.nc")
+    uds = xt.UgridDataset(xt.xdata.open_dataset(tmp_path / "crs.nc"))
+    crs = uds.ugrid.crs["mesh2d"]
+    assert crs is uds.grid.crs and crs is not None
+    assert uds["v"].ugrid.crs == {"mesh2d": crs}
+
+
+def test_fill_value_and_network_length_match_jax(inputs):  # noqa: F811
+    assert xt.FILL_VALUE == xu.FILL_VALUE == -1 and "FILL_VALUE" in xt.__all__
+    nodes, edges = inputs["nodes"], inputs["edges"]
+    want = JaxNetwork1d(xu.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges)).length
+    got = Network1d(xt.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges)).length
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, np.hypot(*(nodes[edges[:, 1]] - nodes[edges[:, 0]]).T), rtol=1e-15)

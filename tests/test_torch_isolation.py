@@ -12,8 +12,10 @@ KDTree lookups, ``sel_points``, the line selections, ``rasterize``,
 ``to_node``, ``reindex_like``, ``interpolate_na`` on a mesh and along a
 network's edge index), and the topology operations (erosion, components,
 reordering, the periodic conversion, triangulation, a tessellation, a
-network's cycle test) load neither jax nor xugrid_tpu, and launch no
-kernel.
+network's cycle test), and the payload methods (rank, ffill,
+interpolate_na, quantile, idxmax) and a regrid through ``from_weights``
+of a regridder's ``weights`` load neither jax nor xugrid_tpu, and launch
+no kernel.
 A subprocess is needed because the test session itself imports jax.
 
 ``chip_smoke.py`` refuses to run without a CUDA device: exit code 2 and
@@ -138,6 +140,11 @@ REGRID_ON_CPU = textwrap.dedent(
     assert uda.ugrid.reverse_cuthill_mckee().ugrid.to_periodic().ugrid.grid.n_face == source.n_face
     assert source.triangulate().tesselate_circumcenter_voronoi(device="cpu").n_face == source.n_node
     assert not network.is_cyclic
+    stats = uda.rank("time").ffill("time").interpolate_na("time").quantile([0.1, 0.9], "time")
+    assert stats.dims == ("quantile", source.face_dimension)
+    assert isinstance(uda.mean("time").idxmax(source.face_dimension).data, torch.Tensor)
+    assert xt.OverlapRegridder.from_weights(xt.OverlapRegridder(uda, raster).weights, raster).regrid(
+        uda, device="cpu").dims == ("time", "y", "x")
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "xugrid_tpu" or m.startswith("xugrid_tpu."))
     assert not loaded, loaded

@@ -492,3 +492,108 @@ def test_topology_operations_keep_a_cuda_payload(device):
     host = grid.tesselate_centroidal_voronoi(device="cpu")
     np.testing.assert_array_equal(card.face_node_connectivity, host.face_node_connectivity)
     np.testing.assert_array_equal(card.node_x, host.node_x)
+
+
+def payload_arrays(rng, shape=(7, 300)):
+    """(time, face) float32 with NaN, half-step ties and an all-NaN column."""
+    values = (np.round(rng.normal(size=shape) * 2.0) / 2.0).astype(np.float32)
+    values[rng.random(shape) < 0.1] = np.nan
+    values[:, 5] = np.nan
+    return values
+
+
+def test_payload_methods_on_cuda_match_cpu(device):
+    """Quantile, rank, idxmax/idxmin (ties and NaN: the first extreme on
+    both), cumsum, ffill, bfill and interpolate_na of a CUDA payload
+    against the same methods on the CPU: bit for bit, but cumsum, whose
+    order differs (float32 summation bound) and the quantile (float64 rtol
+    1e-12)."""
+    values = payload_arrays(np.random.default_rng(3))
+    coords = {"time": np.cumsum(np.random.default_rng(4).uniform(0.5, 1.5, values.shape[0]))}
+    on = {
+        where: tx_array(values, coords, where)
+        for where in (device, torch.device("cpu"))
+    }
+    exact = {
+        "rank": lambda da: da.rank("time"),
+        "idxmax": lambda da: da.idxmax("time"),
+        "idxmin": lambda da: da.idxmin("time"),
+        "argmax face": lambda da: da.argmax("face"),
+        "idxmax no skipna": lambda da: da.idxmax("time", skipna=False),
+        "ffill": lambda da: da.ffill("time", limit=2),
+        "bfill": lambda da: da.bfill("time"),
+        "interpolate_na": lambda da: da.interpolate_na("time"),
+        "nearest": lambda da: da.interpolate_na("time", method="nearest", fill_value="extrapolate"),
+        "extrapolate": lambda da: da.interpolate_na("time", fill_value="extrapolate"),
+        "shift": lambda da: da.shift(time=2),
+        "count": lambda da: da.count("time"),
+    }
+    for label, f in exact.items():
+        got, want = f(on[device]), f(on[torch.device("cpu")])
+        assert got.data.device == device, label
+        assert got.data.dtype == want.data.dtype, label
+        np.testing.assert_array_equal(got.values, want.values, err_msg=label)
+    for q in (0.5, [0.1, 0.9]):
+        got, want = (on[w].quantile(q, "time") for w in (device, torch.device("cpu")))
+        assert got.data.device == device and got.data.dtype == torch.float64
+        np.testing.assert_allclose(got.values, want.values, rtol=1e-12, atol=0)
+    got, want = (on[w].cumsum("time") for w in (device, torch.device("cpu")))
+    magnitude = np.cumsum(np.nan_to_num(np.abs(values.astype(np.float64))), axis=0)
+    np.testing.assert_array_equal(np.isnan(got.values), np.isnan(want.values))
+    ok = ~np.isnan(want.values)
+    assert (np.abs(got.values - want.values)[ok] <= 2 * values.shape[0] * 2.0**-24 * magnitude[ok]).all()
+
+
+def tx_array(values, coords, where):
+    return xt.xdata.DataArray(torch.from_numpy(values).to(where), coords=coords, dims=("time", "face"), name="h")
+
+
+def test_dot_in_float32_excludes_tf32(device):
+    """A float32 contraction where TF32's 10-bit mantissa would lose the
+    2^-12 parts: with TF32 allowed globally, ``dot`` still gives the IEEE
+    float32 result (within the float32 summation bound of float64)."""
+    n = 64
+    a = np.full((n, 256), 1.0 + 2.0**-12, dtype=np.float32)
+    b = np.full(n, 1.0 + 2.0**-11, dtype=np.float32)
+    da = xt.xdata.DataArray(torch.from_numpy(a).to(device), dims=("time", "face"))
+    db = xt.xdata.DataArray(torch.from_numpy(b).to(device), dims=("time",))
+    exact = a.astype(np.float64).T @ b.astype(np.float64)
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = da.dot(db)
+        tf32 = torch.einsum("tf,t->f", da.data, db.data)
+    finally:
+        torch.set_float32_matmul_precision(previous)
+    assert torch.get_float32_matmul_precision() == previous
+    assert got.data.device == device and got.data.dtype == torch.float32
+    bound = n * 2.0**-24 * exact
+    assert (np.abs(got.values - exact) <= bound).all()
+    # The unpinned product on this card: either TF32 (far off) or IEEE.
+    print("unpinned einsum |diff|:", float(np.abs(tf32.cpu().numpy() - exact).max()), "bound", float(bound.max()))
+
+
+def test_network_fill_on_the_card_matches_cpu(device):
+    """The Laplace fill of node data on a network (two random-walk lines
+    and one without a known node): csr_matvec on the card, the formula's
+    launches, equal to the fill on the CPU within 1e-8, the line without a
+    known node NaN."""
+    rng = np.random.default_rng(9)
+    nodes, edges = chip_smoke.random_network(3, 200, 100.0, rng)
+    grid = xt.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges)
+    truth, values = chip_smoke.laplace_inputs(grid.node_coordinates, 0.05)
+    values[:201] = np.nan
+    out = {}
+    for where in (device, torch.device("cpu")):
+        uda = xt.UgridDataArray(
+            xt.xdata.DataArray(torch.from_numpy(values).to(where), dims=(grid.node_dimension,)), grid
+        )
+        before = csr_matvec.launches
+        out[where.type] = uda.ugrid.laplace_interpolate(atol=1e-10, maxiter=2000, device=where)
+        info = interpolate.last_solve_info
+        if where.type == "cuda":
+            assert csr_matvec.launches - before == 1 + (info["degree"] - 1) + info["iterations"] * info["degree"]
+    assert out["cuda"].data.device == device
+    got, want = out["cuda"].values, out["cpu"].values
+    assert np.isnan(got[:201]).all() and np.isfinite(got[201:]).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-8)

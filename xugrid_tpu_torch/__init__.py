@@ -40,6 +40,7 @@ xugrid_tpu.
 """
 
 from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch.constants import FILL_VALUE
 from xugrid_tpu_torch.core.common import (
     concat,
     full_like,
@@ -70,6 +71,7 @@ from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid
 
 __all__ = [
+    "FILL_VALUE",
     "AbstractUgrid",
     "BarycentricInterpolator",
     "CentroidLocatorRegridder",

@@ -53,6 +53,11 @@ class AbstractUgridAccessor(abc.ABC):
     def sel(self, x=None, y=None):
         """Selection in UGRID x and y."""
 
+    @property
+    def crs(self) -> dict:
+        """Mapping from grid name to its CRS (None where unset)."""
+        return {grid.name: grid.crs for grid in self.grids}
+
     def clip_box(self, xmin: float, ymin: float, xmax: float, ymax: float):
         """The data and topology in a bounding box."""
         return self.sel(x=slice(xmin, xmax), y=slice(ymin, ymax))

@@ -21,7 +21,7 @@ from xugrid_tpu_torch import xdata
 from xugrid_tpu_torch.ugrid import conventions
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
-from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, align
+from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, align, dim_coordinates
 
 
 def assign_ugrid_coords(obj, grids):
@@ -59,8 +59,9 @@ def maybe_xdata(obj):
 
 class _ForwardMixin:
     def _indexes_snapshot(self):
-        ugrid_dims = {dim for grid in self.grids for dim in grid.dims}
-        return {k: v for k, v in self.obj.indexes.items() if k in ugrid_dims}
+        """The UGRID dimensions' index coordinates (their arrays, not
+        copied), which ``align`` compares after a forwarded call."""
+        return dim_coordinates(self.obj, {dim for grid in self.grids for dim in grid.dims})
 
     def __getattr__(self, name: str):
         if name.startswith("_") or name in ("obj", "grids"):

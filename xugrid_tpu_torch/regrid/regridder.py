@@ -81,6 +81,8 @@ class BaseRegridder(abc.ABC):
     _METHODS = {}
     #: The method of a regridder made from weights without one.
     _DEFAULT_METHOD = "mean"
+    #: The matrix type the ``weights`` setter takes.
+    _WEIGHTS_TYPE = MatrixCSR
 
     def __init__(self, source, target, tolerance: Optional[float] = None):
         self._source = setup_grid(source)
@@ -99,6 +101,20 @@ class BaseRegridder(abc.ABC):
             self._padded = PaddedCSR.from_csr(weights)
         # (dtype, device) -> (indices, weights) tensors on that device.
         self._device_weights = {}
+
+    @property
+    def weights(self) -> xdata.Dataset:
+        """The weights and both grids as a dataset (``to_dataset``), which
+        ``from_weights`` takes."""
+        return self.to_dataset()
+
+    @weights.setter
+    def weights(self, weights) -> None:
+        """Replace the weight matrix (this class's ``_WEIGHTS_TYPE``); the
+        cached layouts are rebuilt from it."""
+        if not isinstance(weights, self._WEIGHTS_TYPE):
+            raise TypeError(f"Expected {self._WEIGHTS_TYPE.__name__}, received: {type(weights).__name__}")
+        self._set_weights(weights)
 
     def _setup_regrid(self, func) -> None:
         if isinstance(func, str):
@@ -393,6 +409,8 @@ class CentroidLocatorRegridder(BaseRegridder):
     holds it.  ``tolerance`` is the on-edge tolerance of the point
     location.  Launches no kernel: the apply is a row gather.
     """
+
+    _WEIGHTS_TYPE = MatrixCOO
 
     def _compute_weights(self, source, target, tolerance=None) -> MatrixCOO:
         source, target = convert_to_match(source, target)

@@ -242,6 +242,11 @@ class Network1d:
     def size(self):
         return self.ugrid_topology.n_edge
 
+    @property
+    def length(self) -> np.ndarray:
+        """The length of each edge."""
+        return self.ugrid_topology.edge_length
+
     def to_dataset(self, name: str):
         """The network's UGRID dataset under the name ``name``, with a
         ``{name}_type`` variable naming this adapter."""

@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import pandas as pd
+from scipy.sparse import csr_matrix
 from scipy.sparse.csgraph import dijkstra
 
 from xugrid_tpu_torch import xdata
@@ -193,6 +194,17 @@ class Ugrid1d(AbstractUgrid):
         elif dim == self.edge_dimension:
             return self.edge_coordinates
         raise ValueError(f"Expected {self.node_dimension} or {self.edge_dimension}; got: {dim}")
+
+    def get_connectivity_matrix(self, dim: str, xy_weights: bool) -> csr_matrix:
+        """Adjacency matrix (CSR) of the nodes.  With ``xy_weights`` its
+        data are normalized inverse distances between the nodes, else the
+        connecting edge index."""
+        if dim != self.node_dimension:
+            raise ValueError(f"Expected {self.node_dimension}; got: {dim}")
+        conn = self.node_node_connectivity.copy()
+        if xy_weights:
+            conn.data = self._connectivity_weights(conn, self.node_coordinates)
+        return conn
 
     # -- spatial queries -----------------------------------------------------------
     @property

@@ -509,13 +509,6 @@ class Ugrid2d(AbstractUgrid):
             conn.data = self._connectivity_weights(conn, coordinates)
         return conn
 
-    @staticmethod
-    def _connectivity_weights(conn: csr_matrix, coordinates: np.ndarray) -> np.ndarray:
-        """Normalized inverse-distance weights for adjacency data."""
-        coo = conn.tocoo()
-        distance = np.linalg.norm(coordinates[coo.col] - coordinates[coo.row], axis=1)
-        return distance.mean() / distance
-
     # -- geometry --------------------------------------------------------------
     @property
     def area(self) -> np.ndarray:

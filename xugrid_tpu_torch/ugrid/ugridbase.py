@@ -61,19 +61,33 @@ def as_pandas_index(index, n: int) -> pd.Index:
     return pd_index
 
 
-def align(obj, grids, old_indexes):
+def dim_coordinates(obj, dims) -> dict:
+    """The data of the index coordinates of ``obj`` (a DataArray or a
+    Dataset) on ``dims``, not copied."""
+    if isinstance(obj, xdata.DataArray):
+        coords = obj._coords
+    else:
+        coords = {k: obj._variables[k] for k in obj._coord_names}
+    return {d: coords[d].data for d in dims if d in coords and coords[d].dims == (d,)}
+
+
+def align(obj, grids, old_coords):
     """
-    ``obj`` and its grids after a forwarded operation: where the index of
-    a UGRID dimension changed, the grid is subset to the entities left
-    (``grid.isel``), and ``obj`` to that subset's entities on the grid's
-    other dimensions.  The positions into the grid are the new index's
-    places in the old one.
+    ``obj`` and its grids after a forwarded operation: where the index
+    coordinate of a UGRID dimension changed (``old_coords``: its data
+    before, from ``dim_coordinates``), the grid is subset to the entities
+    left (``grid.isel``), and ``obj`` to that subset's entities on the
+    grid's other dimensions.  The positions into the grid are the new
+    index's places in the old one.  A coordinate that is the same array
+    as before is unchanged without a comparison.
     """
-    if old_indexes is None:
+    if old_coords is None:
         return obj, grids
-    ugrid_dims = set(chain.from_iterable(grid.dims for grid in grids)).intersection(old_indexes)
+    ugrid_dims = set(chain.from_iterable(grid.dims for grid in grids)).intersection(old_coords)
     new_indexes = {
-        k: index for k, index in obj.indexes.items() if k in ugrid_dims and not index.equals(old_indexes[k])
+        k: xdata.indexes.as_index(data)
+        for k, data in dim_coordinates(obj, ugrid_dims).items()
+        if data is not old_coords[k] and not np.array_equal(data, old_coords[k])
     }
     if not new_indexes:
         return obj, grids
@@ -82,7 +96,7 @@ def align(obj, grids, old_indexes):
     for grid in grids:
         grid_dims = grid.dims.intersection(new_indexes)
         if grid_dims:
-            positions = {dim: old_indexes[dim].get_indexer(new_indexes[dim]) for dim in grid_dims}
+            positions = {dim: xdata.indexes.as_index(old_coords[dim]).get_indexer(new_indexes[dim]) for dim in grid_dims}
             newgrid, indexers = grid.isel(indexers=positions, return_index=True)
             obj = obj.isel({k: v.to_numpy() for k, v in indexers.items() if k in obj.dims and k not in new_indexes})
             new_grids.append(newgrid)
@@ -136,6 +150,12 @@ class AbstractUgrid(abc.ABC):
     def dims(self) -> set:
         """Set of UGRID dimension names."""
         return set(self.facets.values())
+
+    @property
+    def coords(self) -> dict:
+        """(n, 2) coordinates per UGRID dimension: nodes, edge midpoints
+        (and face centroids)."""
+        return {dim: self.get_coordinates(dim) for dim in self.facets.values()}
 
     @property
     def dimensions(self):
@@ -540,6 +560,13 @@ class AbstractUgrid(abc.ABC):
     def directed_edge_edge_connectivity(self) -> csr_matrix:
         """Each edge's downstream edges (CSR); data holds the shared node."""
         return connectivity.directed_edge_edge_connectivity(self.edge_node_connectivity, self.node_edge_connectivity)
+
+    @staticmethod
+    def _connectivity_weights(conn: csr_matrix, coordinates: np.ndarray) -> np.ndarray:
+        """Normalized inverse-distance weights for adjacency data."""
+        coo = conn.tocoo()
+        distance = np.linalg.norm(coordinates[coo.col] - coordinates[coo.row], axis=1)
+        return distance.mean() / distance
 
     # -- coordinate assignment ---------------------------------------------------
     def set_node_coords(self, node_x: str, node_y: str, obj, is_projected=True, crs=None):

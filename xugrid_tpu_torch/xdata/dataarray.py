@@ -8,21 +8,32 @@ a torch tensor, which stays on its device (``variable.py``).
 
 from __future__ import annotations
 
+import contextlib
 import operator
 from typing import Hashable, Mapping
 
 import numpy as np
+import pandas as pd
 import torch
 
 from xugrid_tpu_torch.xdata.indexes import as_index, resolve_label_indexer
 from xugrid_tpu_torch.xdata.variable import (
     Variable,
+    arg_extreme,
     as_compatible_data,
     as_tensor_like,
     broadcast_variables,
     common_operands,
+    fill_directional_tensor,
+    interpolate_tensor,
+    is_floating,
     is_tensor,
+    isin_tensor,
+    quantile_tensor,
+    rank_tensor,
+    shift_tensor,
     to_numpy,
+    where_tensor,
 )
 
 
@@ -99,6 +110,25 @@ def _array_equiv(a, b) -> bool:
     if a.dtype.kind in "fc" or b.dtype.kind in "fc":
         return bool(((a == b) | (np.isnan(a) & np.isnan(b))).all())
     return bool((a == b).all())
+
+
+@contextlib.contextmanager
+def ieee_float32():
+    """float32 matrix products in IEEE precision inside the block: no
+    TF32 rounding on the card, whatever the caller's global setting."""
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(previous)
+
+
+def _keep_mask(mask, dims, dim):
+    """Positions along ``dim`` where the host bool ``mask`` over ``dims``
+    holds anywhere."""
+    axes = tuple(i for i, d in enumerate(dims) if d != dim)
+    return np.flatnonzero(mask.any(axis=axes) if axes else mask)
 
 
 def _merge_coords(a: dict, b: dict) -> dict:
@@ -232,6 +262,12 @@ class DataArray:
             if dim in self._coords and self._coords[dim].dims == (dim,)
         }
 
+    def get_index(self, dim) -> pd.Index:
+        """The index of ``dim``: its 1-D coordinate, else positions."""
+        if dim in self._coords and self._coords[dim].dims == (dim,):
+            return as_index(self._coords[dim].data)
+        return pd.RangeIndex(self.sizes[dim])
+
     def __len__(self):
         if not self.dims:
             raise TypeError("len() of unsized object")
@@ -315,6 +351,20 @@ class DataArray:
     def to_numpy(self) -> np.ndarray:
         """The payload on the host: a copy of a tensor."""
         return self.values
+
+    def to_pandas(self):
+        """A pandas Series (1-D, on the host) or the scalar (0-D)."""
+        if self.ndim == 1:
+            return pd.Series(self.values, index=self.get_index(self.dims[0]), name=self.name)
+        if self.ndim == 0:
+            return self.values.item()
+        raise NotImplementedError("to_pandas only for 0D/1D")
+
+    def to_dataframe(self, name=None, dim_order=None):
+        """A pandas DataFrame on the host (``Dataset.to_dataframe``)."""
+        name = name or self.name or "data"
+        ds = self.rename(name).to_dataset() if name != self.name else self.to_dataset(name)
+        return ds.to_dataframe(dim_order=dim_order)
 
     # -- indexing -----------------------------------------------------------
     @staticmethod
@@ -460,6 +510,13 @@ class DataArray:
                 raise ValueError(f"{n!r} not found in coords")
         return DataArray._construct(self.variable, new, self.name)
 
+    def reset_coords(self, names=None, drop=True):
+        """Drop the non-index coordinates ``names`` (default: all)."""
+        if not drop:
+            raise NotImplementedError("reset_coords(drop=False)")
+        names = names or [k for k in self._coords if k not in self.dims]
+        return self.drop_vars(names, errors="ignore")
+
     # -- shaping ------------------------------------------------------------
     def transpose(self, *dims) -> "DataArray":
         return DataArray._construct(self.variable.transpose(*dims), dict(self._coords), self.name)
@@ -498,6 +555,12 @@ class DataArray:
                 var = var.broadcast_to(var.dims, {**var.sizes, d: size})
         return DataArray._construct(var, coords, self.name)
 
+    def broadcast_like(self, other) -> "DataArray":
+        sizes = {**other.sizes, **self.sizes}
+        dims = tuple(dict.fromkeys(tuple(other.dims) + tuple(self.dims)))
+        coords = {**other._coords, **self._coords}
+        return DataArray._construct(self.variable.broadcast_to(dims, sizes), coords, self.name)
+
     def stack_dims(self, new_dim: str, dims) -> "DataArray":
         """Collapse ``dims`` (in order) into one new trailing dim."""
         other = [d for d in self.dims if d not in dims]
@@ -533,11 +596,21 @@ class DataArray:
         coords = {k: v for k, v in self._coords.items() if set(v.dims) <= set(var.dims)}
         return DataArray._construct(var, coords, self.name)
 
-    def where(self, cond, other=np.nan) -> "DataArray":
-        """Keep the values where ``cond`` holds, else ``other``."""
+    def where(self, cond, other=np.nan, drop: bool = False) -> "DataArray":
+        """Keep the values where ``cond`` holds, else ``other``.  With
+        ``drop``, first trim every dimension of ``cond`` to the positions
+        where it holds anywhere (the mask is read on the host)."""
         cond_var = cond.variable if isinstance(cond, DataArray) else Variable(self.dims, cond)
         if isinstance(other, DataArray):
             other = other.variable
+        if drop:
+            mask = to_numpy(cond_var.data).astype(bool)
+            keep = {dim: _keep_mask(mask, cond_var.dims, dim) for dim in cond_var.dims}
+            sub_cond = cond.isel(keep) if isinstance(cond, DataArray) else cond_var.isel(keep).data
+            if isinstance(other, Variable):
+                sub = {d: keep[d] for d in other.dims if d in keep}
+                other = other.isel(sub) if sub else other
+            return self.isel(keep).where(sub_cond, other)
         sv, cv = broadcast_variables(self.variable, cond_var)
         if isinstance(other, Variable):
             sv, ov = broadcast_variables(sv, other)
@@ -545,7 +618,7 @@ class DataArray:
             other = ov.data
         data, mask = common_operands(sv.data, cv.data)
         if is_tensor(data):
-            result = torch.where(mask, data, as_tensor_like(other, data))
+            result = where_tensor(mask, data, other)
         else:
             result = np.where(mask, data, other)
         var = Variable(sv.dims, result, self.attrs)
@@ -584,6 +657,436 @@ class DataArray:
 
     def identical(self, other) -> bool:
         return self.equals(other) and self.name == other.name and self.attrs == other.attrs
+
+    # -- payload methods ------------------------------------------------------
+    def compute(self):
+        return self
+
+    def load(self):
+        return self
+
+    def chunk(self, *args, **kwargs):
+        return self
+
+    def persist(self):
+        return self
+
+    def pipe(self, func, *args, **kwargs):
+        return func(self, *args, **kwargs)
+
+    def assign_attrs(self, *args, **kwargs) -> "DataArray":
+        out = self.copy(deep=False)
+        out.attrs.update(dict(*args, **kwargs))
+        return out
+
+    def _with_data(self, data, coords=None, keep_attrs=True) -> "DataArray":
+        """A DataArray of the same dims over ``data``."""
+        var = Variable(self.dims, data, self.attrs if keep_attrs else None)
+        return DataArray._construct(var, dict(self._coords) if coords is None else coords, self.name)
+
+    def clip(self, min=None, max=None) -> "DataArray":
+        data = self.data
+        if not is_tensor(data):
+            return self._with_data(np.clip(data, min, max))
+        if not is_floating(data) and any(isinstance(v, float) for v in (min, max)):
+            data = data.double()
+        return self._with_data(torch.clamp(data, as_tensor_like(min, data), as_tensor_like(max, data)))
+
+    def round(self, decimals=0) -> "DataArray":
+        data = self.data
+        if not is_tensor(data):
+            return self._with_data(np.round(data, decimals))
+        if not is_floating(data):
+            return self._with_data(data.clone())
+        return self._with_data(torch.round(data, decimals=decimals))
+
+    def isin(self, values) -> "DataArray":
+        data = self.data
+        if is_tensor(data):
+            return self._with_data(isin_tensor(data, values))
+        return self._with_data(np.isin(data, np.asarray(values)))
+
+    def diff(self, dim, n: int = 1) -> "DataArray":
+        axis = self.dims.index(dim)
+        data = self.data
+        result = torch.diff(data, n=n, dim=axis) if is_tensor(data) else np.diff(data, n=n, axis=axis)
+        coords = {k: v.isel({dim: slice(n, None)}) if dim in v.dims else v for k, v in self._coords.items()}
+        return self._with_data(result, coords)
+
+    def _cumulative(self, name, dim) -> "DataArray":
+        data = self.data
+        if not is_tensor(data):
+            axis = None if dim is None else self.dims.index(dim)
+            return self._with_data(getattr(np, name)(data, axis=axis))
+        if dim is None:
+            return self._with_data(getattr(torch, name)(data.reshape(-1), dim=0))
+        return self._with_data(getattr(torch, name)(data, dim=self.dims.index(dim)))
+
+    def cumsum(self, dim=None) -> "DataArray":
+        """Cumulative sum along ``dim`` (None: over the flattened array,
+        which only a 1-D array can take)."""
+        return self._cumulative("cumsum", dim)
+
+    def cumprod(self, dim=None) -> "DataArray":
+        return self._cumulative("cumprod", dim)
+
+    def argmax(self, dim=None):
+        return self._reduce("argmax", dim=dim, skipna=False)
+
+    def argmin(self, dim=None):
+        return self._reduce("argmin", dim=dim, skipna=False)
+
+    def idxmax(self, dim=None, skipna=True):
+        return self._idx_reduce("argmax", dim, skipna)
+
+    def idxmin(self, dim=None, skipna=True):
+        return self._idx_reduce("argmin", dim, skipna)
+
+    def _idx_reduce(self, op, dim, skipna):
+        """The labels of ``dim`` at the arg reduction.  NaN never wins with
+        ``skipna``, and an all-NaN slice gives a NaN (or NaT) label.  A
+        tensor payload takes a numeric index's labels on its device;
+        other labels (dates, strings) come back on the host."""
+        dim = dim or self.dims[0]
+        axis = self.dims.index(dim)
+        data = self.data
+        nan_aware = skipna and is_floating(data)
+        coords = {k: v for k, v in self._coords.items() if dim not in v.dims}
+        pos_dims = tuple(d for d in self.dims if d != dim)
+        index = np.asarray(self.get_index(dim))
+        if not is_tensor(data):
+            values = np.asarray(data)
+            if nan_aware:
+                clean = np.where(np.isnan(values), -np.inf if op == "argmax" else np.inf, values)
+                pos = (np.argmax if op == "argmax" else np.argmin)(clean, axis=axis)
+            else:
+                pos = self._reduce(op, dim=dim, skipna=False).data
+            labels = index[np.asarray(pos)]
+            if nan_aware:
+                all_nan = np.isnan(values).all(axis=axis)
+                if all_nan.any():
+                    if labels.dtype.kind in "mM":
+                        labels = np.where(all_nan, np.array("NaT", dtype=labels.dtype), labels)
+                    else:
+                        labels = np.where(all_nan, np.nan, labels.astype(np.float64))
+            return DataArray._construct(Variable(pos_dims, labels), coords, self.name)
+        clean = data
+        if nan_aware:
+            clean = torch.where(torch.isnan(data), -torch.inf if op == "argmax" else torch.inf, data)
+        pos = arg_extreme(clean, axis, op == "argmax")
+        all_nan = torch.isnan(data).all(dim=axis) if nan_aware else None
+        if index.dtype.kind in "biuf":
+            labels = torch.from_numpy(index).to(data.device)[pos]
+            if all_nan is not None and bool(all_nan.any()):
+                labels = torch.where(all_nan, torch.nan, labels.double())
+        else:
+            labels = index[pos.cpu().numpy()]
+            if all_nan is not None:
+                missing = all_nan.cpu().numpy()
+                if missing.any():
+                    nat = np.array("NaT", dtype=labels.dtype) if labels.dtype.kind in "mM" else np.nan
+                    labels = np.where(missing, nat, labels if labels.dtype.kind in "mM" else labels.astype(np.float64))
+        return DataArray._construct(Variable(pos_dims, labels), coords, self.name)
+
+    def dropna(self, dim: str, how: str = "any") -> "DataArray":
+        """Drop positions along ``dim`` holding NaN (any or all over the
+        other dimensions); the mask along ``dim`` is read on the host."""
+        axis = tuple(i for i, d in enumerate(self.dims) if d != dim)
+        data = self.data
+        if is_tensor(data):
+            isnan = torch.isnan(data) if is_floating(data) else torch.zeros_like(data, dtype=torch.bool)
+            if axis:
+                isnan = isnan.any(dim=axis) if how == "any" else isnan.all(dim=axis)
+            mask = isnan.cpu().numpy()
+        else:
+            isnan = np.isnan(np.asarray(data))
+            mask = isnan.any(axis=axis) if how == "any" else isnan.all(axis=axis)
+        return self.isel({dim: np.flatnonzero(~mask)})
+
+    def count(self, dim=None) -> "DataArray":
+        """Number of non-null elements along ``dim`` (NaN for floats, NaT
+        for datetimes and timedeltas), int64."""
+        valid = self.variable.notnull().data
+        valid = valid.long() if is_tensor(valid) else np.asarray(valid).astype(np.int64)
+        out = DataArray._construct(Variable(self.dims, valid), dict(self._coords), self.name)
+        return out._reduce("sum", dim=dim, skipna=False)
+
+    def quantile(self, q, dim=None, skipna=True, **kwargs) -> "DataArray":
+        """NaN-aware quantiles (linear interpolation), float64; an array
+        ``q`` adds a leading ``quantile`` dimension."""
+        q_arr = np.atleast_1d(np.asarray(q, dtype=np.float64))
+        if dim is None:
+            axis, new_dims = None, ()
+        else:
+            dims = [dim] if isinstance(dim, str) else list(dim)
+            axis = tuple(self.dims.index(d) for d in dims)
+            new_dims = tuple(d for d in self.dims if d not in dims)
+        data = self.data
+        if is_tensor(data):
+            result = quantile_tensor(data, q_arr, axis, skipna)
+        else:
+            result = (np.nanquantile if skipna else np.quantile)(np.asarray(data), q_arr, axis=axis)
+        coords = {k: v for k, v in self._coords.items() if set(v.dims) <= set(new_dims)}
+        if np.ndim(q) == 0:
+            return DataArray._construct(Variable(new_dims, result[0]), coords, self.name)
+        coords["quantile"] = Variable(("quantile",), q_arr)
+        return DataArray._construct(Variable(("quantile",) + new_dims, result), coords, self.name)
+
+    def rank(self, dim) -> "DataArray":
+        """Rank along ``dim`` (average method, NaN stays NaN), float64."""
+        axis = self.dims.index(dim)
+        data = self.data
+        if is_tensor(data):
+            return self._with_data(rank_tensor(data, axis))
+        from scipy.stats import rankdata
+
+        values = np.asarray(data, dtype=np.float64)
+        ranked = rankdata(values, method="average", axis=axis, nan_policy="omit").astype(np.float64)
+        return self._with_data(np.where(np.isnan(values), np.nan, ranked))
+
+    def shift(self, shifts=None, fill_value=np.nan, **kwargs) -> "DataArray":
+        """Shift the data along dims, ``fill_value`` in the vacated places
+        (the coordinates stay).  An integer or bool payload with a NaN
+        fill becomes float64."""
+        shifts = {**(shifts or {}), **kwargs}
+        data = self.data
+        promote = isinstance(fill_value, float) and np.isnan(fill_value)
+        if is_tensor(data):
+            out = data.double() if promote and not is_floating(data) else data.clone()
+            for dim, n in shifts.items():
+                if n != 0:
+                    out = shift_tensor(out, self.dims.index(dim), n, fill_value)
+            return self._with_data(out)
+        data = np.asarray(data)
+        if data.dtype.kind in "iub" and promote:
+            data = data.astype(np.float64)
+        out = data.copy()
+        for dim, n in shifts.items():
+            if n == 0:
+                continue
+            axis = self.dims.index(dim)
+            out = np.roll(out, n, axis=axis)
+            index = [slice(None)] * out.ndim
+            index[axis] = slice(0, n) if n > 0 else slice(n, None)
+            out[tuple(index)] = fill_value
+        return self._with_data(out)
+
+    def roll(self, shifts=None, roll_coords=False, **kwargs) -> "DataArray":
+        """Roll the data (and with ``roll_coords`` the coordinates)
+        cyclically along dims."""
+        shifts = {**(shifts or {}), **kwargs}
+        out = self.data
+        for dim, n in shifts.items():
+            axis = self.dims.index(dim)
+            out = torch.roll(out, n, dims=axis) if is_tensor(out) else np.roll(out, n, axis=axis)
+        coords = {}
+        for k, v in self._coords.items():
+            if roll_coords and any(d in shifts for d in v.dims):
+                cdat = to_numpy(v.data)
+                for dim, n in shifts.items():
+                    if dim in v.dims:
+                        cdat = np.roll(cdat, n, axis=v.dims.index(dim))
+                coords[k] = Variable(v.dims, cdat, v.attrs)
+            else:
+                coords[k] = v
+        return self._with_data(out, coords)
+
+    def sortby(self, variables, ascending: bool = True) -> "DataArray":
+        """Sort along the dimension of each 1-D key (a coordinate name or
+        a DataArray), read on the host; the payload is gathered on its
+        device."""
+        if isinstance(variables, (str, DataArray)):
+            variables = [variables]
+        out = self
+        for v in variables:
+            key = self._coords[v] if isinstance(v, str) else v.variable
+            if len(key.dims) != 1:
+                raise ValueError("sortby requires 1-D sort keys")
+            order = np.argsort(to_numpy(key.data), kind="stable")
+            out = out.isel({key.dims[0]: order if ascending else order[::-1]})
+        return out
+
+    def _fill_directional(self, dim, limit, reverse) -> "DataArray":
+        axis = self.dims.index(dim)
+        data = self.data
+        if is_tensor(data):
+            return self._with_data(fill_directional_tensor(data, axis, limit, reverse))
+        moved = np.moveaxis(np.asarray(data, dtype=np.float64), axis, 0)
+        n = moved.shape[0]
+        if reverse:
+            moved = moved[::-1]
+        idx = np.arange(n).reshape((n,) + (1,) * (moved.ndim - 1))
+        valid = ~np.isnan(moved)
+        last = np.maximum.accumulate(np.where(valid, idx, -1), axis=0)
+        if limit is not None:
+            last = np.where((last >= 0) & (idx - last <= limit), last, -1)
+        filled = np.take_along_axis(moved, np.where(last >= 0, last, 0), axis=0)
+        filled = np.where(valid, moved, np.where(last >= 0, filled, np.nan))
+        if reverse:
+            filled = filled[::-1]
+        return self._with_data(np.moveaxis(filled, 0, axis))
+
+    def ffill(self, dim, limit=None) -> "DataArray":
+        """Forward-fill NaN along ``dim`` (at most ``limit`` steps), float64."""
+        return self._fill_directional(dim, limit, reverse=False)
+
+    def bfill(self, dim, limit=None) -> "DataArray":
+        """Backward-fill NaN along ``dim`` (at most ``limit`` steps), float64."""
+        return self._fill_directional(dim, limit, reverse=True)
+
+    def dot(self, other, dims=None) -> "DataArray":
+        """Tensor contraction over the shared (or the named) dimensions.
+        A tensor payload contracts on its device, float32 without TF32."""
+        if dims is None:
+            dims = [d for d in self.dims if d in other.dims]
+        elif isinstance(dims, str):
+            dims = [dims]
+        a_keep = [d for d in self.dims if d not in dims]
+        b_keep = [d for d in other.dims if d not in dims]
+        letters = {d: chr(ord("a") + i) for i, d in enumerate(dict.fromkeys(tuple(self.dims) + tuple(other.dims)))}
+        spec = (
+            "".join(letters[d] for d in self.dims) + "," + "".join(letters[d] for d in other.dims)
+            + "->" + "".join(letters[d] for d in a_keep + b_keep)
+        )
+        a, b = common_operands(self.data, other.data)
+        if is_tensor(a):
+            a, b = torch.as_tensor(a), torch.as_tensor(b)
+            dtype = torch.promote_types(a.dtype, b.dtype)
+            with ieee_float32():
+                result = torch.einsum(spec, a.to(dtype), b.to(dtype))
+        else:
+            result = np.einsum(spec, np.asarray(a), np.asarray(b))
+        new_dims = tuple(a_keep + b_keep)
+        coords = {k: v for k, v in {**other._coords, **self._coords}.items() if set(v.dims) <= set(new_dims)}
+        return DataArray._construct(Variable(new_dims, result), coords, self.name)
+
+    def reindex(self, indexers=None, method=None, tolerance=None, fill_value=np.nan, **kwargs) -> "DataArray":
+        """Conform to new labels of index coordinates; unmatched labels
+        take ``fill_value`` (or the nearest, ffill or bfill match within
+        ``tolerance``).  The positions are found on the host, the payload
+        gathered on its device."""
+        indexers = {**(indexers or {}), **kwargs}
+        out = self
+        for dim, labels in indexers.items():
+            labels = to_numpy(labels.data if isinstance(labels, DataArray) else labels)
+            current = to_numpy(out._coords[dim].data)
+            pos = _reindex_positions(dim, current, labels, method, tolerance)
+            axis = out.dims.index(dim)
+            data = out.data
+            as_float = not isinstance(fill_value, (int, np.integer))
+            take = np.clip(pos, 0, len(current) - 1)
+            miss_shape = [1] * len(out.dims)
+            miss_shape[axis] = len(labels)
+            miss = (pos < 0).reshape(miss_shape)
+            if is_tensor(data):
+                if as_float and not is_floating(data):
+                    data = data.double()
+                gathered = data.index_select(axis, torch.from_numpy(take).to(data.device))
+                gathered = torch.where(torch.from_numpy(miss).to(data.device), fill_value, gathered)
+            else:
+                data = np.asarray(data)
+                if data.dtype.kind in "iub" and as_float:
+                    data = data.astype(np.float64)
+                gathered = np.where(miss, fill_value, np.take(data, take, axis=axis))
+            coords = {}
+            for k, v in out._coords.items():
+                if k == dim:
+                    coords[k] = Variable((dim,), labels)
+                elif dim not in v.dims:  # non-index coordinates over dim are dropped
+                    coords[k] = v
+            out = DataArray._construct(Variable(out.dims, gathered, out.attrs), coords, out.name)
+        return out
+
+    def reindex_like(self, other, method=None, tolerance=None, fill_value=np.nan) -> "DataArray":
+        indexers = {
+            d: to_numpy(other._coords[d].data) for d in self.dims if d in other._coords and d in self._coords
+        }
+        return self.reindex(indexers, method=method, tolerance=tolerance, fill_value=fill_value)
+
+    def interpolate_na(self, dim=None, method: str = "linear", fill_value=None, **kwargs):
+        """
+        Fill NaN by 1-D interpolation along ``dim`` over its coordinate
+        (else positions), float64: interior gaps are interpolated,
+        leading and trailing NaN stay unless ``fill_value="extrapolate"``.
+        A tensor payload fills every row at once on its device.  For the
+        fill over the mesh use ``uda.ugrid.interpolate_na``.
+        """
+        if dim is None:
+            raise ValueError("interpolate_na requires a dim")
+        if method not in ("linear", "nearest"):
+            raise NotImplementedError(f"method {method!r} not supported")
+        axis = self.dims.index(dim)
+        n = self.sizes[dim]
+        x = to_numpy(self._coords[dim].data).astype(np.float64) if dim in self._coords else np.arange(n, dtype=np.float64)
+        if (np.diff(x) <= 0).any():
+            # np.interp's result is undefined there (xarray refuses too).
+            raise ValueError(f"interpolate_na needs an increasing coordinate along {dim!r}")
+        extrapolate = fill_value == "extrapolate"
+        if is_tensor(self.data):
+            return self._with_data(interpolate_tensor(self.data, x, axis, method, extrapolate))
+        moved = np.moveaxis(np.asarray(self.data, dtype=np.float64), axis, -1)
+        flat = moved.reshape(-1, n).copy()
+        for row in flat:
+            ok = ~np.isnan(row)
+            if ok.all() or not ok.any():
+                continue
+            missing = ~ok
+            if method == "linear":
+                left = right = None if extrapolate else np.nan
+                row[missing] = np.interp(x[missing], x[ok], row[ok], left=left, right=right)
+                xs, ys = x[ok], row[ok]
+                if extrapolate and len(xs) > 1:
+                    # np.interp clamps: linear extrapolation at the ends.
+                    lo, hi = (x < xs[0]) & missing, (x > xs[-1]) & missing
+                    row[lo] = ys[0] + (ys[1] - ys[0]) / (xs[1] - xs[0]) * (x[lo] - xs[0])
+                    row[hi] = ys[-1] + (ys[-1] - ys[-2]) / (xs[-1] - xs[-2]) * (x[hi] - xs[-1])
+            else:
+                idx_ok = np.flatnonzero(ok)
+                pos = np.clip(np.searchsorted(x[ok], x[missing]), 1, len(idx_ok) - 1)
+                left_i, right_i = idx_ok[pos - 1], idx_ok[pos]
+                take_right = np.abs(x[right_i] - x[missing]) < np.abs(x[missing] - x[left_i])
+                filled = np.where(take_right, row[right_i], row[left_i])
+                if not extrapolate:
+                    xs = x[ok]
+                    filled = np.where((x[missing] < xs[0]) | (x[missing] > xs[-1]), np.nan, filled)
+                row[missing] = filled
+        return self._with_data(np.moveaxis(flat.reshape(moved.shape), -1, axis))
+
+
+def _reindex_positions(dim, current: np.ndarray, labels: np.ndarray, method, tolerance) -> np.ndarray:
+    """Positions in ``current`` of each label (-1 where none matches)."""
+    if method is None:
+        if current.dtype.kind == "O":
+            # Object labels (mixed types) do not sort: a hash lookup.
+            if len(set(current.tolist())) != len(current):
+                raise ValueError(f"cannot reindex dimension {dim!r}: index has duplicate labels")
+            lookup = {v: i for i, v in enumerate(current.tolist())}
+            return np.array([lookup.get(lab, -1) for lab in labels.tolist()], dtype=np.int64)
+        order = np.argsort(current, kind="stable")
+        sc = current[order]
+        if len(sc) > 1 and (sc[1:] == sc[:-1]).any():
+            raise ValueError(f"cannot reindex dimension {dim!r}: index has duplicate labels")
+        j = np.searchsorted(sc, labels)
+        safe = np.clip(j, 0, len(sc) - 1)
+        return np.where((j < len(sc)) & (sc[safe] == labels), order[safe], -1)
+    order = np.argsort(current, kind="stable")
+    sc = current[order]
+    j = np.searchsorted(sc, labels)
+    if method == "nearest":
+        j_lo, j_hi = np.clip(j - 1, 0, len(sc) - 1), np.clip(j, 0, len(sc) - 1)
+        # strict <: pandas breaks exact-distance ties toward the higher label
+        pick = np.where(np.abs(labels - sc[j_lo]) < np.abs(sc[j_hi] - labels), j_lo, j_hi)
+    elif method in ("ffill", "pad"):
+        pick = np.where((j < len(sc)) & (sc[np.clip(j, 0, len(sc) - 1)] == labels), j, j - 1)
+    elif method in ("bfill", "backfill"):
+        pick = j
+    else:
+        raise ValueError(f"unknown reindex method: {method}")
+    valid = (pick >= 0) & (pick < len(sc))
+    safe = np.clip(pick, 0, len(sc) - 1)
+    if tolerance is not None:
+        valid &= np.abs(sc[safe] - labels) <= tolerance
+    return np.where(valid, order[safe], -1)
 
 
 # -- attach operators -------------------------------------------------------

@@ -8,9 +8,13 @@ from __future__ import annotations
 
 from typing import Iterator, Mapping
 
-from xugrid_tpu_torch.xdata.dataarray import DataArray, _array_equiv
+import numpy as np
+import pandas as pd
+import torch
+
+from xugrid_tpu_torch.xdata.dataarray import REDUCTIONS, DataArray, _array_equiv, _keep_mask
 from xugrid_tpu_torch.xdata.indexes import as_index, resolve_label_indexer
-from xugrid_tpu_torch.xdata.variable import Variable, as_compatible_data
+from xugrid_tpu_torch.xdata.variable import Variable, as_compatible_data, is_tensor, to_numpy
 
 
 class _DictView(Mapping):
@@ -195,6 +199,20 @@ class Dataset:
             out._coord_names.add(n)
         return out
 
+    def reset_coords(self, names=None, drop: bool = False) -> "Dataset":
+        """Make the coordinates ``names`` (default: those that are not
+        indexes) data variables, or drop them."""
+        if names is None:
+            names = [n for n in self._coord_names if self._variables[n].dims != (n,)]
+        elif isinstance(names, str):
+            names = [names]
+        out = self.copy(deep=False)
+        for n in names:
+            out._coord_names.discard(n)
+            if drop:
+                del out._variables[n]
+        return out
+
     def drop_vars(self, names, errors: str = "raise") -> "Dataset":
         if isinstance(names, str):
             names = [names]
@@ -207,6 +225,15 @@ class Dataset:
                 raise ValueError(f"{n!r} not found")
         return out
 
+    def drop_dims(self, dims, errors: str = "raise") -> "Dataset":
+        """Drop every variable over any of ``dims``."""
+        if isinstance(dims, str):
+            dims = [dims]
+        missing = set(dims) - set(self.dims_sizes())
+        if missing and errors == "raise":
+            raise ValueError(f"dimensions {missing} not found")
+        return self.drop_vars([n for n, v in self._variables.items() if set(v.dims) & set(dims)], errors="ignore")
+
     def rename(self, name_dict=None, **names) -> "Dataset":
         mapping = dict(name_dict or {})
         mapping.update(names)
@@ -215,6 +242,27 @@ class Dataset:
             new_dims = tuple(mapping.get(d, d) for d in var.dims)
             out._variables[mapping.get(name, name)] = Variable(new_dims, var.data, var.attrs, var.encoding)
         out._coord_names = {mapping.get(n, n) for n in self._coord_names}
+        return out
+
+    def rename_dims(self, dims_dict=None, **dims) -> "Dataset":
+        mapping = {**(dims_dict or {}), **dims}
+        out = Dataset(attrs=dict(self.attrs))
+        for name, var in self._variables.items():
+            out._variables[name] = Variable(tuple(mapping.get(d, d) for d in var.dims), var.data, var.attrs, var.encoding)
+        out._coord_names = set(self._coord_names)
+        return out
+
+    def rename_vars(self, name_dict=None, **names) -> "Dataset":
+        mapping = {**(name_dict or {}), **names}
+        out = Dataset(attrs=dict(self.attrs))
+        out._variables = {mapping.get(name, name): var for name, var in self._variables.items()}
+        out._coord_names = {mapping.get(n, n) for n in self._coord_names}
+        return out
+
+    def assign(self, variables=None, **kwargs) -> "Dataset":
+        out = self.copy(deep=False)
+        for k, v in {**(variables or {}), **kwargs}.items():
+            out[k] = v
         return out
 
     def assign_coords(self, coords=None, **kwargs) -> "Dataset":
@@ -256,6 +304,229 @@ class Dataset:
             for k, v in dict(other).items():
                 out[k] = v
         out._check_sizes()
+        return out
+
+    def map(self, func, *args, **kwargs) -> "Dataset":
+        """``func`` applied to every data variable; the coordinates stay."""
+        out = Dataset(attrs=dict(self.attrs))
+        for k in self._coord_names:
+            out._variables[k] = self._variables[k]
+            out._coord_names.add(k)
+        for k in self.data_vars:
+            result = func(self[k], *args, **kwargs)
+            out._variables[k] = result.variable if isinstance(result, DataArray) else result
+        return out
+
+    def apply(self, func, *args, **kwargs) -> "Dataset":
+        """The former name of ``map``."""
+        return self.map(func, *args, **kwargs)
+
+    def pipe(self, func, *args, **kwargs):
+        return func(self, *args, **kwargs)
+
+    def compute(self):
+        return self
+
+    def load(self):
+        return self
+
+    # -- payload methods, variable by variable --------------------------------
+    def _apply_per_var(self, fn, only_dims=None) -> "Dataset":
+        """``fn`` (DataArray -> DataArray) applied to every data variable
+        (those over none of ``only_dims`` kept as they are), with the
+        coordinates whose dimensions kept their sizes."""
+        out = Dataset(attrs=dict(self.attrs))
+        for name in self.data_vars:
+            da = self[name]
+            if only_dims is not None and not any(d in da.dims for d in only_dims):
+                out._variables[name] = self._variables[name]
+                continue
+            out._set_variable(name, fn(da))
+        sizes = out.dims_sizes()
+        for k in self._coord_names:
+            if k in out._variables:
+                out._coord_names.add(k)
+                continue
+            var = self._variables[k]
+            if all(sizes.get(d) == s for d, s in var.sizes.items()):
+                out._variables[k] = var
+                out._coord_names.add(k)
+        return out
+
+    def where(self, cond, other=np.nan, drop: bool = False) -> "Dataset":
+        """Each variable where ``cond`` holds, else ``other``.  With
+        ``drop`` (a DataArray ``cond``), every dimension of ``cond`` is
+        first trimmed to the positions where it holds anywhere (the mask
+        is read on the host)."""
+        cond_da = cond if isinstance(cond, DataArray) else None
+        if not drop:
+            return self._apply_per_var(lambda da: da.where(cond, other))
+        if cond_da is None:
+            raise TypeError("Dataset.where(drop=True) requires a DataArray cond")
+        mask = to_numpy(cond_da.data).astype(bool)
+        keep = {dim: _keep_mask(mask, cond_da.dims, dim) for dim in cond_da.dims}
+        trimmed = cond_da.isel(keep)
+        return self.isel(keep)._apply_per_var(
+            lambda da: da.where(trimmed, other) if any(d in da.dims for d in cond_da.dims) else da
+        )
+
+    def fillna(self, value) -> "Dataset":
+        return self._apply_per_var(lambda da: da.fillna(value))
+
+    def count(self, dim=None) -> "Dataset":
+        return self._apply_per_var(
+            lambda da: da.count(dim if dim is None or dim in da.dims else None),
+            only_dims=None if dim is None else [dim],
+        )
+
+    def quantile(self, q, dim=None, skipna=True) -> "Dataset":
+        return self._apply_per_var(
+            lambda da: da.quantile(q, dim=dim, skipna=skipna), only_dims=None if dim is None else [dim]
+        )
+
+    def diff(self, dim, n: int = 1) -> "Dataset":
+        return self._apply_per_var(lambda da: da.diff(dim, n=n), only_dims=[dim])
+
+    def shift(self, shifts=None, fill_value=np.nan, **kwargs) -> "Dataset":
+        shifts = {**(shifts or {}), **kwargs}
+        return self._apply_per_var(
+            lambda da: da.shift({d: s for d, s in shifts.items() if d in da.dims}, fill_value=fill_value),
+            only_dims=list(shifts),
+        )
+
+    def roll(self, shifts=None, roll_coords=False, **kwargs) -> "Dataset":
+        shifts = {**(shifts or {}), **kwargs}
+        return self._apply_per_var(
+            lambda da: da.roll({d: s for d, s in shifts.items() if d in da.dims}, roll_coords=roll_coords),
+            only_dims=list(shifts),
+        )
+
+    def sortby(self, variables, ascending: bool = True) -> "Dataset":
+        """Sort along the dimension of each 1-D key, read on the host."""
+        if isinstance(variables, (str, DataArray)):
+            variables = [variables]
+        out = self
+        for v in variables:
+            key = out[v] if isinstance(v, str) else v
+            order = np.argsort(to_numpy(key.data), kind="stable")
+            out = out.isel({key.dims[0]: order if ascending else order[::-1]})
+        return out
+
+    def dropna(self, dim, how: str = "any", subset=None) -> "Dataset":
+        """Drop positions along ``dim`` holding nulls in the variables
+        (``subset``, default all over ``dim``); the mask along ``dim`` is
+        read on the host."""
+        names = subset if subset is not None else [n for n in self.data_vars if dim in self[n].dims]
+        masks = []
+        for n in names:
+            da = self[n]
+            if dim not in da.dims:
+                continue
+            axis = tuple(i for i, d in enumerate(da.dims) if d != dim)
+            isnull = ~da.variable.notnull().data
+            if is_tensor(isnull):
+                if axis:
+                    isnull = isnull.any(dim=axis) if how == "any" else isnull.all(dim=axis)
+                masks.append(isnull.cpu().numpy())
+            else:
+                masks.append(isnull.any(axis=axis) if how == "any" else isnull.all(axis=axis))
+        if not masks:
+            return self
+        bad = np.logical_or.reduce(masks) if how == "any" else np.logical_and.reduce(masks)
+        return self.isel({dim: np.flatnonzero(~bad)})
+
+    def to_array(self, dim: str = "variable", name=None) -> DataArray:
+        """Every data variable stacked along ``dim``, as float64 (on the
+        device of the first tensor payload, where there is one)."""
+        names = list(self.data_vars)
+        das = [self[n] for n in names]
+        all_dims = list(dict.fromkeys(d for da in das for d in da.dims))
+        sizes = self.dims_sizes()
+        parts = [da.variable.broadcast_to(all_dims, sizes).data for da in das]
+        like = next((p for p in parts if is_tensor(p)), None)
+        if like is None:
+            data = np.stack([np.asarray(p, dtype=np.float64) for p in parts], axis=0)
+        else:
+            data = torch.stack([torch.as_tensor(p).to(device=like.device, dtype=torch.float64) for p in parts])
+        coords = {dim: Variable((dim,), np.array(names, dtype=object))}
+        for k in self._coord_names:
+            if set(self._variables[k].dims) <= set(all_dims):
+                coords[k] = self._variables[k]
+        return DataArray(data, dims=(dim,) + tuple(all_dims), coords={k: (v.dims, v.data) for k, v in coords.items()}, name=name)
+
+    def reindex(self, indexers=None, method=None, tolerance=None, fill_value=np.nan, **kwargs) -> "Dataset":
+        indexers = {**(indexers or {}), **kwargs}
+        return self._apply_per_var(
+            lambda da: da.reindex(
+                {d: v for d, v in indexers.items() if d in da.dims},
+                method=method, tolerance=tolerance, fill_value=fill_value,
+            )
+            if any(d in da.dims for d in indexers)
+            else da
+        )
+
+    def reindex_like(self, other, method=None, tolerance=None, fill_value=np.nan) -> "Dataset":
+        indexers = {d: to_numpy(other[d].data) for d in self.dims_sizes() if d in other.coords and d in self.coords}
+        return self.reindex(indexers, method=method, tolerance=tolerance, fill_value=fill_value)
+
+    def expand_dims(self, dim=None, **kwargs) -> "Dataset":
+        """Every data variable expanded (``DataArray.expand_dims``); a
+        coordinate of the new dimension joins the coordinates."""
+        out = Dataset(attrs=dict(self.attrs))
+        out._coord_names = set(self._coord_names)
+        for name, var in self._variables.items():
+            if name in self._coord_names:
+                out._variables[name] = var
+                continue
+            da = self[name].expand_dims(dim, **kwargs)
+            out._variables[name] = da.variable
+            for cname, cvar in da._coords.items():
+                if cname not in out._variables:
+                    out._variables[cname] = cvar
+                    out._coord_names.add(cname)
+        return out
+
+    def to_dataframe(self, dim_order=None) -> pd.DataFrame:
+        """A pandas DataFrame on the host: one column per data variable,
+        indexed by the product of the dimensions (sorted, or
+        ``dim_order``)."""
+        sizes = self.dims_sizes()
+        if dim_order is None:
+            dims = sorted(sizes)
+        else:
+            dims = list(dim_order)
+            if set(dims) != set(sizes):
+                raise ValueError(f"dim_order {dims} does not match dataset dimensions {sorted(sizes)}")
+        if not dims:
+            return pd.DataFrame({k: [to_numpy(self._variables[k].data).item()] for k in self.data_vars})
+        columns = {k: to_numpy(self._variables[k].broadcast_to(dims, sizes).data).ravel() for k in self.data_vars}
+        indexes = self.indexes
+        arrays = [np.asarray(indexes[d]) if d in indexes else np.arange(sizes[d]) for d in dims]
+        if len(dims) == 1:
+            index = pd.Index(arrays[0], name=dims[0])
+        else:
+            index = pd.MultiIndex.from_product(arrays, names=dims)
+        return pd.DataFrame(columns, index=index)
+
+    # -- reductions -----------------------------------------------------------
+    def _reduce(self, func_name, dim=None, skipna=None, **kwargs) -> "Dataset":
+        """``func_name`` over ``dim`` of every data variable holding it
+        (None: all dims); coordinates over a reduced dimension go, the
+        others (scalar ones always) stay."""
+        out = Dataset(attrs=dict(self.attrs))
+        rdims = None if dim is None else ([dim] if isinstance(dim, str) else list(dim))
+        for name, var in self._variables.items():
+            if name in self._coord_names:
+                drop = var.ndim > 0 if rdims is None else any(d in var.dims for d in rdims)
+                if not drop:
+                    out._variables[name] = var
+                    out._coord_names.add(name)
+                continue
+            here = None if rdims is None else [d for d in rdims if d in var.dims]
+            if here == []:
+                out._variables[name] = var
+                continue
+            out._variables[name] = var.reduce(func_name, dim=here, skipna=skipna, **kwargs)
         return out
 
     # -- indexing -----------------------------------------------------------
@@ -346,3 +617,15 @@ class Dataset:
 
     def close(self):
         pass
+
+
+def _make_reduce(n):
+    def method(self, dim=None, skipna=None, **kwargs):
+        return self._reduce(n, dim=dim, skipna=skipna, **kwargs)
+
+    method.__name__ = n
+    return method
+
+
+for _rname in REDUCTIONS:
+    setattr(Dataset, _rname, _make_reduce(_rname))

@@ -43,6 +43,15 @@ def as_tensor_like(value, like: torch.Tensor):
     return value
 
 
+def where_tensor(mask: torch.Tensor, data: torch.Tensor, other) -> torch.Tensor:
+    """``torch.where(mask, data, other)`` with numpy's promotion: an
+    integer or bool tensor against a Python float becomes float64 (torch
+    would take its default float32)."""
+    if isinstance(other, float) and not is_floating(data):
+        data = data.double()
+    return torch.where(mask, data, as_tensor_like(other, data))
+
+
 def common_operands(a, b):
     """(a, b) on one device: where one is a tensor, the other joins it."""
     if is_tensor(a):
@@ -115,14 +124,14 @@ def reduce_tensor(data: torch.Tensor, func_name: str, axis, nan_skipping: bool, 
     ``nan_skipping``) over the axes ``axis`` (None: all), as torch ops on
     the tensor's device.  Integer input to mean, std, var and median is
     taken as float64, as numpy does."""
+    if func_name in ("argmax", "argmin"):
+        return arg_extreme(data, axis, func_name == "argmax")
     dims = _reduce_dims(data, axis)
     if func_name in ("all", "any"):
         out = data.bool()
         for d in sorted(dims, reverse=True):
             out = getattr(out, func_name)(dim=d)
         return out
-    if func_name in ("argmax", "argmin"):
-        return getattr(data, func_name)(dim=None if axis is None else axis)
     x = data
     if func_name in ("mean", "std", "var", "median") and not x.is_floating_point():
         x = x.double()
@@ -159,6 +168,145 @@ def reduce_tensor(data: torch.Tensor, func_name: str, axis, nan_skipping: bool, 
     if func_name == "median":
         return _median(x, dims, False)
     raise ValueError(f"unknown reduction: {func_name}")
+
+
+def arg_extreme(data: torch.Tensor, axis, largest: bool) -> torch.Tensor:
+    """numpy's argmax (``largest``) or argmin over ``axis`` (None: the
+    flattened tensor): the first position of the extreme, a NaN counting
+    as the extreme.  Taken as the least matching position, so a tie
+    resolves the same way on every device."""
+    if axis is None:
+        data, axis = data.reshape(-1), 0
+    extreme = data.amax(dim=axis, keepdim=True) if largest else data.amin(dim=axis, keepdim=True)
+    hit = data == extreme
+    if data.is_floating_point():
+        isnan = torch.isnan(data)
+        hit = torch.where(isnan.any(dim=axis, keepdim=True), isnan, hit)
+    shape = [1] * data.ndim
+    shape[axis] = data.shape[axis]
+    position = torch.arange(data.shape[axis], device=data.device).reshape(shape)
+    return torch.where(hit, position, data.shape[axis]).amin(dim=axis)
+
+
+def quantile_tensor(data: torch.Tensor, q: np.ndarray, axis, skipna: bool) -> torch.Tensor:
+    """numpy's (nan)quantile at the 1-D float64 ``q`` over the axes
+    ``axis`` (None: all), linear interpolation, computed in float64 as
+    numpy computes it with a float64 ``q``: (len(q), *the other axes)."""
+    dims = _reduce_dims(data, axis)
+    rest = [d for d in range(data.ndim) if d not in dims]
+    moved = data.permute(*rest, *dims).reshape(*[data.shape[d] for d in rest], -1).double()
+    func = torch.nanquantile if skipna else torch.quantile
+    return func(moved, torch.from_numpy(q).to(data.device), dim=-1)
+
+
+def rank_tensor(data: torch.Tensor, axis: int) -> torch.Tensor:
+    """scipy's ``rankdata(method="average", nan_policy="omit")`` along
+    ``axis`` in float64, NaN kept: sorted once, each run of equal values
+    taking the mean of its first and last rank (exact halves).  The
+    sort and scans run along the first axis; float keys are sorted in
+    their own dtype (the same order and ties as in float64)."""
+    x = (data if data.is_floating_point() else data.double()).movedim(axis, 0)
+    n = x.shape[0]
+    values, order = torch.sort(x, dim=0, stable=True)  # NaN sorts last
+    position = torch.arange(n, device=x.device).reshape((n,) + (1,) * (x.ndim - 1))
+    starts = torch.ones_like(values, dtype=torch.bool)
+    starts[1:] = values[1:] != values[:-1]
+    ends = torch.ones_like(values, dtype=torch.bool)
+    ends[:-1] = starts[1:]
+    first = torch.where(starts, position, 0).cummax(dim=0).values
+    last = torch.where(ends, position, n).flip(0).cummin(dim=0).values.flip(0)
+    ranks = torch.empty_like(values, dtype=torch.float64).scatter_(0, order, (first + last).double() / 2.0 + 1.0)
+    return torch.where(torch.isnan(x), torch.nan, ranks).movedim(0, axis)
+
+
+def fill_directional_tensor(data: torch.Tensor, axis: int, limit, reverse: bool) -> torch.Tensor:
+    """Each NaN along ``axis`` takes the last valid value before it (the
+    next after it for ``reverse``), at most ``limit`` steps away; float64."""
+    moved = data.double().movedim(axis, 0)
+    if reverse:
+        moved = moved.flip(0)
+    n = moved.shape[0]
+    idx = torch.arange(n, device=moved.device).reshape((n,) + (1,) * (moved.ndim - 1))
+    valid = ~torch.isnan(moved)
+    last = torch.where(valid, idx, -1).cummax(dim=0).values
+    if limit is not None:
+        last = torch.where((last >= 0) & (idx - last <= limit), last, -1)
+    filled = torch.gather(moved, 0, last.clamp(min=0))
+    filled = torch.where(valid, moved, torch.where(last >= 0, filled, torch.nan))
+    if reverse:
+        filled = filled.flip(0)
+    return filled.movedim(0, axis)
+
+
+def shift_tensor(data: torch.Tensor, axis: int, n: int, fill_value) -> torch.Tensor:
+    """``data`` shifted by ``n`` along ``axis``, the vacated places set to
+    ``fill_value``."""
+    out = torch.roll(data, n, dims=axis)
+    index = [slice(None)] * out.ndim
+    index[axis] = slice(0, n) if n > 0 else slice(n, None)
+    out[tuple(index)] = fill_value
+    return out
+
+
+def interpolate_tensor(data: torch.Tensor, x: np.ndarray, axis: int, method: str, extrapolate: bool) -> torch.Tensor:
+    """NaN along ``axis`` filled by 1-D interpolation over the positions
+    ``x`` (increasing) in float64, every row at once: each NaN between
+    valid values from its neighbours (``np.interp``'s arithmetic, or the
+    nearer one, ties to the left); NaN before the first and after the last
+    valid value stay, unless ``extrapolate`` (linear: the end slopes;
+    nearest: the end values).  Rows without a valid value stay NaN.  The
+    scans and gathers run along the first axis."""
+    y = data.double().movedim(axis, 0)
+    n = y.shape[0]
+    column = (n,) + (1,) * (y.ndim - 1)
+    xs = torch.from_numpy(np.asarray(x, dtype=np.float64)).to(y.device)
+    valid = ~torch.isnan(y)
+    position = torch.arange(n, device=y.device).reshape(column)
+    prev = torch.where(valid, position, -1).cummax(dim=0).values
+    nxt = torch.where(valid, position, n).flip(0).cummin(dim=0).values.flip(0)
+    has_prev, has_next = prev >= 0, nxt < n
+    lo, hi = prev.clamp(min=0), nxt.clamp(max=n - 1)
+    x_lo, x_hi, x_at = xs[lo], xs[hi], xs.reshape(column)
+    y_lo, y_hi = torch.gather(y, 0, lo), torch.gather(y, 0, hi)
+    inside = has_prev & has_next
+    if method == "linear":
+        slope = (y_hi - y_lo) / (x_hi - x_lo)
+        filled = slope * (x_at - x_lo) + y_lo
+        again = slope * (x_at - x_hi) + y_hi
+        filled = torch.where(torch.isnan(filled), again, filled)
+        filled = torch.where(torch.isnan(filled) & (y_lo == y_hi), y_lo, filled)
+        filled = torch.where(inside, filled, torch.nan)
+        if extrapolate:
+            count = valid.sum(dim=0, keepdim=True)
+            first = torch.where(valid, position, n).amin(dim=0, keepdim=True).clamp(max=n - 1)
+            last = torch.where(valid, position, -1).amax(dim=0, keepdim=True).clamp(min=0)
+            second = torch.where(valid & (position > first), position, n).amin(dim=0, keepdim=True).clamp(max=n - 1)
+            before = torch.where(valid & (position < last), position, -1).amax(dim=0, keepdim=True).clamp(min=0)
+            x0, x1, xm, xl = xs[first], xs[second], xs[before], xs[last]
+            y0, y1 = torch.gather(y, 0, first), torch.gather(y, 0, second)
+            ym, yl = torch.gather(y, 0, before), torch.gather(y, 0, last)
+            head = torch.where(count > 1, y0 + (y1 - y0) / (x1 - x0) * (x_at - x0), y0)
+            tail = torch.where(count > 1, yl + (yl - ym) / (xl - xm) * (x_at - xl), yl)
+            filled = torch.where(~has_prev & has_next, head, filled)
+            filled = torch.where(has_prev & ~has_next, tail, filled)
+    else:
+        take_hi = torch.abs(x_hi - x_at) < torch.abs(x_at - x_lo)
+        nearest = torch.where(inside & take_hi, y_hi, y_lo)
+        nearest = torch.where(has_prev, nearest, y_hi)
+        filled = nearest if extrapolate else torch.where(inside, nearest, torch.nan)
+    return torch.where(valid, y, filled).movedim(0, axis)
+
+
+def isin_tensor(data: torch.Tensor, values) -> torch.Tensor:
+    """numpy's ``isin``: the test values are compared in ``data``'s dtype,
+    those that this dtype cannot hold exactly dropped (they equal no
+    element, as under numpy's promotion)."""
+    values = to_numpy(values).ravel()
+    dtype = torch.empty(0, dtype=data.dtype).numpy().dtype
+    with np.errstate(invalid="ignore", over="ignore"):
+        cast = values.astype(dtype)
+        exact = cast.astype(values.dtype) == values
+    return torch.isin(data, torch.from_numpy(cast[exact]).to(data.device))
 
 
 def _index_tensor(k, size: int, device) -> torch.Tensor:
@@ -397,7 +545,7 @@ class Variable:
     def fillna(self, value) -> "Variable":
         data = self.data
         if is_tensor(data):
-            return Variable(self.dims, torch.where(torch.isnan(data), as_tensor_like(value, data), data), self.attrs)
+            return Variable(self.dims, where_tensor(~torch.isnan(data), data, value), self.attrs)
         return Variable(self.dims, np.where(np.isnan(data), value, data), self.attrs)
 
     def notnull(self) -> "Variable":
