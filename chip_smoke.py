@@ -222,6 +222,37 @@ With no argument it runs these phases:
    that line NaN, every other line's residual within 10 atol (scipy,
    float64).
 
+14. Vector geometry and the sample data at the 1M config: the stand-in
+   ``provinces_nl()`` (12 rings of 24 vertices) mapped onto phase 3's mesh
+   by one affine map keeping the aspect ratio, a 13th ring with a hole,
+   ``hydamo_network()``'s 9 channels and 18 gauges mapped by the affine
+   map of their bounding box; shapely and geopandas where installed, else
+   the numpy stand-ins of ``tests/fake_geo.py`` placed in ``sys.modules``.
+   ``burn_vector_geometry`` of all of them by ``id`` (``all_touched``
+   False and True) and by ``depth``: every polygon face equal to an
+   even-odd ray cast of the centroids (faces within the tolerance of an
+   edge exempt and counted), every channel face crossed by its channel,
+   every gauge in its face, the all_touched set a superset; the stages
+   timed (earcut, the candidate pairs and the overlap clip, the centroid
+   test).  The ids regridded onto the 512 x 512 raster by phase 3's mode
+   (window_select) and the depth by its mean (window_reduce), each held
+   to the plain version and the host references; ``polygonize`` of the
+   ids: as many polygons as scipy's components of equal-valued faces,
+   each of its region's value, every ring whose region's boundary has no
+   pinch vertex of the area of its faces plus its holes within 1e-9
+   (regions with a pinch counted); ``earcut_triangulate_polygons`` of the
+   provinces onto the 1M mesh by mode (window_select), equal to the
+   burned ids on every face wholly inside one province; ``snap_to_grid``
+   of the channels at half a face: every edge within reach of its
+   channel, each channel's edges one path, then ``Ugrid1d.
+   from_geodataframe``, the gauges on their nearest nodes filled through
+   ``.ugrid.laplace_interpolate`` (csr_matvec: the formula's launches,
+   every component's residual within 10 atol); ``to_geodataframe`` of
+   10,000 faces of phase 13's payload and ``Ugrid2d.from_geodataframe``
+   back (node coordinates bit-equal), ``bounding_polygon`` (the mesh's
+   area within 1e-9) and ``snap_nodes`` of 10,000 node copies jittered by
+   1e-6 (each onto its original).  Wall seconds per step.
+
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits with 2 and prints no result.
@@ -3577,6 +3608,529 @@ def phase_payload(device, card, inputs, main_results):
     if counts["window_reduce"] != 2 or counts["window_select"] != 1 or counts["csr_matvec"] != launches:
         raise AssertionError(f"phase 13 launched {counts}")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s, {host_s[0]:.1f} s of it host references [{card}]")
+    return counts, max_err, uds
+
+
+VECTOR_FACES_FRAME = 10_000
+SNAP_NODE_COPIES = 10_000
+
+
+def geometry_modules():
+    """shapely and geopandas: the real packages where importable, else the
+    numpy stand-ins of ``tests/fake_geo.py`` placed in ``sys.modules``
+    (their ``linestrings`` given shapely's (n, m, 2) form: one linestring
+    per row).  Returns (shapely, geopandas, a line saying which)."""
+    try:
+        import geopandas
+        import shapely
+
+        return shapely, geopandas, f"shapely {shapely.__version__} and geopandas {geopandas.__version__}"
+    except ImportError:
+        pass
+    from tests.fake_geo import _make_geopandas_module, _make_shapely_module
+
+    shp, gpd = _make_shapely_module(), _make_geopandas_module()
+    flat = shp.linestrings
+
+    def linestrings(xy, y=None, indices=None):
+        xy = np.asarray(xy)
+        if y is None and indices is None and xy.ndim == 3:
+            return flat(xy.reshape(-1, 2), indices=np.repeat(np.arange(len(xy)), xy.shape[1]))
+        return flat(xy, y, indices)
+
+    shp.linestrings = linestrings
+    sys.modules["shapely"], sys.modules["geopandas"] = shp, gpd
+    return shp, gpd, (
+        "shapely and geopandas are not installed: the numpy stand-ins of tests/fake_geo.py placed in sys.modules "
+        "(linestrings of an (n, m, 2) array one per row, as shapely's)"
+    )
+
+
+def even_odd(points, rings):
+    """Even-odd ray cast of (k, 2) points against closed rings (each (n, 2),
+    the last vertex joined to the first): True inside."""
+    px, py = points[:, 0], points[:, 1]
+    inside = np.zeros(len(points), dtype=bool)
+    for ring in rings:
+        for (ax, ay), (bx, by) in zip(ring, np.roll(ring, -1, axis=0)):
+            if ay == by:
+                continue
+            straddle = (ay > py) != (by > py)
+            inside ^= straddle & (px < ax + (py - ay) * (bx - ax) / (by - ay))
+    return inside
+
+
+def ring_distance(points, rings):
+    """The least distance of each (k, 2) point to the rings' edges."""
+    best = np.full(len(points), np.inf)
+    for ring in rings:
+        a, b = ring, np.roll(ring, -1, axis=0)
+        for (ax, ay), (bx, by) in zip(a, b):
+            dx, dy = bx - ax, by - ay
+            t = np.clip(((points[:, 0] - ax) * dx + (points[:, 1] - ay) * dy) / (dx * dx + dy * dy), 0.0, 1.0)
+            best = np.minimum(best, np.hypot(points[:, 0] - ax - t * dx, points[:, 1] - ay - t * dy))
+    return best
+
+
+def polyline_distance(points, line):
+    """The least distance of each (k, 2) point to an open (n, 2) polyline."""
+    best = np.full(len(points), np.inf)
+    for (ax, ay), (bx, by) in zip(line[:-1], line[1:]):
+        dx, dy = bx - ax, by - ay
+        length2 = dx * dx + dy * dy
+        t = np.clip(((points[:, 0] - ax) * dx + (points[:, 1] - ay) * dy) / length2, 0.0, 1.0) if length2 else 0.0
+        best = np.minimum(best, np.hypot(points[:, 0] - ax - t * dx, points[:, 1] - ay - t * dy))
+    return best
+
+
+def segment_crosses_polygon(p, q, poly):
+    """Whether the segment p -> q (each (2,)) meets each closed polygon of
+    ``poly`` (k, n, 2): an end inside, or a crossing or touch of a side."""
+    inside = np.zeros(len(poly), dtype=bool)
+    a, b = poly, np.roll(poly, -1, axis=1)
+
+    def cross(o, u, v):
+        return (u[..., 0] - o[..., 0]) * (v[..., 1] - o[..., 1]) - (u[..., 1] - o[..., 1]) * (v[..., 0] - o[..., 0])
+
+    for end in (p, q):
+        ey = end[1]
+        straddle = (a[..., 1] > ey) != (b[..., 1] > ey)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            xint = a[..., 0] + (ey - a[..., 1]) * (b[..., 0] - a[..., 0]) / (b[..., 1] - a[..., 1])
+        inside |= (np.sum(straddle & (end[0] < xint), axis=1) % 2) == 1
+    P, Q = p[None, None, :], q[None, None, :]
+    d1, d2 = cross(P, Q, a), cross(P, Q, b)
+    d3, d4 = cross(a, b, P), cross(a, b, Q)
+    meets = (d1 * d2 <= 0.0) & (d3 * d4 <= 0.0)
+    return inside | meets.any(axis=1)
+
+
+def region_rings(grid, region, n_region):
+    """Per region of faces (``region`` (n_face,), -1 for none): whether a
+    node of its boundary is shared by more than two of its boundary edges
+    (a pinch), the area of its outer boundary loop and the summed area of
+    its inner loops (holes), from the mesh's edges oriented with the
+    region on their left."""
+    import scipy.sparse
+    import scipy.sparse.csgraph
+
+    ef = grid.edge_face_connectivity
+    en = grid.edge_node_connectivity
+    xy = grid.node_coordinates
+    centroids = grid.centroids
+    side = np.where(ef >= 0, region[np.maximum(ef, 0)], -1)
+    if side.shape[1] == 1:
+        side = np.column_stack([side, np.full(len(side), -1)])
+        ef = np.column_stack([ef, np.full(len(ef), -1)])
+    pairs_r, pairs_e, pairs_f = [], [], []
+    for s, o in ((0, 1), (1, 0)):
+        keep = (side[:, s] >= 0) & (side[:, s] != side[:, o])
+        pairs_r.append(side[keep, s])
+        pairs_e.append(np.flatnonzero(keep))
+        pairs_f.append(ef[keep, s])
+    r, e, f = (np.concatenate(a) for a in (pairs_r, pairs_e, pairs_f))
+    n0, n1 = en[e, 0], en[e, 1]
+    a, b, c = xy[n0], xy[n1], centroids[f]
+    left = (b[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1]) - (b[:, 1] - a[:, 1]) * (c[:, 0] - a[:, 0]) > 0.0
+    n0, n1 = np.where(left, n0, n1), np.where(left, n1, n0)
+    a, b = xy[n0], xy[n1]
+    contribution = 0.5 * (a[:, 0] * b[:, 1] - b[:, 0] * a[:, 1])
+    keys, inverse = np.unique(np.concatenate([r * grid.n_node + n0, r * grid.n_node + n1]), return_inverse=True)
+    degree = np.bincount(inverse, minlength=len(keys))
+    pinch = np.zeros(n_region, dtype=bool)
+    pinch[keys[degree > 2] // grid.n_node] = True
+    k = len(r)
+    graph = scipy.sparse.coo_matrix((np.ones(k), (inverse[:k], inverse[k:])), shape=(len(keys), len(keys)))
+    _, loop_of_key = scipy.sparse.csgraph.connected_components(graph, directed=False)
+    loop = loop_of_key[inverse[:k]]
+    loop_area = np.bincount(loop, weights=contribution)
+    loop_region = np.zeros(loop.max() + 1, dtype=np.int64)
+    loop_region[loop] = r
+    outer = np.full(n_region, -np.inf)
+    np.maximum.at(outer, loop_region, loop_area)
+    holes = np.bincount(loop_region, weights=np.where(loop_area < 0.0, -loop_area, 0.0), minlength=n_region)
+    return pinch, outer, holes
+
+
+def phase_vector(device, card, inputs, main_results, payload):
+    """Phase 14: vector geometry and the sample data at the 1M config.
+    The stand-in provinces (12 rings of 24 vertices, mapped onto the mesh
+    by one affine map keeping the aspect ratio) and a 13th polygon with a
+    hole, the hydamo channels (9 lines) and gauges (18 points, mapped by
+    the affine map of the channels' bounding box) burned onto phase 3's
+    mesh and held to an even-odd ray cast, point containment and segment
+    crossings computed here; the burned ids regridded by phase 3's mode
+    (window_select) and a burned depth by its mean (window_reduce), each
+    held to the plain version and the host references; the ids
+    polygonized and held to scipy's components and the mesh's boundary
+    loops; the provinces' earcut mesh regridded onto the 1M mesh by mode
+    (window_select); the channels snapped to the mesh edges, made a
+    Ugrid1d and the gauges filled along it through
+    ``.ugrid.laplace_interpolate`` (csr_matvec); 10,000 faces of phase
+    13's payload to a GeoDataFrame and back, the mesh's bounding polygon,
+    and ``snap_nodes`` of jittered node copies.  Returns (launch counts,
+    largest |kernel - plain|)."""
+    import scipy.sparse
+    import scipy.sparse.csgraph
+    import torch
+    from scipy.spatial import cKDTree
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.ops.earcut import earcut_triangulate
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, csr_matvec_plain, window_reduce
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.ugrid import interpolate
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    t_phase = time.perf_counter()
+    shp, gpd, which = geometry_modules()
+    print(f"phase 14: vector geometry and sample data at the 1M config, then regrid and fill [{card}]")
+    print(f"  {which}")
+    regridders = {method: regridder for _, method, _, regridder, *_ in main_results}
+    mesh = regridders["mean"]._source.ugrid_topology
+    n_face, face_dim = mesh.n_face, mesh.face_dimension
+    kernels = (window_reduce, window_select, csr_matvec)
+    for k in kernels:
+        k.launches = 0
+    max_err = {"window_reduce": 0.0, "window_select": 0.0, "csr_matvec": 0.0}
+    step_s = {}
+    host_s = [0.0]
+
+    def report(line):
+        print(f"  {line} [{card}]")
+
+    def wall(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        step_s[label] = time.perf_counter() - t0
+        return out
+
+    def host(fn):
+        t0 = time.perf_counter()
+        value = fn()
+        host_s[0] += time.perf_counter() - t0
+        return value
+
+    # 14.1: the inputs.
+    provinces = xt.data.provinces_nl()
+    scale = float(N_SIDE) / 300e3  # the stand-in's 250 x 300 km domain onto the mesh, aspect kept
+    rings = [shp.get_coordinates(p.exterior)[:-1] * scale for p in provinces.geometry]
+    # East of the provinces and clear of the channels.
+    centre, outer_r, inner_r = np.array([0.9, 0.88]) * N_SIDE, 0.07 * N_SIDE, 0.03 * N_SIDE
+    angle = np.linspace(0.0, 2.0 * np.pi, 24, endpoint=False)
+    annulus = [centre + outer_r * np.column_stack([np.cos(angle), np.sin(angle)]),
+               centre + inner_r * np.column_stack([np.cos(angle), np.sin(angle)])[::-1]]
+    polygon_rings = [[r] for r in rings] + [annulus]
+    n_poly = len(polygon_rings)
+    objects, gauges, _ = xt.data.hydamo_network()
+    line_xy = [shp.get_coordinates(g) for g in objects.geometry]
+    lo = np.min([xy.min(axis=0) for xy in line_xy], axis=0)
+    hi = np.max([xy.max(axis=0) for xy in line_xy], axis=0)
+
+    def channel_map(xy):
+        return (xy - lo) / (hi - lo) * (0.9 * N_SIDE) + 0.05 * N_SIDE
+
+    lines = [channel_map(xy) for xy in line_xy]
+    points = channel_map(shp.get_coordinates(gauges.geometry))
+    n_line, n_point = len(lines), len(points)
+    ids = np.arange(n_poly + n_line + n_point, dtype=np.float64)
+    rng = np.random.default_rng(14)
+    depth = np.round(rng.uniform(0.5, 9.5, len(ids)), 3)
+    geometry = ([shp.Polygon(r[0], r[1:]) for r in polygon_rings] + [shp.LineString(xy) for xy in lines]
+                + [shp.Point(xy) for xy in points])
+    gdf = gpd.GeoDataFrame({"id": ids, "depth": depth}, geometry=geometry)
+    report(
+        f"14.1 {n_poly - 1} provinces (24-vertex rings, radii {min(np.hypot(*(r - r.mean(0)).T).min() for r in rings):.1f}-"
+        f"{max(np.hypot(*(r - r.mean(0)).T).max() for r in rings):.1f} faces) and a ring with a hole, {n_line} channels "
+        f"of {sum(len(x) for x in lines)} vertices, {n_point} gauges, mapped onto [0, {N_SIDE}]^2"
+    )
+
+    # 14.2: the burns.
+    timings.reset()
+    burned = wall("burn (all_touched=False)", lambda: xt.burn_vector_geometry(gdf, mesh, column="id"))
+    stages = timings.summary()
+    touched = wall("burn (all_touched=True)", lambda: xt.burn_vector_geometry(gdf, mesh, column="id", all_touched=True))
+    depth_burn = wall("burn of depth", lambda: xt.burn_vector_geometry(gdf, mesh, column="depth"))
+    values = burned.obj.data
+    if not isinstance(values, np.ndarray) or values.dtype != np.float64 or values.shape != (n_face,):
+        raise AssertionError(f"burn: a {type(values).__name__} {getattr(values, 'shape', None)}")
+    triangles = [earcut_triangulate(np.vstack(r), np.cumsum([len(x) for x in r])) for r in polygon_rings]
+    boxes = []
+    for r, t in zip(polygon_rings, triangles):
+        xy = np.vstack(r)[t]
+        boxes.append(np.column_stack([xy[..., 0].min(1), xy[..., 1].min(1), xy[..., 0].max(1), xy[..., 1].max(1)]))
+    candidate_pairs = int(sum(len(mesh.celltree.grid_hash.query_boxes(b)[0]) for b in boxes))
+    centroids = mesh.centroids
+    tol = max(mesh.celltree.default_tolerance(), 1e-9)
+
+    def polygon_reference():
+        want = np.full(n_face, np.nan)
+        exempt = np.zeros(n_face, dtype=bool)
+        for k, r in enumerate(polygon_rings):
+            xy = np.vstack(r)
+            box = (centroids >= xy.min(0) - 1.0).all(1) & (centroids <= xy.max(0) + 1.0).all(1)
+            idx = np.flatnonzero(box)
+            inside = even_odd(centroids[idx], r)
+            want[idx[inside]] = ids[k]
+            exempt[idx[ring_distance(centroids[idx], r) <= tol]] = True
+        return want, exempt
+
+    want, exempt = host(polygon_reference)
+    is_poly = np.isnan(values) | (values < n_poly)
+    bad = is_poly & ~exempt & ~((values == want) | (np.isnan(values) & np.isnan(want)))
+    if bad.any():
+        raise AssertionError(f"burn: {int(bad.sum())} polygon faces differ from the even-odd ray cast")
+    face_xy = mesh.node_coordinates[mesh.face_node_connectivity]
+    tree = cKDTree(centroids)
+    reach = float(np.sqrt(np.nanmax(mesh.celltree._diag2)))
+
+    def line_faces():
+        crossed = []
+        for k, xy in enumerate(lines):
+            hit = set()
+            for p, q in zip(xy[:-1], xy[1:]):
+                cand = np.asarray(tree.query_ball_point((p + q) / 2.0, np.hypot(*(q - p)) / 2.0 + reach), dtype=np.int64)
+                hit.update(cand[segment_crosses_polygon(p, q, face_xy[cand])].tolist())
+            crossed.append(np.array(sorted(hit), dtype=np.int64))
+        return crossed
+
+    crossed = host(line_faces)
+    on_line = np.flatnonzero((values >= n_poly) & (values < n_poly + n_line))
+    crossers = {}
+    for k, faces_k in enumerate(crossed):
+        for f in faces_k:
+            crossers.setdefault(int(f), set()).add(n_poly + k)
+    stray = [f for f in on_line if int(values[f]) not in crossers.get(int(f), ())]
+    if stray:
+        raise AssertionError(f"burn: {len(stray)} faces burned with a channel's value that it does not cross")
+    missed = sum(1 for f in crossers if not values[f] >= n_poly)
+    point_face = mesh.locate_points(points)
+    for k, f in enumerate(point_face):
+        if f < 0 or not even_odd(points[k : k + 1], [face_xy[f]])[0]:
+            raise AssertionError(f"burn: gauge {k} is not in face {f}")
+    last = {int(f): n_poly + n_line + k for k, f in enumerate(point_face)}
+    if any(values[f] != v for f, v in last.items()):
+        raise AssertionError("burn: a gauge's face does not hold its value")
+    on_point = np.flatnonzero(values >= n_poly + n_line)
+    if sorted(on_point.tolist()) != sorted(last):
+        raise AssertionError("burn: faces with a gauge's value hold no gauge")
+    touched_v = touched.obj.data
+    if (np.isfinite(values) & ~np.isfinite(touched_v)).any():
+        raise AssertionError("burn: the all_touched set is not a superset of the centroid set")
+    if not np.array_equal(np.isfinite(depth_burn.obj.data), np.isfinite(values)):
+        raise AssertionError("burn: the depth column burned other faces than the id column")
+    stage = "; ".join(f"{k} {v['total_s']:.3f} s x{v['count']}" for k, v in stages.items())
+    report(
+        f"14.2 burn_vector_geometry: {int(np.isfinite(values).sum())} faces burned ({int(is_poly.sum() - np.isnan(values).sum())} "
+        f"by polygons, {len(on_line)} by channels, {len(on_point)} by gauges), all_touched {int(np.isfinite(touched_v).sum())} "
+        f"(a superset); even-odd ray cast equal on every polygon face, {int(exempt.sum())} exempt within {tol:.1e} of an "
+        f"edge; every channel face crossed by its channel ({missed} faces crossed by a channel hold no channel or gauge "
+        f"value: grazes), every gauge in its face; {candidate_pairs} candidate (triangle, face) pairs of "
+        f"{sum(len(t) for t in triangles)} earcut triangles; stages: {stage}; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in step_s.items())
+    )
+
+    # 14.3-14.4: the burned fields regridded.
+    mode_r, mean_r = regridders["mode"], regridders["mean"]
+    before = {k.__name__: k.launches for k in kernels}
+    moded = wall("mode regrid", lambda: mode_r.regrid(burned))
+    rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    source = torch.from_numpy(values).to(device).reshape(1, -1)
+    targets = np.sort(rng.choice(mode_r._weights.n, size=400, replace=False))
+    scale_ids = float(ids.max())
+    max_err["window_select"] = check_apply(
+        "14.3 burned ids -> 512 x 512 by overlap mode", mode_r, source, moded.obj.data.reshape(1, -1), window_select,
+        rose, scale_ids,
+        lambda got: (got[:, targets], reference_select(mode_r._weights, values[None], targets, "mode")),
+    )
+    before = {k.__name__: k.launches for k in kernels}
+    meaned = wall("mean regrid", lambda: mean_r.regrid(depth_burn))
+    rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    depth_values = depth_burn.obj.data
+    max_err["window_reduce"] = check_apply(
+        "14.4 burned depth -> 512 x 512 by overlap mean", mean_r, torch.from_numpy(depth_values).to(device).reshape(1, -1),
+        meaned.obj.data.reshape(1, -1), window_reduce, rose, float(depth.max()),
+        lambda got: (got, reference_linear(mean_r._weights, depth_values[None], relative=False)),
+    )
+
+    # 14.5: polygonize.
+    polygons = wall("polygonize", lambda: xt.polygonize(burned))
+    ok = ~np.isnan(values)
+    i, j = mesh.edge_face_connectivity.T
+    same = (i >= 0) & (j >= 0)
+    same &= ok[np.maximum(i, 0)] & ok[np.maximum(j, 0)] & (values[np.maximum(i, 0)] == values[np.maximum(j, 0)])
+    graph = scipy.sparse.coo_matrix((np.ones(int(same.sum())), (i[same], j[same])), shape=(n_face, n_face))
+    _, labels = scipy.sparse.csgraph.connected_components(graph, directed=False)
+    _, region_ok = np.unique(labels[ok], return_inverse=True)
+    n_region = int(region_ok.max()) + 1
+    if len(polygons) != n_region:
+        raise AssertionError(f"polygonize: {len(polygons)} polygons, scipy finds {n_region} regions")
+    region = np.full(n_face, -1, dtype=np.int64)
+    region[ok] = region_ok
+    region_value = np.zeros(n_region)
+    region_value[region_ok] = values[ok]
+    got_values = np.asarray(polygons["values"].to_numpy(), dtype=np.float64)
+    if not np.array_equal(got_values, region_value):
+        raise AssertionError("polygonize: a polygon's value differs from its region's")
+    region_area = np.bincount(region_ok, weights=mesh.area[ok], minlength=n_region)
+    pinch, outer, holes = host(lambda: region_rings(mesh, region, n_region))
+    ring_area = np.array([abs(shoelace(shp.get_coordinates(g.exterior))) for g in polygons.geometry.to_numpy()])
+    held = ~pinch
+    off = np.abs(ring_area - (region_area + holes)) > 1e-9 * (region_area + holes)
+    if (held & off).any():
+        raise AssertionError(f"polygonize: {int((held & off).sum())} rings differ from their region's area and holes")
+    if (held & (np.abs(outer - ring_area) > 1e-9 * ring_area)).any():
+        raise AssertionError("polygonize: an exterior ring differs from the region's outer boundary loop")
+    report(
+        f"14.5 polygonize: {len(polygons)} polygons = scipy's {n_region} components, values equal; rings of "
+        f"{int(held.sum())} regions held (area of faces plus holes within 1e-9; {int((holes > 0)[held].sum())} with "
+        f"holes), {int(pinch.sum())} regions with a pinch vertex not held; {step_s['polygonize']:.3f} s"
+    )
+
+    # 14.6: the provinces' earcut mesh onto the 1M mesh by mode.
+    province_gdf = gpd.GeoDataFrame({"id": ids[:n_poly]}, geometry=geometry[:n_poly])
+    earcut = wall("earcut_triangulate_polygons", lambda: xt.earcut_triangulate_polygons(province_gdf, column="id"))
+    t0 = time.perf_counter()
+    earcut_r = xt.OverlapRegridder(earcut, mesh, method="mode")
+    step_s["earcut mode regridder build"] = time.perf_counter() - t0
+    before = {k.__name__: k.launches for k in kernels}
+    on_mesh = wall("earcut mode regrid", lambda: earcut_r.regrid(earcut))
+    rose = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    earcut_values = np.asarray(earcut.obj.data, dtype=np.float64)
+    targets = np.sort(rng.choice(n_face, size=400, replace=False))
+    err = check_apply(
+        f"14.6 earcut mesh ({earcut.grid.n_face} triangles) -> 1M mesh by overlap mode", earcut_r,
+        torch.from_numpy(earcut_values).to(device).reshape(1, -1), on_mesh.obj.data.reshape(1, -1), window_select, rose,
+        scale_ids, lambda got: (got[:, targets], reference_select(earcut_r._weights, earcut_values[None], targets, "mode")),
+    )
+    max_err["window_select"] = max(max_err["window_select"], err)
+
+    def wholly_inside():
+        count = np.zeros(n_face, dtype=np.int64)
+        near = np.zeros(n_face, dtype=bool)
+        for r in polygon_rings:
+            xy = np.vstack(r)
+            idx = np.flatnonzero((centroids >= xy.min(0) - 2.0).all(1) & (centroids <= xy.max(0) + 2.0).all(1))
+            count[idx[even_odd(centroids[idx], r)]] += 1
+            near[idx[ring_distance(centroids[idx], r) < reach]] = True
+        return (count == 1) & ~near
+
+    inside_one = host(wholly_inside) & (values < n_poly)
+    got_mesh = on_mesh.obj.data.cpu().numpy().ravel()
+    if not np.array_equal(got_mesh[inside_one], values[inside_one]):
+        raise AssertionError("earcut mode: differs from the burned field on a face wholly inside one province")
+    polygon_faces = np.isfinite(want)
+    differ = int((polygon_faces & ~((got_mesh == want) | np.isnan(got_mesh) & np.isnan(want))).sum())
+    report(
+        f"14.6 earcut mode equal to the burned ids on {int(inside_one.sum())} faces wholly inside one province; {differ} "
+        f"faces along boundaries differ from the ray cast; build {step_s['earcut mode regridder build']:.3f} s"
+    )
+
+    # 14.7: the channels snapped to the mesh, a network, and the gauges filled.
+    numeric = gpd.GeoDataFrame({"id": np.arange(n_line)}, geometry=[shp.LineString(xy) for xy in lines])
+    snapped, snapped_gdf = wall("snap_to_grid", lambda: xt.snap_to_grid(numeric, mesh, 0.5))
+    parts = wall("create_snap_to_grid_dataframe", lambda: xt.create_snap_to_grid_dataframe(numeric, mesh, 0.5))
+    line_of_edge = snapped["line_index"].values
+    edges = np.flatnonzero(np.isfinite(line_of_edge))
+    en = mesh.edge_node_connectivity
+    part_line, part_edge = parts["line_index"].to_numpy(), parts["edge_index"].to_numpy()
+    if not np.array_equal(np.unique(part_edge), edges):
+        raise AssertionError("snap_to_grid: its edges are not those the lines snap onto")
+    claimed = set(zip(part_line.tolist(), part_edge.tolist()))
+    if not all((int(line_of_edge[e]), int(e)) in claimed for e in edges):
+        raise AssertionError("snap_to_grid: an edge went to a line that does not snap onto it")
+    pieces = []
+    for k in range(n_line):
+        mine = np.unique(part_edge[part_line == k])
+        if len(mine) == 0:
+            raise AssertionError(f"snap_to_grid: line {k} snapped onto no edge")
+        mid = mesh.node_coordinates[en[mine]].mean(axis=1)
+        far = polyline_distance(mid, lines[k]) > reach + 0.5
+        if far.any():
+            raise AssertionError(f"snap_to_grid: {int(far.sum())} edges of line {k} lie out of its reach")
+        nodes_k, local = np.unique(en[mine], return_inverse=True)
+        local = local.reshape(-1, 2)
+        g = scipy.sparse.coo_matrix((np.ones(len(mine)), (local[:, 0], local[:, 1])), shape=(len(nodes_k),) * 2)
+        pieces.append(scipy.sparse.csgraph.connected_components(g, directed=False)[0])
+    if max(pieces) != 1:
+        raise AssertionError(f"snap_to_grid: the lines' snapped edges form {pieces} pieces")
+    network = wall("Ugrid1d.from_geodataframe", lambda: xt.Ugrid1d.from_geodataframe(snapped_gdf))
+    if network.n_edge != len(edges):
+        raise AssertionError(f"network: {network.n_edge} edges for {len(edges)} snapped")
+    node_dim = network.node_dimension
+    known = np.full(network.n_node, np.nan)
+    nearest = network.locate_nearest_node(points)
+    known[nearest] = gauges["value"].to_numpy()
+    fill_uda = xt.UgridDataArray(xt.xdata.DataArray(torch.from_numpy(known).to(device), dims=(node_dim,)), network)
+    before = csr_matvec.launches
+    filled = wall("network fill", lambda: fill_uda.ugrid.laplace_interpolate(**LAPLACE_SOLVE))
+    info = dict(interpolate.last_solve_info)
+    launches = csr_matvec.launches - before
+    if launches != 1 + (info["degree"] - 1) + info["iterations"] * info["degree"]:
+        raise AssertionError(f"network fill: {launches} csr_matvec launches for {info['iterations']} iterations")
+    got = filled.obj.data.cpu().numpy()
+    W = network.get_connectivity_matrix(node_dim, xy_weights=True)
+    n_comp, comp = scipy.sparse.csgraph.connected_components(W)
+    has_known = np.bincount(comp, weights=(~np.isnan(known)).astype(np.float64), minlength=n_comp) > 0
+    empty = ~has_known[comp]
+    if not np.isnan(got[empty]).all() or not np.isfinite(got[~empty]).all():
+        raise AssertionError("network fill: components without a gauge must stay NaN, the rest finite")
+    np.testing.assert_array_equal(got[~np.isnan(known)], known[~np.isnan(known)])
+    residual = component_residuals(W, np.where(empty, 0.0, known), np.where(empty, 0.0, got), comp)
+    if residual[has_known].max() > 10 * LAPLACE_SOLVE["atol"]:
+        raise AssertionError(f"network fill: component residual {residual[has_known].max():.3e} > 10 * atol")
+    prep = [v for k, v in interpolate._SYSTEMS.items() if k[0] == "laplace"][-1]
+    indptr, indices, data64 = (prep["system"][k] for k in ("indptr", "indices", "data"))
+    x = torch.from_numpy(rng.normal(size=(indptr.numel() - 1, 1))).to(device)
+    path_launches = csr_matvec.launches  # the comparison's launch is no launch of the path
+    max_err["csr_matvec"] = compare(
+        csr_matvec(indptr, indices, data64, x), csr_matvec_plain(indptr, indices, data64, x), True, 0.0, 0.0
+    )
+    csr_matvec.launches = path_launches
+    report(
+        f"14.7 snap_to_grid: {len(edges)} edges, every one within {reach + 0.5:.3f} of its channel, each channel's "
+        f"snapped edges one path ({len(part_edge) - len(edges)} shared edges went to the line of the longest part); "
+        f"{step_s['snap_to_grid']:.3f} s; network {network.n_node} nodes, {n_comp} components, "
+        f"{int((~np.isnan(known)).sum())} gauged nodes; fill {step_s['network fill']:.3f} s, {info['iterations']} "
+        f"iterations at degree {info['degree']}, csr_matvec +{launches} (the formula's), every component's residual at "
+        f"most {residual[has_known].max():.3e} (scipy, float64), csr_matvec bit-equal to its plain version"
+    )
+
+    # 14.8: conversions.
+    subset = np.sort(rng.choice(n_face, size=VECTOR_FACES_FRAME, replace=False))
+    frame_src = payload.isel(time=0).isel({face_dim: subset})
+    frame = wall("to_geodataframe", lambda: frame_src.ugrid.to_geodataframe())
+    back = wall("Ugrid2d.from_geodataframe", lambda: xt.Ugrid2d.from_geodataframe(frame))
+    sub_grid = frame_src.grid
+    np.testing.assert_array_equal(back.node_coordinates[back.face_node_connectivity],
+                                  sub_grid.node_coordinates[sub_grid.face_node_connectivity])
+    np.testing.assert_array_equal(frame["h"].to_numpy(), frame_src["h"].values)
+    boundary = wall("bounding_polygon", lambda: mesh.bounding_polygon())
+    area = abs(shoelace(shp.get_coordinates(boundary.exterior)))
+    if abs(area - mesh.area.sum()) > 1e-9 * area:
+        raise AssertionError(f"bounding_polygon: area {area!r}, the mesh's {mesh.area.sum()!r}")
+    originals = np.sort(rng.choice(mesh.n_node, size=SNAP_NODE_COPIES, replace=False))
+    xy = np.vstack([mesh.node_coordinates, mesh.node_coordinates[originals] + rng.uniform(-1e-6, 1e-6, (SNAP_NODE_COPIES, 2))])
+    inverse, sx, sy = wall("snap_nodes", lambda: xt.snap_nodes(xy[:, 0], xy[:, 1], 1e-5))
+    if len(sx) != mesh.n_node or not np.array_equal(inverse[mesh.n_node:], inverse[originals]):
+        raise AssertionError("snap_nodes: a copy did not map onto its original")
+    np.testing.assert_array_equal(np.column_stack([sx, sy])[inverse[: mesh.n_node]], mesh.node_coordinates)
+    report(
+        f"14.8 to_geodataframe of {VECTOR_FACES_FRAME} faces of phase 13's payload and back: node coordinates and values "
+        f"bit-equal; bounding_polygon area equal to the mesh's within 1e-9; snap_nodes of {xy.shape[0]} nodes "
+        f"({SNAP_NODE_COPIES} copies jittered by 1e-6) onto {len(sx)}; "
+        + ", ".join(f"{k} {step_s[k]:.3f} s" for k in ("to_geodataframe", "Ugrid2d.from_geodataframe",
+                                                        "bounding_polygon", "snap_nodes"))
+    )
+
+    counts = {k.__name__: k.launches for k in kernels}
+    if counts["window_reduce"] != 1 or counts["window_select"] != 2 or counts["csr_matvec"] != launches:
+        raise AssertionError(f"phase 14 launched {counts}")
+    print(
+        f"phase 14: {time.perf_counter() - t_phase:.1f} s, {host_s[0]:.1f} s of it host references; launches "
+        f"{counts}; steps: " + ", ".join(f"{k} {v:.3f} s" for k, v in step_s.items()) + f" [{card}]"
+    )
     return counts, max_err
 
 
@@ -3611,7 +4165,8 @@ def main() -> int:
     partition_counts, partition_err = phase_partitions(device, card, inputs, results)
     query_counts, query_err, _ = phase_queries(device, card, inputs)
     topology_counts, topology_err = phase_topology(device, card, inputs, results)
-    payload_counts, payload_err = phase_payload(device, card, inputs, results)
+    payload_counts, payload_err, payload = phase_payload(device, card, inputs, results)
+    vector_counts, vector_err = phase_vector(device, card, inputs, results, payload)
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
@@ -3625,6 +4180,7 @@ def main() -> int:
             "queries and the nearest fill, then regrid (phase 11)": query_counts[name],
             "topology operations, then regrid and fill (phase 12)": topology_counts[name],
             "payload methods, then regrid and fill (phase 13)": payload_counts[name],
+            "vector geometry and sample data, then regrid and fill (phase 14)": vector_counts[name],
         }
         return {
             "launches": sum(by_path.values()),
@@ -3632,6 +4188,7 @@ def main() -> int:
             "max_abs_err": max(
                 check_err[name], main_err[name], regrid_err[name], labelled_err[name], files_err[name],
                 partition_err[name], query_err.get(name, 0.0), topology_err[name], payload_err[name],
+                vector_err[name],
             ),
             **timed_at,
         }
@@ -3641,6 +4198,7 @@ def main() -> int:
         "labelled arrays and structured grids (phase 8)": labelled_counts["csr_matvec"],
         "topology operations, then regrid and fill (phase 12)": topology_counts["csr_matvec"],
         "payload methods, then regrid and fill (phase 13)": payload_counts["csr_matvec"],
+        "vector geometry and sample data, then regrid and fill (phase 14)": vector_counts["csr_matvec"],
     }
 
     kernels = [
@@ -3670,7 +4228,7 @@ def main() -> int:
             "launches_by_path": matvec_by_path,
             **main_matvec,
             "max_abs_err": max(
-                check_err["csr_matvec"], topology_err["csr_matvec"], payload_err["csr_matvec"],
+                check_err["csr_matvec"], topology_err["csr_matvec"], payload_err["csr_matvec"], vector_err["csr_matvec"],
                 *(t["max_abs_err"] for t in matvec_timed.values()),
             ),
         },

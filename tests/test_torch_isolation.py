@@ -14,8 +14,10 @@ network's edge index), and the topology operations (erosion, components,
 reordering, the periodic conversion, triangulation, a tessellation, a
 network's cycle test), and the payload methods (rank, ffill,
 interpolate_na, quantile, idxmax) and a regrid through ``from_weights``
-of a regridder's ``weights`` load neither jax nor xugrid_tpu, and launch
-no kernel.
+of a regridder's ``weights``, and the vector geometry and sample data
+(``ops``, ``data``, burn, snapping, polygonize through the stand-ins of
+``tests/fake_geo.py``) load neither jax nor xugrid_tpu, and launch no
+kernel.
 A subprocess is needed because the test session itself imports jax.
 
 ``chip_smoke.py`` refuses to run without a CUDA device: exit code 2 and
@@ -145,6 +147,27 @@ REGRID_ON_CPU = textwrap.dedent(
     assert isinstance(uda.mean("time").idxmax(source.face_dimension).data, torch.Tensor)
     assert xt.OverlapRegridder.from_weights(xt.OverlapRegridder(uda, raster).weights, raster).regrid(
         uda, device="cpu").dims == ("time", "y", "x")
+    # Vector geometry and the sample data, through the numpy stand-ins of
+    # shapely and geopandas placed in sys.modules.
+    from tests.fake_geo import _make_geopandas_module, _make_shapely_module
+
+    sys.modules["shapely"], sys.modules["geopandas"] = shp, gpd = _make_shapely_module(), _make_geopandas_module()
+    provinces = xt.data.provinces_nl()
+    scale = 12.0 / 300e3
+    squeezed = gpd.GeoDataFrame({"id": provinces["id"].to_numpy()}, geometry=[
+        shp.Polygon(shp.get_coordinates(p.exterior) * scale) for p in provinces.geometry])
+    burned = xt.burn_vector_geometry(squeezed, source, column="id")
+    assert np.isfinite(burned.values).sum() > 0 and isinstance(burned.obj.data, np.ndarray)
+    assert xt.polygonize(burned)["values"].size > 0
+    assert xt.earcut_triangulate_polygons(squeezed, column="id").grid.n_face > 12
+    objects, _, _ = xt.data.hydamo_network()
+    channels = gpd.GeoDataFrame({"id": objects["id"].to_numpy()}, geometry=[
+        shp.LineString(shp.get_coordinates(g) / 50e3 * 11.0 + [0.5, 6.0]) for g in objects.geometry])
+    snapped, snapped_gdf = xt.snap_to_grid(channels, source, 0.5)
+    assert np.isfinite(snapped["line_index"].values).sum() > 0
+    assert xt.Ugrid1d.from_geodataframe(snapped_gdf).n_edge == len(snapped_gdf)
+    assert xt.snap_nodes(np.array([0.0, 1e-9, 1.0]), np.zeros(3), 1e-6)[0].tolist() == [0, 0, 1]
+    assert xt.data.disk()["face_z"].shape[0] > 0
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "xugrid_tpu" or m.startswith("xugrid_tpu."))
     assert not loaded, loaded

@@ -32,14 +32,19 @@ It covers:
   ``csrc/window_reduce.cu`` and ``csrc/window_select.cu`` (the centroid
   locator is a row gather);
 - the Laplace fill (``ugrid/interpolate.py``, a preconditioned CG whose
-  SpMV is the CUDA kernel ``csr_matvec``).
+  SpMV is the CUDA kernel ``csr_matvec``);
+- vector geometry: ``burn_vector_geometry`` and
+  ``earcut_triangulate_polygons`` (``ops/earcut.py``), ``snap_nodes``,
+  ``snap_to_grid``, ``polygonize``, and the conversions to and from
+  shapely geometry and GeoDataFrames (shapely and geopandas imported
+  where they are used); and the sample datasets of ``data``.
 
 Entry points run on the CUDA card unless the caller asks for the CPU.
 The package imports torch, numpy, scipy and pandas, and never jax or
 xugrid_tpu.
 """
 
-from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch import data, xdata
 from xugrid_tpu_torch.constants import FILL_VALUE
 from xugrid_tpu_torch.core.common import (
     concat,
@@ -64,8 +69,11 @@ from xugrid_tpu_torch.regrid.regridder import (
     OverlapRegridder,
     RelativeOverlapRegridder,
 )
+from xugrid_tpu_torch.ugrid.burn import burn_vector_geometry, earcut_triangulate_polygons
 from xugrid_tpu_torch.ugrid.conventions import UgridRolesAccessor, ugrid_roles
 from xugrid_tpu_torch.ugrid.partitioning import merge_partitions
+from xugrid_tpu_torch.ugrid.polygonize import polygonize
+from xugrid_tpu_torch.ugrid.snapping import create_snap_to_grid_dataframe, snap_nodes, snap_to_grid
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid
@@ -85,7 +93,11 @@ __all__ = [
     "UgridDataset",
     "UgridDatasetAccessor",
     "UgridRolesAccessor",
+    "burn_vector_geometry",
     "concat",
+    "create_snap_to_grid_dataframe",
+    "data",
+    "earcut_triangulate_polygons",
     "full_like",
     "load_dataarray",
     "load_dataset",
@@ -96,6 +108,9 @@ __all__ = [
     "open_dataset",
     "open_mfdataset",
     "open_zarr",
+    "polygonize",
+    "snap_nodes",
+    "snap_to_grid",
     "ugrid_roles",
     "xdata",
     "zeros_like",

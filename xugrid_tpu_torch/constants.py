@@ -21,3 +21,28 @@ X_EPSILON: float = float(np.finfo(np.float64).eps)
 # Host dtypes (numpy).
 IntDType = np.int64
 FloatDType = np.float64
+
+
+class MissingOptionalModule:
+    """Stands in for an optional dependency that is not installed: any
+    use raises an ImportError naming it."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __getattr__(self, attr):
+        raise ImportError(f"{self.name} is required for this functionality")
+
+    def __call__(self, *args, **kwargs):
+        raise ImportError(f"{self.name} is required for this functionality")
+
+
+def optional_import(name: str):
+    """Import ``name`` if available, else return a MissingOptionalModule;
+    with a flag saying which."""
+    import importlib
+
+    try:
+        return importlib.import_module(name), True
+    except ImportError:
+        return MissingOptionalModule(name), False

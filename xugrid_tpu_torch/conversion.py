@@ -1,16 +1,105 @@
 """
-Conversions between structured (raster) coordinates and UGRID geometry
-(host, numpy): cell-centre coordinates to interval breaks, cell bounds
-to vertices, and the inference of a raster's x and y coordinates.
-Copied from ``xugrid_tpu/conversion.py`` so that the port imports
-nothing of the JAX package; curvilinear (N, M, 4) bounds are not ported.
+Conversions between UGRID geometry and other data structures (host,
+numpy): GIS vector geometry (shapely arrays and geopandas
+GeoDataFrames), and structured (raster) coordinates (cell-centre
+coordinates to interval breaks, cell bounds to vertices, the inference
+of a raster's x and y coordinates).  Copied from
+``xugrid_tpu/conversion.py`` so that the port imports nothing of the JAX
+package; curvilinear (N, M, 4) bounds are not ported.
+
+shapely and geopandas are optional and imported inside the functions
+that use them, so the module found in ``sys.modules`` at the call is the
+one used.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
+from xugrid_tpu_torch.constants import FILL_VALUE, IntDType
+from xugrid_tpu_torch.ugrid.connectivity import ragged_index
 
+
+def contiguous_xy(xy: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    x, y = (np.ascontiguousarray(a) for a in xy.T)
+    return x, y
+
+
+# -- UGRID -> shapely --------------------------------------------------------
+def nodes_to_points(x: np.ndarray, y: np.ndarray):
+    import shapely
+
+    return shapely.points(x, y)
+
+
+def edges_to_linestrings(x, y, edge_node_connectivity):
+    import shapely
+
+    c = edge_node_connectivity.ravel()
+    xy = np.column_stack((x[c], y[c]))
+    i = np.repeat(np.arange(len(edge_node_connectivity)), 2)
+    return shapely.linestrings(xy, indices=i)
+
+
+def faces_to_polygons(x, y, face_node_connectivity):
+    import shapely
+
+    is_data = face_node_connectivity != FILL_VALUE
+    m_per_row = is_data.sum(axis=1)
+    i = np.repeat(np.arange(len(face_node_connectivity)), m_per_row)
+    c = face_node_connectivity.ravel()[is_data.ravel()]
+    xy = np.column_stack((x[c], y[c]))
+    rings = shapely.linearrings(xy, indices=i)
+    return shapely.polygons(rings)
+
+
+# -- shapely -> UGRID --------------------------------------------------------
+def points_to_nodes(points) -> Tuple[np.ndarray, np.ndarray]:
+    import shapely
+
+    return contiguous_xy(shapely.get_coordinates(points))
+
+
+def linestrings_to_edges(edges) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    import shapely
+
+    xy, index = shapely.get_coordinates(edges, return_index=True)
+    linear_index = np.arange(index.size)
+    segments = np.column_stack([linear_index[:-1], linear_index[1:]])
+    segments = segments[np.diff(index) == 0]
+    unique, inverse = np.unique(xy, return_inverse=True, axis=0)
+    inverse = inverse.ravel()
+    segments = inverse[segments]
+    x, y = contiguous_xy(unique)
+    return x, y, segments
+
+
+def _drop_closing_vertex(xy: np.ndarray, indices: np.ndarray):
+    """GEOS rings repeat the first vertex at the end; UGRID faces are
+    implicitly closed, so drop every ring's final vertex."""
+    keep = np.diff(indices, append=-1) == 0
+    return xy[keep], indices[keep]
+
+
+def polygons_to_faces(polygons) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    import shapely
+
+    xy, indices = _drop_closing_vertex(*shapely.get_coordinates(polygons, return_index=True))
+    unique, inverse = np.unique(xy, axis=0, return_inverse=True)
+    inverse = inverse.ravel()
+    n = len(polygons)
+    m_per_row = np.bincount(indices)
+    m = int(m_per_row.max())
+    conn = np.full((n, m), FILL_VALUE, dtype=IntDType)
+    valid = ragged_index(n, m, m_per_row)
+    conn[valid] = inverse
+    x, y = contiguous_xy(unique)
+    return x, y, conn
+
+
+# -- structured coordinates --------------------------------------------------
 def _is_monotonic_and_increasing(coord, axis: int = 0) -> bool:
     """True if increasing, False if decreasing; raises otherwise."""
     coord = np.asarray(coord)
@@ -115,3 +204,43 @@ def bounds1d_to_vertices(bounds: np.ndarray) -> np.ndarray:
     if (diff <= 0.0).all():
         return np.concatenate((bounds[:, 1], bounds[-1:, 0]))
     raise ValueError("Bounds are not monotonic ascending or monotonic descending")
+
+
+# -- dispatch ----------------------------------------------------------------
+def grid_from_geodataframe(geodataframe):
+    """A Ugrid1d of a GeoDataFrame of linestrings, or a Ugrid2d of one of
+    polygons."""
+    import geopandas as gpd
+
+    from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
+    from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
+
+    gdf = geodataframe
+    if not isinstance(gdf, gpd.GeoDataFrame):
+        raise TypeError(f"Cannot convert a {type(gdf).__name__}, expected a GeoDataFrame")
+    geom_types = gdf.geom_type.unique()
+    if len(geom_types) == 0:
+        raise ValueError("geodataframe contains no geometry")
+    elif len(geom_types) > 1:
+        raise ValueError(f"Multiple geometry types detected: {', '.join(geom_types)}")
+    geom_type = geom_types[0]
+    if geom_type == "LineString":
+        return Ugrid1d.from_geodataframe(gdf)
+    elif geom_type == "Polygon":
+        return Ugrid2d.from_geodataframe(gdf)
+    raise ValueError(f"Invalid geometry type: {geom_type}. Expected Linestring or Polygon.")
+
+
+def grid_from_dataset(dataset, topology: str):
+    """The Ugrid1d or Ugrid2d of the named topology variable of a dataset."""
+    from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
+    from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
+
+    topodim = dataset._variables[topology].attrs["topology_dimension"]
+    if topodim == 1:
+        return Ugrid1d.from_dataset(dataset, topology)
+    elif topodim == 2:
+        return Ugrid2d.from_dataset(dataset, topology)
+    elif topodim == 3:
+        raise NotImplementedError
+    raise ValueError(f"Invalid topology dimension: {topodim}")

@@ -220,6 +220,29 @@ class UgridDataArrayAccessor(AbstractUgridAccessor):
             )
         return UgridDataArray(self.grid.reindex_like(other_grid, obj=self.obj, tolerance=tolerance), other_grid)
 
+    def to_crs(self, crs=None, epsg=None):
+        """Transform node geometry to a new CRS (needs pyproj)."""
+        from xugrid_tpu_torch.core.wrap import UgridDataArray
+
+        grid = self.grid.to_crs(crs, epsg)
+        obj = grid._assign_derived_coords(self.obj)
+        return UgridDataArray(obj, grid)
+
+    def to_geodataframe(self, name: Optional[str] = None, dim_order=None):
+        """Convert one facet's data and geometry to a GeoDataFrame; a
+        tensor payload is copied to the host."""
+        import geopandas as gpd
+
+        dim = self.obj.dims[-1]
+        if name is not None:
+            ds = self.obj.rename(name).to_dataset()
+        else:
+            ds = self.obj.to_dataset()
+        variables = [var for var in ds.data_vars if dim in ds._variables[var].dims]
+        df = ds[variables].to_dataframe(dim_order=dim_order)
+        geometry = self.grid.to_shapely(dim)
+        return gpd.GeoDataFrame(df, geometry=geometry, crs=self.grid.crs)
+
     def interpolate_na(self, method: str = "nearest", max_distance: Optional[float] = None):
         """
         Fill NaNs with the value of the nearest non-NaN entity: by

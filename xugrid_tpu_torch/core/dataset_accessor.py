@@ -218,6 +218,45 @@ class UgridDatasetAccessor(AbstractUgridAccessor):
                 new_grids.append(grid)
         return UgridDataset(obj, new_grids)
 
+    def to_crs(self, crs=None, epsg=None, topology: Optional[str] = None):
+        """Transform one or all topologies to a new CRS (needs pyproj)."""
+        obj = self.obj
+        new_grids = []
+        for grid in self.grids:
+            if topology is None or grid.name == topology:
+                new_grid = grid.to_crs(crs, epsg)
+                obj = new_grid._assign_derived_coords(obj)
+            else:
+                new_grid = grid
+            new_grids.append(new_grid)
+        return UgridDataset(obj, new_grids)
+
+    def to_geodataframe(self, dim: Optional[str] = None, name: Optional[str] = None, dim_order=None):
+        """Convert facet data and geometry of all grids to a GeoDataFrame;
+        tensor payloads are copied to the host."""
+        import geopandas as gpd
+        import pandas as pd
+
+        frames = []
+        for grid in self.grids:
+            for facet_dim in grid.dims:
+                if dim is not None and facet_dim != dim:
+                    continue
+                variables = [var for var in self.obj.data_vars if facet_dim in self.obj._variables[var].dims]
+                if not variables:
+                    continue
+                df = self.obj[variables].to_dataframe(dim_order=dim_order)
+                geometry = grid.to_shapely(facet_dim)
+                frames.append(gpd.GeoDataFrame(df, geometry=geometry, crs=grid.crs))
+        if not frames:
+            raise ValueError(
+                "Unable to convert to GeoDataFrame: no data variables are "
+                "associated with any UGRID dimension."
+            )
+        if len(frames) == 1:
+            return frames[0]
+        return pd.concat(frames)
+
     def to_dataset(self, optional_attributes: bool = False):
         """The data and every topology's UGRID variables as one Dataset."""
         ds = self.obj

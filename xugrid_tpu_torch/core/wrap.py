@@ -279,6 +279,18 @@ class UgridDataset(_ForwardMixin):
             self.obj[key] = maybe_xdata(value)
 
     @staticmethod
+    def from_geodataframe(geodataframe) -> "UgridDataset":
+        """Convert a GeoDataFrame of polygons into a UgridDataset: one face
+        per polygon, the columns as face variables."""
+        grid = Ugrid2d.from_geodataframe(geodataframe)
+        ds = xdata.Dataset()
+        for column in geodataframe.columns:
+            if column == "geometry":
+                continue
+            ds[column] = ((grid.face_dimension,), geodataframe[column].to_numpy())
+        return UgridDataset(ds, [grid])
+
+    @staticmethod
     def from_structured2d(dataset: xdata.Dataset, topology=None) -> "UgridDataset":
         """
         A UgridDataset from a rectilinear Dataset: per topology, the

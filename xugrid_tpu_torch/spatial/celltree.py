@@ -110,6 +110,12 @@ class CellTree2d:
         bounding-box diagonal."""
         return float(np.sqrt(np.nanmax(self._diag2))) * 1e-12
 
+    def default_area_tolerance(self) -> float:
+        """Threshold separating real overlap slivers from the FP noise of
+        boundary-grazing polygon pairs: 1e-12 of the largest face
+        bounding-box diagonal squared."""
+        return float(np.sqrt(np.nanmax(self._diag2))) ** 2 * 1e-12
+
     def _tol(self, tolerance: Optional[float]) -> float:
         return self.default_tolerance() if tolerance is None else float(tolerance)
 
@@ -158,6 +164,11 @@ class CellTree2d:
                 areas = overlap_areas_device(query_index, tree_index, query_xy, self._poly_xy_host, device)
         keep = areas > self._pair_area_tolerance(boxes, query_index, tree_index)
         return query_index[keep], tree_index[keep], areas[keep]
+
+    def locate_faces(self, vertices: np.ndarray, faces: np.ndarray, fill_value: int = -1, device=None):
+        """(query polygon, tree face) pairs with positive overlap."""
+        qi, ti, _ = self.intersect_faces(vertices, faces, fill_value, device=device)
+        return qi, ti
 
     def locate_points(self, points: np.ndarray, tolerance: Optional[float] = None) -> np.ndarray:
         """Index of the face holding each point, the lowest one where

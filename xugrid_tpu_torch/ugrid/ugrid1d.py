@@ -206,6 +206,51 @@ class Ugrid1d(AbstractUgrid):
             conn.data = self._connectivity_weights(conn, self.node_coordinates)
         return conn
 
+    # -- vector conversion ---------------------------------------------------------
+    @classmethod
+    def from_geodataframe(cls, geodataframe) -> "Ugrid1d":
+        """Convert a geopandas GeoDataFrame of linestrings to Ugrid1d."""
+        import geopandas as gpd
+
+        if not isinstance(geodataframe, gpd.GeoDataFrame):
+            raise TypeError(f"Expected GeoDataFrame, received: {type(geodataframe).__name__}")
+        return cls.from_shapely(geodataframe.geometry.to_numpy(), crs=geodataframe.crs)
+
+    @staticmethod
+    def from_shapely(geometry, crs=None) -> "Ugrid1d":
+        """Convert an array of shapely linestrings to Ugrid1d."""
+        import shapely
+
+        from xugrid_tpu_torch import conversion
+
+        if not (shapely.get_type_id(geometry) == shapely.GeometryType.LINESTRING).all():
+            raise TypeError(
+                "Can only create Ugrid1d from shapely LineString geometries, "
+                "geometry contains other types of geometries."
+            )
+        x, y, edge_node_connectivity = conversion.linestrings_to_edges(geometry)
+        return Ugrid1d(x, y, FILL_VALUE, edge_node_connectivity, crs=crs)
+
+    def to_shapely(self, dim: str):
+        """Convert a facet to shapely points/linestrings."""
+        from xugrid_tpu_torch import conversion
+
+        if dim == self.node_dimension:
+            return conversion.nodes_to_points(self.node_x, self.node_y)
+        elif dim == self.edge_dimension:
+            return conversion.edges_to_linestrings(self.node_x, self.node_y, self.edge_node_connectivity)
+        raise ValueError(
+            f"Dimension {dim} is not a node or edge dimension of the "
+            "Ugrid1d topology."
+        )
+
+    def to_pygeos(self, dim):
+        """Deprecated: ``to_shapely``."""
+        import warnings
+
+        warnings.warn(".to_pygeos has been deprecated. Use .to_shapely instead.", DeprecationWarning)
+        return self.to_shapely(dim)
+
     # -- spatial queries -----------------------------------------------------------
     @property
     def celltree(self):

@@ -336,6 +336,64 @@ class Ugrid2d(AbstractUgrid):
             f"Expected {self.node_dimension}, {self.edge_dimension}, or {self.face_dimension}; got: {dim}"
         )
 
+    # -- vector conversion ---------------------------------------------------------
+    @staticmethod
+    def earcut_triangulate_polygons(polygons, return_index: bool = False):
+        """Triangulate (shapely) polygons and build a mesh of the result."""
+        from xugrid_tpu_torch.ugrid.burn import grid_from_earcut_polygons
+
+        return grid_from_earcut_polygons(polygons, return_index=return_index)
+
+    @classmethod
+    def from_geodataframe(cls, geodataframe) -> "Ugrid2d":
+        """Convert a geopandas GeoDataFrame of polygons to Ugrid2d."""
+        import geopandas as gpd
+
+        if not isinstance(geodataframe, gpd.GeoDataFrame):
+            raise TypeError(f"Expected GeoDataFrame, received: {type(geodataframe).__name__}")
+        return cls.from_shapely(geodataframe.geometry.to_numpy(), crs=geodataframe.crs)
+
+    @staticmethod
+    def from_shapely(geometry, crs=None) -> "Ugrid2d":
+        """Convert an array of shapely polygons to Ugrid2d."""
+        import shapely
+
+        from xugrid_tpu_torch import conversion
+
+        if not (shapely.get_type_id(geometry) == shapely.GeometryType.POLYGON).all():
+            raise TypeError(
+                "Can only create Ugrid2d from shapely Polygon geometries, "
+                "geometry contains other types of geometries."
+            )
+        x, y, face_node_connectivity = conversion.polygons_to_faces(geometry)
+        return Ugrid2d(x, y, FILL_VALUE, face_node_connectivity, crs=crs)
+
+    def to_shapely(self, dim: str):
+        """Convert a facet to shapely points/linestrings/polygons."""
+        from xugrid_tpu_torch import conversion
+
+        if dim == self.face_dimension:
+            return conversion.faces_to_polygons(self.node_x, self.node_y, self.face_node_connectivity)
+        elif dim == self.node_dimension:
+            return conversion.nodes_to_points(self.node_x, self.node_y)
+        elif dim == self.edge_dimension:
+            return conversion.edges_to_linestrings(self.node_x, self.node_y, self.edge_node_connectivity)
+        raise ValueError(
+            f"Dimension {dim} is not a face, node, or edge dimension of "
+            "the Ugrid2d topology."
+        )
+
+    def bounding_polygon(self):
+        """The exterior boundary polygon of the grid (shapely)."""
+        import shapely
+
+        def _bbox_area(bounds):
+            return (bounds[2] - bounds[0]) * (bounds[3] - bounds[1])
+
+        edges = self.node_coordinates[self.boundary_node_connectivity]
+        collection = shapely.polygonize(shapely.linestrings(edges))
+        return max(collection.geoms, key=lambda geom: _bbox_area(geom.bounds))
+
     # -- structured constructors -------------------------------------------------
     @staticmethod
     def _from_intervals_helper(node_x, node_y, nx: int, ny: int, name: str) -> "Ugrid2d":
@@ -634,6 +692,14 @@ class Ugrid2d(AbstractUgrid):
     def assign_face_coords(self, obj):
         """``obj`` with this grid's face centroids as coordinates."""
         return self._assign_coords(obj, "face", self.face_x, self.face_y, self.face_dimension)
+
+    def _assign_derived_coords(self, obj):
+        """``obj`` with the node, edge and face coordinates of the facets
+        it spans."""
+        obj = super()._assign_derived_coords(obj)
+        if self.face_dimension in obj.dims:
+            obj = self.assign_face_coords(obj)
+        return obj
 
     @property
     def celltree(self):

@@ -402,10 +402,42 @@ class AbstractUgrid(abc.ABC):
             raise ValueError(
                 "The Ugrid already has a CRS which is not equal to the "
                 "passed CRS. Specify 'allow_override=True' to replace it "
-                "without transformation."
+                "without transformation, or use '.to_crs' to transform."
             )
         self.crs = crs
         self.is_projected = is_projected
+
+    def to_crs(self, crs=None, epsg: Optional[int] = None):
+        """Transform node geometry to a new CRS (needs pyproj)."""
+        import pyproj
+
+        if self.crs is None:
+            raise ValueError("Cannot transform naive geometries. Set a crs first.")
+        if isinstance(self.crs, CrsPlaceholder):
+            raise ValueError(
+                "Cannot transform geometries: the current CRS is a "
+                "placeholder (pyproj missing or unparseable grid mapping). "
+                "Use .set_crs(..., allow_override=True) first."
+            )
+        if crs is not None:
+            crs = pyproj.CRS.from_user_input(crs)
+        elif epsg is not None:
+            crs = pyproj.CRS.from_epsg(epsg)
+        else:
+            raise ValueError("Must pass either crs or epsg.")
+        crs, is_projected = self._validate_crs(crs, crs.is_projected)
+        grid = self.copy()
+        if self.crs.is_exact_same(crs):
+            return grid
+        transformer = pyproj.Transformer.from_crs(crs_from=self.crs, crs_to=crs, always_xy=True)
+        node_x, node_y = transformer.transform(xx=grid.node_x, yy=grid.node_y)
+        grid.node_x = node_x
+        grid.node_y = node_y
+        grid._clear_geometry_properties()
+        grid._dataset = None
+        grid.crs = crs
+        grid.is_projected = is_projected
+        return grid
 
     @property
     def is_geographic(self) -> bool:
@@ -606,6 +638,14 @@ class AbstractUgrid(abc.ABC):
     def assign_edge_coords(self, obj):
         """``obj`` with this grid's edge midpoints as coordinates."""
         return self._assign_coords(obj, "edge", self.edge_x, self.edge_y, self.edge_dimension)
+
+    def _assign_derived_coords(self, obj):
+        """``obj`` with the node and edge coordinates of the facets it spans."""
+        if self.node_dimension in obj.dims:
+            obj = self.assign_node_coords(obj)
+        if self.edge_dimension in obj.dims:
+            obj = self.assign_edge_coords(obj)
+        return obj
 
     # -- labelled wrappers --------------------------------------------------------
     def find_ugrid_dim(self, obj) -> str:

@@ -6,7 +6,8 @@ Bound are the entry points of the regridders' weight builds (grid hash,
 polygon clips, point location, point in polygon, segment clip,
 mean-value weights, CSR build), the face centroids, the partition
 and merge kernels (Hilbert distances, the hashed row deduplication) and
-the network's graph walks (topological sort, vertex contraction).  The library is
+the network's graph walks (topological sort, vertex contraction) and the greedy
+snap of ``snap_nodes``.  The library is
 compiled with g++ into the port's build directory on first use.  Every
 binding returns None when the library is unavailable (or refuses the
 input, as each one says); its caller then takes a numpy fallback where
@@ -91,6 +92,8 @@ def _bind(lib):
     lib.topo_sort_dfs.restype = ctypes.c_int64
     lib.contract_vertices_walk.argtypes = [_ip, _ip, _i64, _ip, _i64, _ip, _i64]
     lib.contract_vertices_walk.restype = ctypes.c_int64
+    lib.snap_to_nearest_greedy.argtypes = [_ip, _ip, _dp, _i64, _ip, _i64, _f64, _ip]
+    lib.snap_to_nearest_greedy.restype = None
 
 
 def get_lib():
@@ -492,3 +495,26 @@ def contract_vertices_native(indptr: np.ndarray, indices: np.ndarray, m: int, ke
         if rc != -2:
             return out[:rc]
         cap *= 4
+
+
+def snap_to_nearest_native(indptr, indices, data, n: int, candidates, max_distance: float):
+    """The greedy snap assignment of ``snapping._snap_to_nearest`` over a
+    CSR distance matrix: the visited array (-2 a target, -1 unvisited,
+    else the target a node attaches to), or None when the library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int64)
+    data = np.ascontiguousarray(data, dtype=np.float64)
+    candidates = np.ascontiguousarray(candidates, dtype=np.int64)
+    # The kernel indexes unchecked: an index out of range must raise here.
+    if len(indptr) != n + 1 or (len(candidates) and (candidates.min() < 0 or candidates.max() >= n)):
+        raise IndexError(f"snap_to_nearest: indices out of range [0, {n})")
+    visited = np.empty(n, dtype=np.int64)
+    lib.snap_to_nearest_greedy(
+        _ptr(indptr, _ip), _ptr(indices, _ip), _ptr(data, _dp), n,
+        _ptr(candidates, _ip), len(candidates), float(max_distance), _ptr(visited, _ip),
+    )
+    return visited
