@@ -252,6 +252,30 @@ With no argument it runs these phases:
    back (node coordinates bit-equal), ``bounding_polygon`` (the mesh's
    area within 1e-9) and ``snap_nodes`` of 10,000 node copies jittered by
    1e-6 (each onto its original).  Wall seconds per step.
+15. The XL config (``bench.py``'s 3163 x 3163 jittered quads, 10,004,569
+   faces, onto a 1024 x 1024 raster ``DataArray``) streamed from files:
+   ``OverlapRegridder`` mean and median built (host stages, nnz against
+   bench.py's 18,166,177, w_max), applied in memory at E = 20 (one launch
+   each, held to the plain version and to host references on 2 slices;
+   kernel, bound, plain and ``torch.sparse.mm`` times); an hourly (time,
+   face) float32 payload with 1 % NaN and an int16 packed with
+   scale_factor, add_offset and _FillValue written through
+   ``.ugrid.to_netcdf`` (29 hours: the classic format's 2^31-byte
+   offsets) and ``.ugrid.to_zarr`` (96 hours of the float32, 3.84 GB) in
+   a temporary directory removed at the end, opened with ``lazy=True``
+   and each lazy payload regridded by mean and by median under the default
+   ``APPLY_CHUNK_BYTES``: one launch per block (each file in more than
+   one block), read and decode, host-to-device and kernel times per
+   block, the card's peak allocation within the budget plus the weights
+   and the result, every block read within the budget (and under half
+   the variable where the budget allows it), bit-equal to the eager
+   regrid of the payload written; ``isel(time=slice(0, 24))`` lazy,
+   reading just its rows.  ``resample``, ``groupby``, ``rolling``,
+   ``coarsen``, ``weighted``, ``polyfit``, ``interp``, ``differentiate``,
+   ``integrate`` and ``stack``/``unstack`` on the first 48 hours of the
+   streamed zarr mean, each on the card, held to the same method on a CPU
+   copy and to a numpy formula; phase 13's payload resampled (mean) and
+   grouped (median) and regridded through phase 3's mean and median.
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
@@ -268,11 +292,13 @@ so two versions compare in one chip call.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -806,6 +832,20 @@ def cuda_time_ms(fn, reps=10, warmup=2, inner=10):
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
+
+
+def card_ms(fn):
+    """CUDA event milliseconds of one call after a warm-up (median of 3)."""
+    return cuda_time_ms(fn, reps=3, warmup=1, inner=1)
+
+
+@contextlib.contextmanager
+def warnings_ignored():
+    """A block in which numpy's RuntimeWarnings (empty or all-NaN slices)
+    are not shown."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        yield
 
 
 def bound_ms(true_bytes, operations, dtype_name, copy_gbps):
@@ -3351,10 +3391,6 @@ def phase_payload(device, card, inputs, main_results):
             raise AssertionError(f"{label}: the result is not a tensor on {device}")
         return data
 
-    def card_ms(fn):
-        """CUDA event milliseconds of one call after a warm-up (median of 3)."""
-        return cuda_time_ms(fn, reps=3, warmup=1, inner=1)
-
     def wall_s(fn):
         t0 = time.perf_counter()
         out = fn()
@@ -4134,6 +4170,446 @@ def phase_vector(device, card, inputs, main_results, payload):
     return counts, max_err
 
 
+XL_SIDE, XL_RASTER = 3163, 1024
+#: Hours in the netCDF file: the writer's classic format (scipy's version
+#: 1) stores each variable's start as a signed 32-bit offset, so every
+#: variable but the last (the topology's scalar) must start below 2^31
+#: bytes; with the 10M mesh's topology (360 MB) and 60 MB per hour of h
+#: and q, 29 hours fit.
+XL_NC_TIMES = 29
+#: Hours in the zarr store (float32 h: 3.84 GB).
+XL_ZARR_TIMES = 96
+#: Hours of the streamed zarr mean that the grouped methods take.
+XL_GROUPED_TIMES = 48
+#: nnz of the XL weights from bench.py's generator (BENCH_XL_10M.json).
+XL_BENCH_NNZ = 18_166_177
+#: The packed int16 variable's CF encoding.
+PACKED = {"scale_factor": 0.01, "add_offset": 10.0, "_FillValue": -32767}
+
+
+def phase_stream(device, card, copy_gbps, main_results, payload):
+    """Phase 15: the XL config (``bench.py``'s 3163^2 jittered quads onto a
+    1024^2 raster) streamed from UGRID files through the card.  The
+    OverlapRegridder mean and median built (host stages, nnz, w_max) and
+    applied in memory at E = 20 (one launch each: kernel, bound, plain and
+    library times; held to the plain version and to host references on 2
+    slices); an hourly (time, face) float32 payload with 1 % NaN and an
+    int16 packed with scale_factor/add_offset/_FillValue written through
+    ``.ugrid.to_netcdf`` (T = 29, as many hours as the classic format
+    holds) and ``.ugrid.to_zarr`` (float32, T = 96) in a temporary
+    directory removed at the end, opened with ``lazy=True`` and each lazy
+    payload regridded by mean and median under the default
+    ``APPLY_CHUNK_BYTES``: one launch per streamed block (each file in more
+    than one block), the card's peak allocation within the budget plus the
+    weights uploaded during the call and the result, every block read
+    within the budget (and under half the variable where the budget allows
+    it), the result bit-equal to the eager regrid of the payload written;
+    a lazy
+    ``isel(time=slice(0, 24))`` reading just its rows.  Then the grouped
+    methods on the first 48 hours of the streamed zarr mean, each on the card,
+    against the same method on a CPU copy and a numpy formula; and on
+    phase 13's (time=20, face=1M) payload a resample mean and a groupby
+    median through phase 3's overlap mean and median.  Returns (launch
+    counts, largest |kernel - plain|, the 10M kernel times)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid import apply as apply_module
+    from xugrid_tpu_torch.regrid import reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.apply import device_weights
+    from xugrid_tpu_torch.regrid.regridder import APPLY_CHUNK_BYTES
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.utils.profiling import timings
+    from xugrid_tpu_torch.xdata.lazy import is_lazy, max_single_load
+
+    t_phase = time.perf_counter()
+    kernels = (window_reduce, window_select, csr_matvec)
+    for k in kernels:
+        k.launches = 0
+    max_err = {"window_reduce": 0.0, "window_select": 0.0}
+    timed_10m = {}
+    methods = (("mean", window_reduce), ("median", window_select))
+
+    def report(line):
+        print(f"  {line} [{card}]")
+
+    def uncounted(fn):
+        """``fn()`` with its launches left out of the path's counts (a
+        reference or a timing)."""
+        saved = {k: k.launches for k in kernels}
+        try:
+            return fn()
+        finally:
+            for k, n in saved.items():
+                k.launches = n
+
+    def launches_of(fn):
+        before = {k.__name__: k.launches for k in kernels}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches - before[k.__name__] for k in kernels}
+
+    def device_weight_bytes(regridder):
+        """Bytes of the regridder's weight copies on the card."""
+        return sum(t.numel() * t.element_size() for pair in regridder._device_weights.values() for t in pair)
+
+    # 15.1: the meshes and the weights.
+    rng = np.random.default_rng(42)  # bench.py's seed: its jitter
+    t0 = time.perf_counter()
+    (verts, faces), _ = bench_meshes(XL_SIDE, XL_RASTER, rng)
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    target = raster_dataarray(XL_RASTER, np.zeros((XL_RASTER, XL_RASTER), np.float32), descending=False, extent=XL_SIDE)
+    mesh_s = time.perf_counter() - t0
+    m, n, face_dim = mesh.n_face, XL_RASTER * XL_RASTER, mesh.face_dimension
+    print(f"phase 15: the XL config streamed, {m} faces onto a {XL_RASTER} x {XL_RASTER} raster [{card}]")
+    regridders = {}
+    for method, _ in methods:
+        timings.reset()
+        t0 = time.perf_counter()
+        regridders[method] = xt.OverlapRegridder(mesh, target, method=method)
+        build_stages(f"15.1 OverlapRegridder({method})", time.perf_counter() - t0)
+    csr = regridders["mean"]._weights
+    w_max = regridders["mean"]._padded.w_max
+    report(
+        f"15.1 meshes {mesh_s:.3f} s; weights nnz {csr.nnz} (bench.py's generator: {XL_BENCH_NNZ}), w_max {w_max}, "
+        f"{csr.n} targets"
+    )
+
+    # 15.2: the in-memory apply at E = 20, one launch per method.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(15)
+
+    def hourly(n_time):
+        """(n_time, m) float32 on the card: half steps (ties for the
+        median), 1 % NaN."""
+        x = torch.round(torch.randn((n_time, m), generator=gen, device=device) * 2.0) / 2.0
+        return torch.where(torch.rand((n_time, m), generator=gen, device=device) < 0.01, torch.nan, x)
+
+    source = hourly(N_EXTRA)
+    scale = float(source.nan_to_num().abs().max())
+    sample = np.sort(np.random.default_rng(15).choice(n, size=400, replace=False))
+    host_slices = source[:2].cpu().numpy()
+    for method, kernel in methods:
+        regridder = regridders[method]
+        out, rose = launches_of(lambda: regridder.regrid(source))
+        if method == "mean":
+            reference = lambda got: (got[:2], reference_linear(csr, host_slices, relative=False))  # noqa: E731
+        else:
+            reference = lambda got: (got[:2][:, sample], reference_select(csr, host_slices, sample, "median"))  # noqa: E731
+        flat = out.reshape(N_EXTRA, n)
+        max_err[kernel.__name__] = max(max_err[kernel.__name__], check_apply(
+            f"15.2 {method} E={N_EXTRA} (2 slices against the host)", regridder, source, flat, kernel, rose, scale,
+            reference,
+        ))
+        idx, w = device_weights(regridder._padded, torch.float32, device, regridder._device_weights)
+        red = regridder._reduction
+        kernel_ms = uncounted(lambda: cuda_time_ms(lambda: kernel(source, idx, w, red), reps=5))
+        plain_ms = cuda_time_ms(lambda: reduce.reduce_windows(source.t(), idx, w, red), reps=3, warmup=1, inner=1)
+        library_ms = None
+        if kernel is window_reduce:
+            library = torch.sparse_csr_tensor(
+                *(torch.from_numpy(a.astype(np.int32)).to(device) for a in (csr.indptr, csr.indices)),
+                torch.from_numpy(csr.data.astype(np.float32)).to(device), size=(csr.n, csr.m),
+            )
+            sourceT = source.t().contiguous()
+            library_ms = cuda_time_ms(lambda: torch.sparse.mm(library, sourceT), reps=5)
+            del library, sourceT
+            operations = 2 * csr.nnz * N_EXTRA
+        else:
+            operations = csr.nnz * N_EXTRA * int(np.ceil(np.log2(max(w_max, 2))))
+        true_bytes = csr.nnz * 8 + m * N_EXTRA * 4 + n * N_EXTRA * 4
+        bound, bound_by = bound_ms(true_bytes, operations, "float32", copy_gbps)
+        timed_10m[method] = {
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
+        }
+        library_text = "none" if library_ms is None else f"torch.sparse.mm {library_ms:.4f} ms"
+        report(
+            f"15.2 {method} E={N_EXTRA} at {m} faces ({kernel.__name__}): kernel {kernel_ms:.4f} ms, bound {bound:.4f} ms by "
+            f"{bound_by} ({100 * bound / kernel_ms:.1f} % of it), plain {plain_ms:.3f} ms, library {library_text}; "
+            f"true bytes {true_bytes}, {true_bytes / (kernel_ms * 1e-3) / 1e9:.1f} GB/s"
+        )
+        del out, flat
+    del source
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        # 15.3: the source files.
+        def stamps(n_time):
+            return np.datetime64("2021-07-14T00", "ns") + np.arange(n_time) * np.timedelta64(1, "h")
+
+        fill = PACKED["_FillValue"]
+        h_nc = hourly(XL_NC_TIMES)
+        q_nc = torch.where(torch.isnan(h_nc), float(fill), torch.round(h_nc / PACKED["scale_factor"])).to(torch.int16)
+        # The packed variable as the reader decodes it (NaN at the fill,
+        # then the scale and the offset in float64).
+        q_decoded = torch.where(q_nc == fill, torch.nan, q_nc.double()) * PACKED["scale_factor"] + PACKED["add_offset"]
+        h_zarr = hourly(XL_ZARR_TIMES)
+        torch.cuda.synchronize()
+        files = {}
+        for fmt, writer, variables, n_time in (
+            ("netCDF", "to_netcdf", {"h": h_nc, "q": q_nc}, XL_NC_TIMES),
+            ("zarr", "to_zarr", {"h": h_zarr}, XL_ZARR_TIMES),
+        ):
+            ds = xt.xdata.Dataset(
+                {name: (("time", face_dim), data, dict(PACKED) if name == "q" else {"units": "m"})
+                 for name, data in variables.items()},
+                coords={"time": stamps(n_time)},
+            )
+            path = os.path.join(tmp, "hourly_10M.nc" if fmt == "netCDF" else "hourly_10M.zarr")
+            t0 = time.perf_counter()
+            getattr(xt.UgridDataset(ds, [mesh]).ugrid, writer)(path)
+            write_s = time.perf_counter() - t0
+            files[fmt] = path
+            report(
+                f"15.3 {fmt}: {', '.join(f'{k} ({n_time}, {m}) {v.dtype}' for k, v in variables.items())}, "
+                f"{path_mb(path):.3f} MB written in {write_s:.3f} s"
+            )
+
+        # 15.4: the lazy opens.
+        opened = {}
+        for fmt, opener in (("netCDF", xt.open_dataset), ("zarr", xt.open_zarr)):
+            t0 = time.perf_counter()
+            opened[fmt] = opener(files[fmt], lazy=True)
+            open_s = time.perf_counter() - t0
+            if not opened[fmt].grid.equals(mesh):
+                raise AssertionError(f"15.4 {fmt}: the opened grid does not equal 15.1's mesh")
+            names = [name for name in opened[fmt].obj.data_vars if name in ("h", "q")]
+            for name in names:
+                if not is_lazy(opened[fmt][name].obj.data):
+                    raise AssertionError(f"15.4 {fmt} {name}: not a LazyArray")
+            report(f"15.4 {fmt} opened lazily in {open_s:.3f} s: {', '.join(names)} LazyArrays, the grid equal to 15.1's")
+
+        # 15.5: the streamed regrids.
+        streams = (
+            ("netCDF h", opened["netCDF"]["h"], h_nc),
+            ("netCDF q (int16 packed)", opened["netCDF"]["q"], q_decoded),
+            ("zarr h", opened["zarr"]["h"], h_zarr),
+        )
+        streamed = {}
+        for label, uda, written in streams:
+            data = uda.obj.data
+            for method, kernel in methods:
+                regridder = regridders[method]
+                rows = regridder._slices_per_chunk(max(data.dtype.itemsize, 4))
+                events = []
+                real = getattr(apply_module, kernel.__name__)
+
+                def evented(*args, real=real, events=events, **kwargs):
+                    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = real(*args, **kwargs)
+                    stop.record()
+                    events.append((start, stop))
+                    return out
+
+                del data.load_log[:]
+                timings.reset()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                weights_before = device_weight_bytes(regridder)
+                torch.cuda.reset_peak_memory_stats()
+                setattr(apply_module, kernel.__name__, evented)
+                t0 = time.perf_counter()
+                try:
+                    out, rose = launches_of(lambda: regridder.regrid(uda))
+                finally:
+                    setattr(apply_module, kernel.__name__, real)
+                wall_s = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                stages = timings.summary()
+                chunks = stages["regrid.lazy_read"]["count"]
+                if chunks != -(-data.shape[0] // rows) or rose[kernel.__name__] != chunks or sum(rose.values()) != chunks:
+                    raise AssertionError(f"15.5 {label} {method}: {chunks} blocks, launches {rose}")
+                result = out.data
+                if not isinstance(result, torch.Tensor) or result.device != device or out.dims != ("time", "y", "x"):
+                    raise AssertionError(f"15.5 {label} {method}: {type(result).__name__} {out.dims}")
+                # Only the weights uploaded during the call (the float64
+                # copy for the packed variable): the float32 copy of 15.2
+                # was on the card before ``base`` was read.
+                weights_bytes = device_weight_bytes(regridder) - weights_before
+                result_bytes = result.numel() * result.element_size()
+                if peak > APPLY_CHUNK_BYTES + weights_bytes + result_bytes:
+                    raise AssertionError(
+                        f"15.5 {label} {method}: peak {peak} bytes above the budget {APPLY_CHUNK_BYTES} + weights "
+                        f"{weights_bytes} + result {result_bytes}"
+                    )
+                single = max_single_load(data)
+                if single > APPLY_CHUNK_BYTES:
+                    raise AssertionError(f"15.5 {label} {method}: a block read of {single} bytes, above the budget")
+                if data.shape[0] > 2 * rows and single >= data.nbytes / 2:
+                    raise AssertionError(f"15.5 {label} {method}: a block read of half the variable or more")
+                # Each (target, slice) is reduced in window order whatever
+                # the block: the streamed result equals the eager one.
+                want = uncounted(lambda: regridder.regrid(written).reshape(result.shape))
+                compare(result, want, True, 0.0, 0.0)
+                kernel_ms = [start.elapsed_time(stop) for start, stop in events]
+                read_s, upload_s = stages["regrid.lazy_read"]["total_s"], stages["regrid.lazy_upload"]["total_s"]
+                report(
+                    f"15.5 {label} by {method}: {chunks} block(s) of up to {rows} rows ({data.shape[0]} in all), one "
+                    f"{kernel.__name__} launch each; read + decode {read_s:.3f} s ({read_s / chunks:.3f} s per block), "
+                    f"host-to-device {upload_s:.3f} s ({upload_s / chunks:.3f} per block), kernel ms per block "
+                    f"{', '.join(f'{t:.3f}' for t in kernel_ms)}; wall {wall_s:.3f} s, "
+                    f"{data.nbytes / wall_s / 1e9:.3f} GB/s of decoded payload streamed; largest block read {single} "
+                    f"bytes ({single / data.nbytes:.3f} of the variable's {data.nbytes}); peak allocation {peak} bytes "
+                    f"<= budget {APPLY_CHUNK_BYTES} + weights uploaded {weights_bytes} + result {result_bytes}; "
+                    "bit-equal to the eager regrid of the payload written"
+                )
+                streamed[(label, method)] = (out, chunks)
+        for fmt in files:
+            if max(chunks for (label, _), (_, chunks) in streamed.items() if label.startswith(fmt)) < 2:
+                raise AssertionError(f"15.5 {fmt}: no variable streamed in more than one block")
+        lazy_h = opened["netCDF"]["h"]
+        part = lazy_h.isel(time=slice(0, 24))
+        if not isinstance(part, xt.UgridDataArray) or not is_lazy(part.obj.data):
+            raise AssertionError("15.5 isel(time=slice(0, 24)): not a lazy UgridDataArray")
+        start_log = len(part.obj.data.load_log)
+        values = part.values
+        reads = part.obj.data.load_log[start_log:]
+        if reads != [24 * m * 4] * 2:
+            raise AssertionError(f"15.5 isel(time=slice(0, 24)): reads {reads}")
+        bit_equal("15.5 isel(time=slice(0, 24))", torch.from_numpy(values).to(device), h_nc[:24].cpu().numpy(), device)
+        report(
+            "15.5 uda.isel(time=slice(0, 24)) of the netCDF h stays a lazy UgridDataArray; .values reads its 24 rows "
+            f"once ({24 * m * 4} bytes, logged by the slice and by the file's array), bit-equal to the rows written"
+        )
+        del h_nc, q_nc, q_decoded, h_zarr, opened, streams
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 15.6: the grouped methods on the streamed (time=48, y, x) mean.
+    nt = XL_GROUPED_TIMES
+    res = streamed[("zarr h", "mean")][0].isel(time=slice(0, nt))
+    res = res.assign_coords(hour=("time", np.arange(nt) % 24))
+    hours = np.arange(float(nt))
+    on_cpu = res.copy(deep=False, data=res.data.cpu())
+    Hf = res.values
+    H = Hf.astype(np.float64)
+    area_np = np.abs(res["dy"].values[:, None] * res["dx"].values[None, :])
+
+    def area(da):
+        return xt.xdata.DataArray(torch.from_numpy(area_np).to(da.data.device), dims=("y", "x"))
+
+    def numeric(da):
+        return da.assign_coords(time=hours)
+
+    def rolling_ref():
+        out = np.full_like(H, np.nan)
+        for t in range(5, nt):
+            out[t] = H[t - 5 : t + 1].mean(axis=0)  # min_periods = 6: NaN with any NaN
+        return out
+
+    def coarsen_ref():
+        with warnings_ignored():
+            by_x = np.nanmean(H.reshape(nt, XL_RASTER, XL_RASTER // 4, 4), axis=3)
+            return np.nanmean(by_x.reshape(nt, XL_RASTER // 4, 4, XL_RASTER // 4), axis=2)
+
+    def weighted_ref():
+        valid = ~np.isnan(H)
+        return (np.where(valid, H, 0.0) * area_np).sum(axis=(1, 2)) / (valid * area_np).sum(axis=(1, 2))
+
+    def polyfit_ref():
+        flat = H.reshape(nt, -1)
+        out = np.full((2, flat.shape[1]), np.nan)
+        ok = ~np.isnan(flat).any(axis=0)
+        out[:, ok] = np.linalg.lstsq(np.vander(hours, 2), flat[:, ok], rcond=None)[0]
+        return out.reshape(2, XL_RASTER, XL_RASTER)
+
+    def nan_groups(groups):
+        with warnings_ignored():
+            return np.stack([np.nanmean(H[g], axis=0) for g in groups])
+
+    grouped = (
+        ("resample(time='1D').mean()", lambda da: da.resample(time="1D").mean(),
+         lambda: nan_groups([slice(day, day + 24) for day in range(0, nt, 24)]), 1e-12),
+        ("groupby('hour').mean()", lambda da: da.groupby("hour").mean(),
+         lambda: nan_groups([np.arange(k, nt, 24) for k in range(24)]), 1e-12),
+        ("rolling(time=6).mean()", lambda da: da.rolling(time=6).mean(), rolling_ref, 1e-12),
+        ("coarsen(x=4, y=4).mean()", lambda da: da.coarsen(x=4, y=4).mean(), coarsen_ref, 1e-12),
+        ("weighted(cell area).mean(('x', 'y'))", lambda da: da.weighted(area(da)).mean(("x", "y")), weighted_ref, 1e-12),
+        ("polyfit('time', 1)", lambda da: numeric(da).polyfit("time", 1)["polyfit_coefficients"], polyfit_ref, 1e-9),
+        ("interp(time=midpoints)", lambda da: numeric(da).interp(time=hours[:-1] + 0.5),
+         lambda: (H[:-1] + H[1:]) / 2.0, 1e-12),
+        ("differentiate('time')", lambda da: numeric(da).differentiate("time"), lambda: np.gradient(H, hours, axis=0), 1e-12),
+        # numpy's trapezoid adds the float32 neighbours in float32.
+        ("integrate('time')", lambda da: numeric(da).integrate("time"),
+         lambda: ((Hf[1:] + Hf[:-1]).astype(np.float64) / 2.0).sum(axis=0), 1e-12),
+        ("stack(cell=('y', 'x')).unstack()", lambda da: da.stack(cell=("y", "x")).unstack("cell"),
+         lambda: Hf, 0.0),
+    )
+    lines = []
+    for label, fn, formula, rtol in grouped:
+        got = fn(res)
+        data = got.data
+        if not isinstance(data, torch.Tensor) or data.device != device:
+            raise AssertionError(f"15.6 {label}: the result is not a tensor on {device}")
+        ms = card_ms(lambda: fn(res))
+        cpu = fn(on_cpu).data
+        if cpu.device.type != "cpu":
+            raise AssertionError(f"15.6 {label}: the CPU copy's result left the CPU")
+        magnitude = float(np.nanmax(np.abs(H)))
+        if rtol == 0.0:
+            compare(data, cpu, True, 0.0, 0.0)
+            compare(data, torch.from_numpy(formula()), True, 0.0, 0.0)
+        else:
+            compare(data, cpu, False, rtol, rtol * magnitude)
+            atol = rtol * magnitude * (nt if "integrate" in label else 1)
+            compare(data, torch.from_numpy(formula()), False, max(rtol, 1e-12), atol)
+        lines.append(f"{label} {ms:.3f} ms")
+    report(
+        f"15.6 grouped methods on the first {nt} hours of the streamed zarr mean ({nt}, {XL_RASTER}, {XL_RASTER}), "
+        "each a tensor on the card, held to the "
+        "same method on a CPU copy and to a numpy formula (float64 rtol 1e-12; polyfit 1e-9; stack/unstack bit-equal): "
+        + ", ".join(lines)
+    )
+
+    # 15.6: grouped results of phase 13's payload through phase 3's regridders.
+    main = {method: regridder for _, method, _, regridder, *_ in main_results}
+    h13 = payload["h"].obj
+    days = h13["time"].values
+    stamps13 = np.datetime64("2021-01-01", "ns") + np.round(days * 86400e9).astype("timedelta64[ns]")
+    h13 = h13.assign_coords(time=stamps13, week=("time", (days // 7).astype(np.int64)))
+    H13 = h13.values.astype(np.float64)
+    bins = (stamps13 - stamps13[0].astype("datetime64[D]")) // np.timedelta64(5, "D")
+    feeds = (
+        ("resample(time='5D').mean()", lambda: h13.resample(time="5D").mean(), "mean", window_reduce,
+         [np.flatnonzero(bins == b) for b in range(int(bins.max()) + 1)], np.nanmean),
+        ("groupby('week').median()", lambda: h13.groupby("week").median(), "median", window_select,
+         [np.flatnonzero((days // 7) == w) for w in np.unique(days // 7)], np.nanmedian),
+    )
+    scale13 = float(np.nanmax(np.abs(H13)))
+    for label, fn, method, kernel, groups, numpy_fn in feeds:
+        grouped_da = fn()
+        with warnings_ignored():
+            want = np.stack([numpy_fn(H13[g], axis=0) if len(g) else np.full(H13.shape[1], np.nan) for g in groups])
+        compare(grouped_da.data, torch.from_numpy(want), False, 1e-12, 1e-12 * scale13)
+        regridder = main[method]
+        out, rose = launches_of(lambda: regridder.regrid(grouped_da))
+        src = grouped_da.data
+        sample13 = np.sort(np.random.default_rng(16).choice(regridder._weights.n, size=400, replace=False))
+        if method == "mean":
+            reference = lambda got: (got, reference_linear(regridder._weights, src.cpu().numpy(), relative=False))  # noqa: E731
+        else:
+            reference = lambda got: (  # noqa: E731
+                got[:, sample13], reference_select(regridder._weights, src.cpu().numpy(), sample13, "median")
+            )
+        max_err[kernel.__name__] = max(max_err[kernel.__name__], check_apply(
+            f"15.6 phase 13's h {label} ({tuple(src.shape)}, float64 within numpy's nan-reduction at rtol 1e-12) "
+            f"-> {T_SIDE} x {T_SIDE} by overlap {method}", regridder, src, out.obj.data.reshape(src.shape[0], -1), kernel, rose,
+            scale13, reference,
+        ))
+
+    counts = {k.__name__: k.launches for k in kernels}
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s, launches {counts} [{card}]")
+    return counts, max_err, timed_10m
+
+
 def main() -> int:
     import torch
 
@@ -4167,6 +4643,7 @@ def main() -> int:
     topology_counts, topology_err = phase_topology(device, card, inputs, results)
     payload_counts, payload_err, payload = phase_payload(device, card, inputs, results)
     vector_counts, vector_err = phase_vector(device, card, inputs, results, payload)
+    stream_counts, stream_err, timed_10m = phase_stream(device, card, copy_gbps, results, payload)
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
@@ -4181,6 +4658,7 @@ def main() -> int:
             "topology operations, then regrid and fill (phase 12)": topology_counts[name],
             "payload methods, then regrid and fill (phase 13)": payload_counts[name],
             "vector geometry and sample data, then regrid and fill (phase 14)": vector_counts[name],
+            "the XL config streamed from files, grouped methods, then regrid (phase 15)": stream_counts[name],
         }
         return {
             "launches": sum(by_path.values()),
@@ -4188,7 +4666,7 @@ def main() -> int:
             "max_abs_err": max(
                 check_err[name], main_err[name], regrid_err[name], labelled_err[name], files_err[name],
                 partition_err[name], query_err.get(name, 0.0), topology_err[name], payload_err[name],
-                vector_err[name],
+                vector_err[name], stream_err[name],
             ),
             **timed_at,
         }
@@ -4208,6 +4686,7 @@ def main() -> int:
             "source": "xugrid_tpu_torch/csrc/window_reduce.cu",
             "replaces": "xugrid_tpu/regrid/aligned_apply.py:1271",
             **window_entry("window_reduce", timed[("mean", N_EXTRA)]),
+            "at_10M": {"E": N_EXTRA, **timed_10m["mean"]},
         },
         {
             "name": "window_select",
@@ -4215,6 +4694,7 @@ def main() -> int:
             "source": "xugrid_tpu_torch/csrc/window_select.cu",
             "replaces": "xugrid_tpu/regrid/select_apply.py:804",
             **window_entry("window_select", timed[("median", N_EXTRA)]),
+            "at_10M": {"E": N_EXTRA, **timed_10m["median"]},
         },
         {
             "name": "csr_matvec",

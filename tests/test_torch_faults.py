@@ -12,7 +12,9 @@ against it on the same seeded inputs:
   layout (the device weights included), and ``from_weights(r.weights,
   target)`` regrids bit-equal to ``r``;
 - ``Ugrid1d``/``Ugrid2d.coords``, the accessors' ``crs``, ``FILL_VALUE``
-  and ``Network1d.length``.
+  and ``Network1d.length``;
+- the ``DataArray.values`` setter, which replaces the payload (a tensor
+  payload's replacement on its device).
 """
 
 import numpy as np
@@ -227,3 +229,24 @@ def test_fill_value_and_network_length_match_jax(inputs):  # noqa: F811
     got = Network1d(xt.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges)).length
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(got, np.hypot(*(nodes[edges[:, 1]] - nodes[edges[:, 0]]).T), rtol=1e-15)
+
+
+@pytest.mark.parametrize("payload", ["numpy", "tensor"])
+def test_dataarray_values_setter_matches_jax(payload):
+    """``da.values = ...`` replaces the payload, as the JAX package's
+    setter does (the port had no setter and raised AttributeError); a
+    tensor payload's replacement lies on its device."""
+    import torch
+
+    values = np.arange(6.0).reshape(2, 3)
+    new = -values[::-1]
+    results = {}
+    for pkg in PACKAGES:
+        data = torch.from_numpy(values.copy()) if pkg is xt and payload == "tensor" else values.copy()
+        da = pkg.xdata.DataArray(data, dims=("a", "b"), coords={"a": [10, 20]}, name="v")
+        da.values = new
+        results[pkg] = da
+    got, want = results[xt], results[xu]
+    np.testing.assert_array_equal(got.values, np.asarray(want.values))
+    assert isinstance(got.data, torch.Tensor) == (payload == "tensor")
+    np.testing.assert_array_equal(got["a"].values, [10, 20])

@@ -11,8 +11,8 @@ strings (the CF char-array encoding), uint8 widening, numpy attributes
 (int64, bool, float64 kept f64), integer fill values kept as integers
 in ``encoding``, packed data, zero-length zarr arrays and foreign zarr
 stores.  The port also writes tensor payloads (copied to the host),
-opens payloads that ``torch.from_numpy`` takes (native byte order), and
-refuses ``lazy=True``.
+and opens payloads that ``torch.from_numpy`` takes (native byte order).
+The lazy reads are held in ``tests/test_torch_lazy.py``.
 """
 
 import json
@@ -231,14 +231,3 @@ def test_zarr_store_layout_matches_jax(tmp_path):
     with pytest.raises(FileExistsError):
         time_dataset(xt).to_zarr(tmp_path / "torch.zarr")
     time_dataset(xt).to_zarr(tmp_path / "torch.zarr", mode="w")
-
-
-def test_lazy_open_is_not_ported(tmp_path):
-    time_dataset(xt).to_netcdf(tmp_path / "t.nc")
-    time_dataset(xt).to_zarr(tmp_path / "t.zarr")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        xt.xdata.open_dataset(tmp_path / "t.nc", lazy=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        xt.xdata.open_zarr(tmp_path / "t.zarr", lazy=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        xt.open_dataset(tmp_path / "t.nc", lazy=True)

@@ -1,14 +1,16 @@
 """
 Top-level file readers and combination functions over UgridDataArrays
 and UgridDatasets (``xugrid_tpu/core/common.py``): the readers open a
-UGRID netCDF file or zarr store eagerly into host arrays and read its
-topologies; the combinations are the xdata ones, with the grids carried
-over.
+UGRID netCDF file or zarr store into host arrays (or, with
+``lazy=True``, its large variables as ``LazyArray`` row loaders) and
+read its topologies; the combinations are the xdata ones, with the grids
+carried over.
 """
 
 from __future__ import annotations
 
 from xugrid_tpu_torch import xdata
+from xugrid_tpu_torch.core.utils import unique_grids
 from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset, maybe_xdata
 from xugrid_tpu_torch.ugrid.conventions import ugrid_roles
 
@@ -23,12 +25,13 @@ def _dataset_helper(ds: xdata.Dataset) -> UgridDataset:
 
 
 def open_dataset(path, **kwargs) -> UgridDataset:
-    """Open a UGRID netCDF file as a UgridDataset (host arrays)."""
+    """Open a UGRID netCDF file as a UgridDataset (host arrays; ``lazy=True``
+    leaves the large variables on disk as ``LazyArray`` row loaders)."""
     return _dataset_helper(xdata.open_dataset(path, **kwargs))
 
 
 def load_dataset(path, **kwargs) -> UgridDataset:
-    """Open a UGRID netCDF file (every read is eager)."""
+    """Open a UGRID netCDF file (``open_dataset``)."""
     return open_dataset(path, **kwargs)
 
 
@@ -48,7 +51,8 @@ def load_dataarray(path, **kwargs) -> UgridDataArray:
 
 
 def open_zarr(store, **kwargs) -> UgridDataset:
-    """Open a UGRID zarr store as a UgridDataset (host arrays)."""
+    """Open a UGRID zarr store as a UgridDataset (host arrays, or
+    ``LazyArray`` row loaders with ``lazy=True``)."""
     return _dataset_helper(xdata.open_zarr(store, **kwargs))
 
 
@@ -71,8 +75,8 @@ def _unwrap_grids(objects):
     grids = []
     for obj in objects:
         if isinstance(obj, (UgridDataArray, UgridDataset)):
-            grids.extend(g for g in obj.grids if not any(g.equals(other) for other in grids))
-    return grids
+            grids.extend(obj.grids)
+    return unique_grids(grids)
 
 
 def concat(objs, dim: str):

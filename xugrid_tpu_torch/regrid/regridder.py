@@ -44,6 +44,7 @@ from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.utils.device import resolve_device
 from xugrid_tpu_torch.utils.profiling import timed
+from xugrid_tpu_torch.xdata.lazy import is_lazy
 
 #: Working-set budget per apply chunk (bytes of source plus target):
 #: stacks of extra slices larger than this are applied in slabs.
@@ -261,13 +262,19 @@ class BaseRegridder(abc.ABC):
     def _source_ndim(self) -> int:
         return 1 if self._source is None else self._source.ndim
 
+    def _slices_per_chunk(self, itemsize: int) -> int:
+        """How many extra slices of ``itemsize`` bytes, source plus
+        target, fit ``APPLY_CHUNK_BYTES`` (at least one): the slab of
+        ``_apply`` and, divided by the slices per row, the row block of
+        ``_regrid_lazy``."""
+        return max(APPLY_CHUNK_BYTES // (itemsize * (self._weights.m + self._weights.n)), 1)
+
     def _apply(self, source2d: torch.Tensor) -> torch.Tensor:
         """The weights applied to an (E, m) source: (E, n)."""
         n = self._weights.n
         # Bound the device working set: stacks larger than the budget
         # stream through in slabs of extra slices.
-        per_slice = source2d.element_size() * (self._weights.m + n)
-        rows = max(APPLY_CHUNK_BYTES // per_slice, 1)
+        rows = self._slices_per_chunk(source2d.element_size())
         chunks = [
             apply_weights(self._padded, source2d[i : i + rows], self._reduction, n, cache=self._device_weights)
             for i in range(0, source2d.shape[0], rows)
@@ -275,6 +282,8 @@ class BaseRegridder(abc.ABC):
         return chunks[0] if len(chunks) == 1 else torch.cat(chunks)
 
     def _regrid_array(self, source, device=None) -> torch.Tensor:
+        if is_lazy(source):
+            return self._regrid_lazy(source, device)
         if isinstance(source, np.ndarray):
             source = np.ascontiguousarray(source)  # torch takes no negative strides
         source = torch.as_tensor(source).to(resolve_device(source, device))
@@ -290,10 +299,38 @@ class BaseRegridder(abc.ABC):
         out = self._apply(source.reshape(-1, self._weights.m))
         return out.reshape(first_dims_shape + target_shape)
 
+    def _regrid_lazy(self, source, device=None) -> torch.Tensor:
+        """Out-of-core: stream row blocks of a ``LazyArray`` along its
+        leading dimension from the file, each loaded on the host, copied to
+        the device and applied, and concatenate the (much smaller) results
+        on the device.  A block holds as many rows as fit the apply budget
+        (``APPLY_CHUNK_BYTES``) at the decoded itemsize (at least 4 bytes),
+        by the slab count ``_apply`` takes too (``_slices_per_chunk``), so
+        the whole payload is never on the device at once.  The host
+        stages ``regrid.lazy_read`` (read and CF-decode a block) and
+        ``regrid.lazy_upload`` (its copy to the device) are timed
+        (``utils.profiling.timings``)."""
+        shape = source.shape
+        if len(shape) <= self._source_ndim() or shape[0] == 0:
+            # No leading dimension to stream over (or nothing to stream):
+            # materialize and take the eager path.
+            return self._regrid_array(np.asarray(source), device)
+        extra = int(np.prod(shape[1 : len(shape) - self._source_ndim()]))
+        rows = max(1, self._slices_per_chunk(max(source.dtype.itemsize, 4)) // max(extra, 1))
+        blocks = []
+        for start in range(0, shape[0], rows):
+            with timed("regrid.lazy_read"):
+                block = np.ascontiguousarray(source[start : start + rows])
+            with timed("regrid.lazy_upload"):
+                block = torch.from_numpy(block).to(resolve_device(block, device))
+            blocks.append(self._regrid_array(block, device))
+        return blocks[0] if len(blocks) == 1 else torch.cat(blocks)
+
     def regrid_dataarray(self, source: xdata.DataArray, source_dims: Tuple[str, ...], device=None):
         """The regridded DataArray: the extra dimensions first, then the
         target's, with the source's coordinates on the extra dimensions,
-        its name and attrs.  The payload is never copied to the host."""
+        its name and attrs.  A tensor payload is never copied to the host;
+        a ``LazyArray`` payload streams through in row blocks."""
         extra_dims = tuple(d for d in source.dims if d not in source_dims)
         transposed = source.transpose(*extra_dims, *source_dims)
         result = self._regrid_array(transposed.data, device)
@@ -320,7 +357,9 @@ class BaseRegridder(abc.ABC):
         ``device``: where to compute, and where the result lies.  None
         means the device of a tensor payload and the CUDA card for
         anything else; without a card, pass ``device="cpu"``.  A numpy
-        payload gives a tensor payload on ``device``.
+        payload gives a tensor payload on ``device``; so does a lazy one
+        (``open_dataset(..., lazy=True)``), read from its file in row
+        blocks of at most ``APPLY_CHUNK_BYTES`` (``_regrid_lazy``).
         """
         if isinstance(data, UgridDataArray):
             obj = data.obj

@@ -2,9 +2,11 @@
 xdata: the labelled-array core of the port, a copy of ``xugrid_tpu``'s
 xarray stand-in: DataArray, Dataset, Variable, concat/merge,
 full_like/zeros_like/ones_like, where, align, broadcast, apply_ufunc,
-polyval and ``testing``, and the eager netCDF and zarr readers and
-writers (``io_netcdf.py``, ``io_zarr.py``).  The grouped methods
-(groupby, rolling, resample, ...) are not ported.
+polyval and ``testing``, the grouped and windowed methods
+(``grouped.py``: groupby, resample, rolling, coarsen, weighted), and the
+netCDF and zarr readers and writers (``io_netcdf.py``, ``io_zarr.py``),
+whose lazy reads leave large variables in their files as ``LazyArray``s
+(``lazy.py``).
 
 Coordinates and indexes are numpy on the host.  A data payload may be a
 numpy array or a torch tensor; a tensor stays on its device through

@@ -16,7 +16,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from xugrid_tpu_torch.xdata.indexes import as_index, resolve_label_indexer
+from xugrid_tpu_torch.xdata.indexes import as_index, resolve_label_indexer, stacked_multiindex
 from xugrid_tpu_torch.xdata.variable import (
     Variable,
     arg_extreme,
@@ -25,14 +25,18 @@ from xugrid_tpu_torch.xdata.variable import (
     broadcast_variables,
     common_operands,
     fill_directional_tensor,
+    gradient_tensor,
+    interp_tensor,
     interpolate_tensor,
     is_floating,
     is_tensor,
     isin_tensor,
+    polyfit_tensor,
     quantile_tensor,
     rank_tensor,
     shift_tensor,
     to_numpy,
+    trapezoid_tensor,
     where_tensor,
 )
 
@@ -110,6 +114,34 @@ def _array_equiv(a, b) -> bool:
     if a.dtype.kind in "fc" or b.dtype.kind in "fc":
         return bool(((a == b) | (np.isnan(a) & np.isnan(b))).all())
     return bool((a == b).all())
+
+
+def level_mask(values: np.ndarray, label, name) -> np.ndarray:
+    """Where the host level coordinate ``values`` holds ``label`` (one
+    value, which must occur, or a list of values)."""
+    lab = np.asarray(label)
+    if lab.ndim == 0:
+        mask = values == lab[()]
+        if not mask.any():
+            raise KeyError(f"{label!r} not found in level {name!r}")
+        return mask
+    return np.isin(values, lab)
+
+
+def with_level_masks(positional: dict, level_masks: dict, sizes) -> dict:
+    """``positional`` with each dim's level selection (a bool mask)
+    intersected in; a slice on the same dim is taken as its positions."""
+    for dim, mask in level_masks.items():
+        pos = np.flatnonzero(mask)
+        if dim in positional:
+            prev = positional[dim]
+            if isinstance(prev, slice):
+                prev = np.arange(sizes[dim])[prev]
+            prev = np.atleast_1d(np.asarray(prev))
+            positional[dim] = prev[np.isin(prev, pos)]
+        else:
+            positional[dim] = pos
+    return positional
 
 
 @contextlib.contextmanager
@@ -238,6 +270,14 @@ class DataArray:
         """The payload on the host: a copy of a tensor."""
         return self.variable.values
 
+    @values.setter
+    def values(self, value):
+        """Replace the payload; a tensor payload's replacement goes to its
+        device."""
+        data = self.variable.data
+        value = np.asarray(value)
+        self.variable.data = torch.as_tensor(np.ascontiguousarray(value), device=data.device) if is_tensor(data) else value
+
     @property
     def attrs(self) -> dict:
         return self.variable.attrs
@@ -256,14 +296,23 @@ class DataArray:
 
     @property
     def indexes(self) -> dict:
-        return {
-            dim: as_index(self._coords[dim].data)
-            for dim in self.dims
-            if dim in self._coords and self._coords[dim].dims == (dim,)
-        }
+        """The index of each dim with one: a stacked dim's MultiIndex, else
+        its 1-D coordinate."""
+        out = {}
+        for dim in self.dims:
+            mi = stacked_multiindex(dim, self.encoding, self._coords)
+            if mi is not None:
+                out[dim] = mi
+            elif dim in self._coords and self._coords[dim].dims == (dim,):
+                out[dim] = as_index(self._coords[dim].data)
+        return out
 
     def get_index(self, dim) -> pd.Index:
-        """The index of ``dim``: its 1-D coordinate, else positions."""
+        """The index of ``dim``: a stacked dim's MultiIndex, its 1-D
+        coordinate, else positions."""
+        mi = stacked_multiindex(dim, self.encoding, self._coords)
+        if mi is not None:
+            return mi
         if dim in self._coords and self._coords[dim].dims == (dim,):
             return as_index(self._coords[dim].data)
         return pd.RangeIndex(self.sizes[dim])
@@ -404,6 +453,11 @@ class DataArray:
                 continue
             new_coords[name] = cv
         out = DataArray._construct(new_var, new_coords, self.name)
+        # A stacked dim's layout survives subsetting (unstack takes a
+        # subset through the level coordinates).
+        for key, value in self.encoding.items():
+            if key.startswith("_stacked_") and key[len("_stacked_") :] in out.dims:
+                out.encoding[key] = value
         if renames:
             out = out.rename(renames)
             # The old index coordinate holds positions of the old dim.
@@ -453,19 +507,53 @@ class DataArray:
         return DataArray._construct(Variable(new_idx_dims + rest_dims, result, self.attrs), coords, self.name)
 
     def sel(self, indexers=None, method=None, tolerance=None, drop: bool = False, **kwargs) -> "DataArray":
-        """Label selection on 1-D index coordinates; a dimension without
-        one takes the labels as positions."""
+        """Label selection on 1-D index coordinates (a dimension without one
+        takes the labels as positions); on a stacked dim, full tuples of
+        level labels, and a level name selects by that level's values."""
         indexers = self._resolve_indexers(indexers, kwargs)
         positional = {}
+        level_masks = {}  # dim -> bool mask of the level selections over it
         for dim, label in indexers.items():
             if dim not in self.dims:
-                raise KeyError(f"no dimension {dim!r}")
+                # A level: a 1-D coordinate over another dim (the layout
+                # stack() makes).
+                cv = self._coords.get(dim)
+                if cv is None or len(cv.dims) != 1 or cv.dims[0] == dim or cv.dims[0] not in self.dims:
+                    raise KeyError(f"no dimension {dim!r}")
+                other = cv.dims[0]
+                mask = level_mask(to_numpy(cv.data), label, dim)
+                level_masks[other] = mask if other not in level_masks else level_masks[other] & mask
+                continue
+            entry = self.encoding.get("_stacked_" + dim)
+            levels = None if entry is None else entry[0]
+            if levels is not None and isinstance(label, tuple):
+                positional[dim] = self._stacked_tuple_position(dim, levels, label)
+                continue
+            if levels is not None and isinstance(label, (list, np.ndarray)) and len(label) and isinstance(label[0], tuple):
+                positional[dim] = np.array([self._stacked_tuple_position(dim, levels, t) for t in label])
+                continue
             if dim not in self._coords or self._coords[dim].dims != (dim,):
                 positional[dim] = label
                 continue
             index = as_index(self._coords[dim].data)
             positional[dim] = resolve_label_indexer(index, label, method, tolerance)
-        return self.isel(positional, drop=drop)
+        return self.isel(with_level_masks(positional, level_masks, self.sizes), drop=drop)
+
+    def _stacked_tuple_position(self, dim, levels, label) -> int:
+        """The position of a full (level0, level1, ...) label on a stacked
+        dim."""
+        if len(label) != len(levels):
+            raise KeyError(f"stacked dim {dim!r} expects {len(levels)}-tuples (levels {levels}), got {label!r}")
+        mask = np.ones(self.sizes[dim], bool)
+        for lev, lab in zip(levels, label):
+            lv = self._coords.get(lev)
+            if lv is None:
+                raise KeyError(f"stacked level coordinate {lev!r} was dropped")
+            mask &= to_numpy(lv.data) == lab
+        pos = np.flatnonzero(mask)
+        if len(pos) == 0:
+            raise KeyError(f"{label!r} not found in stacked dim {dim!r}")
+        return int(pos[0])
 
     def __getitem__(self, key) -> "DataArray":
         if isinstance(key, str):
@@ -516,6 +604,75 @@ class DataArray:
             raise NotImplementedError("reset_coords(drop=False)")
         names = names or [k for k in self._coords if k not in self.dims]
         return self.drop_vars(names, errors="ignore")
+
+    def _with_encoding(self, encoding) -> "DataArray":
+        """The same payload and coordinates with another encoding."""
+        var = Variable(self.variable.dims, self.variable.data, self.attrs, encoding)
+        return DataArray._construct(var, dict(self._coords), self.name)
+
+    def set_index(self, **kwargs):
+        """A coordinate onto the dim of its name, or (a list of 1-D
+        coordinates over the dim) a multi-coordinate index: the level order
+        is recorded for tuple-label ``sel`` and ``unstack``; the payload is
+        not reshaped."""
+        out = self
+        for dim, coord in kwargs.items():
+            if isinstance(coord, (list, tuple)):
+                for c in coord:
+                    if out._coords[c].dims != (dim,):
+                        raise ValueError(f"set_index level {c!r} must be a 1-D coordinate over {dim!r}")
+                # Sizes None: no product layout, unstack takes the sparse
+                # unique-level path.
+                out = out._with_encoding({**out.encoding, "_stacked_" + dim: (tuple(coord), None)})
+                continue
+            cv = out._coords[coord]
+            new = dict(out._coords)
+            del new[coord]
+            new[dim] = Variable((dim,), cv.data, cv.attrs)
+            out = DataArray._construct(out.variable, new, out.name)
+        return out
+
+    def reset_index(self, dims_or_levels, drop: bool = False):
+        """Remove the index of the given dims (xarray's semantics): a
+        stacked dim forgets its MultiIndex layout, its level coordinates
+        kept as plain coordinates unless ``drop``; a dimension coordinate
+        becomes the non-index ``<dim>_`` (xarray's name), or is dropped."""
+        if isinstance(dims_or_levels, str):
+            dims_or_levels = [dims_or_levels]
+        encoding = dict(self.encoding)
+        coords = dict(self._coords)
+        for d in dims_or_levels:
+            key = "_stacked_" + d
+            if key in encoding:
+                levels, _sizes = encoding.pop(key)
+                if drop:
+                    for name in levels:
+                        coords.pop(name, None)
+            elif d in coords and coords[d].dims == (d,):
+                cv = coords.pop(d)
+                if not drop:
+                    coords[d + "_"] = cv
+            else:
+                raise ValueError(f"{d!r} has no index to reset")
+        var = Variable(self.variable.dims, self.variable.data, self.attrs, encoding)
+        return DataArray._construct(var, coords, self.name)
+
+    def reorder_levels(self, dim_order=None, **kwargs):
+        """Reorder the levels of stacked dims' MultiIndexes: only the
+        recorded level order changes (the payload does not), so a reordered
+        dim unstacks through the sparse unique-level path, levels sorted,
+        as xarray's reindex-based unstack does."""
+        dim_order = {**(dim_order or {}), **kwargs}
+        encoding = dict(self.encoding)
+        for d, order in dim_order.items():
+            key = "_stacked_" + d
+            if key not in encoding:
+                raise ValueError(f"{d!r} has no MultiIndex")
+            levels, _sizes = encoding[key]
+            if sorted(order) != sorted(levels):
+                raise ValueError(f"reorder_levels for {d!r}: {tuple(order)} is not a permutation of {tuple(levels)}")
+            encoding[key] = (tuple(order), None)
+        return self._with_encoding(encoding)
 
     # -- shaping ------------------------------------------------------------
     def transpose(self, *dims) -> "DataArray":
@@ -960,6 +1117,184 @@ class DataArray:
         coords = {k: v for k, v in {**other._coords, **self._coords}.items() if set(v.dims) <= set(new_dims)}
         return DataArray._construct(Variable(new_dims, result), coords, self.name)
 
+    def polyfit(self, dim: str, deg: int, skipna=None):
+        """Least-squares polynomial fit along ``dim``: a Dataset with
+        ``polyfit_coefficients`` over a ``degree`` dimension (descending
+        powers, xarray's layout), float64.  A column with NaN is fit over
+        its finite samples when ``skipna`` (default: when NaN are present).
+        A tensor payload is fit on its device (``variable.lstsq_tall``: the
+        Vandermonde matrix's QR)."""
+        from xugrid_tpu_torch.xdata.dataset import Dataset
+
+        axis = self.dims.index(dim)
+        x = np.asarray(self.get_index(dim), dtype=np.float64)
+        vander = np.vander(x, deg + 1)  # descending powers
+        data = self.data
+        if is_tensor(data):
+            coeffs = polyfit_tensor(data.double().movedim(axis, 0).reshape(len(x), -1), vander, skipna)
+        else:
+            flat = np.moveaxis(np.asarray(data, dtype=np.float64), axis, 0).reshape(len(x), -1)
+            has_nan = bool(np.isnan(flat).any())
+            if skipna is None:
+                skipna = has_nan
+            coeffs = np.full((deg + 1, flat.shape[1]), np.nan)
+            if not has_nan:
+                coeffs, *_ = np.linalg.lstsq(vander, flat, rcond=None)
+            elif skipna:
+                finite_cols = ~np.isnan(flat).any(axis=0)
+                if finite_cols.any():
+                    coeffs[:, finite_cols], *_ = np.linalg.lstsq(vander, flat[:, finite_cols], rcond=None)
+                for c in np.flatnonzero(~finite_cols):
+                    ok = np.isfinite(flat[:, c])
+                    if ok.sum() > deg:
+                        coeffs[:, c], *_ = np.linalg.lstsq(vander[ok], flat[ok, c], rcond=None)
+        other_dims = tuple(d for d in self.dims if d != dim)
+        other_shape = tuple(s for d, s in zip(self.dims, self.shape) if d != dim)
+        out = coeffs.reshape((deg + 1,) + other_shape)
+        coords = {k: v for k, v in self._coords.items() if dim not in v.dims}
+        coords["degree"] = Variable(("degree",), np.arange(deg, -1, -1))
+        ds = Dataset()
+        ds._variables.update(coords)
+        ds._coord_names = set(coords)
+        ds["polyfit_coefficients"] = DataArray._construct(Variable(("degree",) + other_dims, out), dict(coords), None)
+        return ds
+
+    def integrate(self, coord) -> "DataArray":
+        """Trapezoidal integral over the named coordinate (numpy's
+        ``trapezoid``, its result dtype; a tensor payload on its device)."""
+        key = self._coords[coord]
+        dim = key.dims[0]
+        axis = self.dims.index(dim)
+        data = self.data
+        if is_tensor(data):
+            result = trapezoid_tensor(data, to_numpy(key.data), axis)
+        else:
+            trapezoid = getattr(np, "trapezoid", None) or np.trapz
+            result = trapezoid(np.asarray(data), x=np.asarray(key.data), axis=axis)
+        new_dims = tuple(d for d in self.dims if d != dim)
+        coords = {k: v for k, v in self._coords.items() if set(v.dims) <= set(new_dims)}
+        return DataArray._construct(Variable(new_dims, result), coords, self.name)
+
+    def differentiate(self, coord) -> "DataArray":
+        """Central-difference derivative along the named coordinate
+        (numpy's ``gradient``), float64; a tensor payload on its device."""
+        key = self._coords[coord]
+        dim = key.dims[0]
+        axis = self.dims.index(dim)
+        x = to_numpy(key.data).astype(np.float64)
+        data = self.data
+        if is_tensor(data):
+            result = gradient_tensor(data.double(), x, axis)
+        else:
+            result = np.gradient(np.asarray(data, dtype=np.float64), x, axis=axis)
+        return self._with_data(result)
+
+    def map_blocks(self, func, args=(), kwargs=None, template=None):
+        """``func`` applied to the whole array (one block)."""
+        return func(self, *args, **(kwargs or {}))
+
+    def stack(self, dimensions=None, **kwargs) -> "DataArray":
+        """Stack several dims into one; the stacked dims' coordinates become
+        (stacked,)-shaped level coordinates and the layout is recorded
+        (``indexes`` gives its MultiIndex)."""
+        dimensions = {**(dimensions or {}), **kwargs}
+        out = self
+        for new_dim, dims in dimensions.items():
+            dims = list(dims)
+            base = out.stack_dims(new_dim, dims)
+            sizes = [out.sizes[d] for d in dims]
+            grids = np.meshgrid(
+                *[to_numpy(out._coords[d].data) if d in out._coords else np.arange(out.sizes[d]) for d in dims],
+                indexing="ij",
+            )
+            coords = dict(base._coords)
+            for d, g in zip(dims, grids):
+                coords[d] = Variable((new_dim,), g.reshape(-1))
+            out = DataArray._construct(base.variable, coords, out.name)
+            out.encoding["_stacked_" + new_dim] = (tuple(dims), tuple(sizes))
+        return out
+
+    def unstack(self, dim=None, fill_value=np.nan) -> "DataArray":
+        """Invert ``stack`` through the recorded layout: a reshape while
+        the stacked dim holds the whole product in its original order,
+        else a scatter into the grid of the levels' unique values (sorted),
+        the missing cells ``fill_value``.  A tensor payload stays on its
+        device."""
+        if dim is None:
+            dims = [k[len("_stacked_") :] for k in self.encoding if k.startswith("_stacked_")]
+        else:
+            dims = [dim] if isinstance(dim, str) else list(dim)
+        out = self
+        for d in dims:
+            key = "_stacked_" + d
+            if key not in out.encoding:
+                raise ValueError(f"cannot unstack {d!r}: not created by stack()")
+            orig_dims, orig_sizes = out.encoding[key]
+            axis = out.dims.index(d)
+            data = out.data if is_tensor(out.data) else np.asarray(out.data)
+            new_dims = out.dims[:axis] + orig_dims + out.dims[axis + 1 :]
+            coords = {}
+            # The reshape needs the product in its original order: a
+            # matching length alone is not enough (sortby and roll keep the
+            # length while permuting rows).
+            canonical = orig_sizes is not None and data.shape[axis] == int(np.prod(orig_sizes))
+            if canonical:
+                for k in orig_dims:
+                    if k not in out._coords:
+                        continue  # a dropped level: no evidence of order
+                    flat = to_numpy(out._coords[k].data).reshape(orig_sizes)
+                    index = [slice(0, 1)] * len(orig_sizes)
+                    index[orig_dims.index(k)] = slice(None)
+                    expect = np.broadcast_to(flat[tuple(index)], flat.shape)
+                    if not np.array_equal(flat, expect, equal_nan=flat.dtype.kind == "f"):
+                        canonical = False
+                        break
+            if canonical:
+                unstacked = data.reshape(tuple(data.shape[:axis]) + tuple(orig_sizes) + tuple(data.shape[axis + 1 :]))
+                for k, v in out._coords.items():
+                    if d not in v.dims:
+                        coords[k] = v
+                    elif k in orig_dims:
+                        # The 1-D coordinate, recovered from the product.
+                        flat = to_numpy(v.data).reshape(orig_sizes)
+                        index = [0] * len(orig_sizes)
+                        index[orig_dims.index(k)] = slice(None)
+                        coords[k] = Variable((k,), flat[tuple(index)])
+            else:
+                try:
+                    level_values = [to_numpy(out._coords[k].data) for k in orig_dims]
+                except KeyError:
+                    raise ValueError(f"cannot unstack subset of {d!r}: a level coordinate was dropped") from None
+                uniq = [np.unique(lv) for lv in level_values]
+                new_sizes = tuple(len(u) for u in uniq)
+                flat_idx = np.ravel_multi_index(
+                    [np.searchsorted(u, lv) for u, lv in zip(uniq, level_values)], new_sizes
+                )
+                full = len(np.unique(flat_idx)) == int(np.prod(new_sizes))
+                promote = not full and not isinstance(fill_value, (int, np.integer))
+                moved = range(len(new_sizes)), range(axis, axis + len(new_sizes))
+                if is_tensor(data):
+                    d0 = data.movedim(axis, 0)
+                    dtype = torch.float64 if promote and not is_floating(d0) else d0.dtype
+                    out0 = torch.full((int(np.prod(new_sizes)),) + tuple(d0.shape[1:]), fill_value, dtype=dtype, device=d0.device)
+                    out0[torch.from_numpy(flat_idx).to(d0.device)] = d0.to(dtype)
+                    unstacked = out0.reshape(new_sizes + tuple(d0.shape[1:])).movedim(*map(tuple, moved))
+                else:
+                    d0 = np.moveaxis(data, axis, 0)
+                    dtype = np.float64 if promote and d0.dtype.kind in "iub" else d0.dtype
+                    out0 = np.full((int(np.prod(new_sizes)),) + d0.shape[1:], fill_value, dtype=dtype)
+                    out0[flat_idx] = d0
+                    unstacked = np.moveaxis(out0.reshape(new_sizes + d0.shape[1:]), *moved)
+                for k, v in out._coords.items():
+                    if d not in v.dims:
+                        coords[k] = v
+                    elif k in orig_dims:
+                        coords[k] = Variable((k,), uniq[orig_dims.index(k)])
+            encoding = dict(out.encoding)
+            encoding.pop(key)
+            out = DataArray._construct(Variable(new_dims, unstacked, out.attrs, encoding), coords, out.name)
+        return out
+
     def reindex(self, indexers=None, method=None, tolerance=None, fill_value=np.nan, **kwargs) -> "DataArray":
         """Conform to new labels of index coordinates; unmatched labels
         take ``fill_value`` (or the nearest, ffill or bfill match within
@@ -1002,6 +1337,99 @@ class DataArray:
             d: to_numpy(other._coords[d].data) for d in self.dims if d in other._coords and d in self._coords
         }
         return self.reindex(indexers, method=method, tolerance=tolerance, fill_value=fill_value)
+
+    def interp(self, coords=None, method="linear", kwargs=None, **coords_kwargs) -> "DataArray":
+        """Sequential 1-D interpolation along each named dim, float64, NaN
+        outside the coordinate's range: "linear" (``np.interp``'s
+        arithmetic), "nearest" (midpoint rule), or scipy's spline kinds
+        "slinear", "quadratic" and "cubic".  A tensor payload interpolates
+        on its device for "linear" and "nearest"; the spline kinds copy it
+        to the host for scipy and the result back to its device."""
+        spline_kinds = ("slinear", "quadratic", "cubic")
+        if method not in ("linear", "nearest") + spline_kinds:
+            raise NotImplementedError("interp supports method='linear', 'nearest', 'slinear', 'quadratic', or 'cubic'")
+        targets = {**(coords or {}), **coords_kwargs}
+        out = self
+        for dim, new in targets.items():
+            new = to_numpy(new.data if isinstance(new, DataArray) else new).astype(np.float64)
+            scalar = new.ndim == 0
+            new1 = np.atleast_1d(new)
+            old = to_numpy(out._coords[dim].data).astype(np.float64)
+            axis = out.dims.index(dim)
+            data = out.data
+            if is_tensor(data) and method in ("linear", "nearest"):
+                result = interp_tensor(data, old, new1, axis, method)
+            else:
+                moved = np.moveaxis(to_numpy(data).astype(np.float64), axis, -1)
+                flat = moved.reshape(-1, moved.shape[-1])
+                order = np.argsort(old, kind="stable")
+                so = old[order]
+                if method == "nearest":
+                    # Midpoint rule, NaN out of range (xarray's semantics).
+                    j = np.searchsorted(so, new1)
+                    j_lo = np.clip(j - 1, 0, len(so) - 1)
+                    j_hi = np.clip(j, 0, len(so) - 1)
+                    pick = np.where(np.abs(new1 - so[j_lo]) <= np.abs(so[j_hi] - new1), j_lo, j_hi)
+                    oob = (new1 < so[0]) | (new1 > so[-1])
+                    res = np.where(oob[None, :], np.nan, flat[:, order][:, pick])
+                elif method in spline_kinds:
+                    from scipy.interpolate import interp1d
+
+                    f = interp1d(
+                        so, flat[:, order], kind=method, axis=1, bounds_error=False, fill_value=np.nan,
+                        assume_sorted=True,
+                    )
+                    res = f(new1)
+                else:
+                    res = np.empty((flat.shape[0], len(new1)), dtype=np.float64)
+                    for i in range(flat.shape[0]):
+                        res[i] = np.interp(new1, so, flat[i][order], left=np.nan, right=np.nan)
+                result = np.moveaxis(res.reshape(moved.shape[:-1] + (len(new1),)), -1, axis)
+                if is_tensor(data):
+                    result = torch.from_numpy(np.ascontiguousarray(result)).to(data.device)
+            coords2 = {}
+            for k, v in out._coords.items():
+                if k == dim:
+                    coords2[k] = Variable((dim,), new1)
+                elif dim not in v.dims:
+                    coords2[k] = v
+            out = DataArray._construct(Variable(out.dims, result, out.attrs), coords2, out.name)
+            if scalar:
+                out = out.isel({dim: 0})
+        return out
+
+    def interp_like(self, other, method="linear") -> "DataArray":
+        targets = {d: to_numpy(other._coords[d].data) for d in self.dims if d in other._coords and d in self._coords}
+        return self.interp(targets, method=method)
+
+    def weighted(self, weights):
+        from xugrid_tpu_torch.xdata.grouped import DataArrayWeighted
+
+        return DataArrayWeighted(self, weights)
+
+    def groupby(self, group):
+        from xugrid_tpu_torch.xdata.grouped import DataArrayGroupBy
+
+        return DataArrayGroupBy(self, group)
+
+    def rolling(self, dim=None, min_periods=None, center=False, **kwargs):
+        from xugrid_tpu_torch.xdata.grouped import DataArrayRolling
+
+        return DataArrayRolling(self, {**(dim or {}), **kwargs}, min_periods, center)
+
+    def coarsen(self, dim=None, boundary="exact", **kwargs):
+        from xugrid_tpu_torch.xdata.grouped import DataArrayCoarsen
+
+        return DataArrayCoarsen(self, {**(dim or {}), **kwargs}, boundary)
+
+    def resample(self, indexer=None, **kwargs):
+        from xugrid_tpu_torch.xdata.grouped import DataArrayResample
+
+        indexer = {**(indexer or {}), **kwargs}
+        if len(indexer) != 1:
+            raise ValueError("resample expects exactly one dim=freq pair")
+        ((dim, freq),) = indexer.items()
+        return DataArrayResample(self, dim, freq)
 
     def interpolate_na(self, dim=None, method: str = "linear", fill_value=None, **kwargs):
         """

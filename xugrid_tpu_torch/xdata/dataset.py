@@ -12,8 +12,15 @@ import numpy as np
 import pandas as pd
 import torch
 
-from xugrid_tpu_torch.xdata.dataarray import REDUCTIONS, DataArray, _array_equiv, _keep_mask
-from xugrid_tpu_torch.xdata.indexes import as_index, resolve_label_indexer
+from xugrid_tpu_torch.xdata.dataarray import (
+    REDUCTIONS,
+    DataArray,
+    _array_equiv,
+    _keep_mask,
+    level_mask,
+    with_level_masks,
+)
+from xugrid_tpu_torch.xdata.indexes import as_index, resolve_label_indexer, stacked_multiindex
 from xugrid_tpu_torch.xdata.variable import Variable, as_compatible_data, is_tensor, to_numpy
 
 
@@ -165,11 +172,69 @@ class Dataset:
 
     @property
     def indexes(self) -> dict:
-        return {
-            name: as_index(var.data)
-            for name in self._coord_names
-            if (var := self._variables[name]).dims == (name,)
+        """Each stacked dim's MultiIndex (its layout recorded in the data
+        variables' encodings, its levels at the dataset's level), then each
+        dimension coordinate's index."""
+        out = {}
+        coords = {k: self._variables[k] for k in self._coord_names}
+        for name in self.data_vars:
+            encoding = self._variables[name].encoding
+            for key in encoding:
+                dim = key[len("_stacked_") :]
+                if key.startswith("_stacked_") and dim not in out:
+                    mi = stacked_multiindex(dim, encoding, coords)
+                    if mi is not None:
+                        out[dim] = mi
+        for name in self._coord_names:
+            var = self._variables[name]
+            if var.dims == (name,) and name not in out:
+                out[name] = as_index(var.data)
+        return out
+
+    def reset_index(self, dims_or_levels, drop: bool = False) -> "Dataset":
+        """``DataArray.reset_index`` for every variable over a stacked dim;
+        a dimension coordinate becomes ``<dim>_``, or is dropped."""
+        if isinstance(dims_or_levels, str):
+            dims_or_levels = [dims_or_levels]
+        stacked = {
+            k[len("_stacked_") :]
+            for name in self.data_vars
+            for k in self._variables[name].encoding
+            if k.startswith("_stacked_")
         }
+        out = self.copy(deep=False)
+        for d in dims_or_levels:
+            if d in stacked:
+                dropped: set = set()
+
+                def _reset(da, d=d, dropped=dropped):
+                    if "_stacked_" + d not in da.encoding:
+                        return da
+                    if drop:
+                        dropped.update(da.encoding["_stacked_" + d][0])
+                    return da.reset_index(d, drop=drop)
+
+                out = out._apply_per_var(_reset)
+                for name in dropped:
+                    out._variables.pop(name, None)
+                    out._coord_names.discard(name)
+            elif d in out._coord_names and out._variables[d].dims == (d,):
+                cv = out._variables.pop(d)
+                out._coord_names.discard(d)
+                if not drop:
+                    out._variables[d + "_"] = cv
+                    out._coord_names.add(d + "_")
+            else:
+                raise ValueError(f"{d!r} has no index to reset")
+        return out
+
+    def reorder_levels(self, dim_order=None, **kwargs) -> "Dataset":
+        dim_order = {**(dim_order or {}), **kwargs}
+        return self._apply_per_var(
+            lambda da: da.reorder_levels({d: o for d, o in dim_order.items() if "_stacked_" + d in da.encoding})
+            if any("_stacked_" + d in da.encoding for d in dim_order)
+            else da
+        )
 
     def __repr__(self) -> str:
         lines = ["<xdata.Dataset>", f"Dimensions: {self.dims_sizes()}"]
@@ -330,6 +395,12 @@ class Dataset:
     def load(self):
         return self
 
+    def chunk(self, *args, **kwargs):
+        return self
+
+    def unify_chunks(self):
+        return self
+
     # -- payload methods, variable by variable --------------------------------
     def _apply_per_var(self, fn, only_dims=None) -> "Dataset":
         """``fn`` (DataArray -> DataArray) applied to every data variable
@@ -469,6 +540,77 @@ class Dataset:
         indexers = {d: to_numpy(other[d].data) for d in self.dims_sizes() if d in other.coords and d in self.coords}
         return self.reindex(indexers, method=method, tolerance=tolerance, fill_value=fill_value)
 
+    def stack(self, dimensions=None, **kwargs) -> "Dataset":
+        """``DataArray.stack`` for every variable over a stacked dim; one
+        over only some of them is broadcast over the rest first, as in
+        xarray."""
+        dimensions = {**(dimensions or {}), **kwargs}
+        out = self
+        for new_dim, dims in dimensions.items():
+            dims = tuple(dims)
+            sizes = out.dims_sizes()
+
+            def _stack_var(da, dims=dims, new_dim=new_dim, sizes=sizes, source=out):
+                if not any(d in da.dims for d in dims):
+                    return da
+                missing = [d for d in dims if d not in da.dims]
+                if missing:
+                    var = da.variable.broadcast_to(tuple(da.dims) + tuple(missing), sizes)
+                    coords = dict(da._coords)
+                    for d in missing:
+                        if d in source._variables:
+                            coords[d] = source._variables[d]
+                    da = DataArray._construct(var, coords, da.name)
+                return da.stack({new_dim: dims})
+
+            out = out._apply_per_var(_stack_var)
+        return out
+
+    def unstack(self, dim=None) -> "Dataset":
+        return self._apply_per_var(
+            lambda da: da.unstack(dim) if any(k.startswith("_stacked_") for k in da.encoding) else da
+        )
+
+    def interp(self, coords=None, method="linear", **coords_kwargs) -> "Dataset":
+        targets = {**(coords or {}), **coords_kwargs}
+        return self._apply_per_var(
+            lambda da: da.interp({d: v for d, v in targets.items() if d in da.dims}, method=method)
+            if any(d in da.dims for d in targets)
+            else da
+        )
+
+    def polyfit(self, dim: str, deg: int, skipna=None) -> "Dataset":
+        """Each variable's fit along ``dim`` (xarray's layout:
+        ``{name}_polyfit_coefficients`` over a ``degree`` dim)."""
+        out = Dataset(attrs=dict(self.attrs))
+        for name, da in self.data_vars.items():
+            if dim in da.dims:
+                out[f"{name}_polyfit_coefficients"] = da.polyfit(dim, deg, skipna=skipna)["polyfit_coefficients"]
+        return out
+
+    def groupby(self, group):
+        from xugrid_tpu_torch.xdata.grouped import DatasetGroupBy
+
+        return DatasetGroupBy(self, group)
+
+    def rolling(self, dim=None, min_periods=None, center=False, **kwargs):
+        from xugrid_tpu_torch.xdata.grouped import DatasetWindowed
+
+        return DatasetWindowed(self, "rolling", {**(dim or {}), **kwargs}, dict(min_periods=min_periods, center=center))
+
+    def coarsen(self, dim=None, boundary="exact", **kwargs):
+        from xugrid_tpu_torch.xdata.grouped import DatasetWindowed
+
+        return DatasetWindowed(self, "coarsen", {**(dim or {}), **kwargs}, dict(boundary=boundary))
+
+    def resample(self, indexer=None, **kwargs):
+        from xugrid_tpu_torch.xdata.grouped import DatasetWindowed
+
+        indexer = {**(indexer or {}), **kwargs}
+        if len(indexer) != 1:
+            raise ValueError("resample expects exactly one dim=freq pair")
+        return DatasetWindowed(self, "resample", indexer, {})
+
     def expand_dims(self, dim=None, **kwargs) -> "Dataset":
         """Every data variable expanded (``DataArray.expand_dims``); a
         coordinate of the new dimension joins the coordinates."""
@@ -562,18 +704,27 @@ class Dataset:
         return out
 
     def sel(self, indexers=None, method=None, tolerance=None, drop: bool = False, **kwargs) -> "Dataset":
-        """Label selection on 1-D index coordinates; a dimension without
-        one takes the labels as positions."""
+        """Label selection on 1-D index coordinates (a dimension without one
+        takes the labels as positions); a level of a stacked dim selects by
+        that level's values."""
         indexers = dict(indexers or {})
         indexers.update(kwargs)
         positional = {}
+        level_masks = {}  # dim -> bool mask of the level selections over it
+        dim_sizes = self.dims_sizes()
         for dim, label in indexers.items():
             var = self._variables.get(dim)
             if var is not None and var.dims == (dim,) and dim in self._coord_names:
                 positional[dim] = resolve_label_indexer(as_index(var.data), label, method, tolerance)
+            elif var is not None and dim in self._coord_names and len(var.dims) == 1 and dim not in dim_sizes:
+                # A level: a 1-D coordinate over another dim (the layout
+                # stack() makes).
+                other = var.dims[0]
+                mask = level_mask(to_numpy(var.data), label, dim)
+                level_masks[other] = mask if other not in level_masks else level_masks[other] & mask
             else:
                 positional[dim] = label
-        return self.isel(positional, drop=drop)
+        return self.isel(with_level_masks(positional, level_masks, dim_sizes), drop=drop)
 
     def transpose(self, *dims) -> "Dataset":
         out = Dataset(attrs=dict(self.attrs))

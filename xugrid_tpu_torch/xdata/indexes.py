@@ -12,6 +12,24 @@ def as_index(values) -> pd.Index:
     return pd.Index(np.asarray(values))
 
 
+def stacked_multiindex(dim, encoding, coords) -> "pd.MultiIndex | None":
+    """The pandas MultiIndex of a stacked dim, from the ``_stacked_<dim>``
+    entry of ``encoding`` (its level names) and the level coordinates; None
+    when the dim is not stacked or a level coordinate was dropped.  The
+    level coordinates are host numpy, so this never touches a device."""
+    key = "_stacked_" + dim
+    if key not in encoding:
+        return None
+    levels, _sizes = encoding[key]
+    arrays = []
+    for name in levels:
+        var = coords.get(name)
+        if var is None or tuple(var.dims) != (dim,):
+            return None
+        arrays.append(np.asarray(var.data))
+    return pd.MultiIndex.from_arrays(arrays, names=list(levels))
+
+
 def resolve_label_indexer(index: pd.Index, indexer: Any, method=None, tolerance=None):
     """
     Translate a label-based indexer (scalar, slice, or array of labels)

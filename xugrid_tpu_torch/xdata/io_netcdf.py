@@ -1,11 +1,14 @@
 """
-NetCDF I/O (eager), the port's copy of ``xugrid_tpu/xdata/io_netcdf.py``.
+NetCDF I/O, the port's copy of ``xugrid_tpu/xdata/io_netcdf.py``.
 
 Uses the netCDF4 library when available (NetCDF4/HDF5 files); otherwise
 scipy.io.netcdf_file (NetCDF3 classic), which covers UGRID interchange
 without any extra dependency.  Opening reads every variable into host
-numpy arrays in native byte order: nothing goes to a device.  Writing
-copies a tensor payload to the host explicitly (``.cpu().numpy()``).
+numpy arrays in native byte order, or with ``lazy=True`` leaves the
+large ones in the memory-mapped file as ``LazyArray``s: nothing goes to
+a device.  Writing copies a tensor payload to the host explicitly
+(``.cpu().numpy()``).  The scipy writer makes classic netCDF3 files, in
+which one variable holds less than 2^31 - 4 bytes.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from xugrid_tpu_torch.xdata.dataset import Dataset
+from xugrid_tpu_torch.xdata.lazy import cf_block_decoder
 from xugrid_tpu_torch.xdata.variable import Variable, is_tensor, to_numpy
 
 try:
@@ -77,26 +81,7 @@ def _time_values_to_datetime64(data, ns, epoch):
     return out
 
 
-def _decode_cf_time(data, attrs):
-    """Decode CF time numerics: '<unit> since <epoch>' to datetime64[ns],
-    bare time units ('seconds', 'days', ...) to timedelta64[ns] —
-    xarray's decode_times/decode_timedelta defaults."""
-    if not np.issubdtype(np.asarray(data).dtype, np.number):
-        return None
-    resolved = _resolve_time_units(attrs.get("units"))
-    if resolved is None:
-        return None
-    ns, epoch = resolved
-    out = _time_values_to_datetime64(data, ns, epoch)
-    attrs = dict(attrs)
-    attrs.pop("units", None)
-    attrs.pop("calendar", None)
-    return out, attrs
-
-
 def _decode_variable(name, dims, data, attrs, decode_cf: bool) -> Variable:
-    attrs = dict(attrs)
-    encoding = {}
     if (
         data.dtype == np.dtype("S1")
         and data.ndim >= 1
@@ -111,46 +96,23 @@ def _decode_variable(name, dims, data, attrs, decode_cf: bool) -> Variable:
             .reshape(data.shape[:-1])
         )
         dims = tuple(dims[:-1])
-    if decode_cf:
-        fill = attrs.pop("_FillValue", None)
-        scale = attrs.pop("scale_factor", None)
-        offset = attrs.pop("add_offset", None)
-        packed = scale is not None or offset is not None
-        if fill is not None:
-            encoding["_FillValue"] = fill
-            if np.issubdtype(data.dtype, np.floating):
-                data = np.where(data == fill, np.nan, data)
-            elif packed:
-                # Packed integer data: the fill sentinel must become NaN
-                # BEFORE unpacking, or the scaled sentinel masquerades as
-                # a plausible physical value (CF/xarray semantics).
-                data = np.where(data == fill, np.nan, data.astype(np.float64))
-            # plain integer data keeps its fill value; topology ingest
-            # handles it.
-        if packed:
-            data = data.astype(np.float64)
-            if scale is not None:
-                data = data * scale
-            if offset is not None:
-                data = data + offset
-        decoded = _decode_cf_time(data, attrs)
-        if decoded is not None:
-            data, attrs = decoded
-            encoding["units"] = "seconds since 1970-01-01"
-    return Variable(dims, data, attrs, encoding)
+    # The CF decode (fill, packing, time units) is the lazy reader's per
+    # block decode, applied to the whole variable.
+    attrs, encoding, transform, _ = cf_block_decoder(dims, data.dtype, attrs, decode_cf)
+    return Variable(dims, transform(data), attrs, encoding)
+
+
+_LAZY_OPEN_FILES: list = []
 
 
 def open_dataset(path, decode_cf: bool = True, engine=None, lazy: bool = False) -> Dataset:
-    """Read a netCDF file into a Dataset of host numpy arrays.  Only the
-    eager read is ported: ``lazy=True`` raises."""
-    if lazy:
-        raise NotImplementedError(
-            "open_dataset(lazy=True) is not ported: out-of-core reads (xdata/lazy.py) "
-            "wait in ROADMAP.md queue 1 item 8"
-        )
-    if HAS_NETCDF4 and engine != "scipy":
+    """Read a netCDF file into a Dataset of host numpy arrays.  With
+    ``lazy``, the scipy engine opens the file memory-mapped and each large
+    variable becomes a ``LazyArray`` that reads and decodes row blocks on
+    demand (``_open_scipy_lazy``)."""
+    if HAS_NETCDF4 and engine != "scipy" and not lazy:
         return _open_netcdf4(path, decode_cf)
-    return _open_scipy(path, decode_cf)
+    return _open_scipy(path, decode_cf, lazy)
 
 
 def _native(data: np.ndarray) -> np.ndarray:
@@ -161,9 +123,11 @@ def _native(data: np.ndarray) -> np.ndarray:
     return data.copy()
 
 
-def _open_scipy(path, decode_cf: bool) -> Dataset:
+def _open_scipy(path, decode_cf: bool, lazy: bool = False) -> Dataset:
     from scipy.io import netcdf_file
 
+    if lazy:
+        return _open_scipy_lazy(path, decode_cf)
     with netcdf_file(str(path), "r", mmap=False) as f:
         ds = Dataset(attrs={k: _decode_attr(v) for k, v in f._attributes.items()})
         for name, var in f.variables.items():
@@ -171,6 +135,40 @@ def _open_scipy(path, decode_cf: bool) -> Dataset:
             attrs = {k: _decode_attr(v) for k, v in var._attributes.items()}
             ds._variables[name] = _decode_variable(name, tuple(var.dimensions), data, attrs, decode_cf)
         _mark_coords(ds)
+    return ds
+
+
+def _open_scipy_lazy(path, decode_cf: bool) -> Dataset:
+    """Lazy open: large variables become LazyArrays over the scipy memmap;
+    small ones (coordinates, topology) load eagerly.  Each loaded block is
+    copied into native byte order before it is decoded, so the blocks are
+    ready for ``torch.from_numpy``; the operating system pages the rows
+    in, and a file larger than host memory opens."""
+    from scipy.io import netcdf_file
+
+    from xugrid_tpu_torch.xdata.lazy import LAZY_MIN_BYTES, LazyArray
+
+    f = netcdf_file(str(path), "r", mmap=True)
+    # The handle stays open for the process's lifetime (as xarray's file
+    # cache keeps it): scipy cannot close a memory-mapped file while views
+    # of it exist, and warns from __del__ otherwise.
+    _LAZY_OPEN_FILES.append(f)
+    ds = Dataset(attrs={k: _decode_attr(v) for k, v in f._attributes.items()})
+    for name, var in f.variables.items():
+        dims = tuple(var.dimensions)
+        attrs = {k: _decode_attr(v) for k, v in var._attributes.items()}
+        raw = var.data
+        plan = cf_block_decoder(dims, raw.dtype, attrs, decode_cf) if raw.ndim and raw.nbytes >= LAZY_MIN_BYTES else None
+        if plan is None:
+            ds._variables[name] = _decode_variable(name, dims, _native(np.asarray(raw)), attrs, decode_cf)
+            continue
+        attrs_out, encoding, transform, out_dtype = plan
+
+        def loader(start, stop, raw=raw, transform=transform):
+            return np.ascontiguousarray(transform(_native(np.asarray(raw[start:stop]))))
+
+        ds._variables[name] = Variable(dims, LazyArray(loader, raw.shape, out_dtype), attrs_out, encoding)
+    _mark_coords(ds)
     return ds
 
 

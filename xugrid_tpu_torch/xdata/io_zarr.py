@@ -1,12 +1,15 @@
 """
-Minimal self-contained zarr v2 directory store I/O (eager), the port's
-copy of ``xugrid_tpu/xdata/io_zarr.py``.
+Minimal self-contained zarr v2 directory store I/O, the port's copy of
+``xugrid_tpu/xdata/io_zarr.py``.
 
 Implements just enough of the zarr v2 spec (JSON metadata + zlib-compressed
 C-order chunks, xarray's ``_ARRAY_DIMENSIONS`` convention) to round-trip
 datasets without the zarr package.  When the real zarr/xarray stack is
 present it reads these stores transparently.  Opening gives host numpy
-arrays; writing copies a tensor payload to the host explicitly.
+arrays (with ``lazy=True``, ``LazyArray`` row loaders for the large
+variables); writing copies a tensor payload to the host explicitly.
+The writer stores each array as one chunk, so a lazy read of any rows of
+a store it wrote decompresses the whole array.
 """
 
 from __future__ import annotations
@@ -104,13 +107,11 @@ def _write_array(path: Path, var: Variable) -> None:
 
 
 def open_zarr(store, lazy: bool = False, **kwargs) -> Dataset:
-    """Read a zarr v2 directory store into a Dataset of host numpy
-    arrays.  Only the eager read is ported: ``lazy=True`` raises."""
-    if lazy:
-        raise NotImplementedError(
-            "open_zarr(lazy=True) is not ported: out-of-core reads (xdata/lazy.py) "
-            "wait in ROADMAP.md queue 1 item 8"
-        )
+    """Read a zarr v2 directory store into a Dataset of host numpy arrays.
+    With ``lazy``, each large variable becomes a ``LazyArray`` that reads
+    the chunks covering the requested rows and decodes them on demand."""
+    from xugrid_tpu_torch.xdata.lazy import LAZY_MIN_BYTES, LazyArray, cf_block_decoder
+
     root = Path(store)
     if not (root / ".zgroup").exists():
         raise FileNotFoundError(f"not a zarr store: {store}")
@@ -130,9 +131,24 @@ def open_zarr(store, lazy: bool = False, **kwargs) -> Dataset:
             dims = var_attrs.pop("_ARRAY_DIMENSIONS", None)
         shape = tuple(meta["shape"])
         dtype = np.dtype(meta["dtype"])
+        chunks = tuple(meta["chunks"])
         if dims is None:
             dims = tuple(f"{name}_dim_{i}" for i in range(len(shape)))
-        data = _read_chunks(child, shape, tuple(meta["chunks"]), dtype, meta)
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        plan = cf_block_decoder(tuple(dims), dtype, var_attrs, True) if lazy and shape and nbytes >= LAZY_MIN_BYTES else None
+        if plan is not None:
+            attrs_out, encoding, transform, out_dtype = plan
+
+            def loader(start, stop, child=child, shape=shape, chunks=chunks, dtype=dtype, meta=meta, transform=transform):
+                block = _read_chunks(child, shape, chunks, dtype, meta, row_range=(start, stop))
+                # A foreign store may hold big-endian chunks: the loaders
+                # emit native byte order, which torch takes.
+                block = block.astype(block.dtype.newbyteorder("="), copy=False)
+                return np.ascontiguousarray(transform(block))
+
+            ds._variables[name] = Variable(tuple(dims), LazyArray(loader, shape, out_dtype), attrs_out, encoding)
+            continue
+        data = _read_chunks(child, shape, chunks, dtype, meta)
         # A foreign store may hold big-endian chunks: torch takes native
         # byte order only.
         data = data.astype(data.dtype.newbyteorder("="), copy=False)
@@ -141,7 +157,10 @@ def open_zarr(store, lazy: bool = False, **kwargs) -> Dataset:
     return ds
 
 
-def _read_chunks(path: Path, shape, chunks, dtype, meta) -> np.ndarray:
+def _read_chunks(path: Path, shape, chunks, dtype, meta, row_range=None) -> np.ndarray:
+    """The array, or with ``row_range`` (start, stop) its rows [start,
+    stop) along the first dimension, from the chunks that cover them (a
+    chunk holding any of those rows is read and decompressed whole)."""
     compressor = meta.get("compressor")
     if meta.get("order", "C") != "C":
         # Silently reading an F-order store would transpose every chunk.
@@ -151,15 +170,22 @@ def _read_chunks(path: Path, shape, chunks, dtype, meta) -> np.ndarray:
     if any(s == 0 for s in shape):
         # Zero-length array: no chunk files exist.
         return np.zeros(shape, dtype=dtype)
+    ranged = row_range is not None and bool(shape)
+    r0, r1 = row_range if ranged else (0, shape[0] if shape else 1)
+    out_shape = (r1 - r0,) + tuple(shape[1:]) if ranged else shape
     fill = meta.get("fill_value")
     if fill is None:
-        out = np.zeros(shape, dtype=dtype)
+        out = np.zeros(out_shape, dtype=dtype)
     else:
         if isinstance(fill, str) and dtype.kind == "f":
             fill = float(fill)  # "NaN" / "Infinity" spec encodings
-        out = np.full(shape, fill, dtype=dtype)
+        out = np.full(out_shape, fill, dtype=dtype)
     grid = [max(1, -(-s // max(1, c))) for s, c in zip(shape, chunks)]
-    for idx in itertools.product(*[range(g) for g in grid]) if shape else [()]:
+    ranges = [range(g) for g in grid]
+    if ranged:
+        c0 = max(1, chunks[0])
+        ranges[0] = range(r0 // c0, min(grid[0], -(-max(r1, r0 + 1) // c0)))
+    for idx in itertools.product(*ranges) if shape else [()]:
         chunk_file = path / (".".join(map(str, idx)) if idx else "0")
         if not chunk_file.exists():
             # Absent chunk: entirely fill_value (legal sparse store).
@@ -174,8 +200,16 @@ def _read_chunks(path: Path, shape, chunks, dtype, meta) -> np.ndarray:
             out = full_chunk.copy()
             continue
         chunk_shape = tuple(min(c, s - i * c) for i, c, s in zip(idx, chunks, shape))
-        target = tuple(slice(i * c, i * c + cs) for i, c, cs in zip(idx, chunks, chunk_shape))
-        out[target] = full_chunk[tuple(slice(0, cs) for cs in chunk_shape)]
+        sel = [slice(0, cs) for cs in chunk_shape]
+        target = [slice(i * c, i * c + cs) for i, c, cs in zip(idx, chunks, chunk_shape)]
+        if ranged:
+            lo = max(idx[0] * chunks[0], r0)
+            hi = min(idx[0] * chunks[0] + chunk_shape[0], r1)
+            if hi <= lo:
+                continue
+            sel[0] = slice(lo - idx[0] * chunks[0], hi - idx[0] * chunks[0])
+            target[0] = slice(lo - r0, hi - r0)
+        out[tuple(target)] = full_chunk[tuple(sel)]
     return out
 
 

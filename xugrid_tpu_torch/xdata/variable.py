@@ -5,7 +5,9 @@ The payload is a numpy array (host) or a torch tensor (on the CPU or the
 card); every operation dispatches on it, so a tensor stays on its
 device through indexing, shaping, arithmetic and reductions.  A numpy
 payload meeting a tensor is moved to the tensor's device.  ``values``
-is the one way a tensor payload is copied to the host.
+is the one way a tensor payload is copied to the host.  A ``LazyArray``
+(``lazy.py``) passes through untouched: slicing its leading dimension
+stays lazy, and ``values`` loads it.
 """
 
 from __future__ import annotations
@@ -69,9 +71,10 @@ def is_floating(data) -> bool:
 
 
 def as_compatible_data(data) -> Any:
-    """Coerce Python scalars and lists to numpy; leave arrays and tensors
-    alone (a DataArray gives its payload, not a copy)."""
-    if is_tensor(data) or isinstance(data, np.ndarray):
+    """Coerce Python scalars and lists to numpy; leave arrays, tensors and
+    ``LazyArray``s alone (a DataArray gives its payload, not a copy).  A
+    LazyArray is never materialized here: only ``values`` loads it."""
+    if is_tensor(data) or isinstance(data, np.ndarray) or getattr(data, "is_lazy", False):
         return data
     if isinstance(data, Variable):
         return data.data
@@ -297,6 +300,152 @@ def interpolate_tensor(data: torch.Tensor, x: np.ndarray, axis: int, method: str
     return torch.where(valid, y, filled).movedim(0, axis)
 
 
+def gradient_tensor(f: torch.Tensor, x: np.ndarray, axis: int) -> torch.Tensor:
+    """numpy's ``gradient(f, x, axis=axis)`` (edge_order 1) of a float64
+    tensor over the host coordinate ``x``: second-order central
+    differences inside (numpy's three weights per point where the spacing
+    varies, its scalar form where it is constant), first-order ones at
+    both ends, with numpy's arithmetic."""
+    if f.shape[axis] < 2:
+        raise ValueError(
+            "Shape of array too small to calculate a numerical gradient, at least (edge_order + 1) elements are required."
+        )
+
+    def at(k):
+        return (slice(None),) * axis + (k,)
+
+    dx = np.diff(np.asarray(x, dtype=np.float64))
+    out = torch.empty_like(f)
+    if (dx == dx[0]).all():
+        out[at(slice(1, -1))] = (f[at(slice(2, None))] - f[at(slice(None, -2))]) / (2.0 * dx[0])
+    else:
+        dx1, dx2 = dx[:-1], dx[1:]
+        shape = [1] * f.ndim
+        shape[axis] = -1
+        a, b, c = (
+            torch.from_numpy(v).to(f.device).reshape(shape)
+            for v in (-dx2 / (dx1 * (dx1 + dx2)), (dx2 - dx1) / (dx1 * dx2), dx1 / (dx2 * (dx1 + dx2)))
+        )
+        out[at(slice(1, -1))] = a * f[at(slice(None, -2))] + b * f[at(slice(1, -1))] + c * f[at(slice(2, None))]
+    out[at(0)] = (f[at(1)] - f[at(0)]) / dx[0]
+    out[at(-1)] = (f[at(-1)] - f[at(-2)]) / dx[-1]
+    return out
+
+
+def trapezoid_tensor(y: torch.Tensor, x: np.ndarray, axis: int) -> torch.Tensor:
+    """numpy's ``trapezoid(y, x=x, axis=axis)`` over the host coordinate
+    ``x``, in numpy's result dtype: the neighbour sums in ``y``'s dtype,
+    then times the spacing, halved and summed."""
+    x = np.asarray(x)
+    if x.dtype.kind in "mM":
+        raise TypeError(
+            "integrating over a datetime coordinate gives timedelta64 values (numpy's trapezoid), which a tensor "
+            "cannot hold: integrate over a numeric coordinate"
+        )
+    d = np.diff(x)
+    dtype = np.result_type(d.dtype, torch.empty(0, dtype=y.dtype).numpy().dtype)
+    shape = [1] * y.ndim
+    shape[axis] = len(d)
+    spacing = torch.from_numpy(d.astype(dtype)).to(y.device).reshape(shape)
+    n = y.shape[axis]
+    pairs = (y.narrow(axis, 1, n - 1) + y.narrow(axis, 0, n - 1)).to(torch_dtype(dtype))
+    return (spacing * pairs / 2.0).sum(dim=axis)
+
+
+def interp_tensor(data: torch.Tensor, old: np.ndarray, new: np.ndarray, axis: int, method: str) -> torch.Tensor:
+    """1-D interpolation of ``data`` along ``axis`` from the host
+    coordinate ``old`` to ``new`` (both float64), in float64 with NaN
+    outside ``old``'s range: "linear" with ``np.interp``'s arithmetic,
+    "nearest" by the midpoint rule (ties to the lower neighbour).  The
+    positions are found on the host, the values gathered on the tensor's
+    device."""
+    order = np.argsort(old, kind="stable")
+    so = old[order]
+    n = len(so)
+    shape = [1] * data.ndim
+    shape[axis] = len(new)
+    y = data.double()
+    device = y.device
+
+    def gather(positions):
+        return y.index_select(axis, torch.from_numpy(order[positions]).to(device))
+
+    def column(values):
+        return torch.from_numpy(np.asarray(values)).to(device).reshape(shape)
+
+    outside = column((new < so[0]) | (new > so[-1]) | np.isnan(new))
+    if method == "nearest":
+        j = np.searchsorted(so, new)
+        j_lo, j_hi = np.clip(j - 1, 0, n - 1), np.clip(j, 0, n - 1)
+        pick = np.where(np.abs(new - so[j_lo]) <= np.abs(so[j_hi] - new), j_lo, j_hi)
+        return torch.where(outside, torch.nan, gather(pick))
+    j = np.clip(np.searchsorted(so, new, side="right") - 1, 0, n - 1)
+    lo = np.clip(j, 0, max(n - 2, 0))
+    hi = np.minimum(lo + 1, n - 1)
+    y_lo, y_hi, y_at = gather(lo), gather(hi), gather(j)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        width = so[hi] - so[lo]
+    slope = (y_hi - y_lo) / column(width)
+    x = column(new)
+    out = slope * (x - column(so[lo])) + y_lo
+    out = torch.where(torch.isnan(out), slope * (x - column(so[hi])) + y_hi, out)
+    out = torch.where(torch.isnan(out) & (y_lo == y_hi), y_lo, out)
+    # At a sample point (and at the last one) np.interp takes its value.
+    out = torch.where(column((so[j] == new) | (j == n - 1)), y_at, out)
+    return torch.where(outside, torch.nan, out)
+
+
+def lstsq_tall(vander: np.ndarray, Y: torch.Tensor) -> torch.Tensor:
+    """The least-squares solution of the tall, full-rank host matrix
+    ``vander`` (T, k) against every column of ``Y`` (T, K) on ``Y``'s
+    device: the QR of the small matrix on the host, then Q^T Y (one matrix
+    product) and back substitution over the k rows of R on the device.
+    (On the card, ``torch.linalg.lstsq`` and ``torch.linalg.qr`` with
+    ``solve_triangular`` both take seconds against a million columns,
+    this about a millisecond; ``scripts/lstsq_probe.py`` times all three.)"""
+    Q, R = np.linalg.qr(vander)
+    device = Y.device
+    B = torch.from_numpy(np.ascontiguousarray(Q.T)).to(device) @ Y
+    X = torch.empty_like(B)
+    for i in range(R.shape[0] - 1, -1, -1):
+        X[i] = (B[i] - torch.from_numpy(R[i, i + 1 :].copy()).to(device) @ X[i + 1 :]) / R[i, i]
+    return X
+
+
+def polyfit_tensor(flat: torch.Tensor, vander: np.ndarray, skipna) -> torch.Tensor:
+    """Least-squares fits of the columns of the float64 (T, K) ``flat``
+    against the host Vandermonde matrix (T, deg + 1), on the tensor's
+    device: (deg + 1, K).  Without NaN, one solve; with NaN and
+    ``skipna``, one solve for the columns without NaN and one per pattern
+    of finite rows among the others (each column fit over its finite
+    samples, where more than ``deg`` remain; else NaN), as the JAX
+    package fits each such column alone."""
+    device = flat.device
+    deg = vander.shape[1] - 1
+    isnan = torch.isnan(flat)
+    has_nan = bool(isnan.any())
+    if skipna is None:
+        skipna = has_nan
+    if not has_nan:
+        return lstsq_tall(vander, flat)
+    coeffs = torch.full((deg + 1, flat.shape[1]), torch.nan, dtype=torch.float64, device=device)
+    if not skipna:
+        return coeffs
+    finite_cols = ~isnan.any(dim=0)
+    if bool(finite_cols.any()):
+        coeffs[:, finite_cols] = lstsq_tall(vander, flat[:, finite_cols])
+    cols = torch.nonzero(~finite_cols).ravel()
+    ok = torch.isfinite(flat[:, cols]).cpu().numpy()
+    patterns, inverse = np.unique(ok.T, axis=0, return_inverse=True)
+    inverse = inverse.ravel()
+    for p, rows in enumerate(patterns):
+        if rows.sum() > deg:
+            members = cols[torch.from_numpy(np.flatnonzero(inverse == p)).to(device)]
+            rows_t = torch.from_numpy(np.flatnonzero(rows)).to(device)
+            coeffs[:, members] = lstsq_tall(vander[rows], flat[rows_t][:, members])
+    return coeffs
+
+
 def isin_tensor(data: torch.Tensor, values) -> torch.Tensor:
     """numpy's ``isin``: the test values are compared in ``data``'s dtype,
     those that this dtype cannot hold exactly dropped (they equal no
@@ -383,8 +532,10 @@ class Variable:
         """Copy; ``data`` replaces the values (it must match the shape)."""
         if data is None:
             data = self.data
-            if deep:
-                data = data.clone() if is_tensor(data) else np.array(data, copy=True)
+            if deep and is_tensor(data):
+                data = data.clone()
+            elif deep and isinstance(data, np.ndarray):
+                data = data.copy()
         else:
             data = as_compatible_data(data)
             if tuple(data.shape) != self.shape:
