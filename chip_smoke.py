@@ -257,11 +257,13 @@ With no argument it runs these phases:
    ``OverlapRegridder`` mean and median built (host stages, nnz against
    bench.py's 18,166,177, w_max), applied in memory at E = 20 (one launch
    each, held to the plain version and to host references on 2 slices;
-   kernel, bound, plain and ``torch.sparse.mm`` times); an hourly (time,
+   kernel, bound, plain and library times: ``torch.sparse.mm`` for the
+   mean, ``torch.nanquantile`` over the gathered windows for the median);
+   an hourly (time,
    face) float32 payload with 1 % NaN and an int16 packed with
    scale_factor, add_offset and _FillValue written through
    ``.ugrid.to_netcdf`` (29 hours: the classic format's 2^31-byte
-   offsets) and ``.ugrid.to_zarr`` (96 hours of the float32, 3.84 GB) in
+   offsets) and ``.ugrid.to_zarr`` (48 hours of the float32, 1.92 GB) in
    a temporary directory removed at the end, opened with ``lazy=True``
    and each lazy payload regridded by mean and by median under the default
    ``APPLY_CHUNK_BYTES``: one launch per block (each file in more than
@@ -277,9 +279,31 @@ With no argument it runs these phases:
    copy and to a numpy formula; phase 13's payload resampled (mean) and
    grouped (median) and regridded through phase 3's mean and median.
 
+16. Curvilinear and 3-D structured grids, the sharded regrid and CG, and
+   the profiler hooks: a 1000 x 1000 curvilinear ocean grid (rotated,
+   warped, 10 % land) as (N, M, 4) corner bounds with (time=20) float32
+   data on the card through ``UgridDataArray.from_structured2d(x_bounds=,
+   y_bounds=)`` onto phase 3's 1M mesh by ``OverlapRegridder`` mean
+   (window_reduce) and mode (window_select); voxels (40, 500, 500) and a
+   40-layer model of varying thickness per column over 500 x 500
+   (``StructuredGrid3d``, ``ExplicitStructuredGrid3d``) onto (20, 250,
+   250) voxels through ``PaddedCSR.from_coo`` and ``apply_weights`` mean
+   at E = 1 and 4; phase 3's mean weights in Hilbert order through
+   ``ShardedRegrid`` halo and allgather (mean, median, E = 20), phase 5's
+   unknown system through ``sharded_cg_solve`` (csr_matvec) and the mesh's
+   faces through ``sharded_laplace_smooth``, in a world of 1 (NCCL, in this
+   process) and of 2 (gloo, ``--sharded-rank`` processes spawned on this
+   card); one apply under ``trace()``/``annotate()`` in a process of its
+   own.  Each result held to the plain version and a host computation,
+   the sharded ones bit-equal to the unsharded apply.
+
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits with 2 and prints no result.
+
+``--sharded-rank RANK WORLD DIR DEVICE`` is one rank of phase 16's
+spawned world, and ``--traced-apply DIR DEVICE`` phase 16's traced apply
+(the script starts them itself).
 
 ``--compare LABEL`` runs only ``phase_compare``: the regrid apply pass
 (mean, first_order_conservative, median, mode) and csr_matvec at the 1M
@@ -4177,8 +4201,9 @@ XL_SIDE, XL_RASTER = 3163, 1024
 #: bytes; with the 10M mesh's topology (360 MB) and 60 MB per hour of h
 #: and q, 29 hours fit.
 XL_NC_TIMES = 29
-#: Hours in the zarr store (float32 h: 3.84 GB).
-XL_ZARR_TIMES = 96
+#: Hours in the zarr store (float32 h: 1.92 GB, two streamed blocks of
+#: 45 and 3 hours under the default budget).
+XL_ZARR_TIMES = 48
 #: Hours of the streamed zarr mean that the grouped methods take.
 XL_GROUPED_TIMES = 48
 #: nnz of the XL weights from bench.py's generator (BENCH_XL_10M.json).
@@ -4196,7 +4221,7 @@ def phase_stream(device, card, copy_gbps, main_results, payload):
     slices); an hourly (time, face) float32 payload with 1 % NaN and an
     int16 packed with scale_factor/add_offset/_FillValue written through
     ``.ugrid.to_netcdf`` (T = 29, as many hours as the classic format
-    holds) and ``.ugrid.to_zarr`` (float32, T = 96) in a temporary
+    holds) and ``.ugrid.to_zarr`` (float32, T = 48) in a temporary
     directory removed at the end, opened with ``lazy=True`` and each lazy
     payload regridded by mean and median under the default
     ``APPLY_CHUNK_BYTES``: one launch per streamed block (each file in more
@@ -4321,13 +4346,22 @@ def phase_stream(device, card, copy_gbps, main_results, payload):
             del library, sourceT
             operations = 2 * csr.nnz * N_EXTRA
         else:
+            # As phase 4's: torch.nanquantile over the pre-gathered (n, E,
+            # w) windows, pads NaN (the gather and the weight gate left out).
+            gathered = reduce.gather_windows(source.t(), idx)
+            library_ms = cuda_time_ms(lambda: torch.nanquantile(gathered, red.p / 100.0, dim=-1), reps=3)
+            del gathered
             operations = csr.nnz * N_EXTRA * int(np.ceil(np.log2(max(w_max, 2))))
         true_bytes = csr.nnz * 8 + m * N_EXTRA * 4 + n * N_EXTRA * 4
         bound, bound_by = bound_ms(true_bytes, operations, "float32", copy_gbps)
         timed_10m[method] = {
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
         }
-        library_text = "none" if library_ms is None else f"torch.sparse.mm {library_ms:.4f} ms"
+        library_text = (
+            f"torch.sparse.mm {library_ms:.4f} ms" if kernel is window_reduce
+            else f"torch.nanquantile over the gathered {tuple(idx.shape[:1]) + (N_EXTRA, idx.shape[1])} windows "
+            f"{library_ms:.4f} ms"
+        )
         report(
             f"15.2 {method} E={N_EXTRA} at {m} faces ({kernel.__name__}): kernel {kernel_ms:.4f} ms, bound {bound:.4f} ms by "
             f"{bound_by} ({100 * bound / kernel_ms:.1f} % of it), plain {plain_ms:.3f} ms, library {library_text}; "
@@ -4610,6 +4644,632 @@ def phase_stream(device, card, copy_gbps, main_results, payload):
     return counts, max_err, timed_10m
 
 
+OCEAN_SIDE = 1000
+#: Share of the ocean grid's cells masked as land.
+OCEAN_LAND = 0.10
+VOXEL_SHAPE, VOXEL_TARGET = (40, 500, 500), (20, 250, 250)
+VOXEL_EXTRAS = (1, 4)
+#: Ranks of the spawned gloo world, both on the one card.
+SHARDED_WORLD = 2
+SHARDED_TIMEOUT_S = 300
+SMOOTH_STEPS = 4
+
+
+def ocean_bounds(side, extent, rng):
+    """(side, side, 4) corner bounds of a curvilinear ocean grid covering
+    [0, extent]^2, as ROMS or NEMO output gives it: the grid rotated by 20
+    degrees, its lines warped by sines, cells about 1.3 wide; the cells
+    where a smooth seeded field exceeds its 90th percentile are land, NaN
+    in both bounds.  Returns (x_bounds, y_bounds, land)."""
+    angle = np.deg2rad(20.0)
+    span = extent * (np.cos(angle) + np.sin(angle)) + 20.0
+    h = span / side
+    j, i = np.meshgrid(np.arange(side + 1.0), np.arange(side + 1.0), indexing="ij")
+    u = i * h - span / 2 + 4.0 * np.sin(j * h / 60.0)
+    v = j * h - span / 2 + 4.0 * np.sin(i * h / 75.0)
+    c, s = np.cos(angle), np.sin(angle)
+    node_x = extent / 2 + c * u - s * v
+    node_y = extent / 2 + s * u + c * v
+
+    def corners(a):
+        return np.stack([a[:-1, :-1], a[:-1, 1:], a[1:, 1:], a[1:, :-1]], axis=-1)
+
+    xb, yb = corners(node_x), corners(node_y)
+    cx, cy = xb.mean(axis=-1), yb.mean(axis=-1)
+    field = np.sin(cx / 83.0) * np.cos(cy / 59.0) + 0.5 * np.sin((cx + cy) / 151.0) + rng.normal(0.0, 0.05, cx.shape)
+    land = field > np.quantile(field, 1.0 - OCEAN_LAND)
+    xb[land] = np.nan
+    yb[land] = np.nan
+    return xb, yb, land
+
+
+def edges_over_depth(thickness):
+    """Ascending layer edges from -40 to 0 (exactly) of the given layer
+    thicknesses, scaled to sum to 40, along the first axis."""
+    thickness = thickness * (40.0 / thickness.sum(axis=0, keepdims=True))
+    edges = np.concatenate([np.full((1,) + thickness.shape[1:], -40.0), -40.0 + np.cumsum(thickness, axis=0)])
+    edges[-1] = 0.0
+    return edges
+
+
+def voxel_dataset(shape, source):
+    """The coordinates of a voxel model over z in [-40, 0] and [0, 500]^2:
+    cells of 500 / n in y and x; z layers of 2.0 (the target) or, for the
+    source, 0.5 thick at the surface to 1.5 at depth (``zbounds``)."""
+    import xugrid_tpu_torch as xt
+
+    nz, ny, nx = shape
+    coords = {"y": (np.arange(ny) + 0.5) * 500.0 / ny, "x": (np.arange(nx) + 0.5) * 500.0 / nx}
+    if source:
+        edges = edges_over_depth(np.linspace(1.5, 0.5, nz))
+        coords["z"] = 0.5 * (edges[:-1] + edges[1:])
+        coords["zbounds"] = (("z", "nbounds"), np.column_stack([edges[:-1], edges[1:]]))
+    else:
+        coords["z"] = -40.0 + (np.arange(nz) + 0.5) * 40.0 / nz
+    return xt.xdata.Dataset(coords=coords)
+
+
+def layer_bounds(n_layer, ny, nx, rng):
+    """(n_layer, ny * nx, 2) ascending layer bounds of a geological layer
+    model over [-40, 0]: per column, thicknesses that vary smoothly in
+    space and at random, each column spanning [-40, 0] exactly."""
+    yy, xx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    k = np.arange(n_layer)[:, None]
+    thick = (
+        1.0 + 0.6 * np.sin(xx.ravel()[None] / 37.0 + k) * np.cos(yy.ravel()[None] / 53.0 - 0.5 * k)
+        + rng.uniform(-0.3, 0.3, (n_layer, ny * nx))
+    )
+    edges = edges_over_depth(np.clip(thick, 0.1, None))
+    return np.stack([edges[:-1], edges[1:]], axis=-1)
+
+
+def unknown_system(W, values, coords):
+    """The Laplace fill's unknown system (D - W)_uu x_u = W_uk x_k in the
+    windowed layout of ``sharded_cg_solve``, the unknowns in Hilbert
+    order (``partition_order`` of their coordinates).  Returns (indices
+    (n_u, w) -1 padded, weights, diag, b, the scipy matrix)."""
+    import scipy.sparse
+
+    from xugrid_tpu_torch.parallel import partition_order
+
+    W = W.tocsr()
+    unknown = np.flatnonzero(np.isnan(values))
+    unknown = unknown[partition_order(coords[unknown])]
+    known = np.flatnonzero(~np.isnan(values))
+    diag = np.asarray(W.sum(axis=1)).ravel()[unknown]
+    A = (scipy.sparse.diags(diag) - W[unknown][:, unknown]).tocsr()
+    b = W[unknown][:, known] @ values[known]
+    off = (-W[unknown][:, unknown]).tocsr()
+    off.sort_indices()
+    lengths = np.diff(off.indptr)
+    w_max = int(lengths.max())
+    slot = np.arange(w_max)[None, :] < lengths[:, None]
+    indices = np.full((len(unknown), w_max), -1, np.int64)
+    weights = np.zeros((len(unknown), w_max))
+    indices[slot] = off.indices
+    weights[slot] = off.data
+    return indices, weights, diag, b, A
+
+
+def smoothing_reference(neighbors, values, n_steps):
+    """``sharded_laplace_smooth`` in numpy: per step 0.5 v + 0.5 nanmean
+    over the neighbours and the face itself, float64."""
+    v = values.astype(np.float64)
+    for _ in range(n_steps):
+        stacked = np.where(neighbors >= 0, v[np.maximum(neighbors, 0)], np.nan)
+        with warnings_ignored():
+            v = 0.5 * v + 0.5 * np.nanmean(np.concatenate([stacked, v[:, None]], axis=1), axis=1)
+    return v
+
+
+def sharded_rank(argv) -> int:
+    """One rank of 16.3's spawned gloo world: ``chip_smoke.py
+    --sharded-rank RANK WORLD DIR DEVICE``.  Joins through the file store
+    in DIR, runs the sharded regrid, CG and smoothing on DIR/inputs.npz
+    on DEVICE (the card: its messages staged through host memory, as a
+    gloo group's are) and writes DIR/rank{RANK}.npz."""
+    import torch
+    import torch.distributed as dist
+
+    from xugrid_tpu_torch.core.sparse import PaddedCSR
+    from xugrid_tpu_torch.parallel import ShardedRegrid, sharded_cg_solve, sharded_laplace_smooth
+    from xugrid_tpu_torch.regrid import reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+
+    rank, world, tmp, device = int(argv[0]), int(argv[1]), argv[2], torch.device(argv[3])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    kernels = (window_reduce, window_select, csr_matvec)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", world_size=world, rank=rank)
+    out = {}
+    try:
+        with np.load(f"{tmp}/inputs.npz") as data:
+            inputs = dict(data)
+        padded = PaddedCSR(inputs["indices"], inputs["weights"], int(inputs["n"]), int(inputs["m"]),
+                           inputs["indices"].shape[1])
+        field = torch.from_numpy(inputs["field"]).to(device)
+        for method in ("halo", "allgather"):
+            for label, reduction in (("mean", reduce.mean), ("median", reduce.ABSOLUTE_OVERLAP_METHODS["median"])):
+                sharded = ShardedRegrid(None, padded, reduction, method=method, device=device)
+                local = sharded.put_source(field)
+                result = sharded.gather(sharded(local))
+                torch.cuda.synchronize()
+                if rank == 0:
+                    out[f"{method}_{label}"] = result.cpu().numpy()
+                counted = {k.__name__: k.launches for k in kernels}
+                dist.barrier()
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    sharded(local)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                for k in kernels:
+                    k.launches = counted[k.__name__]
+                out[f"{method}_{label}_numbers"] = np.array([
+                    sharded.method == method, sharded.exchanged_bytes,
+                    0 if sharded.plan is None else sharded.plan.R, statistics.median(times) * 1e3,
+                    sharded.exchange.staged_bytes,
+                ])
+        before = csr_matvec.launches
+        x, k = sharded_cg_solve(None, inputs["cg_indices"], inputs["cg_weights"], inputs["cg_diag"], inputs["cg_b"],
+                                atol=LAPLACE_SOLVE["atol"], maxiter=LAPLACE_SOLVE["maxiter"], device=device)
+        out["cg_numbers"] = np.array([k, csr_matvec.launches - before])
+        if rank == 0:
+            out["cg_x"] = x
+        out["smooth"] = sharded_laplace_smooth(
+            None, inputs["smooth_neighbors"], inputs["smooth_values"], n_steps=SMOOTH_STEPS, device=device
+        )
+        out["launches"] = np.array([k.launches for k in kernels])
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    np.savez(f"{tmp}/rank{rank}.npz", **out)
+    return 0
+
+
+def traced_apply(argv) -> int:
+    """16.4 in a process of its own: ``chip_smoke.py --traced-apply DIR
+    DEVICE`` applies DIR/apply.npz's weights (mean) to its source on DEVICE
+    under ``trace(DIR)`` and ``annotate("phase16.apply")``, and saves the
+    result to DIR/applied.npy and its launches to DIR/launches.npy.  (In
+    this script's own process the profiler keeps fewer device activities
+    with every session, and none by phase 16: phase 7's profiles keep 4 of
+    10 launches, phase 8's none.)"""
+    import torch
+
+    from xugrid_tpu_torch.core.sparse import PaddedCSR
+    from xugrid_tpu_torch.regrid import reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import window_reduce
+    from xugrid_tpu_torch.regrid.apply import apply_weights
+    from xugrid_tpu_torch.utils.profiling import annotate, trace
+
+    tmp, device = argv[0], torch.device(argv[1])
+    with np.load(f"{tmp}/apply.npz") as data:
+        inputs = dict(data)
+    indices = inputs["indices"]
+    padded = PaddedCSR(indices, inputs["weights"], int(inputs["n"]), int(inputs["m"]), indices.shape[1])
+    source = torch.from_numpy(inputs["source"]).to(device)
+    with trace(tmp):
+        with annotate("phase16.apply"):
+            out = apply_weights(padded, source, reduce.mean, padded.n)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+    np.save(f"{tmp}/applied.npy", out.cpu().numpy())
+    np.save(f"{tmp}/launches.npy", np.array([window_reduce.launches]))
+    return 0
+
+
+def run_processes(argument_lists, timeout=SHARDED_TIMEOUT_S):
+    """``chip_smoke.py`` with each argument list in a process of its own,
+    all started together and joined within ``timeout`` seconds (killed
+    otherwise); raises with the output of any that failed."""
+    procs = [
+        subprocess.Popen(
+            [sys.executable, __file__, *map(str, args)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        for args in argument_lists
+    ]
+    logs = []
+    try:
+        deadline = time.perf_counter() + timeout
+        for proc in procs:
+            out, _ = proc.communicate(timeout=max(deadline - time.perf_counter(), 1.0))
+            logs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = [i for i, proc in enumerate(procs) if proc.returncode != 0]
+    if failed:
+        raise AssertionError(
+            "spawned processes failed:\n" + "\n".join(f"{argument_lists[i]}:\n{logs[i][-3000:]}" for i in failed)
+        )
+
+
+def phase_structured_sharded(device, card, copy_gbps, inputs, main_results, meshes):
+    """Phase 16: curvilinear and 3-D structured grids, the sharded regrid
+    and CG, and the profiler hooks.
+
+    16.1 A 1000 x 1000 curvilinear ocean grid (rotated, warped, 10 % of
+    its cells land) given as (N, M, 4) corner bounds, with (time=20, eta,
+    xi) float32 data on the card, through ``UgridDataArray.from_structured2d
+    (x_bounds=, y_bounds=)`` and ``OverlapRegridder`` mean (window_reduce)
+    and mode (window_select) onto phase 3's 1M mesh: one launch each, held
+    to the plain version and the host references; kernel ms and share of
+    the bound.
+    16.2 Voxels (40, 500, 500), their layers 0.5 thick at the surface to
+    1.5 at depth, onto (20, 250, 250) voxels 2 thick by
+    ``StructuredGrid3d.overlap``, and a 40-layer model of varying
+    thickness per column over the same 500 x 500 footprint
+    (``ExplicitStructuredGrid3d``) onto those voxels: the weights through
+    ``PaddedCSR.from_coo`` and ``apply_weights`` mean (window_reduce) at
+    E = 1 and 4, held to the plain version and ``reference_linear``; every
+    target voxel's weights sum to its volume (1e-9 relative): both models
+    span its column.
+    16.3 Phase 3's 1M overlap weights in Hilbert order (``hilbert_layout``)
+    and the 1M Delaunay fill's unknown system: in a world of 1 (NCCL, in
+    this process) and of 2 (gloo, spawned, both ranks on this card, every
+    message staged through host memory) ``ShardedRegrid`` halo and
+    allgather, mean and median at E = 20, bit-equal to the unsharded
+    apply of the same weights (each window keeps its entry order);
+    ``sharded_cg_solve`` within 10 atol (scipy, float64), one csr_matvec
+    launch per iteration and one before; ``sharded_laplace_smooth`` of
+    the mesh's faces, 4 steps, equal to a numpy computation (rtol 1e-12)
+    and the variance falling.
+    16.4 One 16.1 apply (its weights and data) inside ``trace()`` and
+    ``annotate("phase16.apply")``, in a process of its own: the trace file
+    names the kernel and the region, the result bit-equal to 16.1's.
+
+    Returns (launch counts in this process, largest |kernel - plain|,
+    launches in the spawned processes)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.core.sparse import MatrixCOO, PaddedCSR
+    from xugrid_tpu_torch.parallel import (
+        ShardedRegrid,
+        hilbert_layout,
+        partition_order,
+        sharded_cg_solve,
+        sharded_laplace_smooth,
+    )
+    from xugrid_tpu_torch.regrid import ExplicitStructuredGrid3d, StructuredGrid3d, reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.apply import apply_weights, device_weights
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    t_phase = time.perf_counter()
+    kernels = (window_reduce, window_select, csr_matvec)
+    max_err = {"window_reduce": 0.0, "window_select": 0.0, "csr_matvec": 0.0}
+
+    def report(line):
+        print(f"  {line} [{card}]")
+
+    def uncounted(fn):
+        saved = {k: k.launches for k in kernels}
+        try:
+            return fn()
+        finally:
+            for k, n in saved.items():
+                k.launches = n
+
+    def launches_of(fn):
+        before = {k.__name__: k.launches for k in kernels}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches - before[k.__name__] for k in kernels}
+
+    def kernel_line(label, kernel, source, idx, w, reduction, nnz, lengths=None):
+        """Kernel ms (CUDA events, back to back) beside its bound."""
+        E, m = source.shape
+        n = idx.shape[0]
+        ms = uncounted(lambda: cuda_time_ms(lambda: kernel(source, idx, w, reduction)))
+        if kernel is window_reduce:
+            operations = 2 * nnz * E
+        else:
+            operations = nnz * E * int(np.ceil(np.log2(max(idx.shape[1], 2))))
+        true_bytes = nnz * 8 + m * E * 4 + n * E * 4
+        bound, bound_by = bound_ms(true_bytes, operations, "float32", copy_gbps)
+        report(
+            f"{label} {kernel.__name__} E={E}: {ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
+            f"({100 * bound / ms:.1f} % of it), {true_bytes / (ms * 1e-3) / 1e9:.1f} GB/s true"
+        )
+        return ms
+
+    (verts, faces), (tverts, tfaces), _ = inputs
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    raster_mesh = xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)
+    print(f"phase 16: curvilinear and 3-D grids, the sharded regrid and CG, the profiler hooks [{card}]")
+    for k in kernels:
+        k.launches = 0
+
+    # 16.1: the curvilinear ocean grid onto the 1M mesh.
+    rng = np.random.default_rng(16)
+    xb, yb, land = ocean_bounds(OCEAN_SIDE, float(N_SIDE), rng)
+    values = np.round(rng.normal(size=(N_EXTRA, OCEAN_SIDE, OCEAN_SIDE)) * 2.0) / 2.0
+    values = values.astype(np.float32)
+    values[rng.random(values.shape) < 0.01] = np.nan
+    da = xt.xdata.DataArray(torch.from_numpy(values).to(device), dims=("time", "eta", "xi"), name="sst")
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        uda = xt.UgridDataArray.from_structured2d(da, x="xi", y="eta", x_bounds=xb, y_bounds=yb)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    # The land cells are the only invalid ones the warning counts.
+    messages = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+    if len(messages) != 1 or f"contain {int(land.sum())} invalid faces" not in messages[0]:
+        raise AssertionError(f"16.1 from_structured2d warned {messages}")
+    kept = ~land.ravel()
+    if uda.grid.n_face != int(kept.sum()) or not isinstance(uda.obj.data, torch.Tensor) or uda.obj.data.device != device:
+        raise AssertionError(f"16.1 from_structured2d: {uda.grid.n_face} faces, {type(uda.obj.data).__name__}")
+    ocean = values.reshape(N_EXTRA, -1)[:, kept]
+    compare(uda.obj.data, torch.from_numpy(ocean), True, 0.0, 0.0)
+    areas = uda.grid.area
+    if not (areas > 0).all():
+        raise AssertionError("16.1: a face of the curvilinear grid has no area")
+    report(
+        f"16.1 ocean grid {OCEAN_SIDE} x {OCEAN_SIDE} corner bounds, {int(land.sum())} land cells "
+        f"({land.mean():.4f}), {uda.grid.n_face} faces, {uda.grid.n_node} nodes; from_structured2d "
+        f"{convert_s:.3f} s (data on the card, kept cells bit-equal)"
+    )
+    scale = float(np.nanmax(np.abs(ocean)))
+    sample = np.sort(rng.choice(mesh.n_face, size=400, replace=False))
+    ocean_regridders, ocean_out = {}, {}
+    for method, kernel in (("mean", window_reduce), ("mode", window_select)):
+        timings.reset()
+        t0 = time.perf_counter()
+        regridder = xt.OverlapRegridder(uda, mesh, method=method)
+        build_stages(f"16.1 OverlapRegridder({method}) ocean -> 1M mesh", time.perf_counter() - t0)
+        out, rose = launches_of(lambda: regridder.regrid(uda))
+        got = out.obj.data
+        if tuple(got.shape) != (N_EXTRA, mesh.n_face) or got.device != device:
+            raise AssertionError(f"16.1 {method}: {tuple(got.shape)} on {got.device}")
+        csr = regridder._weights
+        if method == "mean":
+            reference = lambda host: (host, reference_linear(csr, ocean, relative=False))  # noqa: E731
+        else:
+            reference = lambda host: (host[:, sample], reference_select(csr, ocean, sample, "mode"))  # noqa: E731
+        max_err[kernel.__name__] = max(max_err[kernel.__name__], check_apply(
+            f"16.1 ocean (20, {uda.grid.n_face}) -> 1M mesh by overlap {method}", regridder, uda.obj.data, got,
+            kernel, rose, scale, reference,
+        ))
+        finite = float(torch.isfinite(got).double().mean())
+        if finite < 0.8:
+            raise AssertionError(f"16.1 {method}: only {finite:.4f} of the mesh faces got a value")
+        idx, w = device_weights(regridder._padded, torch.float32, device, regridder._device_weights)
+        kernel_line(f"16.1 {method}", kernel, uda.obj.data, idx, w, regridder._reduction, csr.nnz)
+        ocean_regridders[method], ocean_out[method] = regridder, got
+
+    # 16.4: one 16.1 apply traced, in a process of its own (``traced_apply``).
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        padded = ocean_regridders["mean"]._padded
+        np.savez(os.path.join(tmp, "apply.npz"), indices=padded.indices, weights=padded.weights, n=padded.n,
+                 m=padded.m, source=uda.obj.data.cpu().numpy())
+        t0 = time.perf_counter()
+        run_processes([["--traced-apply", tmp, device]])
+        traced_s = time.perf_counter() - t0
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"16.4: trace files {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        kernel_events = [e for e in events if "window_reduce" in e.get("name", "") and e.get("cat") == "kernel"]
+        if "phase16.apply" not in names or not kernel_events:
+            raise AssertionError(f"16.4: the trace names the region {'phase16.apply' in names}, "
+                                 f"the kernel {len(kernel_events)} times")
+        traced_launches = int(np.load(os.path.join(tmp, "launches.npy"))[0])
+        if traced_launches != 1:
+            raise AssertionError(f"16.4: the traced apply launched window_reduce {traced_launches} times")
+        compare(torch.from_numpy(np.load(os.path.join(tmp, "applied.npy"))), ocean_out["mean"], True, 0.0, 0.0)
+        report(
+            f"16.4 trace() of one 16.1 mean apply under annotate('phase16.apply') in a process of its own "
+            f"({traced_s:.1f} s with its start): {os.path.getsize(files[0])} bytes, {len(events)} events; kernel "
+            f"'{kernel_events[0]['name'][:60]}' {kernel_events[0].get('dur')} us; the result bit-equal to 16.1's"
+        )
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 16.2: voxel and layered models.
+    nz, ny, nx = VOXEL_SHAPE
+    voxels = voxel_dataset(VOXEL_SHAPE, source=True)
+    target = StructuredGrid3d(voxel_dataset(VOXEL_TARGET, source=False))
+    t_size = target.size
+    volume = target.volume.ravel()
+    layered_obj = xt.xdata.Dataset(coords={"y": voxels["y"].values, "x": voxels["x"].values})
+    layered_obj = layered_obj.assign_coords(
+        zbounds=xt.xdata.DataArray(layer_bounds(nz, ny, nx, rng), dims=("layer", "yx", "nbound"))
+    )
+    for label, grid in (("voxels", StructuredGrid3d(voxels)), ("layered", ExplicitStructuredGrid3d(layered_obj))):
+        timings.reset()
+        t0 = time.perf_counter()
+        s3, t3, w3 = grid.overlap(target, relative=False)
+        join_s = time.perf_counter() - t0
+        coo = MatrixCOO.from_triplet(t3, s3, w3, n=t_size, m=grid.size)
+        t0 = time.perf_counter()
+        padded = PaddedCSR.from_coo(coo)
+        layout_s = time.perf_counter() - t0
+        csr = coo.to_csr()
+        # Every target voxel lies inside both models: its weights (overlap
+        # volumes) sum to its volume.
+        sums = np.bincount(t3, weights=w3, minlength=t_size)
+        if not np.allclose(sums, volume, rtol=1e-9, atol=0.0):
+            raise AssertionError(f"16.2 {label}: weight sums {sums.min()} .. {sums.max()}, expected {volume[0]}")
+        stages = "; ".join(f"{name} {rec['total_s']:.3f} s" for name, rec in timings.summary().items())
+        report(
+            f"16.2 {label} {grid.shape} -> voxels {target.shape}: overlap {join_s:.3f} s ({stages}), "
+            f"PaddedCSR.from_coo {layout_s:.3f} s; nnz {csr.nnz}, w_max {padded.w_max}; every target's weights sum to "
+            f"its volume {volume[0]} (1e-9)"
+        )
+        for n_extra in VOXEL_EXTRAS:
+            src_np = rng.normal(size=(n_extra, grid.size)).astype(np.float32)
+            src_np[rng.random(src_np.shape) < 0.01] = np.nan
+            src = torch.from_numpy(src_np).to(device)
+            cache = {}
+            got, rose = launches_of(lambda: apply_weights(padded, src, reduce.mean, t_size, cache=cache))
+            if rose["window_reduce"] != 1 or sum(rose.values()) != 1:
+                raise AssertionError(f"16.2 {label} E={n_extra}: launches {rose}")
+            idx, w = device_weights(padded, torch.float32, device, cache)
+            plain = reduce.reduce_windows(src.t().contiguous(), idx, w, reduce.mean).t()
+            rtol, atol = tolerance(torch.float32, float(np.nanmax(np.abs(src_np))))
+            bound = torch.clamp(summation_bound(src, idx, w, reduce.mean), min=atol)
+            err = compare(got, plain, False, rtol, bound)
+            max_err["window_reduce"] = max(max_err["window_reduce"], err)
+            ref_err = compare(got, torch.from_numpy(reference_linear(csr, src_np, relative=False)), False, 1e-5,
+                              1e-6 * float(np.nanmax(np.abs(src_np))))
+            ms = kernel_line(f"16.2 {label}", window_reduce, src, idx, w, reduce.mean, csr.nnz)
+            report(
+                f"16.2 {label} mean E={n_extra}: window_reduce +1 launch; vs plain max |diff| {err:.3e}, vs "
+                f"reference_linear {ref_err:.3e}; finite {float(torch.isfinite(got).double().mean()):.6f}; {ms:.4f} ms"
+            )
+            del src, cache
+        del s3, t3, w3, coo, csr, padded
+        torch.cuda.empty_cache()
+
+    # 16.3: the sharded regrid and CG.
+    regridder = next(r for _, method, _, r, *_ in main_results if method == "mean")
+    coo = regridder._weights.to_coo()
+    t0 = time.perf_counter()
+    sorder, torder, hilbert = hilbert_layout(mesh.centroids, raster_mesh.centroids, coo.row, coo.col, coo.data)
+    layout_s = time.perf_counter() - t0
+    data = inputs[2]
+    field_np = np.ascontiguousarray(data[:, sorder])
+    field = torch.from_numpy(field_np).to(device)
+    median = reduce.ABSOLUTE_OVERLAP_METHODS["median"]
+    unsharded = {
+        "mean": uncounted(lambda: apply_weights(hilbert, field, reduce.mean, hilbert.n)),
+        "median": uncounted(lambda: apply_weights(hilbert, field, median, hilbert.n)),
+    }
+    report(f"16.3 hilbert_layout of phase 3's mean weights: {layout_s:.3f} s, nnz {coo.nnz}, w_max {hilbert.w_max}")
+    if meshes is None:
+        nodes, tri = delaunay_mesh(LAPLACE_SIDE)
+        grid = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, tri)
+        W = grid.get_connectivity_matrix(grid.node_dimension, xy_weights=False).astype(np.float64)
+        W.data = np.ones_like(W.data)
+        _, fill_values = laplace_inputs(nodes)
+        node_xy = nodes
+    else:
+        W, _, fill_values, _ = meshes["delaunay"]
+        node_xy = meshes["delaunay_grid"].node_coordinates
+    t0 = time.perf_counter()
+    cg_indices, cg_weights, cg_diag, cg_b, A = unknown_system(W, fill_values, node_xy)
+    report(f"16.3 the 1M Delaunay fill's unknown system: {len(cg_b)} unknowns, window {cg_indices.shape[1]}, "
+           f"Hilbert order, {time.perf_counter() - t0:.3f} s")
+    order = partition_order(mesh.centroids)
+    remap = np.empty(len(order), np.int64)
+    remap[order] = np.arange(len(order))
+    neighbors = mesh.format_connectivity_as_dense(mesh.face_face_connectivity)[order]
+    neighbors = np.where(neighbors >= 0, remap[np.maximum(neighbors, 0)], -1)
+    smooth_values = data[0, order].astype(np.float64)
+    smooth_want = smoothing_reference(neighbors, smooth_values, SMOOTH_STEPS)
+
+    def check_cg(label, x, iterations, matvecs):
+        residual = np.linalg.norm(A @ x - cg_b)
+        if not np.isfinite(x).all() or residual > 10 * LAPLACE_SOLVE["atol"] or matvecs != iterations + 1:
+            raise AssertionError(f"16.3 {label} CG: residual {residual}, {iterations} iterations, {matvecs} matvecs")
+        return residual
+
+    def check_smooth(label, got):
+        compare(torch.from_numpy(got), torch.from_numpy(smooth_want), False, 1e-12, 1e-12)
+        if not np.nanvar(got) < np.nanvar(smooth_values):
+            raise AssertionError(f"16.3 {label} smoothing: the variance did not fall")
+
+    # World of 1: NCCL in this process.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store1", world_size=1, rank=0)
+        try:
+            for method in ("halo", "allgather"):
+                for label, reduction, kernel in (("mean", reduce.mean, window_reduce), ("median", median, window_select)):
+                    sharded = ShardedRegrid(None, hilbert, reduction, method=method, device=device)
+                    local = sharded.put_source(field)
+                    got, rose = launches_of(lambda: sharded.gather(sharded(local)))
+                    if rose[kernel.__name__] != 1 or sum(rose.values()) != 1:
+                        raise AssertionError(f"16.3 world 1 {method} {label}: launches {rose}")
+                    compare(got, unsharded[label], True, 0.0, 0.0)
+                    ms = uncounted(lambda: cuda_time_ms(lambda: sharded(local), reps=5))
+                    report(
+                        f"16.3 world 1 (nccl) {method} {label} E={N_EXTRA}: {kernel.__name__} +1, bit-equal to the "
+                        f"unsharded apply; {ms:.4f} ms per call; exchanged {sharded.exchanged_bytes} bytes per slice"
+                    )
+            before = csr_matvec.launches
+            t0 = time.perf_counter()
+            x, k = sharded_cg_solve(None, cg_indices, cg_weights, cg_diag, cg_b, atol=LAPLACE_SOLVE["atol"],
+                                    maxiter=LAPLACE_SOLVE["maxiter"], device=device)
+            cg_s = time.perf_counter() - t0
+            residual = check_cg("world 1", x, k, csr_matvec.launches - before)
+            report(f"16.3 world 1 sharded_cg_solve: {k} iterations, {csr_matvec.launches - before} csr_matvec "
+                   f"launches (1 per iteration + 1), residual {residual:.3e} <= 10 atol, {cg_s:.3f} s")
+            t0 = time.perf_counter()
+            smoothed = sharded_laplace_smooth(None, neighbors, smooth_values, n_steps=SMOOTH_STEPS, device=device)
+            check_smooth("world 1", smoothed)
+            report(f"16.3 world 1 sharded_laplace_smooth {SMOOTH_STEPS} steps: equal to numpy (1e-12), variance "
+                   f"{np.nanvar(smooth_values):.4f} -> {np.nanvar(smoothed):.4f}, {time.perf_counter() - t0:.3f} s")
+        finally:
+            dist.destroy_process_group()
+
+        # World of 2: gloo, spawned, both ranks on this card.
+        np.savez(
+            os.path.join(tmp, "inputs.npz"), indices=hilbert.indices, weights=hilbert.weights, n=hilbert.n,
+            m=hilbert.m, field=field_np, cg_indices=cg_indices, cg_weights=cg_weights, cg_diag=cg_diag, cg_b=cg_b,
+            smooth_neighbors=neighbors, smooth_values=smooth_values,
+        )
+        t0 = time.perf_counter()
+        run_processes([["--sharded-rank", rank, SHARDED_WORLD, tmp, device] for rank in range(SHARDED_WORLD)])
+        world_s = time.perf_counter() - t0
+        ranks = []
+        for rank in range(SHARDED_WORLD):
+            with np.load(os.path.join(tmp, f"rank{rank}.npz")) as ranked:
+                ranks.append(dict(ranked))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for method in ("halo", "allgather"):
+        for label in ("mean", "median"):
+            compare(torch.from_numpy(ranks[0][f"{method}_{label}"]), unsharded[label], True, 0.0, 0.0)
+            numbers = [r[f"{method}_{label}_numbers"] for r in ranks]
+            if not all(nums[0] == 1 for nums in numbers):
+                raise AssertionError(f"16.3 world 2 {method} {label}: took another method")
+            report(
+                f"16.3 world 2 (gloo, staged through the host) {method} {label} E={N_EXTRA}: bit-equal to the "
+                f"unsharded apply; R {int(numbers[0][2])}, exchanged {int(numbers[0][1])} bytes per slice; ms per "
+                f"call by rank {', '.join(f'{nums[3]:.3f}' for nums in numbers)}; staged "
+                f"{', '.join(str(int(nums[4])) for nums in numbers)} bytes"
+            )
+    world2 = {"window_reduce": traced_launches, "window_select": 0, "csr_matvec": 0}
+    for r, result in enumerate(ranks):
+        iterations, matvecs = (int(v) for v in result["cg_numbers"])
+        if r == 0:
+            residual = check_cg("world 2", result["cg_x"], iterations, matvecs)
+        elif matvecs != iterations + 1:
+            raise AssertionError(f"16.3 world 2 rank {r}: {matvecs} matvecs for {iterations} iterations")
+        check_smooth(f"world 2 rank {r}", result["smooth"])
+        for name, count in zip(world2, result["launches"]):
+            world2[name] += int(count)
+    report(
+        f"16.3 world 2 sharded_cg_solve: {iterations} iterations, {matvecs} csr_matvec launches per rank, residual "
+        f"{residual:.3e} <= 10 atol; smoothing equal to numpy on both ranks; the spawned world took {world_s:.1f} s "
+        f"(startup included)"
+    )
+    counts = {k.__name__: k.launches for k in kernels}
+    print(
+        f"phase 16: {time.perf_counter() - t_phase:.1f} s, launches {counts} in this process, {world2} in the "
+        f"spawned ones (16.4's and 16.3's ranks) [{card}]"
+    )
+    return counts, max_err, world2
+
+
 def main() -> int:
     import torch
 
@@ -4618,6 +5278,10 @@ def main() -> int:
         return 2
     import xugrid_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        return sharded_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--traced-apply"]:
+        return traced_apply(sys.argv[2:])
     device = torch.device("cuda", 0)
     card = card_line()
     print(card)
@@ -4644,6 +5308,10 @@ def main() -> int:
     payload_counts, payload_err, payload = phase_payload(device, card, inputs, results)
     vector_counts, vector_err = phase_vector(device, card, inputs, results, payload)
     stream_counts, stream_err, timed_10m = phase_stream(device, card, copy_gbps, results, payload)
+    slice16_counts, slice16_err, world2_counts = phase_structured_sharded(
+        device, card, copy_gbps, inputs, results, meshes
+    )
+    phase16_label = "curvilinear and 3-D grids, sharded regrid and CG in worlds of 1 and 2, profiler hooks (phase 16)"
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
@@ -4659,6 +5327,7 @@ def main() -> int:
             "payload methods, then regrid and fill (phase 13)": payload_counts[name],
             "vector geometry and sample data, then regrid and fill (phase 14)": vector_counts[name],
             "the XL config streamed from files, grouped methods, then regrid (phase 15)": stream_counts[name],
+            phase16_label: slice16_counts[name] + world2_counts[name],
         }
         return {
             "launches": sum(by_path.values()),
@@ -4666,7 +5335,7 @@ def main() -> int:
             "max_abs_err": max(
                 check_err[name], main_err[name], regrid_err[name], labelled_err[name], files_err[name],
                 partition_err[name], query_err.get(name, 0.0), topology_err[name], payload_err[name],
-                vector_err[name], stream_err[name],
+                vector_err[name], stream_err[name], slice16_err[name],
             ),
             **timed_at,
         }
@@ -4677,6 +5346,7 @@ def main() -> int:
         "topology operations, then regrid and fill (phase 12)": topology_counts["csr_matvec"],
         "payload methods, then regrid and fill (phase 13)": payload_counts["csr_matvec"],
         "vector geometry and sample data, then regrid and fill (phase 14)": vector_counts["csr_matvec"],
+        phase16_label: slice16_counts["csr_matvec"] + world2_counts["csr_matvec"],
     }
 
     kernels = [
@@ -4709,6 +5379,7 @@ def main() -> int:
             **main_matvec,
             "max_abs_err": max(
                 check_err["csr_matvec"], topology_err["csr_matvec"], payload_err["csr_matvec"], vector_err["csr_matvec"],
+                slice16_err["csr_matvec"],
                 *(t["max_abs_err"] for t in matvec_timed.values()),
             ),
         },

@@ -14,7 +14,14 @@ against it on the same seeded inputs:
 - ``Ugrid1d``/``Ugrid2d.coords``, the accessors' ``crs``, ``FILL_VALUE``
   and ``Network1d.length``;
 - the ``DataArray.values`` setter, which replaces the payload (a tensor
-  payload's replacement on its device).
+  payload's replacement on its device);
+- the accessors' ``set_crs`` (on a UgridDataArray, and on a UgridDataset
+  for one or every topology), through a stand-in ``pyproj`` of EPSG codes,
+  and the same ImportError without pyproj;
+- iterating a UgridDataArray gives the wrapped DataArray's items, plain
+  DataArrays, as the JAX package's ``__iter__`` does;
+- ``TimingRegistry.summary()`` gives each stage's count, total and mean
+  seconds rounded to microseconds, as the JAX package's does.
 """
 
 import numpy as np
@@ -250,3 +257,111 @@ def test_dataarray_values_setter_matches_jax(payload):
     np.testing.assert_array_equal(got.values, np.asarray(want.values))
     assert isinstance(got.data, torch.Tensor) == (payload == "tensor")
     np.testing.assert_array_equal(got["a"].values, [10, 20])
+
+
+def _fake_pyproj():
+    """A stand-in ``pyproj`` module: EPSG codes 4326 (geographic) and the
+    rest projected, equal when their codes are."""
+    import types
+
+    class CRS:
+        def __init__(self, code):
+            self.code = int(code)
+            self.is_geographic = self.code == 4326
+            self.is_projected = not self.is_geographic
+
+        @classmethod
+        def from_epsg(cls, code):
+            return cls(code)
+
+        @classmethod
+        def from_user_input(cls, value):
+            return value if isinstance(value, cls) else cls(str(value).split(":")[-1])
+
+        def __eq__(self, other):
+            return isinstance(other, CRS) and other.code == self.code
+
+        __hash__ = None
+
+    return types.SimpleNamespace(CRS=CRS)
+
+
+def _crs_objects(pkg, inputs):
+    verts, faces = inputs["verts"], inputs["faces"]
+    nodes, edges = inputs["nodes"], inputs["edges"]
+    mesh = pkg.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    network = pkg.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges)
+    uda = pkg.UgridDataArray(pkg.xdata.DataArray(np.zeros(mesh.n_face), dims=(mesh.face_dimension,)), mesh)
+    ds = pkg.xdata.Dataset()
+    ds["a"] = ((mesh.face_dimension,), np.zeros(mesh.n_face))
+    ds["b"] = ((network.edge_dimension,), np.zeros(network.n_edge))
+    uds = pkg.UgridDataset(ds, [mesh.copy(), network])
+    return uda, uds
+
+
+def test_accessor_set_crs_matches_jax(monkeypatch, inputs):  # noqa: F811
+    """``.ugrid.set_crs`` sets the grids' CRS without moving a node (the
+    port's accessors had no ``set_crs``)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "pyproj", _fake_pyproj())
+    out = {}
+    for pkg in PACKAGES:
+        uda, uds = _crs_objects(pkg, inputs)
+        uda.ugrid.set_crs(epsg=28992)
+        uds.ugrid.set_crs(epsg=4326, topology="network1d")
+        first = {name: None if crs is None else crs.code for name, crs in uds.ugrid.crs.items()}
+        with pytest.raises(ValueError, match="already has a CRS"):
+            uds.ugrid.set_crs(epsg=28992)
+        uds.ugrid.set_crs(epsg=28992, allow_override=True)
+        out[pkg] = (
+            uda.ugrid.crs["mesh2d"].code, uda.grid.is_projected, first,
+            {name: crs.code for name, crs in uds.ugrid.crs.items()},
+            [grid.is_projected for grid in uds.grids],
+            uda.grid.node_x.tolist(),
+        )
+    assert out[xt] == out[xu]
+    assert out[xt][2] == {"mesh2d": None, "network1d": 4326}
+
+
+def test_accessor_set_crs_needs_pyproj(monkeypatch, inputs):  # noqa: F811
+    import sys
+
+    monkeypatch.setitem(sys.modules, "pyproj", None)
+    for pkg in PACKAGES:
+        uda, uds = _crs_objects(pkg, inputs)
+        for accessor in (uda.ugrid, uds.ugrid):
+            with pytest.raises(ImportError):
+                accessor.set_crs(epsg=28992)
+
+
+@pytest.mark.parametrize("payload", ["numpy", "tensor"])
+def test_iterating_a_ugrid_dataarray_matches_jax(payload, inputs):  # noqa: F811
+    import torch
+
+    verts, faces = inputs["verts"], inputs["faces"]
+    values = np.arange(3.0 * len(faces)).reshape(3, len(faces))
+    items = {}
+    for pkg in PACKAGES:
+        grid = pkg.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+        data = torch.from_numpy(values) if pkg is xt and payload == "tensor" else values
+        uda = pkg.UgridDataArray(pkg.xdata.DataArray(data, dims=("time", grid.face_dimension)), grid)
+        items[pkg] = list(uda)
+    assert [type(i).__name__ for i in items[xt]] == [type(i).__name__ for i in items[xu]] == ["DataArray"] * 3
+    for got, want in zip(items[xt], items[xu]):
+        assert isinstance(got, xt.xdata.DataArray) and got.dims == want.dims
+        np.testing.assert_array_equal(np.asarray(got.values), np.asarray(want.values))
+
+
+def test_timing_summary_matches_jax():
+    """The port's summary had no ``mean_s`` and did not round."""
+    from xugrid_tpu.utils.profiling import TimingRegistry as JaxRegistry
+    from xugrid_tpu_torch.utils.profiling import TimingRegistry
+
+    summaries = []
+    for cls in (JaxRegistry, TimingRegistry):
+        registry = cls()
+        with registry.timed("stage.a"):
+            pass
+        summaries.append({name: sorted(stats) for name, stats in registry.summary().items()})
+    assert summaries[1] == summaries[0] == {"stage.a": ["count", "mean_s", "total_s"]}

@@ -16,7 +16,11 @@ network's cycle test), and the payload methods (rank, ffill,
 interpolate_na, quantile, idxmax) and a regrid through ``from_weights``
 of a regridder's ``weights``, and the vector geometry and sample data
 (``ops``, ``data``, burn, snapping, polygonize through the stand-ins of
-``tests/fake_geo.py``) load neither jax nor xugrid_tpu, and launch no
+``tests/fake_geo.py``), and a world-of-1 gloo ``ShardedRegrid`` and
+``sharded_cg_solve`` on the CPU (``xugrid_tpu_torch.parallel``), a
+``StructuredGrid3d`` overlap applied through ``PaddedCSR.from_coo``, a
+curvilinear ``UgridDataArray.from_structured2d`` and a ``trace()`` of an
+``annotate`` region load neither jax nor xugrid_tpu, and launch no
 kernel.
 A subprocess is needed because the test session itself imports jax.
 
@@ -168,6 +172,43 @@ REGRID_ON_CPU = textwrap.dedent(
     assert xt.Ugrid1d.from_geodataframe(snapped_gdf).n_edge == len(snapped_gdf)
     assert xt.snap_nodes(np.array([0.0, 1e-9, 1.0]), np.zeros(3), 1e-6)[0].tolist() == [0, 0, 1]
     assert xt.data.disk()["face_z"].shape[0] > 0
+    # The sharded regrid and CG in a world of one gloo rank, the 3-D
+    # structured grids, curvilinear bounds and the profiler hooks.
+    import torch.distributed as dist
+
+    from xugrid_tpu_torch.core.sparse import MatrixCOO, PaddedCSR
+    from xugrid_tpu_torch.parallel import ShardedRegrid, hilbert_layout, sharded_cg_solve
+    from xugrid_tpu_torch.regrid import StructuredGrid3d, reduce
+    from xugrid_tpu_torch.regrid.apply import apply_weights
+    from xugrid_tpu_torch.utils.profiling import annotate, trace
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("gloo", init_method="file://" + tmp + "/store", world_size=1, rank=0)
+    regridder = xt.OverlapRegridder(source, target, method="mean")
+    coo = regridder._weights.to_coo()
+    _, _, hilbert = hilbert_layout(source.centroids, target.centroids, coo.row, coo.col, coo.data)
+    for method in ("halo", "allgather"):
+        sharded = ShardedRegrid(None, hilbert, method=method, device="cpu")
+        assert sharded.method == method and sharded.gather(sharded(data)).shape == (2, target.n_face)
+    x, k = sharded_cg_solve(None, np.array([[1], [0]]), -np.ones((2, 1)), np.full(2, 3.0), np.ones(2), device="cpu")
+    assert np.allclose(x, 0.5) and k > 0
+    dist.destroy_process_group()
+    voxels = xt.xdata.DataArray(np.zeros((4, 6, 6)), coords={"z": np.arange(4.0), "y": np.arange(6.0),
+                                "x": np.arange(6.0)}, dims=("z", "y", "x"))
+    coarse = xt.xdata.DataArray(np.zeros((2, 3, 3)), coords={"z": np.arange(2) * 2.0 + 0.5,
+                                "y": np.arange(3) * 2.0 + 0.5, "x": np.arange(3) * 2.0 + 0.5}, dims=("z", "y", "x"))
+    s3, t3, w3 = StructuredGrid3d(voxels).overlap(StructuredGrid3d(coarse), relative=False)
+    voxel_weights = PaddedCSR.from_coo(MatrixCOO.from_triplet(t3, s3, w3, n=18, m=144))
+    with trace(tmp):
+        with annotate("isolation.apply"):
+            voxel_mean = apply_weights(voxel_weights, torch.ones(1, 144), reduce.mean, 18)
+    assert bool(torch.all(voxel_mean == 1.0))
+    corners = np.array([[[0.0, 1.0, 1.0, 0.0], [1.0, 2.0, 2.0, 1.0]]])
+    curvilinear = xt.UgridDataArray.from_structured2d(
+        xt.xdata.DataArray(np.ones((1, 2)), dims=("eta", "xi")), x="xi", y="eta",
+        x_bounds=corners, y_bounds=np.array([[[0.0, 0.0, 1.0, 1.0], [0.0, 0.0, 1.0, 1.0]]]))
+    assert curvilinear.grid.n_face == 2
+    shutil.rmtree(tmp)
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "xugrid_tpu" or m.startswith("xugrid_tpu."))
     assert not loaded, loaded

@@ -37,7 +37,16 @@ It covers:
   ``earcut_triangulate_polygons`` (``ops/earcut.py``), ``snap_nodes``,
   ``snap_to_grid``, ``polygonize``, and the conversions to and from
   shapely geometry and GeoDataFrames (shapely and geopandas imported
-  where they are used); and the sample datasets of ``data``.
+  where they are used); and the sample datasets of ``data``;
+- curvilinear grids from (N, M, 4) corner bounds or 2D coordinates, and
+  voxel and layered 3-D grids (``regrid.StructuredGrid3d``,
+  ``ExplicitStructuredGrid3d``);
+- ``parallel``: the regrid, a Jacobi smoothing and a CG solve sharded
+  over the ranks of a ``torch.distributed`` process group, each rank
+  running the kernels on its block;
+- ``utils.profiling``: host stage timings, ``trace`` (a
+  ``torch.profiler`` trace) and ``annotate``; and the meshkernel bridge,
+  imported where it is used.
 
 Entry points run on the CUDA card unless the caller asks for the CPU.
 The package imports torch, numpy, scipy and pandas, and never jax or

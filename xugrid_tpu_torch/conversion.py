@@ -2,10 +2,10 @@
 Conversions between UGRID geometry and other data structures (host,
 numpy): GIS vector geometry (shapely arrays and geopandas
 GeoDataFrames), and structured (raster) coordinates (cell-centre
-coordinates to interval breaks, cell bounds to vertices, the inference
-of a raster's x and y coordinates).  Copied from
-``xugrid_tpu/conversion.py`` so that the port imports nothing of the JAX
-package; curvilinear (N, M, 4) bounds are not ported.
+coordinates to interval breaks, cell bounds to vertices, curvilinear
+(N, M, 4) corner bounds to a topology, the inference of a raster's x and
+y coordinates).  Copied from ``xugrid_tpu/conversion.py`` so that the
+port imports nothing of the JAX package.
 
 shapely and geopandas are optional and imported inside the functions
 that use them, so the module found in ``sys.modules`` at the call is the
@@ -14,12 +14,13 @@ one used.
 
 from __future__ import annotations
 
+import warnings
 from typing import Tuple
 
 import numpy as np
 
 from xugrid_tpu_torch.constants import FILL_VALUE, IntDType
-from xugrid_tpu_torch.ugrid.connectivity import ragged_index
+from xugrid_tpu_torch.ugrid.connectivity import cross2d, ragged_index
 
 
 def contiguous_xy(xy: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -204,6 +205,62 @@ def bounds1d_to_vertices(bounds: np.ndarray) -> np.ndarray:
     if (diff <= 0.0).all():
         return np.concatenate((bounds[:, 1], bounds[-1:, 0]))
     raise ValueError("Bounds are not monotonic ascending or monotonic descending")
+
+
+def _fan_area_abs(coordinates: np.ndarray) -> np.ndarray:
+    """Total absolute triangle-fan area (orientation-insensitive)."""
+    xy0 = coordinates[:, 0]
+    a = coordinates[:, :-1] - xy0[:, np.newaxis]
+    b = coordinates[:, 1:] - xy0[:, np.newaxis]
+    determinant = cross2d(a, b)
+    return 0.5 * np.abs(determinant).sum(axis=1)
+
+
+def bounds2d_to_topology2d(x_bounds: np.ndarray, y_bounds: np.ndarray):
+    """
+    (N, M, 4) corner bounds -> UGRID topology: validity filtering
+    (degenerate/collinear/NaN cells dropped, a warning counting the
+    degenerate ones), CCW vertex ordering, and node deduplication.
+    Returns (x, y, face_node_connectivity, index), ``index`` the boolean
+    mask of the N * M cells kept.
+    """
+    x = x_bounds.reshape(-1, 4)
+    y = y_bounds.reshape(-1, 4)
+    # Group repeated corners consecutively via a per-face lexsort.
+    sorter = np.lexsort((y, x))
+    corners = np.stack(
+        (np.take_along_axis(x, sorter, axis=1), np.take_along_axis(y, sorter, axis=1)),
+        axis=-1,
+    )
+
+    n_unique = (corners != np.roll(corners, 1, axis=1)).any(axis=-1).sum(axis=1)
+    valid = (n_unique >= 3) & (_fan_area_abs(corners) > 0)
+    if not valid.all():
+        warnings.warn(
+            "A UGRID2D face requires at least three unique non-collinear "
+            f"vertices.\nYour structured bounds contain "
+            f"{len(valid) - valid.sum()} invalid faces.\n"
+            "These will be omitted from the Ugrid2d topology.",
+            UserWarning,
+            stacklevel=2,
+        )
+    index = np.isfinite(corners.reshape(-1, 8)).all(axis=-1) & valid
+    corners = corners[index]
+
+    # CCW ordering by angle around the cell mean; repeated corners are
+    # pushed to the end (angle = inf) so they become the fill slot.
+    centers = np.mean(corners, axis=1)
+    dx = corners[..., 0] - centers[:, np.newaxis, 0]
+    dy = corners[..., 1] - centers[:, np.newaxis, 1]
+    angle = np.arctan2(dy, dx)
+    angle[:, 1:][angle[:, 1:] == angle[:, :-1]] = np.inf
+    ccw = np.argsort(angle, axis=1)
+    corners = np.take_along_axis(corners, ccw[..., None], axis=1)
+
+    xy, inverse = np.unique(corners.reshape((-1, 2)), return_inverse=True, axis=0)
+    face_node_connectivity = inverse.reshape((-1, 4)).astype(IntDType)
+    face_node_connectivity[n_unique[index] == 3, -1] = FILL_VALUE
+    return xy[:, 0], xy[:, 1], face_node_connectivity, index
 
 
 # -- dispatch ----------------------------------------------------------------

@@ -220,6 +220,11 @@ class UgridDataArrayAccessor(AbstractUgridAccessor):
             )
         return UgridDataArray(self.grid.reindex_like(other_grid, obj=self.obj, tolerance=tolerance), other_grid)
 
+    def set_crs(self, crs=None, epsg=None, allow_override: bool = False):
+        """Set the CRS of the grid without transforming its geometry."""
+        self.grid.set_crs(crs, epsg, allow_override)
+        self.grid._update_coordinate_attrs(self.obj)
+
     def to_crs(self, crs=None, epsg=None):
         """Transform node geometry to a new CRS (needs pyproj)."""
         from xugrid_tpu_torch.core.wrap import UgridDataArray

@@ -218,6 +218,14 @@ class UgridDatasetAccessor(AbstractUgridAccessor):
                 new_grids.append(grid)
         return UgridDataset(obj, new_grids)
 
+    def set_crs(self, crs=None, epsg=None, allow_override: bool = False, topology: Optional[str] = None):
+        """Set the CRS of one or all topologies without transforming their
+        geometry."""
+        grids = self.grids if topology is None else [self.topology[topology]]
+        for grid in grids:
+            grid.set_crs(crs, epsg, allow_override)
+            grid._update_coordinate_attrs(self.obj)
+
     def to_crs(self, crs=None, epsg=None, topology: Optional[str] = None):
         """Transform one or all topologies to a new CRS (needs pyproj)."""
         obj = self.obj

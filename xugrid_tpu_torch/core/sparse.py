@@ -74,6 +74,20 @@ class MatrixCSR(NamedTuple):
         return MatrixCOO(self.data, row, self.indices, self.n, self.m, self.nnz)
 
 
+def nzrange(A: MatrixCSR, row: int):
+    """Non-zero range of a CSR row."""
+    return A.indptr[row], A.indptr[row + 1]
+
+
+def row_slice(A: MatrixCSR, row: int) -> slice:
+    start, end = nzrange(A, row)
+    return slice(start, end)
+
+
+def columns_and_values(A: MatrixCSR, row_sl: slice):
+    return A.indices[row_sl], A.data[row_sl]
+
+
 class PaddedCSR(NamedTuple):
     """
     Dense-window CSR: (n, w_max) column indices (-1 padded) and weights
@@ -96,3 +110,7 @@ class PaddedCSR(NamedTuple):
         indices[cols] = A.indices
         weights[cols] = A.data.astype(dtype)
         return PaddedCSR(indices, weights, A.n, A.m, w_max)
+
+    @staticmethod
+    def from_coo(A: MatrixCOO, dtype=np.float64) -> "PaddedCSR":
+        return PaddedCSR.from_csr(A.to_csr(), dtype)

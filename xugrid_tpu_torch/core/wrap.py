@@ -48,6 +48,15 @@ def maybe_xugrid(obj, grids, old_indexes=None):
     return UgridDataset(aligned, aligned_grids)
 
 
+def _host_array(a) -> np.ndarray:
+    """A host numpy array of an array, a tensor or a DataArray."""
+    if isinstance(a, xdata.DataArray):
+        return np.asarray(a.values)
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def maybe_xdata(obj):
     """Unwrap Ugrid wrappers into their xdata objects."""
     if isinstance(obj, (UgridDataArray, UgridDataset)):
@@ -149,6 +158,11 @@ class UgridDataArray(_ForwardMixin):
     def __setitem__(self, key, value):
         self.obj[key] = maybe_xdata(value)
 
+    def __iter__(self):
+        # The JAX package iterates the wrapped DataArray: the items are
+        # plain DataArrays, not UgridDataArrays.
+        return iter(self.obj)
+
     def __array__(self, dtype=None, copy=None):
         return self.obj.__array__(dtype)
 
@@ -178,18 +192,42 @@ class UgridDataArray(_ForwardMixin):
         return grid.create_data_array(data, facet)
 
     @staticmethod
-    def from_structured2d(da: xdata.DataArray, x: str = None, y: str = None) -> "UgridDataArray":
+    def from_structured2d(
+        da: xdata.DataArray, x: str = None, y: str = None, x_bounds=None, y_bounds=None
+    ) -> "UgridDataArray":
         """
-        A UgridDataArray from a rectilinear DataArray, its (y, x)
+        A UgridDataArray from a structured DataArray, its (y, x)
         dimensions flattened into the face dimension of the Ugrid2d of
         its cells (faces y-major in the coordinates' own order).  x and y
-        name the coordinates, inferred when not given.
+        name the coordinates (1D, or 2D for rotated and curvilinear
+        grids), inferred when not given.
+
+        With ``x_bounds`` and ``y_bounds``, (N, M, 4) corner bounds of a
+        curvilinear grid, x and y name the (y, x) dimensions (or
+        coordinates over them) and are required; NaN-masked and
+        degenerate cells are dropped from the grid and the data.
         """
         if da.ndim < 2:
             raise ValueError(f"DataArray must have at least two spatial dimensions. Found: {da.dims}")
-        grid, dims = Ugrid2d.from_structured(da, x, y, return_dims=True)
+        if x_bounds is not None and y_bounds is not None:
+            if x is None or y is None:
+                raise ValueError("x and y must be provided for bounds")
+            if y in da.dims and x in da.dims:
+                dims = (y, x)
+            elif da[x].ndim == 2:
+                dims = tuple(da[x].dims)
+            else:
+                dims = (da[y].dims[0], da[x].dims[0])
+            grid, index = Ugrid2d.from_structured_bounds(
+                _host_array(x_bounds), _host_array(y_bounds), return_index=True
+            )
+        else:
+            grid, dims = Ugrid2d.from_structured(da, x, y, return_dims=True)
+            index = slice(None, None)
         extra_dims = [d for d in da.dims if d not in dims]
         flattened = da.transpose(*extra_dims, *dims).stack_dims(grid.face_dimension, list(dims))
+        if not isinstance(index, slice):
+            flattened = flattened.isel({grid.face_dimension: np.flatnonzero(index)})
         return UgridDataArray(flattened, grid)
 
 
@@ -298,8 +336,11 @@ class UgridDataset(_ForwardMixin):
         face dimension of its Ugrid2d, those over neither kept.
         ``topology`` maps a topology name to ``{"x": ..., "y": ...}``
         coordinate names, or None to infer them (default ``{"mesh2d":
-        None}``; a string names one topology).  (Cell bounds options are
-        not ported.)
+        None}``; a string names one topology).  ``"bounds_x"`` and
+        ``"bounds_y"`` options (arrays, DataArrays or variable names of
+        (N, M, 4) corner bounds) build a curvilinear grid, x and y then
+        naming the (y, x) dimensions; the cells they drop are dropped
+        from every flattened variable.
         """
         if topology is None:
             topology = {"mesh2d": None}
@@ -308,15 +349,34 @@ class UgridDataset(_ForwardMixin):
         out = None
         for name, options in topology.items():
             options = options or {}
-            grid, dims = Ugrid2d.from_structured(
-                dataset, options.get("x"), options.get("y"), name=name, return_dims=True
-            )
+            x = options.get("x")
+            y = options.get("y")
+            bounds_x = options.get("bounds_x")
+            bounds_y = options.get("bounds_y")
+            if bounds_x is not None:
+                if isinstance(bounds_x, str):
+                    bounds_x = dataset[bounds_x]
+                if isinstance(bounds_y, str):
+                    bounds_y = dataset[bounds_y]
+                grid, index = Ugrid2d.from_structured_bounds(
+                    _host_array(bounds_x), _host_array(bounds_y), name=name, return_index=True
+                )
+                if y in dataset.dims_sizes() and x in dataset.dims_sizes():
+                    dims = (y, x)
+                else:
+                    dims = (dataset[y].dims[0], dataset[x].dims[0])
+            else:
+                grid, dims = Ugrid2d.from_structured(dataset, x, y, name=name, return_dims=True)
+                index = slice(None, None)
             new_ds = xdata.Dataset(attrs=dict(dataset.attrs))
             for varname in dataset.data_vars:
                 da = dataset[varname]
                 if set(dims) <= set(da.dims):
                     extra = [d for d in da.dims if d not in dims]
-                    new_ds[varname] = da.transpose(*extra, *dims).stack_dims(grid.face_dimension, list(dims))
+                    flattened = da.transpose(*extra, *dims).stack_dims(grid.face_dimension, list(dims))
+                    if not isinstance(index, slice):
+                        flattened = flattened.isel({grid.face_dimension: np.flatnonzero(index)})
+                    new_ds[varname] = flattened
                 elif not set(dims) & set(da.dims):
                     new_ds[varname] = da
             part = UgridDataset(new_ds, [grid])

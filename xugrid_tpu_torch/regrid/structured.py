@@ -1,15 +1,19 @@
 """
 Structured (raster) grid adapters of the regridders (host, numpy).
 
-Copied from ``xugrid_tpu/regrid/structured.py``'s 1D and 2D grids: cell
-bounds from a ``{x}bounds`` coordinate, a ``d{x}`` spacing or
-equidistant midpoints; descending axes flipped internally and their
-indices flipped back on output; overlap by interval joins, centroid
-location by searchsorted containment, bilinear weights by neighbouring
-centroid pairs, the per-axis joins combined by outer products
-(``utils.broadcast``).  Every join returns ``(source_index,
-target_index, weights)`` sorted by target.  (The 3D grids are not
-ported.)
+Copied from ``xugrid_tpu/regrid/structured.py``: 1D and 2D grids,
+voxels (``StructuredGrid3d``) and layered models with per-column layer
+bounds (``ExplicitStructuredGrid3d``).  Cell bounds come from a
+``{x}bounds`` coordinate, a ``d{x}`` spacing or equidistant midpoints;
+descending axes are flipped internally and their indices flipped back on
+output; overlap by interval joins, centroid location by searchsorted
+containment, (bi/tri)linear weights by neighbouring centroid pairs, the
+per-axis joins combined by outer products (``utils.broadcast``); the
+layers of a layered model by batched interval joins per column pair
+(``overlap_1d.overlap_1d_nd``).  Every join returns ``(source_index,
+target_index, weights)`` sorted by target, linear indices row-major over
+(z, y, x) for the 3D grids; ``core.sparse`` turns them into the
+``PaddedCSR`` that ``regrid.apply.apply_weights`` takes.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Any, Tuple
 import numpy as np
 
 from xugrid_tpu_torch import xdata
-from xugrid_tpu_torch.regrid.overlap_1d import overlap_1d
+from xugrid_tpu_torch.regrid.overlap_1d import overlap_1d, overlap_1d_nd
 from xugrid_tpu_torch.regrid.utils import broadcast
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.utils.profiling import timed
@@ -289,3 +293,130 @@ class StructuredGrid2d(StructuredGrid1d):
             {"type": "StructuredGrid2d", "name_x": self.xbounds.name, "name_y": self.ybounds.name},
         )
         return ds
+
+
+class StructuredGrid3d(StructuredGrid2d):
+    """A voxel topology: the outer product of z, y and x axes, cells
+    z-major."""
+
+    def __init__(self, obj, name_x="x", name_y="y", name_z="z"):
+        self.xbounds = StructuredGrid1d(obj, name_x)
+        self.ybounds = StructuredGrid1d(obj, name_y)
+        self.zbounds = StructuredGrid1d(obj, name_z)
+
+    @property
+    def ndim(self) -> int:
+        return 3
+
+    @property
+    def dims(self):
+        return self.zbounds.dims + self.ybounds.dims + self.xbounds.dims
+
+    @property
+    def shape(self):
+        return (self.zbounds.size, self.ybounds.size, self.xbounds.size)
+
+    @property
+    def size(self) -> int:
+        return self.zbounds.size * self.ybounds.size * self.xbounds.size
+
+    @property
+    def volume(self) -> np.ndarray:
+        return np.multiply.outer(self.zbounds.length, self.area)
+
+    def _broadcast_sorted3(self, other, sz, sy, sx, tz, ty, tx, wz, wy, wx):
+        return _sorted(*broadcast(self.shape, other.shape, (sz, sy, sx), (tz, ty, tx), (wz, wy, wx)))
+
+    def overlap(self, other, relative: bool):
+        """(Relative) volume-of-overlap join with another voxel grid."""
+        with timed("structured.overlap"):
+            sx, tx, wx = self.xbounds.overlap(other.xbounds, relative)
+            sy, ty, wy = self.ybounds.overlap(other.ybounds, relative)
+            sz, tz, wz = self.zbounds.overlap(other.zbounds, relative)
+            return self._broadcast_sorted3(other, sz, sy, sx, tz, ty, tx, wz, wy, wx)
+
+    def locate_centroids(self, other, tolerance=None):
+        """Containment join of target voxel centres."""
+        with timed("structured.locate_centroids"):
+            sx, tx, wx = self.xbounds.locate_centroids(other.xbounds)
+            sy, ty, wy = self.ybounds.locate_centroids(other.ybounds)
+            sz, tz, wz = self.zbounds.locate_centroids(other.zbounds)
+            return self._broadcast_sorted3(other, sz, sy, sx, tz, ty, tx, wz, wy, wx)
+
+    def linear_weights(self, other):
+        """Trilinear interpolation weights at target voxel centres."""
+        with timed("structured.linear_weights"):
+            sx, tx, wx = self.xbounds.linear_weights(other.xbounds)
+            sy, ty, wy = self.ybounds.linear_weights(other.ybounds)
+            sz, tz, wz = self.zbounds.linear_weights(other.zbounds)
+            return self._broadcast_sorted3(other, sz, sy, sx, tz, ty, tx, wz, wy, wx)
+
+
+class ExplicitStructuredGrid3d:
+    """
+    A layered topology: per-column explicit z-bounds over a structured
+    (y, x) footprint (e.g. geological layer models).  ``obj`` carries x
+    and y coordinates and a ``{z}bounds`` array of shape (nlayer, y * x,
+    2), each column's layers ascending.
+    """
+
+    def __init__(self, obj, name_x="x", name_y="y", name_z="z"):
+        self.xbounds = StructuredGrid1d(obj, name_x)
+        self.ybounds = StructuredGrid1d(obj, name_y)
+        zbounds_name = f"{name_z}bounds"
+        zb = np.asarray(obj[zbounds_name].data, dtype=np.float64)
+        if zb.ndim != 3:
+            raise ValueError(f"{zbounds_name} must have shape (nlayer, n_yx, 2), received: {zb.shape}")
+        self.zbounds = zb
+
+    @property
+    def shape(self):
+        return (self.zbounds.shape[0], self.ybounds.size, self.xbounds.size)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+    @property
+    def area(self) -> np.ndarray:
+        return np.multiply.outer(self.ybounds.length, self.xbounds.length)
+
+    def overlap(self, other, relative: bool):
+        """Volume overlap against a voxel or layered grid: the (y, x)
+        footprints joined as rasters, then each overlapping column pair's
+        layers by an interval join."""
+        with timed("structured.overlap_layered"):
+            sx, tx, wx = self.xbounds.overlap(other.xbounds, relative)
+            sy, ty, wy = self.ybounds.overlap(other.ybounds, relative)
+            source_yx, target_yx, weights_yx = broadcast(
+                self.shape[1:], other.shape[1:], (sy, sx), (ty, tx), (wy, wx)
+            )
+            if isinstance(other, StructuredGrid3d):
+                other_zbounds = other.zbounds.bounds[np.newaxis]
+                target_rows = np.zeros(len(target_yx), dtype=np.int64)
+            elif isinstance(other, ExplicitStructuredGrid3d):
+                other_zbounds = np.swapaxes(other.zbounds, 0, 1)
+                target_rows = target_yx
+            else:
+                raise TypeError(f"Cannot overlap with {type(other).__name__}")
+
+            self_zbounds = np.swapaxes(self.zbounds, 0, 1)  # (n_yx, nlayer, 2)
+            source_zyx, target_zyx, weights_z, pair = overlap_1d_nd(
+                self_zbounds, other_zbounds, source_yx, target_rows
+            )
+            weights = weights_z * weights_yx[pair]
+            # Per-column linear indices (column * n_layer + z) back to
+            # global (z, y, x) linear indices.
+            n_layer = self.zbounds.shape[0]
+            src_col = source_zyx // n_layer
+            src_z = source_zyx % n_layer
+            source_index = src_z * (self.shape[1] * self.shape[2]) + src_col
+            n_yx_other = other.shape[1] * other.shape[2]
+            if isinstance(other, StructuredGrid3d):
+                target_index = target_zyx * n_yx_other + target_yx[pair]
+            else:
+                n_other_layer = other.zbounds.shape[0]
+                tgt_col = target_zyx // n_other_layer
+                tgt_z = target_zyx % n_other_layer
+                target_index = tgt_z * n_yx_other + tgt_col
+            return _sorted(source_index, target_index, weights)

@@ -4,7 +4,9 @@ river or channel network), reduced to what ``NetworkGridder``, the
 UGRID file round trip, the topology subsets, the partition merge, the
 point and line selections, the nearest fill (Dijkstra along the
 network) and the graph edits (topological order, self-loops, vertex
-contraction, refinement) read.
+contraction, refinement) read; the meshkernel bridge (``mesh``,
+``meshkernel``, ``from_meshkernel``) imports meshkernel where it is
+used, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -76,6 +78,8 @@ class Ugrid1d(AbstractUgrid):
 
     def _clear_geometry_properties(self):
         """Drop the cached geometry (after the node coordinates change)."""
+        self._mesh = None
+        self._meshkernel = None
         self._edge_x = None
         self._edge_y = None
         self._celltree = None
@@ -136,6 +140,20 @@ class Ugrid1d(AbstractUgrid):
             is_projected=is_projected,
             crs=crs,
             start_index=start_index,
+        )
+
+    @classmethod
+    def from_meshkernel(cls, mesh, name="network1d", is_projected=True, crs=None):
+        """A Ugrid1d of a meshkernel Mesh1d object (node_x, node_y,
+        edge_nodes)."""
+        return cls(
+            mesh.node_x,
+            mesh.node_y,
+            fill_value=FILL_VALUE,
+            edge_node_connectivity=mesh.edge_nodes.reshape((-1, 2)),
+            name=name,
+            is_projected=is_projected,
+            crs=crs,
         )
 
     def to_dataset(self, other=None, optional_attributes: bool = False):
@@ -250,6 +268,32 @@ class Ugrid1d(AbstractUgrid):
 
         warnings.warn(".to_pygeos has been deprecated. Use .to_shapely instead.", DeprecationWarning)
         return self.to_shapely(dim)
+
+    # -- meshkernel (optional; imported where it is used) -------------------------
+    @property
+    def mesh(self):
+        """meshkernel Mesh1d view of this network (requires meshkernel)."""
+        import meshkernel as mk
+
+        if self._mesh is None:
+            self._mesh = mk.Mesh1d(
+                node_x=self.node_x,
+                node_y=self.node_y,
+                edge_nodes=self.edge_node_connectivity.ravel().astype(np.int32),
+            )
+        return self._mesh
+
+    @property
+    def meshkernel(self):
+        """meshkernel MeshKernel instance for this network (requires
+        meshkernel)."""
+        import meshkernel as mk
+
+        if self._meshkernel is None:
+            projection = mk.ProjectionType.SPHERICAL if self.is_geographic else mk.ProjectionType.CARTESIAN
+            self._meshkernel = mk.MeshKernel(projection)
+            self._meshkernel.mesh1d_set(self.mesh)
+        return self._meshkernel
 
     # -- spatial queries -----------------------------------------------------------
     @property

@@ -2,9 +2,13 @@
 Ugrid2d: topology of a 2D unstructured mesh (UGRID conventions),
 reduced to what the regridders, the Laplace and nearest fills, the
 UGRID file round trip, the topology subsets, the partition merge, the
-point and line selections, rasterization and the topology operations
+point and line selections, rasterization, the topology operations
 (triangulation, voronoi tessellations, periodic conversion, reordering)
-read.
+and the structured constructors (rectilinear, rotated and curvilinear
+coordinates, (N, M, 4) corner bounds) read; the meshkernel bridge
+(``mesh``, ``meshkernel``, ``from_meshkernel``, ``refine_polygon``,
+``delete_polygon``, ``from_polygon``) imports meshkernel where it is
+used, as the JAX package does.
 
 The canonical storage is a padded dense int64 ``face_node_connectivity``
 (fill -1, 0-based) plus float64 node x/y; the fill value and start index
@@ -16,6 +20,7 @@ are computed on first use and cached.
 
 from __future__ import annotations
 
+import warnings
 from itertools import chain
 from typing import Any, Dict, Optional, Sequence
 
@@ -124,6 +129,8 @@ class Ugrid2d(AbstractUgrid):
 
     def _clear_geometry_properties(self):
         """Drop the cached geometry (after the node coordinates change)."""
+        self._mesh = None
+        self._meshkernel = None
         self._area = None
         self._perimeter = None
         self._centroids = None
@@ -205,6 +212,26 @@ class Ugrid2d(AbstractUgrid):
             is_projected=is_projected,
             crs=crs,
             start_index=start_index,
+        )
+
+    @classmethod
+    def from_meshkernel(cls, mesh, name="mesh2d", is_projected=True, crs=None):
+        """A Ugrid2d of a meshkernel Mesh2d object (node_x, node_y,
+        edge_nodes, face_nodes, nodes_per_face)."""
+        n_face = len(mesh.nodes_per_face)
+        n_max = int(mesh.nodes_per_face.max())
+        conn = np.full((n_face, n_max), FILL_VALUE, dtype=IntDType)
+        isnode = connectivity.ragged_index(n_face, n_max, mesh.nodes_per_face)
+        conn[isnode] = mesh.face_nodes
+        return cls(
+            node_x=mesh.node_x,
+            node_y=mesh.node_y,
+            fill_value=FILL_VALUE,
+            face_node_connectivity=conn,
+            edge_node_connectivity=np.reshape(mesh.edge_nodes, (-1, 2)),
+            name=name,
+            is_projected=is_projected,
+            crs=crs,
         )
 
     def _get_name_and_attrs(self, name: str):
@@ -424,30 +451,98 @@ class Ugrid2d(AbstractUgrid):
         return Ugrid2d._from_intervals_helper(node_x, node_y, nx, ny, name)
 
     @staticmethod
-    def from_structured_bounds(x_bounds, y_bounds, name="mesh2d"):
+    def from_structured_intervals2d(x_intervals, y_intervals, name="mesh2d") -> "Ugrid2d":
+        """Ugrid2d from 2D (curvilinear) interval breaks, (ny + 1, nx + 1)
+        each."""
+        x_intervals = np.asarray(x_intervals)
+        y_intervals = np.asarray(y_intervals)
+        if x_intervals.ndim != 2 or y_intervals.ndim != 2:
+            raise ValueError("Dimensions of intervals must be 2D.")
+        if x_intervals.shape != y_intervals.shape:
+            raise ValueError(
+                "Interval shapes must match. Found: "
+                f"x_intervals: {x_intervals.shape}, versus y_intervals: "
+                f"{y_intervals.shape}"
+            )
+        ny = x_intervals.shape[0] - 1
+        nx = x_intervals.shape[1] - 1
+        return Ugrid2d._from_intervals_helper(x_intervals.ravel(), y_intervals.ravel(), nx, ny, name)
+
+    @staticmethod
+    def from_structured_bounds(x_bounds, y_bounds, name="mesh2d", return_index: bool = False):
         """
-        Ugrid2d from (nx, 2) and (ny, 2) cell bounds, monotonic ascending or
-        descending: face k is cell (k // nx, k % nx) in the bounds' own
-        order.  (Curvilinear (N, M, 4) bounds are not ported.)
+        Ugrid2d from cell bounds: (nx, 2) and (ny, 2) interval bounds,
+        monotonic ascending or descending (face k is cell (k // nx, k %
+        nx) in the bounds' own order), or (N, M, 4) corner bounds of a
+        curvilinear grid, whose NaN-masked and degenerate cells are
+        dropped (``conversion.bounds2d_to_topology2d``).
+        ``return_index`` also returns the cells kept: a boolean mask of
+        the N * M cells, or ``slice(None, None)`` for interval bounds.
         """
         from xugrid_tpu_torch import conversion
 
         x_bounds = np.asarray(x_bounds)
         y_bounds = np.asarray(y_bounds)
-        if x_bounds.ndim != 2 or y_bounds.ndim != 2:
-            raise ValueError(f"Expected (n, 2) bounds, received {x_bounds.ndim} and {y_bounds.ndim} dimensions")
-        x = conversion.bounds1d_to_vertices(x_bounds)
-        y = conversion.bounds1d_to_vertices(y_bounds)
-        node_y, node_x = (a.ravel() for a in np.meshgrid(y, x, indexing="ij"))
-        return Ugrid2d._from_intervals_helper(node_x, node_y, x_bounds.shape[0], y_bounds.shape[0], name)
+        ndim = x_bounds.ndim
+        if ndim == 2:
+            nx = x_bounds.shape[0]
+            ny = y_bounds.shape[0]
+            x = conversion.bounds1d_to_vertices(x_bounds)
+            y = conversion.bounds1d_to_vertices(y_bounds)
+            node_y, node_x = (a.ravel() for a in np.meshgrid(y, x, indexing="ij"))
+            grid = Ugrid2d._from_intervals_helper(node_x, node_y, nx, ny, name)
+            index = slice(None, None)
+        elif ndim == 3:
+            if x_bounds.shape != y_bounds.shape:
+                raise ValueError(f"Bounds shapes do not match: {x_bounds.shape} versus {y_bounds.shape}")
+            x, y, face_node_connectivity, index = conversion.bounds2d_to_topology2d(x_bounds, y_bounds)
+            grid = Ugrid2d(x, y, FILL_VALUE, face_node_connectivity, name=name)
+        else:
+            raise ValueError(f"Expected 2 or 3 dimensions on bounds, received: {ndim}")
+        if return_index:
+            return grid, index
+        return grid
+
+    @staticmethod
+    def _from_structured_singlecoord(data, x=None, y=None, name="mesh2d") -> "Ugrid2d":
+        from xugrid_tpu_torch import conversion
+
+        if x is None or y is None:
+            x, y = conversion.infer_xy_coords(data)
+            if x is None or y is None:
+                raise ValueError("Could not infer bounds. Please provide x and y explicitly.")
+        x_intervals = conversion.infer_interval_breaks1d(data, x)
+        y_intervals = conversion.infer_interval_breaks1d(data, y)
+        return Ugrid2d.from_structured_intervals1d(x_intervals, y_intervals, name)
+
+    @staticmethod
+    def _from_structured_multicoord(data, x, y, name="mesh2d") -> "Ugrid2d":
+        from xugrid_tpu_torch import conversion
+
+        xv = conversion.infer_interval_breaks(np.asarray(data[x].data), axis=1, check_monotonic=True)
+        xv = conversion.infer_interval_breaks(xv, axis=0)
+        yv = conversion.infer_interval_breaks(np.asarray(data[y].data), axis=1)
+        yv = conversion.infer_interval_breaks(yv, axis=0, check_monotonic=True)
+        return Ugrid2d.from_structured_intervals2d(xv, yv, name)
+
+    @staticmethod
+    def from_structured_multicoord(data, x=None, y=None, name="mesh2d") -> "Ugrid2d":
+        """Deprecated: ``from_structured``."""
+        warnings.warn(
+            "Ugrid2d.from_structured_multicoord has been deprecated. "
+            "Use Ugrid2d.from_structured instead.",
+            FutureWarning,
+        )
+        return Ugrid2d.from_structured(data, x, y, name)
 
     @staticmethod
     def from_structured(data, x=None, y=None, name="mesh2d", return_dims=False):
         """
-        Ugrid2d from a rectilinear DataArray or Dataset (1D x and y
-        coordinates, inferred when not given).  ``return_dims`` also
-        returns the (y, x) dimensions.  (Rotated and curvilinear
-        coordinates are not ported.)
+        Ugrid2d from a structured DataArray or Dataset: rectilinear (1D x
+        and y coordinates) or rotated and curvilinear (2D x and y
+        coordinates, their interval breaks inferred along both axes).
+        x and y name the coordinates, inferred when not given;
+        ``return_dims`` also returns the (y, x) dimensions.
         """
         from xugrid_tpu_torch import conversion
 
@@ -458,15 +553,19 @@ class Ugrid2d(AbstractUgrid):
             if x is None or y is None:
                 raise ValueError("Could not infer bounds. Please provide x and y explicitly.")
         else:
-            missing = {x, y} - set(data.coords)
+            coords = set(data.coords)
+            missing = {x, y} - coords
             if missing:
-                raise ValueError(f"Coordinates {x} and {y} are not present, expected one of: {set(data.coords)}")
-        if data[x].ndim != 1:
-            raise NotImplementedError("x and y must be 1D: curvilinear coordinates are not ported")
-        grid = Ugrid2d.from_structured_intervals1d(
-            conversion.infer_interval_breaks1d(data, x), conversion.infer_interval_breaks1d(data, y), name
-        )
-        dims = (data[y].dims[0], data[x].dims[0])
+                raise ValueError(f"Coordinates {x} and {y} are not present, expected one of: {coords}")
+        ndim = data[x].ndim
+        if ndim == 1:
+            grid = Ugrid2d._from_structured_singlecoord(data, x=x, y=y, name=name)
+            dims = (data[y].dims[0], data[x].dims[0])
+        elif ndim == 2:
+            grid = Ugrid2d._from_structured_multicoord(data, x=x, y=y, name=name)
+            dims = tuple(data[x].dims)
+        else:
+            raise ValueError(f"x and y must be 1D or 2D. Found: {ndim}")
         if return_dims:
             return grid, dims
         return grid
@@ -711,6 +810,104 @@ class Ugrid2d(AbstractUgrid):
                 self.node_coordinates, self.face_node_connectivity, FILL_VALUE
             )
         return self._celltree
+
+    # -- meshkernel (optional; imported where it is used) -------------------------
+    @property
+    def mesh(self):
+        """meshkernel Mesh2d view of this topology (requires meshkernel)."""
+        import meshkernel as mk
+
+        if self._mesh is None:
+            is_node = self.face_node_connectivity != FILL_VALUE
+            self._mesh = mk.Mesh2d(
+                node_x=self.node_x,
+                node_y=self.node_y,
+                edge_nodes=self.edge_node_connectivity.ravel().astype(np.int32),
+                face_nodes=self.face_node_connectivity[is_node].ravel().astype(np.int32),
+                nodes_per_face=is_node.sum(axis=1).astype(np.int32),
+            )
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, value):
+        self._mesh = value
+
+    @property
+    def meshkernel(self):
+        """meshkernel MeshKernel instance for this topology (requires
+        meshkernel)."""
+        import meshkernel as mk
+
+        if self._meshkernel is None:
+            projection = mk.ProjectionType.SPHERICAL if self.is_geographic else mk.ProjectionType.CARTESIAN
+            self._meshkernel = mk.MeshKernel(projection)
+            self._meshkernel.mesh2d_set(self.mesh)
+        return self._meshkernel
+
+    def _initialize_mesh_kernel(self):
+        _ = self.meshkernel
+
+    def refine_polygon(
+        self,
+        polygon,
+        min_face_size: float,
+        refine_intersected: bool = True,
+        use_mass_center_when_refining: bool = True,
+        refinement_type: str = "refinement_levels",
+        connect_hanging_nodes: bool = True,
+        account_for_samples_outside_face: bool = True,
+        max_refinement_iterations: int = 10,
+    ):
+        """Refine the faces inside a shapely polygon with meshkernel."""
+        import meshkernel as mk
+
+        from xugrid_tpu_torch import meshkernel_utils as mku
+
+        geometry_list = mku.to_geometry_list(polygon)
+        refinement_type = mku.either_string_or_enum(refinement_type, mk.RefinementType)
+        self._initialize_mesh_kernel()
+        params = mk.MeshRefinementParameters(
+            refine_intersected,
+            use_mass_center_when_refining,
+            min_face_size,
+            refinement_type,
+            connect_hanging_nodes,
+            account_for_samples_outside_face,
+            max_refinement_iterations,
+        )
+        self._meshkernel.mesh2d_refine_based_on_polygon(geometry_list, params)
+
+    def delete_polygon(
+        self,
+        polygon,
+        delete_option: str = "all_face_circumenters",
+        invert_deletion: bool = False,
+    ):
+        """Delete the part of the mesh inside a shapely polygon with
+        meshkernel."""
+        import meshkernel as mk
+
+        from xugrid_tpu_torch import meshkernel_utils as mku
+
+        geometry_list = mku.to_geometry_list(polygon)
+        delete_option = mku.either_string_or_enum(delete_option, mk.DeleteMeshOption)
+        self._initialize_mesh_kernel()
+        self._meshkernel.mesh2d_delete(geometry_list, delete_option, invert_deletion)
+
+    @staticmethod
+    def from_polygon(polygon):
+        """A mesh of a shapely polygon, made by meshkernel."""
+        import meshkernel as mk
+
+        from xugrid_tpu_torch import meshkernel_utils as mku
+
+        geometry_list = mku.to_geometry_list(polygon)
+        kernel = mk.MeshKernel()
+        kernel.mesh2d_make_mesh_from_polygon(geometry_list)
+        mesh = kernel.mesh2d_get()
+        ugrid = Ugrid2d.from_meshkernel(mesh)
+        ugrid._meshkernel = kernel
+        return ugrid
 
     # -- point queries -----------------------------------------------------------
     def locate_points(self, points: np.ndarray, tolerance: Optional[float] = None) -> np.ndarray:

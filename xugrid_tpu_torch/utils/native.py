@@ -6,8 +6,9 @@ Bound are the entry points of the regridders' weight builds (grid hash,
 polygon clips, point location, point in polygon, segment clip,
 mean-value weights, CSR build), the face centroids, the partition
 and merge kernels (Hilbert distances, the hashed row deduplication) and
-the network's graph walks (topological sort, vertex contraction) and the greedy
-snap of ``snap_nodes``.  The library is
+the network's graph walks (topological sort, vertex contraction), the greedy
+snap of ``snap_nodes`` and the Hilbert-ordered padded weight layout of
+the sharded regrid.  The library is
 compiled with g++ into the port's build directory on first use.  Every
 binding returns None when the library is unavailable (or refuses the
 input, as each one says); its caller then takes a numpy fallback where
@@ -94,6 +95,11 @@ def _bind(lib):
     lib.contract_vertices_walk.restype = ctypes.c_int64
     lib.snap_to_nearest_greedy.argtypes = [_ip, _ip, _dp, _i64, _ip, _i64, _f64, _ip]
     lib.snap_to_nearest_greedy.restype = None
+    lib.padded_layout.argtypes = [
+        _ip, _ip, _dp, _i64, _i64, _ip, _ip, _ip, _i64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float),
+    ]
+    lib.padded_layout.restype = ctypes.c_int64
 
 
 def get_lib():
@@ -518,3 +524,41 @@ def snap_to_nearest_native(indptr, indices, data, n: int, candidates, max_distan
         _ptr(candidates, _ip), len(candidates), float(max_distance), _ptr(visited, _ip),
     )
     return visited
+
+
+def padded_layout_native(target_index, source_index, weights, torder, sremap, n: int):
+    """The Hilbert-ordered ``PaddedCSR`` of a weight matrix in one pass
+    (``padded_layout`` of csrc/host_kernels.cpp): row ``r`` is target
+    ``torder[r]``'s window, its columns remapped by ``sremap``, in the
+    triplets' entry order.  Returns (indices int32 (n, w_max), weights
+    float32 (n, w_max)), or None when the library is unavailable, an
+    index lies outside its range, or ``target_index`` is not grouped in
+    ascending order (the caller then takes the sorting path)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    target_index = np.ascontiguousarray(target_index, dtype=np.int64)
+    source_index = np.ascontiguousarray(source_index, dtype=np.int64)
+    weights = np.ascontiguousarray(weights, dtype=np.float64)
+    torder = np.ascontiguousarray(torder, dtype=np.int64)
+    sremap = np.ascontiguousarray(sremap, dtype=np.int64)
+    nnz = len(target_index)
+    if nnz and (
+        target_index.min() < 0 or target_index.max() >= n
+        or source_index.min() < 0 or source_index.max() >= len(sremap)
+    ):
+        return None
+    starts = np.empty(n + 1, dtype=np.int64)
+    args = (_ptr(target_index, _ip), _ptr(source_index, _ip), _ptr(weights, _dp), nnz, n,
+            _ptr(torder, _ip), _ptr(sremap, _ip), _ptr(starts, _ip))
+    w_max = lib.padded_layout(*args, 0, None, None)
+    if w_max < 0:
+        return None
+    w_max = max(int(w_max), 1)
+    out_idx = np.empty((n, w_max), dtype=np.int32)
+    out_w = np.empty((n, w_max), dtype=np.float32)
+    lib.padded_layout(
+        *args, w_max, out_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out_w.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    )
+    return out_idx, out_w
