@@ -297,6 +297,19 @@ With no argument it runs these phases:
    own.  Each result held to the plain version and a host computation,
    the sharded ones bit-equal to the unsharded apply.
 
+17. The flat BVH and its batched queries (``spatial/queries.py``, torch
+   ops) at full width: ``build_bvh`` over phase 3's 1M face boxes (the
+   native kd order and the numpy branch timed), point location of
+   1,000,000 points (frontier descent, overflows rerun by the skip-link
+   walk) against ``CellTree2d.locate_points``, the 512 x 512 raster's cell
+   boxes by the frontier join and by count then emit against the grid
+   hash, 100,000 points on phase 7's network against
+   ``EdgeCellTree2d.locate_points``, and the exact passes (point in
+   polygon, segment clip, burn centroids in triangles) against the native
+   host kernels; ms per pass beside the native library's seconds; no
+   CUDA kernel launches.  ``uda.ugrid.plot()`` of a CUDA payload raises
+   without matplotlib (the card machine has none).
+
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits with 2 and prints no result.
@@ -5270,6 +5283,380 @@ def phase_structured_sharded(device, card, copy_gbps, inputs, main_results, mesh
     return counts, max_err, world2
 
 
+BVH_LEAF_SIZE = 8
+BVH_POINTS = 1_000_000
+BVH_FRONTIER = 8
+BVH_BOX_FRONTIER = 16
+BVH_NETWORK_POINTS = 100_000
+BVH_SEGMENTS = 10_000
+#: Operations of one exact test per polygon edge (crossing test and
+#: distance to the edge) and per AABB test, as counted for the bounds.
+PIP_OPS_PER_EDGE = 25
+AABB_OPS = 4
+
+
+def query_bound(true_bytes, operations, copy_gbps):
+    """Phase 17's bound of a query pass: (ms, "bytes" or "operations")."""
+    ms, by = bound_ms(true_bytes, operations, "float64", copy_gbps)
+    return {"bound_ms": ms, "bound_by": by, "bytes": int(true_bytes), "operations": int(operations)}
+
+
+def phase_bvh_queries(device, card, copy_gbps, inputs, main_results):
+    """Phase 17: the flat BVH and its batched queries (torch ops,
+    ``spatial/queries.py``) at full width on the card, each held to the
+    port's host computations.
+
+    17.1 ``build_bvh`` over phase 3's 1M face boxes (leaf size 8, 131,072
+    leaves) with the native ``kd_order`` and with the numpy branch (host
+    seconds; both trees hold every face once), uploaded in float64.
+    17.2 ``locate_points_kernel`` of 1,000,000 seeded points (99 % inside
+    the mesh's bounds, 1 % outside), the overflowed ones again through
+    ``locate_points_while_kernel``, against ``CellTree2d.locate_points``
+    (native): every face id equal, but for points within the tolerance of
+    an edge, where both faces must hold the point by the native
+    ``points_in_polygons``.
+    17.3 The 512 x 512 raster's cell boxes through ``box_candidates_kernel``
+    and through ``count_box_overlaps_kernel`` then
+    ``emit_box_overlaps_kernel`` (capacity the counted maximum): each
+    box's faces equal to ``grid_hash.query_boxes`` filtered by the exact
+    AABB test, the counts equal to the sets' sizes.
+    17.4 ``locate_points_on_edges_kernel`` on phase 7's network for
+    100,000 points, half on edges: found and not found as
+    ``EdgeCellTree2d.locate_points``, every found edge within the
+    tolerance of its point (ties counted).
+    17.5 The exact passes against the native host kernels on the same
+    pairs: ``points_in_polygons_kernel`` on 17.2's grid-hash candidate
+    pairs, ``clip_segments_by_faces_kernel`` on 10,000 cross-sections'
+    candidate pairs (``valid`` equal, t0 and t1 within rtol 1e-12),
+    ``points_in_triangles_kernel`` on phase 14's burn centroid pairs.
+    17.6 ``import xugrid_tpu_torch.plot``; ``uda.ugrid.plot()`` of a CUDA
+    payload raises ModuleNotFoundError naming matplotlib where
+    matplotlib is not installed, else draws the payload's host copy.
+
+    Times: CUDA events around passes back to back (the passes hold host
+    syncs: a descent level's width, the walks' checks), beside the
+    native host library's seconds.  Returns (launch counts of the three
+    CUDA kernels over the phase, which it does not launch; the timings)."""
+    import importlib.util
+
+    import torch
+
+    import xugrid_tpu_torch as xt
+    import xugrid_tpu_torch.plot  # noqa: F401  (the card machine has no matplotlib)
+    from xugrid_tpu_torch.ops.earcut import earcut_triangulate
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.spatial import build_bvh, queries
+    from xugrid_tpu_torch.spatial.bvh import edge_bounding_boxes, face_bounding_boxes
+    from xugrid_tpu_torch.spatial.geometry import pad_polygons
+    from xugrid_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    kernels = (window_reduce, window_select, csr_matvec)
+    for k in kernels:
+        k.launches = 0
+    (verts, faces), (tverts, tfaces), _ = inputs
+    mesh = next(r for _, method, _, r, *_ in main_results if method == "mean")._source.ugrid_topology
+    rng = np.random.default_rng(17)
+    timed = {}
+
+    def report(line):
+        print(f"  {line} [{card}]")
+
+    def host_s(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def pass_ms(fn):
+        return cuda_time_ms(fn, reps=3, warmup=1, inner=2)
+
+    print(f"phase 17: the flat BVH and its batched queries (torch ops) on the 1M mesh [{card}]")
+
+    # 17.1: the build, native kd order and numpy branch.
+    boxes = face_bounding_boxes(faces, verts[:, 0], verts[:, 1])
+    host, native_s = host_s(lambda: build_bvh(boxes, BVH_LEAF_SIZE))
+    saved = native.kd_order_native
+    native.kd_order_native = lambda *args: None
+    try:
+        numpy_tree, numpy_s = host_s(lambda: build_bvh(boxes, BVH_LEAF_SIZE))
+    finally:
+        native.kd_order_native = saved
+    n_leaves = queries.next_pow2(-(-mesh.n_face // BVH_LEAF_SIZE))
+    for label, tree in (("native", host), ("numpy", numpy_tree)):
+        held = np.sort(tree.prim_index[tree.prim_index >= 0])
+        if tree.n_leaves != n_leaves or not np.array_equal(held, np.arange(mesh.n_face)):
+            raise AssertionError(f"17.1 {label} build: {tree.n_leaves} leaves, {len(held)} faces held")
+    depth = host.n_leaves.bit_length() - 1
+    t0 = time.perf_counter()
+    tree = queries.bvh_to_device(host, device=device)
+    poly_host = pad_polygons(faces, verts[:, 0], verts[:, 1])
+    poly = torch.from_numpy(poly_host).to(device)
+    boxes_dev = torch.from_numpy(boxes).to(device)
+    torch.cuda.synchronize()
+    report(
+        f"17.1 build_bvh of {mesh.n_face} face boxes: {host.n_leaves} leaves of {BVH_LEAF_SIZE}, depth {depth}; "
+        f"host {native_s:.3f} s with the native kd order, {numpy_s:.3f} s with the numpy branch; "
+        f"upload (float64 tree, polygons, boxes) {time.perf_counter() - t0:.3f} s"
+    )
+
+    # 17.2: point location, frontier then walk, against the native locate.
+    celltree = mesh.celltree
+    tol = celltree.default_tolerance()
+    n_out = BVH_POINTS // 100
+    inside = rng.uniform(0.0, float(N_SIDE), (BVH_POINTS - n_out, 2))
+    outside = rng.uniform(1.0, 0.1 * N_SIDE, (n_out, 2)) * rng.choice([-1.0, 1.0], (n_out, 1))
+    outside[:, 0] += np.where(outside[:, 0] > 0, float(N_SIDE), 0.0)
+    points_host = np.concatenate([inside, outside])
+    points = torch.from_numpy(points_host).to(device)
+    args = (host.n_internal, BVH_LEAF_SIZE, depth, BVH_FRONTIER, tol)
+    found, overflow = queries.locate_points_kernel(points, tree, poly, *args)
+    rerun = torch.nonzero(overflow).squeeze(1)
+    walk_args = (host.n_internal, BVH_LEAF_SIZE, tol)
+    queries._traverse.steps = 0
+    found[rerun] = queries.locate_points_while_kernel(points[rerun], tree, poly, *walk_args)
+    walk_steps = queries._traverse.steps
+    want, locate_s = host_s(lambda: celltree.locate_points(points_host, tol))
+    got = found.cpu().numpy()
+    differ = np.flatnonzero(got != want)
+    if len(differ):
+        both = (got[differ] >= 0) & (want[differ] >= 0)
+        holds = np.zeros(len(differ), dtype=bool)
+        if both.any():
+            q = differ[both]
+            holds[both] = native.points_in_polygons_native(
+                points_host[q], got[q].astype(np.int64), poly_host, tol
+            ) & native.points_in_polygons_native(points_host[q], want[q].astype(np.int64), poly_host, tol)
+        if not holds.all():
+            raise AssertionError(f"17.2 {int((~holds).sum())} point ids differ from the native locate")
+    if not ((want[-n_out:] == -1).all() and (got[: BVH_POINTS - n_out] >= 0).all()):
+        raise AssertionError("17.2 points inside the mesh must be found and points outside not")
+    frontier_ms = pass_ms(lambda: queries.locate_points_kernel(points, tree, poly, *args))
+    rerun_ms = pass_ms(lambda: queries.locate_points_while_kernel(points[rerun], tree, poly, *walk_args))
+    pair_q, pair_p = celltree.grid_hash.query_points(points_host, tol)
+    n_max = poly_host.shape[1]
+    node_bytes = host.node_bbox.nbytes + host.prim_index.nbytes
+    timed["locate"] = {
+        "ms": frontier_ms + rerun_ms, "library_ms": locate_s * 1e3,
+        **query_bound(points_host.nbytes + poly_host.nbytes + node_bytes + 4 * BVH_POINTS,
+                      BVH_POINTS * depth * 2 * AABB_OPS + len(pair_q) * n_max * PIP_OPS_PER_EDGE, copy_gbps),
+    }
+    report(
+        f"17.2 locate_points_kernel of {BVH_POINTS} points (frontier {BVH_FRONTIER}): {int(overflow.sum())} "
+        f"overflowed, rerun through locate_points_while_kernel ({walk_steps} walk steps); equal to "
+        f"CellTree2d.locate_points but for {len(differ)} points within the tolerance ({tol:.3e}) of an edge, held "
+        f"by both faces; card {frontier_ms:.3f} ms per frontier pass + {rerun_ms:.3f} ms for the rerun, "
+        f"{BVH_POINTS / ((frontier_ms + rerun_ms) * 1e-3):.4e} points/s; native locate {locate_s:.4f} s "
+        f"({BVH_POINTS / locate_s:.4e} points/s); bound {timed['locate']['bound_ms']:.4f} ms "
+        f"({timed['locate']['bound_by']})"
+    )
+
+    # 17.3: the raster's cell boxes.
+    qboxes_host = face_bounding_boxes(tfaces, tverts[:, 0], tverts[:, 1])
+    qboxes = torch.from_numpy(qboxes_host).to(device)
+    n_q = len(qboxes_host)
+    (ref_q, ref_p), hash_s = host_s(lambda: celltree.grid_hash.query_boxes(qboxes_host))
+    b, q = boxes[ref_p], qboxes_host[ref_q]
+    exact = (b[:, 0] <= q[:, 2]) & (b[:, 2] >= q[:, 0]) & (b[:, 1] <= q[:, 3]) & (b[:, 3] >= q[:, 1])
+    ref_key = np.sort(ref_q[exact] * mesh.n_face + ref_p[exact])
+    ref_count = np.bincount(ref_q[exact], minlength=n_q)
+
+    def pair_keys(buffer, rows=None):
+        r, c = np.nonzero(buffer >= 0)
+        rows = np.arange(len(buffer)) if rows is None else rows
+        return np.sort(rows[r].astype(np.int64) * mesh.n_face + buffer[r, c])
+
+    box_args = (host.n_internal, BVH_LEAF_SIZE)
+    cands, box_overflow = queries.box_candidates_kernel(qboxes, tree, boxes_dev, *box_args, depth, BVH_BOX_FRONTIER)
+    kept = np.flatnonzero(~box_overflow.cpu().numpy())
+    kept_keys = pair_keys(cands.cpu().numpy()[kept], kept)
+    if not np.array_equal(kept_keys, ref_key[np.isin(ref_key // mesh.n_face, kept)]):
+        raise AssertionError("17.3 box_candidates_kernel's sets differ from the grid hash's")
+    queries._traverse.steps = 0
+    counts = queries.count_box_overlaps_kernel(qboxes, tree, boxes_dev, *box_args)
+    count_steps = queries._traverse.steps
+    capacity = int(counts.max())
+    out, emitted = queries.emit_box_overlaps_kernel(qboxes, tree, boxes_dev, *box_args, capacity)
+    if not (np.array_equal(counts.cpu().numpy(), ref_count) and np.array_equal(emitted.cpu().numpy(), ref_count)):
+        raise AssertionError("17.3 counts differ from the grid hash's set sizes")
+    if not np.array_equal(pair_keys(out.cpu().numpy()), ref_key):
+        raise AssertionError("17.3 emit_box_overlaps_kernel's sets differ from the grid hash's")
+    candidates_ms = pass_ms(
+        lambda: queries.box_candidates_kernel(qboxes, tree, boxes_dev, *box_args, depth, BVH_BOX_FRONTIER)
+    )
+    count_ms = pass_ms(lambda: queries.count_box_overlaps_kernel(qboxes, tree, boxes_dev, *box_args))
+    emit_ms = pass_ms(lambda: queries.emit_box_overlaps_kernel(qboxes, tree, boxes_dev, *box_args, capacity))
+    box_bytes = qboxes_host.nbytes + boxes.nbytes + node_bytes + 4 * len(ref_key)
+    box_ops = n_q * depth * 2 * AABB_OPS + len(ref_q) * AABB_OPS
+    timed["boxes"] = {
+        "ms": count_ms + emit_ms, "library_ms": hash_s * 1e3,
+        **query_bound(box_bytes, box_ops, copy_gbps),
+    }
+    report(
+        f"17.3 {n_q} raster cell boxes, {len(ref_key)} (box, face) pairs, at most {capacity} per box: "
+        f"box_candidates_kernel (frontier {BVH_BOX_FRONTIER}) {candidates_ms:.3f} ms, "
+        f"{int(box_overflow.sum())} overflowed, the rest equal to the grid hash; count_box_overlaps_kernel "
+        f"{count_ms:.3f} ms ({count_steps} walk steps), emit_box_overlaps_kernel {emit_ms:.3f} ms, both equal; "
+        f"grid_hash.query_boxes {hash_s:.4f} s; bound {timed['boxes']['bound_ms']:.4f} ms ({timed['boxes']['bound_by']})"
+    )
+
+    # 17.4: points on the network's edges.
+    network, _ = phase7_network()
+    edges_tree = network.celltree
+    edge_xy_host = network.node_coordinates[network.edge_node_connectivity]
+    edge_host = build_bvh(edge_bounding_boxes(network.edge_node_connectivity, *network.node_coordinates.T), BVH_LEAF_SIZE)
+    edge_tree = queries.bvh_to_device(edge_host, device=device)
+    edge_xy = torch.from_numpy(edge_xy_host).to(device)
+    half = BVH_NETWORK_POINTS // 2
+    pick = rng.integers(0, network.n_edge, half)
+    t = rng.uniform(0.0, 1.0, (half, 1))
+    net_points_host = np.concatenate([
+        edge_xy_host[pick, 0] + t * (edge_xy_host[pick, 1] - edge_xy_host[pick, 0]),
+        rng.uniform(0.0, float(N_SIDE), (half, 2)),
+    ])
+    net_points = torch.from_numpy(net_points_host).to(device)
+    edge_tol = edges_tree.default_tolerance()
+    edge_depth = edge_host.n_leaves.bit_length() - 1
+    frontier = BVH_FRONTIER
+    while True:
+        edge_args = (edge_host.n_internal, BVH_LEAF_SIZE, edge_depth, frontier, edge_tol)
+        on_edge, edge_overflow = queries.locate_points_on_edges_kernel(net_points, edge_tree, edge_xy, *edge_args)
+        if not bool(edge_overflow.any()):
+            break
+        frontier *= 4
+    on_host, edge_s = host_s(lambda: edges_tree.locate_points(net_points_host, edge_tol))
+    got_edges = on_edge.cpu().numpy()
+    if not np.array_equal(got_edges >= 0, on_host >= 0):
+        raise AssertionError("17.4 found and not found differ from EdgeCellTree2d.locate_points")
+    hit = np.flatnonzero(got_edges >= 0)
+    seg = edge_xy_host[got_edges[hit]]
+    d = seg[:, 1] - seg[:, 0]
+    tt = np.clip(((net_points_host[hit] - seg[:, 0]) * d).sum(axis=1) / np.maximum((d * d).sum(axis=1), 1e-300), 0.0, 1.0)
+    dist2 = ((net_points_host[hit] - (seg[:, 0] + tt[:, None] * d)) ** 2).sum(axis=1)
+    if not (dist2 <= edge_tol * edge_tol).all():
+        raise AssertionError("17.4 a found edge lies beyond the tolerance of its point")
+    edge_ms = pass_ms(lambda: queries.locate_points_on_edges_kernel(net_points, edge_tree, edge_xy, *edge_args))
+    edge_pairs = edges_tree.grid_hash.query_boxes(np.column_stack([net_points_host - edge_tol, net_points_host + edge_tol]))[0]
+    timed["network"] = {
+        "ms": edge_ms, "library_ms": edge_s * 1e3,
+        **query_bound(net_points_host.nbytes + edge_xy_host.nbytes + edge_host.node_bbox.nbytes
+                      + edge_host.prim_index.nbytes + 4 * BVH_NETWORK_POINTS,
+                      BVH_NETWORK_POINTS * edge_depth * 2 * AABB_OPS + len(edge_pairs) * PIP_OPS_PER_EDGE, copy_gbps),
+    }
+    report(
+        f"17.4 locate_points_on_edges_kernel of {BVH_NETWORK_POINTS} points ({half} on edges) on {network.n_edge} "
+        f"edges (frontier {frontier}): {len(hit)} found as EdgeCellTree2d.locate_points, "
+        f"{int((got_edges[hit] != on_host[hit]).sum())} on another edge within the tolerance (ties); card "
+        f"{edge_ms:.3f} ms ({BVH_NETWORK_POINTS / (edge_ms * 1e-3):.4e} points/s), EdgeCellTree2d {edge_s:.4f} s; "
+        f"bound {timed['network']['bound_ms']:.4f} ms ({timed['network']['bound_by']})"
+    )
+
+    # 17.5: the exact passes against the native host kernels.
+    pip_points = torch.from_numpy(points_host[pair_q]).to(device)
+    pip_faces = torch.from_numpy(pair_p).to(device)
+    pip = queries.points_in_polygons_kernel(pip_points, pip_faces, poly, tol)
+    pip_want, pip_s = host_s(lambda: native.points_in_polygons_native(points_host[pair_q], pair_p, poly_host, tol))
+    if not np.array_equal(pip.cpu().numpy(), pip_want):
+        raise AssertionError("17.5 points_in_polygons_kernel differs from the native kernel")
+    pip_ms = pass_ms(lambda: queries.points_in_polygons_kernel(pip_points, pip_faces, poly, tol))
+
+    start = rng.uniform(0.0, float(N_SIDE), (BVH_SEGMENTS, 2))
+    angle = rng.uniform(-np.pi, np.pi, BVH_SEGMENTS)
+    length = rng.uniform(2.0, 30.0, (BVH_SEGMENTS, 1))
+    sections = np.stack([start, start + length * np.column_stack([np.cos(angle), np.sin(angle)])], axis=1)
+    seg_boxes = np.concatenate([sections.min(axis=1), sections.max(axis=1)], axis=1)
+    seg_q, seg_p = celltree.grid_hash.query_boxes(seg_boxes)
+    p0, p1 = sections[seg_q, 0], sections[seg_q, 1]
+    p0_dev, p1_dev = torch.from_numpy(p0).to(device), torch.from_numpy(p1).to(device)
+    seg_faces = torch.from_numpy(seg_p[:, None]).to(device)
+    valid, t0, t1 = queries.clip_segments_by_faces_kernel(p0_dev, p1_dev, seg_faces, poly)
+    (want_valid, want_t0, want_t1), clip_s = host_s(
+        lambda: native.clip_segments_by_faces_native(p0, p1, seg_p, poly_host)
+    )
+    valid = valid[:, 0].cpu().numpy()
+    if not np.array_equal(valid, want_valid):
+        raise AssertionError(f"17.5 clip valid differs on {int((valid != want_valid).sum())} pairs")
+    clip_err = 0.0
+    for got_t, want_t in ((t0, want_t0), (t1, want_t1)):
+        got_t = got_t[:, 0].cpu().numpy()[valid]
+        np.testing.assert_allclose(got_t, want_t[valid], rtol=1e-12, atol=0.0, err_msg="17.5 clip t")
+        clip_err = max(clip_err, float(np.abs(got_t - want_t[valid]).max(initial=0.0)))
+    clip_ms = pass_ms(lambda: queries.clip_segments_by_faces_kernel(p0_dev, p1_dev, seg_faces, poly))
+
+    # Phase 14 put shapely (or its stand-in) in sys.modules.
+    shp = sys.modules.get("shapely") or geometry_modules()[0]
+    scale = float(N_SIDE) / 300e3
+    rings = [shp.get_coordinates(p.exterior)[:-1] * scale for p in xt.data.provinces_nl().geometry]
+    tri_xy, tri_index, centroid_face = [], [], []
+    n_tri = 0
+    for ring in rings:
+        triangles = earcut_triangulate(ring, np.array([len(ring)]))
+        t_idx, g_idx, _ = celltree.intersect_faces(ring, triangles, -1)
+        tri_xy.append(ring[triangles])
+        tri_index.append(t_idx + n_tri)
+        centroid_face.append(g_idx)
+        n_tri += len(triangles)
+    tri_xy, tri_index, centroid_face = np.concatenate(tri_xy), np.concatenate(tri_index), np.concatenate(centroid_face)
+    centroids = mesh.centroids[centroid_face]
+    c_dev, ti_dev, tri_dev = (torch.from_numpy(a).to(device) for a in (centroids, tri_index, tri_xy))
+    in_tri = queries.points_in_triangles_kernel(c_dev, ti_dev, tri_dev, tol)
+    tri_want, tri_s = host_s(lambda: native.points_in_polygons_native(centroids, tri_index.astype(np.int64), tri_xy, tol))
+    if not np.array_equal(in_tri.cpu().numpy(), tri_want):
+        raise AssertionError("17.5 points_in_triangles_kernel differs from the native kernel")
+    tri_ms = pass_ms(lambda: queries.points_in_triangles_kernel(c_dev, ti_dev, tri_dev, tol))
+    exact_bytes = {
+        "pip": 24 * len(pair_q) + poly_host.nbytes + len(pair_q),
+        "clip": 40 * len(seg_q) + poly_host.nbytes + 17 * len(seg_q),
+        "tri": 24 * len(tri_index) + tri_xy.nbytes + len(tri_index),
+    }
+    for key, pairs, ms, lib_s, per_pair in (
+        ("pip", len(pair_q), pip_ms, pip_s, n_max * PIP_OPS_PER_EDGE),
+        ("clip", len(seg_q), clip_ms, clip_s, n_max * PIP_OPS_PER_EDGE),
+        ("tri", len(tri_index), tri_ms, tri_s, 3 * PIP_OPS_PER_EDGE),
+    ):
+        timed[key] = {"ms": ms, "library_ms": lib_s * 1e3, "pairs": pairs,
+                      **query_bound(exact_bytes[key], pairs * per_pair, copy_gbps)}
+    report(
+        f"17.5 exact passes, equal to the native kernels: points_in_polygons_kernel {len(pair_q)} pairs "
+        f"{pip_ms:.3f} ms ({len(pair_q) / (pip_ms * 1e-3):.4e} pairs/s; native {len(pair_q) / pip_s:.4e}); "
+        f"clip_segments_by_faces_kernel {len(seg_q)} pairs of {BVH_SEGMENTS} cross-sections, {int(valid.sum())} "
+        f"valid, max |t - native| {clip_err:.3e}, {clip_ms:.3f} ms ({len(seg_q) / (clip_ms * 1e-3):.4e} pairs/s; "
+        f"native {len(seg_q) / clip_s:.4e}); points_in_triangles_kernel {len(tri_index)} burn centroid pairs "
+        f"{tri_ms:.3f} ms ({len(tri_index) / (tri_ms * 1e-3):.4e} pairs/s; native {len(tri_index) / tri_s:.4e})"
+    )
+    for key in ("pip", "clip", "tri"):
+        report(f"    {key}: bound {timed[key]['bound_ms']:.4f} ms ({timed[key]['bound_by']})")
+
+    # 17.6: plotting on the card machine.
+    small_v, small_f = quad_mesh(10, 10)
+    small = xt.Ugrid2d(small_v[:, 0], small_v[:, 1], -1, small_f)
+    payload = torch.arange(float(small.n_face), device=device)
+    uda = xt.UgridDataArray(xt.xdata.DataArray(payload, dims=(small.face_dimension,)), small)
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            uda.ugrid.plot()
+        except ModuleNotFoundError as error:
+            if "matplotlib" not in str(error):
+                raise
+        else:
+            raise AssertionError("17.6 plot() without matplotlib did not raise")
+        report("17.6 xugrid_tpu_torch.plot imports; uda.ugrid.plot() of a CUDA payload raises ModuleNotFoundError "
+               "(no matplotlib here): the drawing runs only in the CPU tests")
+    else:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        artist = uda.ugrid.plot()
+        if not np.array_equal(np.asarray(artist.get_array()), payload.cpu().numpy()):
+            raise AssertionError("17.6 the drawn array differs from the payload's host copy")
+        report("17.6 matplotlib is installed here: uda.ugrid.plot() drew the CUDA payload's host copy")
+    counts = {k.__name__: k.launches for k in kernels}
+    if any(counts.values()):
+        raise AssertionError(f"17: the BVH queries launched CUDA kernels {counts}")
+    report(f"phase 17 done in {time.perf_counter() - t_phase:.1f} s; CUDA kernel launches {counts}")
+    return counts, timed
+
+
 def main() -> int:
     import torch
 
@@ -5312,6 +5699,8 @@ def main() -> int:
         device, card, copy_gbps, inputs, results, meshes
     )
     phase16_label = "curvilinear and 3-D grids, sharded regrid and CG in worlds of 1 and 2, profiler hooks (phase 16)"
+    bvh_counts, _ = phase_bvh_queries(device, card, copy_gbps, inputs, results)
+    phase17_label = "the flat BVH and its batched queries as torch ops (phase 17)"
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
@@ -5328,6 +5717,7 @@ def main() -> int:
             "vector geometry and sample data, then regrid and fill (phase 14)": vector_counts[name],
             "the XL config streamed from files, grouped methods, then regrid (phase 15)": stream_counts[name],
             phase16_label: slice16_counts[name] + world2_counts[name],
+            phase17_label: bvh_counts[name],
         }
         return {
             "launches": sum(by_path.values()),
@@ -5347,6 +5737,7 @@ def main() -> int:
         "payload methods, then regrid and fill (phase 13)": payload_counts["csr_matvec"],
         "vector geometry and sample data, then regrid and fill (phase 14)": vector_counts["csr_matvec"],
         phase16_label: slice16_counts["csr_matvec"] + world2_counts["csr_matvec"],
+        phase17_label: bvh_counts["csr_matvec"],
     }
 
     kernels = [

@@ -21,7 +21,14 @@ against it on the same seeded inputs:
 - iterating a UgridDataArray gives the wrapped DataArray's items, plain
   DataArrays, as the JAX package's ``__iter__`` does;
 - ``TimingRegistry.summary()`` gives each stage's count, total and mean
-  seconds rounded to microseconds, as the JAX package's does.
+  seconds rounded to microseconds, as the JAX package's does;
+- ``CellTree2d`` and ``EdgeCellTree2d`` take the JAX package's
+  ``leaf_size``, and ``spatial.geometry.mean_value_weights`` its single
+  point and polygon under its argument names;
+- every public name of every ``xugrid_tpu`` module that has a
+  counterpart in the port, and every public attribute of the classes
+  defined there, exists in the port, apart from the commented
+  exceptions below.
 """
 
 import numpy as np
@@ -365,3 +372,110 @@ def test_timing_summary_matches_jax():
             pass
         summaries.append({name: sorted(stats) for name, stats in registry.summary().items()})
     assert summaries[1] == summaries[0] == {"stage.a": ["count", "mean_s", "total_s"]}
+
+
+def test_celltrees_take_leaf_size():
+    verts = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0], [2.0, 0.0], [2.0, 1.0]])
+    faces = np.array([[0, 1, 2, 3], [1, 4, 5, 2]])
+    points = np.array([[0.5, 0.5], [1.5, 0.5], [3.0, 3.0]])
+    from xugrid_tpu import spatial as jax_spatial
+    from xugrid_tpu_torch import spatial
+
+    for package in (jax_spatial, spatial):
+        tree = package.CellTree2d(verts, faces, -1, leaf_size=4)
+        np.testing.assert_array_equal(tree.locate_points(points), [0, 1, -1])
+        edges = package.EdgeCellTree2d(verts, np.array([[0, 1], [1, 4]]), leaf_size=2)
+        np.testing.assert_array_equal(edges.locate_points(np.array([[0.5, 0.0], [1.5, 0.0], [0.5, 1.0]])), [0, 1, -1])
+
+
+def test_mean_value_weights_of_one_point_by_keyword():
+    import jax.numpy as jnp
+    import torch
+
+    from xugrid_tpu.spatial import geometry as jax_geometry
+    from xugrid_tpu_torch.spatial import geometry
+
+    poly = np.array([[0.0, 0.0], [2.0, 0.0], [2.0, 1.0], [0.0, 1.0]])
+    point = np.array([0.5, 0.25])
+    want = np.asarray(jax_geometry.mean_value_weights(point=jnp.asarray(point), poly=jnp.asarray(poly), tolerance=1e-9))
+    got = geometry.mean_value_weights(point=torch.from_numpy(point), poly=torch.from_numpy(poly), tolerance=1e-9)
+    assert got.shape == (4,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
+
+
+# Public names of ``xugrid_tpu`` that the port deliberately lacks.
+NOT_PORTED = {
+    # The Pallas entry points of TPU kernels #1 and #2 and their TPU plan
+    # layouts: the Hopper kernels are ``window_reduce``/``csr_matvec`` and
+    # ``window_select``, with their own launch shapes (``reduce_lanes``,
+    # ``register_slots``); ROADMAP "Hold outputs, not layouts".
+    "xugrid_tpu.regrid.aligned_apply": {
+        "A_BLOCK", "AlignedPlan", "CHUNK", "GROUP", "Q_PACK", "R_BATCH", "R_STEP", "W_CHUNKS",
+        "aligned_apply", "default_span_steps", "gather_aligned_apply", "matvec_apply", "matvec_triplets",
+        "plan_gather_aligned", "plan_gather_matvec", "plan_triplets", "stage_source_aligned",
+        "stage_source_matvec",
+    },
+    "xugrid_tpu.regrid.select_apply": {
+        "BLOCK", "CHUNK", "MAX_WINDOW", "PAIR", "PAIR_SPAN", "ROWS", "SELECT_METHODS", "SelectPlan",
+        "SplitSelectPlan", "apply_windowed_select", "covers_method", "gather_select_apply",
+        "plan_gather_select",
+    },
+    # The JAX array tests; the port's counterpart is ``is_tensor``.
+    "xugrid_tpu.xdata.variable": {"is_jax_array", "get_namespace"},
+    # The sample data's download branch, not ported: neither machine has
+    # a network, and every loader takes its stand-in (PR 12).
+    "xugrid_tpu.data.registry": {"BASE_URL"},
+}
+# Modules of TPU plan layouts only (kernels #3-#6), ported by function
+# through kernel #1.
+NOT_PORTED_MODULES = {"xugrid_tpu.regrid.gather_apply"}
+
+
+def _defined_names(module):
+    """Names a module defines at its top level (functions, classes,
+    assignments) or lists in ``__all__``: not the ones it imports, nor
+    its optional modules."""
+    import ast
+    import types
+
+    from xugrid_tpu.constants import MissingOptionalModule
+
+    with open(module.__file__, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = set(getattr(module, "__all__", ()))
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            names.update(t.id for t in targets if isinstance(t, ast.Name))
+    return {
+        name for name in names
+        if not name.startswith("_") and hasattr(module, name)
+        and not isinstance(getattr(module, name), (types.ModuleType, MissingOptionalModule))
+    }
+
+
+def test_every_public_name_has_a_counterpart():
+    import importlib
+    import inspect
+    import pkgutil
+
+    missing = []
+    for info in pkgutil.walk_packages(xu.__path__, "xugrid_tpu."):
+        if info.name in NOT_PORTED_MODULES:
+            continue
+        module = importlib.import_module(info.name)
+        port = importlib.import_module("xugrid_tpu_torch" + info.name[len("xugrid_tpu"):])
+        skip = NOT_PORTED.get(info.name, set())
+        for name in sorted(_defined_names(module) - skip):
+            if not hasattr(port, name):
+                missing.append(f"{info.name}.{name}")
+                continue
+            obj = getattr(module, name)
+            if inspect.isclass(obj) and obj.__module__ == info.name:
+                missing += [
+                    f"{info.name}.{name}.{attr}" for attr in dir(obj)
+                    if not attr.startswith("_") and not hasattr(getattr(port, name), attr)
+                ]
+    assert not missing, missing

@@ -232,6 +232,37 @@ def test_port_imports_neither_jax_nor_xugrid_tpu():
     assert proc.stdout.strip() == "isolated"
 
 
+IMPORTS_ONLY = textwrap.dedent(
+    """
+    import sys
+
+    import numpy as np
+
+    import xugrid_tpu_torch
+    import xugrid_tpu_torch.plot
+    import xugrid_tpu_torch.spatial.queries as q
+    from xugrid_tpu_torch.spatial import build_bvh
+
+    tree = q.bvh_to_device(build_bvh(np.array([[0.0, 0.0, 1.0, 1.0], [1.0, 0.0, 2.0, 1.0]]), 1), device="cpu")
+    counts = q.count_box_overlaps_kernel(np.array([[0.5, 0.5, 1.5, 0.6]]), tree, tree.node_bbox[1:], 1, 1)
+    assert counts.tolist() == [2]
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "xugrid_tpu", "matplotlib"))
+    assert not loaded, loaded
+    print("isolated")
+    """
+)
+
+
+def test_imports_load_neither_jax_nor_matplotlib():
+    """``import xugrid_tpu_torch``, ``xugrid_tpu_torch.plot`` and
+    ``xugrid_tpu_torch.spatial.queries`` and a BVH query on the CPU load
+    none of jax, xugrid_tpu and matplotlib (the card machine has no
+    matplotlib)."""
+    proc = _run(["-c", IMPORTS_ONLY], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "isolated"
+
+
 def test_chip_smoke_refuses_without_cuda():
     import torch
 

@@ -597,3 +597,63 @@ def test_network_fill_on_the_card_matches_cpu(device):
     got, want = out["cuda"].values, out["cpu"].values
     assert np.isnan(got[:201]).all() and np.isfinite(got[201:]).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-8)
+
+
+def test_bvh_queries_on_the_card_match_cpu(device):
+    """Every function of ``spatial/queries.py`` on the card equals its CPU
+    result: ids, flags and counts equal, clip parameters, areas and
+    weights within rtol 1e-12."""
+    from xugrid_tpu_torch.spatial import build_bvh, queries
+    from xugrid_tpu_torch.spatial.bvh import face_bounding_boxes
+    from xugrid_tpu_torch.spatial.geometry import pad_polygons
+
+    rng = np.random.default_rng(5)
+    (verts, faces), _ = chip_smoke.bench_meshes(30, 4, rng)
+    poly = pad_polygons(faces, verts[:, 0], verts[:, 1])
+    boxes = face_bounding_boxes(faces, verts[:, 0], verts[:, 1])
+    host = build_bvh(boxes, 8)
+    depth = host.n_leaves.bit_length() - 1
+    points = rng.uniform(-1.0, 31.0, (3000, 2))
+    lo = rng.uniform(-1.0, 30.0, (500, 2))
+    qboxes = np.column_stack([lo, lo + rng.uniform(0.0, 3.0, (500, 2))])
+    edge_xy = poly[:200, :2]
+    edge_host = build_bvh(np.concatenate([edge_xy.min(axis=1), edge_xy.max(axis=1)], axis=1), 4)
+    edge_depth = edge_host.n_leaves.bit_length() - 1
+    pairs = rng.integers(-1, len(faces), 3000)
+    p0 = rng.uniform(0.0, 30.0, (300, 2))
+    p1 = p0 + rng.normal(0.0, 4.0, (300, 2))
+    cands = rng.integers(-1, len(faces), (300, 6))
+
+    def run(dev):
+        tree = queries.bvh_to_device(host, device=dev)
+        P = torch.from_numpy(poly).to(dev)
+        pts = torch.from_numpy(points).to(dev)
+        capacity = 12
+        return {
+            "locate": queries.locate_points_kernel(pts, tree, P, host.n_internal, 8, depth, 2, 1e-9),
+            "while": queries.locate_points_while_kernel(pts, tree, P, host.n_internal, 8, 1e-9),
+            "edges": queries.locate_points_on_edges_kernel(
+                pts, queries.bvh_to_device(edge_host, device=dev), torch.from_numpy(edge_xy).to(dev),
+                edge_host.n_internal, 4, edge_depth, 4, 0.05,
+            ),
+            "boxes": queries.box_candidates_kernel(qboxes, tree, boxes, host.n_internal, 8, depth, 4),
+            "count": queries.count_box_overlaps_kernel(qboxes, tree, boxes, host.n_internal, 8),
+            "emit": queries.emit_box_overlaps_kernel(qboxes, tree, boxes, host.n_internal, 8, capacity),
+            "pip": queries.points_in_polygons_kernel(pts, pairs, P, 1e-9),
+            "tri": queries.points_in_triangles_kernel(pts, pairs, P[:, :3], 1e-9),
+            "clip": queries.clip_segments_by_faces_kernel(p0, p1, cands, P),
+            "areas": queries.polygon_overlap_areas_kernel(pairs[:500], pairs[500:1000], P, P + 0.3),
+            "weights": queries.barycentric_weights_kernel(torch.from_numpy(poly.mean(1)).to(dev),
+                                                          np.arange(len(faces)), P, 1e-9),
+        }
+
+    cpu, card = run("cpu"), run(device)
+    for key in cpu:
+        want = cpu[key] if isinstance(cpu[key], tuple) else (cpu[key],)
+        got = card[key] if isinstance(card[key], tuple) else (card[key],)
+        for w, g in zip(want, got):
+            assert g.device.type == "cuda", key
+            if w.dtype.is_floating_point:
+                torch.testing.assert_close(g.cpu(), w, rtol=1e-12, atol=1e-14, msg=key)
+            else:
+                assert torch.equal(g.cpu(), w), key

@@ -168,6 +168,7 @@ def case():
     inputs["plan_overlap_source_size"] = np.array(m_padded)
     neighbors, values = face_adjacency(16)
     inputs["plan_faces"] = neighbors
+    inputs["faces_values"] = values
     for name, padded in (
         ("overlap", overlap),
         ("aligned", overlap_problem(64, 16)[0]),
@@ -243,6 +244,19 @@ def test_plan_equals_jax(case, name):
     )
     if name != "random":
         assert plan.n_unique_remote > 0
+
+
+def test_gather_neighbors_equals_the_halo_gather(case):
+    """``NeighborExchangePlan.gather_neighbors`` on each rank: its rows'
+    neighbour values, NaN for -1, as the regrid's halo gather and numpy's
+    indexing give them."""
+    neighbors, values = case["inputs"]["plan_faces"], case["inputs"]["faces_values"]
+    rows = -(-len(neighbors) // WORLD)
+    for rank, result in enumerate(case["ranks"]):
+        got = result["gather_neighbors"]
+        np.testing.assert_array_equal(got, result["gather_neighbors_halo"])
+        own = neighbors[rank * rows : (rank + 1) * rows]
+        np.testing.assert_array_equal(got[: len(own)], np.where(own < 0, np.nan, values[np.maximum(own, 0)]))
 
 
 def test_every_rank_holds_the_whole_plan_and_result(case):

@@ -48,6 +48,17 @@ def run_cases(rank: int, world: int, inputs) -> dict:
             [plan.R, plan.n_remote, plan.n_unique_remote, plan.exchanged_bytes_f32, plan.block, plan.req_block]
         )
 
+    # The JAX shard_map body's neighbour gather against the halo gather of
+    # the regrid (``extend`` indexed by the lookup).
+    plan = NeighborExchangePlan(None, inputs["plan_faces"], device="cpu")
+    values = np.concatenate([inputs["faces_values"], np.full(plan.block * world - plan.n, np.nan)])
+    v_local = torch.from_numpy(values[rank * plan.block : (rank + 1) * plan.block])
+    send_local = plan.send_slots[rank * world : (rank + 1) * world]
+    out["gather_neighbors"] = plan.gather_neighbors(v_local, send_local, plan.lookup_local, plan.exchange).numpy()
+    lookup = torch.from_numpy(plan.lookup_local).long()
+    halo = plan.extend(v_local[None])[0][torch.clamp(lookup, min=0)]
+    out["gather_neighbors_halo"] = torch.where(lookup < 0, torch.nan, halo).numpy()
+
     weights = padded("overlap")
     for method in ("halo", "allgather"):
         for label, red in (("mean", reduce.mean), ("median", median)):

@@ -46,11 +46,16 @@ It covers:
   running the kernels on its block;
 - ``utils.profiling``: host stage timings, ``trace`` (a
   ``torch.profiler`` trace) and ``annotate``; and the meshkernel bridge,
-  imported where it is used.
+  imported where it is used;
+- ``spatial``: a flat BVH (``build_bvh``) and its batched queries as
+  torch ops on the card (``spatial/queries.py``: point location on faces
+  and edges, box joins, exact segment clips and point tests);
+- ``plot`` (matplotlib, imported where it is used): the grids' and
+  ``.ugrid.plot``'s artists and facet grids, drawn on the host.
 
 Entry points run on the CUDA card unless the caller asks for the CPU.
-The package imports torch, numpy, scipy and pandas, and never jax or
-xugrid_tpu.
+The package imports torch, numpy, scipy and pandas, and never jax,
+xugrid_tpu or (at import) matplotlib.
 """
 
 from xugrid_tpu_torch import data, xdata
@@ -71,6 +76,7 @@ from xugrid_tpu_torch.core.common import (
 from xugrid_tpu_torch.core.dataarray_accessor import UgridDataArrayAccessor
 from xugrid_tpu_torch.core.dataset_accessor import UgridDatasetAccessor
 from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset
+from xugrid_tpu_torch.plot import plot
 from xugrid_tpu_torch.regrid.gridder import NetworkGridder
 from xugrid_tpu_torch.regrid.regridder import (
     BarycentricInterpolator,
@@ -117,6 +123,7 @@ __all__ = [
     "open_dataset",
     "open_mfdataset",
     "open_zarr",
+    "plot",
     "polygonize",
     "snap_nodes",
     "snap_to_grid",

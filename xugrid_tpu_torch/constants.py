@@ -17,10 +17,39 @@ FILL_VALUE: int = -1
 # Tolerance of near-degenerate geometry tests: the float64 machine
 # epsilon, scaled by coordinate extents where it is used.
 X_EPSILON: float = float(np.finfo(np.float64).eps)
+X_OFFSET = 1e-9
 
 # Host dtypes (numpy).
 IntDType = np.int64
 FloatDType = np.float64
+
+# Device dtypes: int32 window indices, float32 payloads unless the
+# caller's data is float64.
+DeviceIntDType = np.int32
+DeviceFloatDType = np.float32
+
+IntArray = np.ndarray
+FloatArray = np.ndarray
+BoolArray = np.ndarray
+
+
+class Point(np.ndarray):
+    """Tiny convenience view: (x, y) as an ndarray subclass."""
+
+    def __new__(cls, x: float, y: float):
+        return np.asarray([x, y], dtype=np.float64).view(cls)
+
+    @property
+    def x(self) -> float:
+        return float(self[0])
+
+    @property
+    def y(self) -> float:
+        return float(self[1])
+
+
+class Vector(Point):
+    pass
 
 
 class MissingOptionalModule:

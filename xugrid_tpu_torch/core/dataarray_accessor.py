@@ -61,6 +61,14 @@ class UgridDataArrayAccessor(AbstractUgridAccessor):
         """(minx, miny, maxx, maxy) of the grid."""
         return self.grid.bounds
 
+    @property
+    def plot(self):
+        """Plotting methods for this array's facet (matplotlib; a tensor
+        payload is copied to the host to draw it)."""
+        from xugrid_tpu_torch.plot.plot import _PlotMethods
+
+        return _PlotMethods(self)
+
     def rename(self, name: str):
         """The array over this topology renamed to ``name``, its UGRID
         coordinate and dimension names with it."""

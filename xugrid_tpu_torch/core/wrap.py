@@ -24,6 +24,14 @@ from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, align, dim_coordinates
 
 
+def get_ugrid_dims(obj, grids) -> set:
+    """The UGRID dimensions of ``grids`` that ``obj`` has."""
+    dims = set()
+    for grid in grids:
+        dims |= grid.dims & set(obj.dims)
+    return dims
+
+
 def assign_ugrid_coords(obj, grids):
     """Position coordinates on the UGRID dims that have none, so that
     subsetting is observable after forwarded operations."""

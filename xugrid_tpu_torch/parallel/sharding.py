@@ -261,6 +261,21 @@ class NeighborExchangePlan:
         ).to(self.device)
         self.lookup_local = lookup[rank * n_req_block : (rank + 1) * n_req_block]
 
+    def gather_neighbors(self, v_local, send_slots_local, lookup_local, exchange: Exchange) -> torch.Tensor:
+        """(req_block, k) neighbour values of this rank's rows, NaN for -1:
+        the JAX package's ``shard_map`` body with its communicator passed
+        as ``exchange`` (this plan's is ``self.exchange``).
+
+        ``v_local`` is this rank's (block,) source block,
+        ``send_slots_local`` its (D, R) send slots and ``lookup_local`` its
+        rows' indices into [local block | received rows]."""
+        send_slots_local = torch.as_tensor(send_slots_local, device=v_local.device).long()
+        send = v_local[send_slots_local.reshape(-1)].reshape(send_slots_local.shape)  # (D, R)
+        recv = exchange.all_to_all(send)  # row o: the rows this rank asked owner o for
+        extended = torch.cat([v_local, recv.reshape(-1)])
+        lookup = torch.as_tensor(lookup_local, device=v_local.device).long()
+        return torch.where(lookup < 0, torch.nan, extended[torch.clamp(lookup, min=0)])
+
     def extend(self, source_local: torch.Tensor) -> torch.Tensor:
         """This rank's (E, block) source block followed by the (E, D * R)
         rows the other ranks sent it: the source ``lookup_local`` indexes."""

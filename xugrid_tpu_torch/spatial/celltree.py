@@ -24,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from xugrid_tpu_torch.spatial import geometry
+from xugrid_tpu_torch.spatial import geometry, queries
 from xugrid_tpu_torch.spatial.bvh import edge_bounding_boxes, face_bounding_boxes
 from xugrid_tpu_torch.spatial.geometry import pad_polygons
 from xugrid_tpu_torch.spatial.grid_hash import GridHash
@@ -34,6 +34,12 @@ from xugrid_tpu_torch.utils.profiling import timed
 #: Candidate values per chunk of the device geometry: a pair of polygons
 #: of m and k nodes holds m + k + m k candidate points.
 DEVICE_CHUNK = 1 << 22
+
+
+def _bb_distances(bb_coords: np.ndarray) -> np.ndarray:
+    dx = bb_coords[:, 2] - bb_coords[:, 0]
+    dy = bb_coords[:, 3] - bb_coords[:, 1]
+    return np.column_stack([dx, dy, np.hypot(dx, dy)])
 
 
 def _require_native_library() -> None:
@@ -82,7 +88,12 @@ def mean_value_weights_device(points, face_index, poly_xy, tolerance: float, dev
 class CellTree2d:
     """Spatial index over the faces of a 2D unstructured grid."""
 
-    def __init__(self, vertices: np.ndarray, faces: np.ndarray, fill_value: int = -1):
+    #: Queries per pass of the device query kernels (``spatial/queries.py``).
+    CHUNK = queries.CHUNK
+
+    def __init__(self, vertices: np.ndarray, faces: np.ndarray, fill_value: int = -1, leaf_size: int = 8):
+        """``leaf_size`` is taken, and unused, as in ``xugrid_tpu``: the
+        grid hash has no leaves (``spatial/bvh.py:build_bvh`` takes one)."""
         vertices = np.asarray(vertices, dtype=np.float64)
         faces = np.asarray(faces)
         if fill_value != -1:
@@ -104,6 +115,17 @@ class CellTree2d:
         if self._poly_xy_cache is None:
             self._poly_xy_cache = pad_polygons(self.faces, self.vertices[:, 0], self.vertices[:, 1])
         return self._poly_xy_cache
+
+    @property
+    def bb_distances(self) -> np.ndarray:
+        """(n_face, 3): bounding box width, height and diagonal."""
+        return _bb_distances(self.bb_coords)
+
+    @property
+    def bounds(self):
+        """(xmin, ymin, xmax, ymax) of the grid hash's bins."""
+        gh = self.grid_hash
+        return (gh.xmin, gh.ymin, gh.xmin + gh.nx * gh.dx, gh.ymin + gh.ny * gh.dy)
 
     def default_tolerance(self) -> float:
         """On-edge tolerance of point location: 1e-12 of the largest face
@@ -262,7 +284,10 @@ class CellTree2d:
 class EdgeCellTree2d:
     """Spatial index over the edges of a 1D network."""
 
-    def __init__(self, vertices: np.ndarray, edge_node_connectivity: np.ndarray):
+    CHUNK = CellTree2d.CHUNK
+
+    def __init__(self, vertices: np.ndarray, edge_node_connectivity: np.ndarray, leaf_size: int = 8):
+        """``leaf_size`` is taken, and unused, as in ``xugrid_tpu``."""
         vertices = np.asarray(vertices, dtype=np.float64)
         conn = np.asarray(edge_node_connectivity)
         self.vertices = vertices
@@ -275,9 +300,7 @@ class EdgeCellTree2d:
     @property
     def bb_distances(self) -> np.ndarray:
         """(n_edge, 3): bounding box width, height and diagonal."""
-        dx = self.bb_coords[:, 2] - self.bb_coords[:, 0]
-        dy = self.bb_coords[:, 3] - self.bb_coords[:, 1]
-        return np.column_stack([dx, dy, np.hypot(dx, dy)])
+        return _bb_distances(self.bb_coords)
 
     def default_tolerance(self) -> float:
         """On-edge tolerance: 1e-12 of the largest bounding-box diagonal."""

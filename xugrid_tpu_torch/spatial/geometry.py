@@ -1,15 +1,15 @@
 """
-Padded polygon buffers (host, numpy), and the exact geometry that the
-native host kernels decline by size, as batched torch ops on a device.
+Padded polygon buffers (host, numpy), and 2D geometry primitives as torch
+ops on any device: the exact tests of the BVH queries
+(``spatial/queries.py``) and of the faces the native host kernels
+decline by size.
 
 A padded polygon is ``(n_max, 2)`` vertices whose unused trailing slots
 repeat the first vertex: zero-length edges that every predicate ignores.
-``convex_overlap_areas`` and ``mean_value_weights`` are the
-counterparts of ``xugrid_tpu/spatial/geometry.py``'s
-``convex_overlap_area`` and ``mean_value_weights`` (under
-``spatial/queries.py``'s ``polygon_overlap_areas_kernel`` and
-``barycentric_weights_kernel``), with the same arithmetic over a batch
-axis in place of ``vmap``.
+Each primitive carries the name and arithmetic of its counterpart in
+``xugrid_tpu/spatial/geometry.py`` and broadcasts over leading
+dimensions: one call on a single primitive equals that function, one
+call on a batch equals its ``vmap``.
 """
 
 from __future__ import annotations
@@ -46,26 +46,89 @@ def pad_polygons(face_node_connectivity, node_x, node_y):
     return out
 
 
-def _points_in_polygons(points, polys):
-    """Crossing-number point in polygon, or on an edge (distance 0):
-    points (B, P, 2) in polys (B, k, 2) -> (B, P) bool."""
-    a = polys[:, None, :, :]  # (B, 1, k, 2)
-    b = torch.roll(polys, -1, dims=-2)[:, None, :, :]
+def polygon_edges(poly):
+    """Consecutive vertex pairs including the closing edge.
+
+    poly: (..., n_max, 2) -> (a, b) each (..., n_max, 2)."""
+    return poly, torch.roll(poly, -1, dims=-2)
+
+
+def _point_segment_dist2(px, py, ax, ay, bx, by):
+    """Squared distance from points to segments (broadcast)."""
+    dx = bx - ax
+    dy = by - ay
+    len2 = dx * dx + dy * dy
+    t = torch.where(len2 == 0.0, 0.0, ((px - ax) * dx + (py - ay) * dy) / torch.clamp(len2, min=1e-300))
+    t = torch.clamp(t, 0.0, 1.0)
+    return (px - (ax + t * dx)) ** 2 + (py - (ay + t * dy)) ** 2
+
+
+def point_in_polygon(point, poly, tolerance=0.0):
+    """
+    Crossing-number point in polygon, or within ``tolerance`` of an edge
+    (``None``: no edge test).
+
+    point: (..., 2); poly: (..., n_max, 2) padded; leading dimensions
+    broadcast.  Returns (...) bool.
+    """
+    a, b = polygon_edges(poly)
     ax, ay, bx, by = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
-    px, py = points[..., 0, None], points[..., 1, None]  # (B, P, 1)
+    px, py = point[..., 0, None], point[..., 1, None]
+    # Ray casting to +x: count crossings of edges straddling py.
     straddle = (ay > py) != (by > py)
     denom = torch.where(by - ay == 0.0, 1.0, by - ay)
     x_at = ax + (py - ay) * (bx - ax) / denom
     inside = (straddle & (px < x_at)).sum(dim=-1) % 2 == 1
+    if tolerance is not None:
+        d2 = _point_segment_dist2(px, py, ax, ay, bx, by)
+        inside = inside | (d2.amin(dim=-1) <= tolerance * tolerance)
+    return inside
+
+
+def point_on_segment_param(point, a, b, tolerance):
+    """
+    Parametric position of ``point`` along segment a->b if within
+    ``tolerance`` of it: (on_segment, t), broadcast over leading
+    dimensions (coordinates last).
+    """
+    px, py, ax, ay, bx, by = point[..., 0], point[..., 1], a[..., 0], a[..., 1], b[..., 0], b[..., 1]
+    d2 = _point_segment_dist2(px, py, ax, ay, bx, by)
     dx, dy = bx - ax, by - ay
-    len2 = dx * dx + dy * dy
-    t = torch.where(len2 == 0.0, 0.0, ((px - ax) * dx + (py - ay) * dy) / torch.clamp(len2, min=1e-300))
-    t = torch.clamp(t, 0.0, 1.0)
-    d2 = (px - (ax + t * dx)) ** 2 + (py - (ay + t * dy)) ** 2
-    return inside | (d2.amin(dim=-1) <= 0.0)
+    len2 = torch.clamp(dx * dx + dy * dy, min=1e-300)
+    t = torch.clamp(((px - ax) * dx + (py - ay) * dy) / len2, 0.0, 1.0)
+    return d2 <= tolerance * tolerance, t
 
 
-def _segment_intersections(p0, p1, q0, q1):
+def clip_segment_by_convex_polygon(p0, p1, poly):
+    """
+    Liang-Barsky style parametric clip of segment p0->p1 against a convex
+    CCW polygon: (valid, t0, t1), the segment parameter interval inside
+    the polygon.  p0, p1: (..., 2); poly: (..., n_max, 2); leading
+    dimensions broadcast.
+    """
+    a, b = polygon_edges(poly)
+    # CCW edge normals point inward: n = (-(by - ay), bx - ax)
+    ex = b[..., 0] - a[..., 0]
+    ey = b[..., 1] - a[..., 1]
+    nx, ny = -ey, ex
+    degenerate = (ex == 0.0) & (ey == 0.0)
+    dx = (p1[..., 0] - p0[..., 0])[..., None]
+    dy = (p1[..., 1] - p0[..., 1])[..., None]
+    denom = nx * dx + ny * dy  # > 0: entering, < 0: leaving
+    num = nx * (a[..., 0] - p0[..., 0, None]) + ny * (a[..., 1] - p0[..., 1, None])
+    t_edge = torch.where(denom == 0.0, 0.0, num / torch.where(denom == 0.0, 1.0, denom))
+    # Parallel to an edge and outside its half-plane (n . (p0 - a) >= 0,
+    # i.e. -num >= 0): no intersection.
+    parallel_outside = (denom == 0.0) & (num > 0.0) & ~degenerate
+    entering = denom > 0.0
+    t0 = torch.where(entering & ~degenerate, t_edge, 0.0).amax(dim=-1)
+    t1 = torch.where(~entering & (denom != 0.0) & ~degenerate, t_edge, 1.0).amin(dim=-1)
+    t0 = torch.clamp(t0, min=0.0)
+    t1 = torch.clamp(t1, max=1.0)
+    return (t0 < t1) & ~parallel_outside.any(dim=-1), t0, t1
+
+
+def segment_segment_intersection(p0, p1, q0, q1):
     """Intersections of segments p and q (broadcast over leading axes,
     coordinates last): (hit, point); collinear overlaps report the
     q0-side entry point, a miss NaN."""
@@ -93,6 +156,82 @@ def _segment_intersections(p0, p1, q0, q1):
     return hit, torch.where(hit[..., None], point, torch.nan)
 
 
+def polygon_area(poly):
+    """Shoelace area of padded polygon(s): (..., n_max, 2) -> (...)."""
+    a, b = polygon_edges(poly)
+    cross = a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
+    return 0.5 * torch.abs(cross.sum(dim=-1))
+
+
+def _leading_count(poly):
+    """Vertices before the first-vertex padding of (B, m, 2) polygons (the
+    padding is a suffix), and m where there is none: (B,) int64."""
+    m = poly.shape[-2]
+    is_pad = torch.cat(
+        [torch.zeros_like(poly[:, :1, 0], dtype=torch.bool), (poly[:, 1:] == poly[:, :1]).all(dim=-1)], dim=1
+    )
+    return torch.where(is_pad.any(dim=1), is_pad.to(torch.int8).argmax(dim=1), m)
+
+
+def clip_polygons_area(subject, clip, n_out: int | None = None):
+    """
+    Area of intersection of ``subject`` with the convex CCW polygon
+    ``clip`` by Sutherland-Hodgman clipping in fixed-size buffers.
+
+    subject: (..., m, 2) padded (first-vertex padding); clip: (..., k, 2)
+    padded convex CCW; leading dimensions broadcast.  Returns (...).
+    """
+    lead = torch.broadcast_shapes(subject.shape[:-2], clip.shape[:-2])
+    m, k = subject.shape[-2], clip.shape[-2]
+    subject = subject.expand(lead + subject.shape[-2:]).reshape(-1, m, 2)
+    clip = clip.expand(lead + clip.shape[-2:]).reshape(-1, k, 2)
+    if n_out is None:
+        n_out = m + k + 1
+    n_batch = subject.shape[0]
+    buf = torch.zeros((n_batch, n_out, 2), dtype=subject.dtype, device=subject.device)
+    buf[:, :m] = subject
+    count = torch.clamp(_leading_count(subject), min=1)
+    idx = torch.arange(n_out, device=subject.device)[None, :]
+    ca, cb = polygon_edges(clip)
+    for i in range(k):
+        a, b = ca[:, i], cb[:, i]
+        ex, ey = (b[:, 0] - a[:, 0])[:, None], (b[:, 1] - a[:, 1])[:, None]
+        degenerate = (ex == 0.0) & (ey == 0.0)
+        # Signed distance to the (inward-normal) half plane.
+        sd = -ey * (buf[..., 0] - a[:, None, 0]) + ex * (buf[..., 1] - a[:, None, 1])
+        valid = idx < count[:, None]
+        inside = (sd >= 0.0) & valid
+        nxt = torch.where(idx + 1 < count[:, None], idx + 1, 0)
+        sd_next = torch.gather(sd, 1, nxt)
+        inside_next = sd_next >= 0.0
+        q = torch.gather(buf, 1, nxt[..., None].expand(-1, -1, 2))
+        denom = sd - sd_next
+        t = torch.where(denom == 0.0, 0.0, sd / torch.where(denom == 0.0, 1.0, denom))
+        inter = buf + t[..., None] * (q - buf)
+        # Each edge (p -> q) emits up to two vertices: p where p is inside,
+        # the crossing where the edge crosses the clip line.
+        emit_p = inside
+        emit_i = valid & (inside != inside_next)
+        n_emit = emit_p.to(torch.int64) + emit_i.to(torch.int64)
+        offsets = torch.cumsum(n_emit, dim=1) - n_emit
+        # Rows that emit nothing write the dump slot n_out - 1, which no
+        # real vertex reaches (count <= n_out - 1) and which is zeroed.
+        new_buf = torch.zeros_like(buf)
+        pos_p = torch.where(emit_p, offsets, n_out - 1)
+        new_buf.scatter_(1, pos_p[..., None].expand(-1, -1, 2), buf)
+        pos_i = torch.where(emit_i, offsets + emit_p.to(torch.int64), n_out - 1)
+        new_buf.scatter_(1, pos_i[..., None].expand(-1, -1, 2), torch.where(emit_i[..., None], inter, 0.0))
+        new_buf[:, n_out - 1] = 0.0
+        buf = torch.where(degenerate[..., None], buf, new_buf)
+        count = torch.where(degenerate[:, 0], count, n_emit.sum(dim=1))
+    valid = idx < count[:, None]
+    nxt = torch.where(idx + 1 < count[:, None], idx + 1, 0)
+    b = torch.gather(buf, 1, nxt[..., None].expand(-1, -1, 2))
+    cross = buf[..., 0] * b[..., 1] - buf[..., 1] * b[..., 0]
+    area = 0.5 * torch.abs(torch.where(valid, cross, 0.0).sum(dim=1))
+    return torch.where(count >= 3, area, 0.0).reshape(lead)
+
+
 def convex_overlap_areas(subject: torch.Tensor, clip: torch.Tensor) -> torch.Tensor:
     """
     Area of intersection of convex padded polygons, pair by pair:
@@ -107,9 +246,9 @@ def convex_overlap_areas(subject: torch.Tensor, clip: torch.Tensor) -> torch.Ten
     m, k = subject.shape[1], clip.shape[1]
     sa, sb = subject, torch.roll(subject, -1, dims=1)
     ca, cb = clip, torch.roll(clip, -1, dims=1)
-    sub_in = _points_in_polygons(subject, clip)
-    clip_in = _points_in_polygons(clip, subject)
-    hit, pts = _segment_intersections(sa[:, :, None], sb[:, :, None], ca[:, None, :], cb[:, None, :])
+    sub_in = point_in_polygon(subject, clip[:, None], 0.0)
+    clip_in = point_in_polygon(clip, subject[:, None], 0.0)
+    hit, pts = segment_segment_intersection(sa[:, :, None], sb[:, :, None], ca[:, None, :], cb[:, None, :])
     s_degen = (sa == sb).all(dim=-1)
     c_degen = (ca == cb).all(dim=-1)
     hit = hit & ~s_degen[:, :, None] & ~c_degen[:, None, :]
@@ -134,20 +273,34 @@ def convex_overlap_areas(subject: torch.Tensor, clip: torch.Tensor) -> torch.Ten
     return torch.where(n_valid >= 3, area, 0.0)
 
 
-def mean_value_weights(points: torch.Tensor, polys: torch.Tensor, tolerance: float) -> torch.Tensor:
+def convex_overlap_area(subject: torch.Tensor, clip: torch.Tensor) -> torch.Tensor:
+    """Area of intersection of convex padded polygons: subject (..., m, 2),
+    clip (..., k, 2), leading dimensions broadcast -> (...)."""
+    lead = torch.broadcast_shapes(subject.shape[:-2], clip.shape[:-2])
+    subject = subject.expand(lead + subject.shape[-2:]).reshape((-1,) + subject.shape[-2:])
+    clip = clip.expand(lead + clip.shape[-2:]).reshape((-1,) + clip.shape[-2:])
+    return convex_overlap_areas(subject, clip).reshape(lead)
+
+
+def mean_value_weights(point: torch.Tensor, poly: torch.Tensor, tolerance: float) -> torch.Tensor:
     """
-    Mean-value (generalized barycentric) coordinates of points (B, 2) in
-    padded polygons (B, m, 2) -> (B, m).  Padding vertices get zero
-    weight; a point on an edge interpolates linearly between its two
-    ends, and a point within ``tolerance`` of a vertex snaps to it.
+    Mean-value (generalized barycentric) coordinates of points (..., 2) in
+    padded polygons (..., m, 2) -> (..., m), leading dimensions
+    broadcast.  Padding vertices get zero weight; a point on an edge
+    interpolates linearly between its two ends, and a point within
+    ``tolerance`` of a vertex snaps to it.
     """
-    n, m = polys.shape[0], polys.shape[1]
-    first = polys[:, :1]
-    is_pad = torch.cat(
-        [torch.zeros((n, 1), dtype=torch.bool, device=polys.device), (polys[:, 1:] == first).all(dim=-1)], dim=1
-    )
-    n_vert = torch.where(is_pad.any(dim=1), is_pad.to(torch.int8).argmax(dim=1), m)
-    n_vert = torch.clamp(n_vert, min=3)[:, None]
+    lead = torch.broadcast_shapes(point.shape[:-1], poly.shape[:-2])
+    m = poly.shape[-2]
+    points = point.expand(lead + (2,)).reshape(-1, 2)
+    polys = poly.expand(lead + (m, 2)).reshape(-1, m, 2)
+    return _mean_value_weights(points, polys, tolerance).reshape(lead + (m,))
+
+
+def _mean_value_weights(points: torch.Tensor, polys: torch.Tensor, tolerance: float) -> torch.Tensor:
+    """``mean_value_weights`` of points (B, 2) in polygons (B, m, 2)."""
+    m = polys.shape[1]
+    n_vert = torch.clamp(_leading_count(polys), min=3)[:, None]
     idx = torch.arange(m, device=polys.device)[None, :]
     valid = idx < n_vert
 

@@ -937,3 +937,12 @@ class AbstractUgrid(abc.ABC):
 
         labels = self.label_partitions(n_part, weights)
         return [self.topology_subset(index) for index in labels_to_indices(labels.values)]
+
+    def plot(self, **kwargs):
+        """Plot the edges of the mesh (matplotlib, on the host)."""
+        from xugrid_tpu_torch.plot import line
+
+        return line(self, **kwargs)
+
+
+UgridType = AbstractUgrid

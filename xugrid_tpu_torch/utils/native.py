@@ -2,9 +2,10 @@
 ctypes bindings for the repository's native host kernels
 (``csrc/host_kernels.cpp``), the same source ``xugrid_tpu`` builds.
 
-Bound are the entry points of the regridders' weight builds (grid hash,
-polygon clips, point location, point in polygon, segment clip,
-mean-value weights, CSR build), the face centroids, the partition
+Bound are the BVH's kd order, the entry points of the regridders'
+weight builds (grid hash, polygon clips, point location, point in
+polygon, segment clip, mean-value weights, CSR build), the face
+centroids, the partition
 and merge kernels (Hilbert distances, the hashed row deduplication) and
 the network's graph walks (topological sort, vertex contraction), the greedy
 snap of ``snap_nodes`` and the Hilbert-ordered padded weight layout of
@@ -46,6 +47,8 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
 def _bind(lib):
+    lib.kd_order.argtypes = [_dp, _i64, ctypes.c_int32, _i64, _ip]
+    lib.kd_order.restype = None
     lib.face_bbox.argtypes = [_ip, _i64, _i64, _dp, _dp, _dp]
     lib.face_bbox.restype = None
     lib.pad_and_bbox.argtypes = [_ip, _i64, _i64, _dp, _dp, _dp, _dp]
@@ -119,6 +122,18 @@ def get_lib():
 
 def _ptr(array, kind):
     return array.ctypes.data_as(kind)
+
+
+def kd_order_native(xy: np.ndarray, n_levels: int, capacity: int):
+    """The BVH's kd order of (n, 2) points (``spatial/bvh.py:kd_order``),
+    or None when the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    xy = np.ascontiguousarray(xy, dtype=np.float64)
+    out = np.empty(len(xy), dtype=np.int64)
+    lib.kd_order(_ptr(xy, _dp), len(xy), n_levels, capacity, _ptr(out, _ip))
+    return out
 
 
 def face_bbox_native(faces: np.ndarray, x: np.ndarray, y: np.ndarray):
