@@ -596,6 +596,95 @@ def check_select_registers(log):
         raise AssertionError(f"window_select instantiations use local memory: {bad}")
 
 
+#: window_reduce's methods in the order of their codes (``ReduceMethod``
+#: in csrc/window_reduce.cu, ``METHOD_CODES`` in aligned_apply.py).
+REDUCE_METHOD_NAMES = (
+    "mean", "sum", "first_order_conservative", "harmonic_mean", "geometric_mean", "minimum", "maximum",
+    "max_overlap",
+)
+
+
+def check_reduce_registers(log):
+    """Name every instantiation of window_reduce.cu's two kernels,
+    ``window_reduce_kernel<T, M, STAGED, B>`` (2 types x 8 methods x 4
+    (staged, B) pairs) and ``csr_matvec_kernel<T>`` (2 types), by their
+    mangled names in the ptxas report, and print its registers, stack
+    frame and spill bytes.  Raises only when the report does not hold
+    the 66 instantiations.  Returns {name: (registers, stack, spill
+    stores, spill loads)}."""
+    import re
+
+    properties = (
+        r"\s*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\s*\n"
+        r".*?Used (\d+) registers"
+    )
+    reduce_entries = re.findall(
+        r"Function properties for \S*window_reduce_kernelI([fd])Li(\d+)ELb([01])ELi(\d+)E\S*" + properties, log
+    )
+    matvec_entries = re.findall(r"Function properties for \S*csr_matvec_kernelI([fd])E\S*" + properties, log)
+    if len(reduce_entries) != 2 * 8 * 4 or len(matvec_entries) != 2:
+        raise AssertionError(
+            f"expected 64 window_reduce_kernel and 2 csr_matvec_kernel instantiations in the ptxas report, "
+            f"found {len(reduce_entries)} and {len(matvec_entries)}"
+        )
+    found = {}
+    for dtype, method, staged, batch, stack, stores, loads, regs in reduce_entries:
+        name = reduce_build_name(
+            "float32" if dtype == "f" else "float64", REDUCE_METHOD_NAMES[int(method)], staged == "1", int(batch)
+        )
+        found[name] = (int(regs), int(stack), int(stores), int(loads))
+    for dtype, stack, stores, loads, regs in matvec_entries:
+        name = f"csr_matvec_kernel<{'float' if dtype == 'f' else 'double'}>"
+        found[name] = (int(regs), int(stack), int(stores), int(loads))
+    for name, (regs, stack, stores, loads) in found.items():
+        spills = "  SPILLS" if stack or stores or loads else ""
+        print(f"  {name}: {regs} registers, {stack} bytes stack, {stores} / {loads} bytes spill stores / loads{spills}")
+    spilling = [name for name, (_, stack, stores, loads) in found.items() if stack or stores or loads]
+    print(f"  window_reduce.cu builds with a stack frame or spills: {spilling or 'none'}")
+    return found
+
+
+def reduce_build_name(dtype: str, method: str, staged: bool, batch: int) -> str:
+    """The name ``check_reduce_registers`` gives one window_reduce_kernel
+    instantiation."""
+    return (
+        f"window_reduce_kernel<{'float' if dtype == 'float32' else 'double'}, {method}, "
+        f"{'staged' if staged else 'in place'}, B={batch}>"
+    )
+
+
+def launched_reduce_build(dtype: str, method: str, E: int, w: int) -> str:
+    """The window_reduce_kernel instantiation that a launch over E slices
+    and windows of w slots takes: the wrapper's ``reduce_lanes`` block,
+    then launch_batched's B (4 when staged, else from the slices per
+    warp)."""
+    from xugrid_tpu_torch.regrid.aligned_apply import reduce_lanes
+
+    slice_warps, _, staged = reduce_lanes(E, w, 4 if dtype == "float32" else 8)
+    per_warp = -(-E // slice_warps)
+    batch = 4 if staged or per_warp >= 4 else (2 if per_warp >= 2 else 1)
+    return reduce_build_name(dtype, method, staged, batch)
+
+
+def report_main_path_builds(registers, w):
+    """Which window_reduce.cu instantiations the 1M mean and
+    first_order_conservative applies (E = 1 and N_EXTRA, float32, w
+    slots) and the float64 csr_matvec launch, with their registers and
+    spills."""
+    builds = {
+        f"{method} E={E}": launched_reduce_build("float32", method, E, w)
+        for method in ("mean", "first_order_conservative") for E in (1, N_EXTRA)
+    }
+    builds["csr_matvec float64"] = "csr_matvec_kernel<double>"
+    for label, name in builds.items():
+        regs, stack, stores, loads = registers[name]
+        print(
+            f"  the 1M {label} launches {name}: {regs} registers, {stack} bytes stack, "
+            f"{stores} / {loads} bytes spill stores / loads"
+        )
+    return builds
+
+
 #: Phase 2's slice counts: window_reduce's slice-warp count S of
 #: ``reduce_lanes`` (1, 1, 1, 2, 4, 8) and slice batch (1, 2, 4, 4, 4, 4);
 #: window_select's S (1, 1, 4, 8, 8, 8), in place at E = 1 and staged
@@ -954,7 +1043,7 @@ def phase_timing(device, results, card, title="phase 4"):
                 samples[which].append(cuda_time_ms(fn, reps=5))
             kernel_ms = statistics.median(samples["kernel"])
             plain_ms = statistics.median(samples["plain"])
-            run_apply = lambda: apply_weights(regridder._padded, source, red, n, cache=regridder._device_weights)  # noqa: E731
+            run_apply = lambda: apply_weights(regridder._padded, source, red, n, plan_cache=regridder._device_weights)  # noqa: E731
             rows = [
                 ("kernel", kernel_ms), ("kernel, one launch from idle", cuda_time_ms(run_kernel, inner=1)),
                 ("plain", plain_ms), ("apply pass", cuda_time_ms(run_apply)),
@@ -1372,7 +1461,7 @@ def phase_compare(device, card, label):
             if method == "mode":
                 data = np.round(data * 2.0) / 2.0  # windows hold equal values
             source = torch.from_numpy(data.astype(np.float32)).to(device)
-            run = lambda: apply_weights(padded, source, red, n, cache=cache)  # noqa: E731
+            run = lambda: apply_weights(padded, source, red, n, plan_cache=cache)  # noqa: E731
             idx, w = device_weights(padded, torch.float32, device, cache)
             want = reduce.reduce_windows(source.t().contiguous(), idx, w, red).t()
             if kernel == "window_select":
@@ -5131,7 +5220,7 @@ def phase_structured_sharded(device, card, copy_gbps, inputs, main_results, mesh
             src_np[rng.random(src_np.shape) < 0.01] = np.nan
             src = torch.from_numpy(src_np).to(device)
             cache = {}
-            got, rose = launches_of(lambda: apply_weights(padded, src, reduce.mean, t_size, cache=cache))
+            got, rose = launches_of(lambda: apply_weights(padded, src, reduce.mean, t_size, plan_cache=cache))
             if rose["window_reduce"] != 1 or sum(rose.values()) != 1:
                 raise AssertionError(f"16.2 {label} E={n_extra}: launches {rose}")
             idx, w = device_weights(padded, torch.float32, device, cache)
@@ -5657,6 +5746,167 @@ def phase_bvh_queries(device, card, copy_gbps, inputs, main_results):
     return counts, timed
 
 
+def same_tessellation(label, got, want):
+    """Hold a voronoi_topology result to another: vertices, face map
+    and interpolation map equal, each polygon row equal or, where an
+    angle tie sorted two vertices apart, the same vertices.  Returns the
+    count of such rows."""
+    for name, a, b in zip(("vertices", "faces", "face_index", "interpolation_map"), got, want):
+        if (a is None) != (b is None) or (a is not None and a.shape != b.shape):
+            raise AssertionError(f"{label}: {name} differs in shape")
+        if a is not None and name != "faces" and not np.array_equal(a, b):
+            raise AssertionError(f"{label}: {name} differs")
+    rows = np.flatnonzero((got[1] != want[1]).any(axis=1))
+    for r in rows:
+        if not np.array_equal(np.sort(got[1][r]), np.sort(want[1][r])):
+            raise AssertionError(f"{label}: polygon {r} differs in its vertices")
+    return len(rows)
+
+
+def phase_jax_forms(device, card, results, meshes):
+    """Phase 18: calls in the JAX package's form through the port's entry
+    points, with no ``device=``, at the 1M config: ``apply_weights`` with
+    its positional ``dtype`` on an int32 source, the Delaunay Laplace
+    fill with every parameter by position (``delta`` and ``relax`` at 6
+    and 7), ``UnstructuredGrid2d.barycentric`` and ``voronoi_topology``.
+    Each is held to the keyword or ``device="cpu"`` form of the same
+    call after the counts are read."""
+    import torch
+
+    from xugrid_tpu_torch.regrid import reduce, unstructured
+    from xugrid_tpu_torch.regrid.aligned_apply import csr_matvec, window_reduce
+    from xugrid_tpu_torch.regrid.apply import apply_weights, device_weights
+    from xugrid_tpu_torch.regrid.select_apply import window_select
+    from xugrid_tpu_torch.ugrid import interpolate, voronoi
+
+    def report(line):
+        print(f"  {line} [{card}]")
+
+    t_phase = time.perf_counter()
+    print(f"phase 18: the JAX package's call forms with no device= at the 1M config [{card}]")
+    kernels = (window_reduce, window_select, csr_matvec)
+    regridder = next(r for _, method, _, r, *_ in results if method == "mean")
+    padded, n = regridder._padded, regridder._padded.n
+    generator = torch.Generator(device=device).manual_seed(18)
+    source = torch.randint(-50, 51, (N_EXTRA, padded.m), generator=generator, device=device, dtype=torch.int32)
+    W, labels, values, _ = meshes["delaunay"]
+    solve = (LAPLACE_SOLVE["rtol"], LAPLACE_SOLVE["atol"], LAPLACE_SOLVE["maxiter"], 4)
+    mesh, raster = regridder._source.ugrid_topology, regridder._target.ugrid_topology
+    topology = (
+        mesh.node_face_connectivity, mesh.node_coordinates, mesh.centroids, mesh.edge_face_connectivity,
+        mesh.edge_node_connectivity, True, True, True,
+    )
+    source_adapter, target_adapter = unstructured.UnstructuredGrid2d(raster), unstructured.UnstructuredGrid2d(mesh)
+    # Record the device every resolve_device on these paths hands back.
+    resolved = []
+    originals = {module: module.resolve_device for module in (unstructured, voronoi, interpolate)}
+
+    def recording(original):
+        def resolve(data=None, device=None):
+            out = original(data, device)
+            resolved.append(out)
+            return out
+
+        return resolve
+
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    try:
+        for module, original in originals.items():
+            module.resolve_device = recording(original)
+        t0 = time.perf_counter()
+        jax_apply = apply_weights(padded, source, reduce.mean, n, np.float32)
+        torch.cuda.synchronize()
+        apply_counts = {k.__name__: k.launches for k in kernels}
+        t1 = time.perf_counter()
+        jax_fill = interpolate.laplace_interpolate(values, W, True, labels, False, 0.5, 0.9, *solve)
+        fill_info = dict(interpolate.last_solve_info)
+        fill_devices = list(resolved)
+        t2 = time.perf_counter()
+        jax_bary = source_adapter.barycentric(target_adapter)
+        bary_devices = resolved[len(fill_devices):]
+        t3 = time.perf_counter()
+        jax_voronoi = voronoi.voronoi_topology(*topology)
+        voronoi_devices = resolved[len(fill_devices) + len(bary_devices):]
+        t4 = time.perf_counter()
+    finally:
+        for module, original in originals.items():
+            module.resolve_device = original
+    counts = {k.__name__: k.launches for k in kernels}
+
+    # 18.1: one window_reduce launch; bit-equal to the keyword call on the
+    # source cast by hand, and within the float32 tolerance of the plain
+    # version.
+    if apply_counts != {"window_reduce": 1, "window_select": 0, "csr_matvec": 0}:
+        raise AssertionError(f"18.1 apply_weights(w, int32 source, mean, n, np.float32) launched {apply_counts}")
+    if jax_apply.dtype != torch.float32 or tuple(jax_apply.shape) != (N_EXTRA, n) or jax_apply.device != source.device:
+        raise AssertionError(f"18.1 result {jax_apply.dtype} {tuple(jax_apply.shape)} on {jax_apply.device}")
+    cast = source.to(torch.float32)
+    by_keyword = apply_weights(padded, cast, reduce.mean, n, plan_cache=regridder._device_weights)
+    compare(jax_apply, by_keyword, True, 0.0, 0.0)
+    idx, w = device_weights(padded, torch.float32, source.device, regridder._device_weights)
+    plain = reduce.reduce_windows(cast.t().contiguous(), idx, w, reduce.mean).t()
+    rtol, atol = tolerance(torch.float32, 50.0)
+    apply_err = compare(jax_apply, plain, False, rtol, atol)
+    report(
+        f"18.1 apply_weights(padded, int32 source ({N_EXTRA}, {padded.m}) on the card, reduce.mean, n, np.float32): "
+        f"window_reduce +1 launch, float32 ({N_EXTRA}, {n}) on the card, bit-equal to the call on the source cast "
+        f"by hand, vs plain max |diff| {apply_err:.3e} (rtol {rtol:g}, atol {atol:g}); {t1 - t0:.3f} s"
+    )
+
+    # 18.2: the positional fill launches csr_matvec as phase 5 counts it
+    # and gives the keyword call's bits.
+    expected = 4 + fill_info["iterations"] * 4
+    if counts["csr_matvec"] != expected:
+        raise AssertionError(f"18.2 the positional fill launched csr_matvec {counts['csr_matvec']} times, not {expected}")
+    if not fill_devices or any(d.type != "cuda" for d in fill_devices):
+        raise AssertionError(f"18.2 the positional fill resolved {fill_devices}")
+    by_keyword = interpolate.laplace_interpolate(values, W, components_labels=labels, precondition_degree=4, **LAPLACE_SOLVE)
+    if not np.array_equal(jax_fill, by_keyword, equal_nan=True):
+        raise AssertionError(
+            f"18.2 the positional fill differs from the keyword call by {np.nanmax(np.abs(jax_fill - by_keyword))}"
+        )
+    report(
+        f"18.2 laplace_interpolate(values, W, True, labels, False, 0.5, 0.9, rtol, atol, maxiter, 4) on the "
+        f"{len(values)}-node Delaunay mesh: {fill_info['iterations']} iterations on {fill_devices[0]}, csr_matvec "
+        f"+{counts['csr_matvec']} launches, bit-equal to the keyword call without delta and relax; {t2 - t1:.3f} s"
+    )
+
+    # 18.3 and 18.4: the device resolved is the card's, and the result is
+    # the one sorted on the CPU.
+    for label, devices in (("18.3 barycentric", bary_devices), ("18.4 voronoi_topology", voronoi_devices)):
+        if not devices or any(d.type != "cuda" for d in devices):
+            raise AssertionError(f"{label} with no device resolved {devices}")
+    t5 = time.perf_counter()
+    on_cpu = source_adapter.barycentric(target_adapter, device="cpu")
+    t6 = time.perf_counter()
+    order, cpu_order = np.lexsort(jax_bary[1::-1]), np.lexsort(on_cpu[1::-1])
+    for k in range(2):
+        if not np.array_equal(jax_bary[k][order], on_cpu[k][cpu_order]):
+            raise AssertionError("18.3 barycentric on the card and on the CPU differ in their triplets' indices")
+    weight_diff = float(np.max(np.abs(jax_bary[2][order] - on_cpu[2][cpu_order]) / np.abs(on_cpu[2][cpu_order])))
+    if weight_diff > 1e-12:
+        raise AssertionError(f"18.3 barycentric weights on the card and on the CPU differ by rtol {weight_diff:.3e}")
+    report(
+        f"18.3 UnstructuredGrid2d(raster {raster.n_face} faces).barycentric(mesh {mesh.n_face} faces) with no device: "
+        f"resolved {bary_devices[0]}, {len(jax_bary[2])} triplets, equal to device='cpu' (weights within rtol "
+        f"{weight_diff:.3e}); {t3 - t2:.3f} s on the card, {t6 - t5:.3f} s with device='cpu'"
+    )
+    t7 = time.perf_counter()
+    on_cpu = voronoi.voronoi_topology(*topology, device="cpu")
+    t8 = time.perf_counter()
+    ties = same_tessellation("18.4 voronoi_topology", jax_voronoi, on_cpu)
+    report(
+        f"18.4 voronoi_topology(the 1M mesh's node_face, nodes, centroids, edge_face, edge_node, True, True, True) "
+        f"with no device: the angle sort on {voronoi_devices[0]}, {len(jax_voronoi[1])} polygons, "
+        f"{len(jax_voronoi[0])} vertices, equal to device='cpu' but {ties} rows of angle ties; "
+        f"{t4 - t3:.3f} s on the card, {t8 - t7:.3f} s with device='cpu'"
+    )
+    report(f"phase 18 done in {time.perf_counter() - t_phase:.1f} s; CUDA kernel launches {counts}")
+    return counts, {"window_reduce": apply_err, "csr_matvec": 0.0}
+
+
 def main() -> int:
     import torch
 
@@ -5679,9 +5929,11 @@ def main() -> int:
         print(f"chip_smoke --compare {sys.argv[2]}: done in {time.perf_counter() - t_start:.1f} s")
         return 0
     check_select_registers(log)
+    reduce_registers = check_reduce_registers(log)
     check_err = phase_kernel_checks(device)
     check_err["csr_matvec"] = phase_matvec_checks(device)
     counts, main_err, results, inputs = phase_main_path(device)
+    report_main_path_builds(reduce_registers, results[0][3]._padded.w_max)
     timed, copy_gbps = phase_timing(device, results, card)
     laplace_counts, _, meshes = phase_laplace(device)
     matvec_timed = phase_laplace_timing(device, card, copy_gbps, meshes)
@@ -5701,6 +5953,8 @@ def main() -> int:
     phase16_label = "curvilinear and 3-D grids, sharded regrid and CG in worlds of 1 and 2, profiler hooks (phase 16)"
     bvh_counts, _ = phase_bvh_queries(device, card, copy_gbps, inputs, results)
     phase17_label = "the flat BVH and its batched queries as torch ops (phase 17)"
+    jax_form_counts, jax_form_err = phase_jax_forms(device, card, results, meshes)
+    phase18_label = "the JAX package's call forms with no device= (phase 18)"
 
     def window_entry(name, timed_at):
         """A window kernel's line: launches summed over the paths that
@@ -5718,6 +5972,7 @@ def main() -> int:
             "the XL config streamed from files, grouped methods, then regrid (phase 15)": stream_counts[name],
             phase16_label: slice16_counts[name] + world2_counts[name],
             phase17_label: bvh_counts[name],
+            phase18_label: jax_form_counts[name],
         }
         return {
             "launches": sum(by_path.values()),
@@ -5725,7 +5980,7 @@ def main() -> int:
             "max_abs_err": max(
                 check_err[name], main_err[name], regrid_err[name], labelled_err[name], files_err[name],
                 partition_err[name], query_err.get(name, 0.0), topology_err[name], payload_err[name],
-                vector_err[name], stream_err[name], slice16_err[name],
+                vector_err[name], stream_err[name], slice16_err[name], jax_form_err.get(name, 0.0),
             ),
             **timed_at,
         }
@@ -5738,6 +5993,7 @@ def main() -> int:
         "vector geometry and sample data, then regrid and fill (phase 14)": vector_counts["csr_matvec"],
         phase16_label: slice16_counts["csr_matvec"] + world2_counts["csr_matvec"],
         phase17_label: bvh_counts["csr_matvec"],
+        phase18_label: jax_form_counts["csr_matvec"],
     }
 
     kernels = [

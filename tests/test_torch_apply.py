@@ -200,11 +200,11 @@ def test_device_weights_upload_once_per_dtype():
     indices, weights, source = make_case(seed=7)
     padded = PaddedCSR(indices, weights, indices.shape[0], source.shape[-1], indices.shape[1])
     cache = {}
-    apply_weights(padded, source, reduce.mean, padded.n, cache=cache)
+    apply_weights(padded, source, reduce.mean, padded.n, plan_cache=cache)
     idx, w = cache[(torch.float64, torch.device("cpu"))]
-    apply_weights(padded, source, reduce.mean, padded.n, cache=cache)
+    apply_weights(padded, source, reduce.mean, padded.n, plan_cache=cache)
     assert len(cache) == 1 and cache[(torch.float64, torch.device("cpu"))][0] is idx
-    apply_weights(padded, source.astype(np.float32), reduce.mean, padded.n, cache=cache)
+    apply_weights(padded, source.astype(np.float32), reduce.mean, padded.n, plan_cache=cache)
     assert len(cache) == 2
     idx32, w32 = device_weights(padded, torch.float32, torch.device("cpu"), cache)
     assert idx32.dtype == torch.int32 and w32.dtype == torch.float32

@@ -31,13 +31,17 @@ against it on the same seeded inputs:
   exceptions below.
 """
 
+import inspect
+
 import numpy as np
 import pytest
+import scipy.sparse
+import torch
 
 import xugrid_tpu as xu
 import xugrid_tpu_torch as xt
 from tests.test_torch_serialize import assert_weights_bit_equal, build, sources
-from tests.test_torch_wrap import inputs, values_of  # noqa: F401
+from tests.test_torch_wrap import inputs, mesh_uda, values_of  # noqa: F401
 from xugrid_tpu.regrid.unstructured import Network1d as JaxNetwork1d
 from xugrid_tpu_torch.core.sparse import MatrixCOO, MatrixCSR
 from xugrid_tpu_torch.regrid.unstructured import Network1d
@@ -403,6 +407,248 @@ def test_mean_value_weights_of_one_point_by_keyword():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
 
 
+# Calls in the JAX package's form
+# -------------------------------
+def path_graph(n):
+    """The adjacency of a path of ``n`` nodes, unit weights."""
+    i = np.arange(n - 1)
+    rows, cols = np.concatenate([i, i + 1]), np.concatenate([i + 1, i])
+    return scipy.sparse.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+
+
+def test_laplace_fill_takes_the_jax_positional_order():
+    """delta and relax sit at positions 6 and 7: rtol, atol and maxiter
+    given by position bind to themselves, not to the next parameter."""
+    from xugrid_tpu.ugrid import interpolate as jax_interpolate
+    from xugrid_tpu_torch.ugrid import interpolate
+
+    data = np.array([1.0, np.nan, np.nan, np.nan, 5.0])
+    args = (data, path_graph(5), False, None, False, 0.0, 0.0, 0.0, 1e-8)
+    want = jax_interpolate.laplace_interpolate(*args)
+    got = interpolate.laplace_interpolate(*args, device="cpu")
+    np.testing.assert_allclose(got, [1.0, 2.0, 3.0, 4.0, 5.0], rtol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_laplace_fill_takes_delta_and_relax_by_keyword():
+    import chip_smoke
+    from xugrid_tpu.ugrid import interpolate as jax_interpolate
+    from xugrid_tpu_torch.ugrid import interpolate
+
+    nodes, faces = chip_smoke.delaunay_mesh(17)  # 324 nodes
+    grid = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, faces)
+    W = grid.get_connectivity_matrix(grid.node_dimension, xy_weights=True)
+    _, values = chip_smoke.laplace_inputs(nodes, known_fraction=0.1, seed=3)
+    kwargs = {"delta": 0.25, "relax": 0.5, "atol": 1e-10}
+    want = jax_interpolate.laplace_interpolate(values, W, **kwargs)
+    got = interpolate.laplace_interpolate(values, W, device="cpu", **kwargs)
+    assert np.isnan(got).sum() == 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, torch.float32])
+def test_apply_weights_casts_to_dtype(dtype):
+    """An integer source cast by ``dtype`` (the fifth argument), against
+    the JAX ``apply_weights`` at that dtype's tolerance."""
+    from xugrid_tpu.core.sparse import PaddedCSR as JaxPaddedCSR
+    from xugrid_tpu.regrid import reduce as jax_reduce
+    from xugrid_tpu.regrid.apply import apply_weights as jax_apply_weights
+    from xugrid_tpu_torch.core.sparse import PaddedCSR
+    from xugrid_tpu_torch.regrid import reduce
+    from xugrid_tpu_torch.regrid.apply import apply_weights
+
+    rng = np.random.default_rng(21)
+    n, m, w = 300, 400, 5
+    indices = rng.integers(-1, m, (n, w)).astype(np.int32)
+    weights = np.where(indices >= 0, rng.uniform(0.1, 2.0, (n, w)), 0.0)
+    source = rng.integers(-50, 50, (4, m)).astype(np.int32)
+    np_dtype = np.float32 if dtype in (np.float32, torch.float32) else np.float64
+    want = jax_apply_weights(JaxPaddedCSR(indices, weights, n, m, w), source, jax_reduce.mean, n, np_dtype)
+    got = apply_weights(PaddedCSR(indices, weights, n, m, w), torch.from_numpy(source), reduce.mean, n, dtype)
+    assert got.dtype == torch.from_numpy(np.empty(0, np_dtype)).dtype
+    rtol, atol = (1e-5, 1e-6) if np_dtype == np.float32 else (1e-12, 1e-12)
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
+
+
+def test_apply_weights_plan_cache_uploads_once_and_other_dtypes_raise():
+    from xugrid_tpu_torch.core.sparse import PaddedCSR
+    from xugrid_tpu_torch.regrid import reduce
+    from xugrid_tpu_torch.regrid.apply import apply_weights
+
+    rng = np.random.default_rng(22)
+    indices = rng.integers(-1, 50, (40, 4)).astype(np.int32)
+    padded = PaddedCSR(indices, np.where(indices >= 0, 1.0, 0.0), 40, 50, 4)
+    source = rng.integers(0, 9, (2, 50))
+    plan_cache = {}
+    first = apply_weights(padded, source, reduce.mean, 40, np.float32, plan_cache)
+    uploaded = dict(plan_cache)
+    assert list(uploaded) == [(torch.float32, torch.device("cpu"))]
+    second = apply_weights(padded, source, reduce.mean, 40, dtype=np.float32, plan_cache=plan_cache)
+    assert plan_cache.keys() == uploaded.keys()
+    assert all(a is b for a, b in zip(plan_cache[(torch.float32, torch.device("cpu"))], uploaded[(torch.float32, torch.device("cpu"))]))
+    torch.testing.assert_close(first, second, rtol=0, atol=0)
+    for dtype in (np.float16, torch.bfloat16, np.int32):
+        with pytest.raises(TypeError, match="float32 or float64"):
+            apply_weights(padded, source, reduce.mean, 40, dtype)
+
+
+@pytest.mark.parametrize("cls", ["MatrixCOO", "MatrixCSR"])
+def test_from_triplet_sizes_default_to_the_largest_index(cls):
+    from xugrid_tpu.core import sparse as jax_sparse
+    from xugrid_tpu_torch.core import sparse
+
+    rng = np.random.default_rng(23)
+    row, col = rng.integers(0, 30, 80), rng.integers(0, 20, 80)
+    data = rng.normal(size=80)
+    want = getattr(jax_sparse, cls).from_triplet(row, col, data)
+    got = getattr(sparse, cls).from_triplet(row, col, data)
+    assert (got.n, got.m, got.nnz) == (want.n, want.m, want.nnz) == (int(row.max()) + 1, int(col.max()) + 1, 80)
+    for field in got._fields[:3]:
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+@pytest.mark.parametrize("relative", [False, True])
+def test_intersection_length_relative_matches_jax(relative):
+    import chip_smoke
+    from xugrid_tpu.regrid import unstructured as jax_unstructured
+    from xugrid_tpu_torch.regrid import unstructured
+
+    rng = np.random.default_rng(24)
+    (verts, faces), _ = chip_smoke.bench_meshes(10, 4, rng)
+    nodes, edges = chip_smoke.random_network(4, 15, 10.0, rng)
+    results = []
+    for pkg, module in ((xu, jax_unstructured), (xt, unstructured)):
+        mesh = module.UnstructuredGrid2d(pkg.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces))
+        network = module.Network1d(pkg.Ugrid1d(nodes[:, 0], nodes[:, 1], -1, edges))
+        results.append(mesh.intersection_length(network, relative))
+    (want_edge, want_face, want), (edge, face, got) = results
+    np.testing.assert_array_equal(edge, want_edge)
+    np.testing.assert_array_equal(face, want_face)
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    if relative:
+        assert got.max() <= 1.0 + 1e-12
+
+
+def test_xdata_where_takes_keep_attrs():
+    rng = np.random.default_rng(25)
+    cond, x = rng.random(6) < 0.5, rng.normal(size=6)
+    results = []
+    for pkg in PACKAGES:
+        da = pkg.xdata.DataArray(cond, dims=("x",), coords={"x": np.arange(6.0)}, name="c")
+        results.append(pkg.xdata.where(da, x, -1.0, True))
+        np.testing.assert_array_equal(pkg.xdata.where(cond, x, 0.0, keep_attrs=False), np.where(cond, x, 0.0))
+    want, got = results
+    assert got.dims == want.dims and got.name == want.name
+    np.testing.assert_array_equal(got.values, want.values)
+
+
+def test_concat_and_merge_take_and_ignore_xarray_keywords(inputs):  # noqa: F811
+    results = {}
+    for pkg in PACKAGES:
+        uda = mesh_uda(pkg, inputs)
+        results[pkg] = (
+            pkg.concat([uda, uda], "time", join="outer"),
+            pkg.xdata.concat([uda.obj, uda.obj], "time", coords="minimal"),
+            pkg.merge([uda.obj.to_dataset(), uda.obj.rename("w")], "no_conflicts", join="outer"),
+            pkg.xdata.merge([uda.obj, uda.obj.rename("w")], join="outer"),
+        )
+    for want, got in zip(results[xu], results[xt]):
+        assert sorted(got.dims.items() if hasattr(got.dims, "items") else got.sizes.items()) == sorted(
+            want.dims.items() if hasattr(want.dims, "items") else want.sizes.items()
+        )
+    (juda, jda, jmerged, jds), (tuda, tda, tmerged, tds) = results[xu], results[xt]
+    assert isinstance(tuda, xt.UgridDataArray) and isinstance(tmerged, xt.UgridDataset)
+    np.testing.assert_array_equal(values_of(tuda), values_of(juda))
+    np.testing.assert_array_equal(tda.values, jda.values)
+    for name in ("v", "w"):
+        np.testing.assert_array_equal(values_of(tmerged[name]), values_of(jmerged[name]))
+        np.testing.assert_array_equal(tds[name].values, jds[name].values)
+
+
+def test_setup_grid_takes_coordinate_names():
+    from xugrid_tpu.regrid.regridder import setup_grid as jax_setup_grid
+    from xugrid_tpu_torch.regrid.regridder import setup_grid
+
+    coords = {"lat": np.arange(4.0) + 0.5, "lon": np.arange(6.0) * 2.0 + 1.0}
+    grids = [
+        f(pkg.xdata.DataArray(np.zeros((4, 6)), coords=coords, dims=("lat", "lon")), name_x="lon", name_y="lat")
+        for pkg, f in ((xu, jax_setup_grid), (xt, setup_grid))
+    ]
+    want, got = grids
+    for axis in ("xbounds", "ybounds"):
+        np.testing.assert_array_equal(getattr(got, axis).bounds, getattr(want, axis).bounds)
+
+
+def test_ugrid1d_without_edges_raises_as_jax():
+    for pkg in PACKAGES:
+        with pytest.raises(TypeError):
+            pkg.Ugrid1d(np.arange(3.0), np.zeros(3), -1)
+
+
+def _without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    return pytest.raises(RuntimeError, match="device='cpu'")
+
+
+def test_angle_sort_rows_device_defaults_to_the_card(monkeypatch):
+    """(8192, 4, 2) offsets reach ``DEVICE_MIN``: the sort resolves its
+    device, the card, and raises without one unless told the CPU."""
+    from xugrid_tpu.ugrid import voronoi as jax_voronoi
+    from xugrid_tpu_torch.ugrid import voronoi
+
+    rng = np.random.default_rng(26)
+    coords = rng.normal(size=(500, 2))
+    cand = rng.integers(-1, 500, (8192, 4))
+    anchors = coords[rng.integers(0, 500, 8192)] + rng.normal(scale=0.1, size=(8192, 2))
+    with _without_card(monkeypatch):
+        voronoi.angle_sort_rows(cand, coords, anchors)
+    got = voronoi.angle_sort_rows(cand, coords, anchors, device="cpu")
+    want = jax_voronoi.angle_sort_rows(cand, coords, anchors)
+    np.testing.assert_array_equal(got >= 0, want >= 0)
+    from tests.test_torch_voronoi import polygons
+
+    assert polygons(got) == polygons(want)
+
+
+def test_voronoi_topology_device_defaults_to_the_card(monkeypatch):
+    import chip_smoke
+    from tests.test_torch_voronoi import assert_same_tessellation, topology_args
+    from xugrid_tpu.ugrid import connectivity as jax_connectivity
+    from xugrid_tpu.ugrid import voronoi as jax_voronoi
+    from xugrid_tpu_torch.ugrid import connectivity, voronoi
+
+    (nodes, faces), _ = chip_smoke.bench_meshes(100, 2, np.random.default_rng(27))
+    centroids = connectivity.centroids(faces, nodes[:, 0], nodes[:, 1])
+    mode = {"add_exterior": True, "add_vertices": True, "skip_concave": True}
+    args = topology_args(connectivity, nodes, faces, centroids)
+    with _without_card(monkeypatch):
+        voronoi.voronoi_topology(*args, **mode)
+    got = voronoi.voronoi_topology(*args, **mode, device="cpu")
+    want = jax_voronoi.voronoi_topology(*topology_args(jax_connectivity, nodes, faces, centroids), **mode)
+    assert_same_tessellation(got, want)
+
+
+def test_barycentric_device_defaults_to_the_card(monkeypatch):
+    import chip_smoke
+    from xugrid_tpu.regrid import unstructured as jax_unstructured
+    from xugrid_tpu_torch.regrid import unstructured
+
+    (verts, faces), (tverts, tfaces) = chip_smoke.bench_meshes(8, 5, np.random.default_rng(28))
+    adapters = [
+        (module.UnstructuredGrid2d(pkg.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)),
+         module.UnstructuredGrid2d(pkg.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)))
+        for pkg, module in ((xu, jax_unstructured), (xt, unstructured))
+    ]
+    (jsource, jtarget), (source, target) = adapters
+    with _without_card(monkeypatch):
+        source.barycentric(target)
+    want = jsource.barycentric(jtarget)
+    got = source.barycentric(target, device="cpu")
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-12, atol=1e-14)
+
+
 # Public names of ``xugrid_tpu`` that the port deliberately lacks.
 NOT_PORTED = {
     # The Pallas entry points of TPU kernels #1 and #2 and their TPU plan
@@ -479,3 +725,132 @@ def test_every_public_name_has_a_counterpart():
                     if not attr.startswith("_") and not hasattr(getattr(port, name), attr)
                 ]
     assert not missing, missing
+
+
+# Where the port's signature differs from the JAX package's by design:
+# (JAX parameter -> the port's name for it, None where the port has none;
+# the parameters the port adds and requires).  Besides these, the port
+# may add optional parameters after the JAX ones, or keyword-only: above
+# all ``device``, where an entry point runs (the CUDA card unless the
+# caller asks for the CPU).
+_MESH_TO_GROUP = ({"mesh": "group", "axis": None}, ())
+SIGNATURE_EXCEPTIONS = {
+    # The JAX device mesh and its axis name become one torch.distributed
+    # process group; the exchange that ``shard_map`` gives the JAX method
+    # implicitly is the port's ``Exchange`` over that group.
+    "xugrid_tpu.parallel.sharding": {
+        "NeighborExchangePlan.__init__": _MESH_TO_GROUP,
+        "NeighborExchangePlan.gather_neighbors": ({}, ("exchange",)),
+        "ShardedRegrid.__init__": _MESH_TO_GROUP,
+        "ShardedRegrid.from_regridder": _MESH_TO_GROUP,
+        "halo_exchange": _MESH_TO_GROUP,
+        "sharded_laplace_smooth": _MESH_TO_GROUP,
+        "sharded_cg_solve": _MESH_TO_GROUP,
+    },
+    # ``align`` takes the old UGRID dimensions' coordinate arrays
+    # (``ugridbase.dim_coordinates``), not xarray index objects, which
+    # the port's labelled arrays do not have.
+    "xugrid_tpu.ugrid.ugridbase": {"align": ({"old_indexes": "old_coords"}, ())},
+}
+_POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+def _same_default(jax_default, port_default) -> bool:
+    """Defaults agree: functions by qualified name, NaN with NaN, any
+    other value by type and value."""
+    if callable(jax_default) and callable(port_default):
+        return jax_default.__qualname__ == port_default.__qualname__
+    if isinstance(jax_default, float) and isinstance(port_default, float):
+        return jax_default == port_default or (np.isnan(jax_default) and np.isnan(port_default))
+    return type(jax_default) is type(port_default) and jax_default == port_default
+
+
+def _signature_faults(name, jax_fn, port_fn, owner, exception):
+    """Where the port's ``port_fn`` refuses a call that ``jax_fn`` takes,
+    after the (renames, added) of ``exception``; a port ``None`` default
+    stands for the JAX default held by ``owner._DEFAULT_<NAME>``."""
+    renames, added = exception
+    jax_sig, port_sig = inspect.signature(jax_fn), inspect.signature(port_fn)
+    jax_params = [
+        p.replace(name=renames.get(p.name, p.name)) for p in jax_sig.parameters.values()
+        if renames.get(p.name, p.name) is not None
+    ]
+    port = port_sig.parameters
+    port_positional = [p.name for p in port.values() if p.kind in _POSITIONAL]
+    kinds = {p.kind for p in port.values()}
+    faults = []
+    for i, p in enumerate(jax_params):
+        if p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD):
+            if p.kind not in kinds:
+                faults.append(f"{name}: takes no {'*' if p.kind is p.VAR_POSITIONAL else '**'}{p.name}")
+            continue
+        q = port.get(p.name)
+        if q is None:
+            faults.append(f"{name}: lacks {p.name}")
+            continue
+        if p.kind in _POSITIONAL and (q.kind not in _POSITIONAL or port_positional.index(p.name) != i):
+            faults.append(f"{name}: {p.name} is not at position {i}")
+        if q.kind is q.POSITIONAL_ONLY and p.kind is not p.POSITIONAL_ONLY:
+            faults.append(f"{name}: {p.name} is positional only")
+        if p.default is p.empty:
+            continue
+        if q.default is q.empty:
+            faults.append(f"{name}: requires {p.name}, which defaults to {p.default!r}")
+        elif q.default is None and p.default is not None and owner is not None:
+            class_default = getattr(owner, f"_DEFAULT_{p.name.upper()}", None)
+            if not _same_default(p.default, class_default):
+                faults.append(f"{name}: {p.name} defaults to None, not {p.default!r}")
+        elif not _same_default(p.default, q.default):
+            faults.append(f"{name}: {p.name} defaults to {q.default!r}, not {p.default!r}")
+    jax_names = {p.name for p in jax_params}
+    for q in port.values():
+        if q.name in jax_names or q.kind in (q.VAR_POSITIONAL, q.VAR_KEYWORD) or q.name in added:
+            continue
+        if q.default is q.empty:
+            faults.append(f"{name}: requires {q.name}, which the JAX package lacks")
+    return faults
+
+
+def _callables(module, port):
+    """(qualified name, JAX function, port function, port class or None)
+    for each public function of ``module`` and each public method,
+    ``__init__`` included, of the classes it defines."""
+    for name in sorted(_defined_names(module) - NOT_PORTED.get(module.__name__, set())):
+        obj, port_obj = getattr(module, name), getattr(port, name)
+        if inspect.isfunction(obj) and obj.__module__ == module.__name__:
+            yield name, obj, port_obj, None
+        elif inspect.isclass(obj) and obj.__module__ == module.__name__:
+            for attr in sorted(dir(obj)):
+                if attr.startswith("_") and attr != "__init__":
+                    continue
+                method = inspect.getattr_static(obj, attr)
+                port_method = inspect.getattr_static(port_obj, attr)
+                if isinstance(method, (staticmethod, classmethod)):
+                    method, port_method = method.__func__, getattr(port_method, "__func__", port_method)
+                if inspect.isfunction(method):
+                    yield f"{name}.{attr}", method, port_method, port_obj
+
+
+def _walked_modules():
+    import pkgutil
+
+    return [
+        info.name for info in pkgutil.walk_packages(xu.__path__, "xugrid_tpu.")
+        if info.name not in NOT_PORTED_MODULES
+    ]
+
+
+@pytest.mark.parametrize("module_name", _walked_modules())
+def test_every_signature_matches(module_name):
+    import importlib
+
+    module = importlib.import_module(module_name)
+    port = importlib.import_module("xugrid_tpu_torch" + module_name[len("xugrid_tpu"):])
+    exceptions = SIGNATURE_EXCEPTIONS.get(module_name, {})
+    faults = []
+    for name, jax_fn, port_fn, owner in _callables(module, port):
+        if not callable(port_fn):
+            faults.append(f"{name}: not callable in the port")
+            continue
+        faults += _signature_faults(name, jax_fn, port_fn, owner, exceptions.get(name, ({}, ())))
+    assert not faults, faults

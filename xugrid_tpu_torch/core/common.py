@@ -79,25 +79,28 @@ def _unwrap_grids(objects):
     return unique_grids(grids)
 
 
-def concat(objs, dim: str):
-    """Concatenate UgridDataArrays or UgridDatasets along ``dim``."""
+def concat(objs, *args, **kwargs):
+    """Concatenate UgridDataArrays or UgridDatasets (``xdata.concat``'s
+    arguments); the grids must match."""
     grids = _unwrap_grids(objs)
-    result = xdata.concat([maybe_xdata(o) for o in objs], dim)
+    result = xdata.concat([maybe_xdata(o) for o in objs], *args, **kwargs)
     if isinstance(result, xdata.DataArray):
         return UgridDataArray(result, grids[0])
     return UgridDataset(result, grids)
 
 
-def merge(objs, compat: str = "no_conflicts"):
-    """Merge UgridDataArrays and UgridDatasets into a UgridDataset."""
+def merge(objs, *args, **kwargs):
+    """Merge UgridDataArrays and UgridDatasets into a UgridDataset
+    (``xdata.merge``'s arguments)."""
     grids = _unwrap_grids(objs)
-    return UgridDataset(xdata.merge([maybe_xdata(o) for o in objs], compat=compat), grids)
+    return UgridDataset(xdata.merge([maybe_xdata(o) for o in objs], *args, **kwargs), grids)
 
 
-def full_like(other, fill_value, dtype=None):
+def full_like(other, fill_value, *args, **kwargs):
     """A UgridDataArray or UgridDataset like ``other``, filled with
-    ``fill_value`` (a tensor payload gives one on its device)."""
-    result = xdata.full_like(maybe_xdata(other), fill_value, dtype=dtype)
+    ``fill_value`` (``xdata.full_like``'s arguments; a tensor payload
+    gives one on its device)."""
+    result = xdata.full_like(maybe_xdata(other), fill_value, *args, **kwargs)
     if isinstance(other, UgridDataArray):
         return UgridDataArray(result, other.grid)
     if isinstance(other, UgridDataset):
@@ -105,9 +108,9 @@ def full_like(other, fill_value, dtype=None):
     return result
 
 
-def zeros_like(other, dtype=None):
-    return full_like(other, 0, dtype=dtype)
+def zeros_like(other, *args, **kwargs):
+    return full_like(other, 0, *args, **kwargs)
 
 
-def ones_like(other, dtype=None):
-    return full_like(other, 1, dtype=dtype)
+def ones_like(other, *args, **kwargs):
+    return full_like(other, 1, *args, **kwargs)

@@ -406,6 +406,8 @@ class UgridDataArrayAccessor(AbstractUgridAccessor):
                     "use_weights": xy_weights,
                     "components_labels": components_labels,
                     "direct_solve": direct_solve,
+                    "delta": delta,
+                    "relax": relax,
                     "rtol": rtol,
                     "atol": atol,
                     "maxiter": maxiter,

@@ -27,7 +27,13 @@ class MatrixCOO(NamedTuple):
     nnz: int
 
     @staticmethod
-    def from_triplet(row, col, data, n: int, m: int) -> "MatrixCOO":
+    def from_triplet(row, col, data, n=None, m=None) -> "MatrixCOO":
+        """``n`` and ``m`` default to one past the largest row and
+        column index."""
+        if n is None:
+            n = int(np.max(row)) + 1
+        if m is None:
+            m = int(np.max(col)) + 1
         return MatrixCOO(
             np.asarray(data, dtype=np.float64),
             np.asarray(row, dtype=IntDType),
@@ -66,7 +72,7 @@ class MatrixCSR(NamedTuple):
     nnz: int
 
     @staticmethod
-    def from_triplet(row, col, data, n: int, m: int) -> "MatrixCSR":
+    def from_triplet(row, col, data, n=None, m=None) -> "MatrixCSR":
         return MatrixCOO.from_triplet(row, col, data, n, m).to_csr()
 
     def to_coo(self) -> MatrixCOO:

@@ -399,7 +399,7 @@ class ShardedRegrid:
             full = self.plan.extend(local)
         else:
             full = self.exchange.all_gather(local, dim=1)
-        out = apply_weights(self.local_weights, full, self.reduction, self.rows, cache=self._device_weights)
+        out = apply_weights(self.local_weights, full, self.reduction, self.rows, plan_cache=self._device_weights)
         return out.reshape(leading + (self.rows,))
 
     def gather(self, out: torch.Tensor) -> torch.Tensor:
@@ -467,7 +467,7 @@ def sharded_laplace_smooth(
     cache = {}
     for _ in range(n_steps):
         full = plan.extend(local) if plan is not None else exchange.all_gather(local, dim=1)
-        local = 0.5 * local + 0.5 * apply_weights(stencil, full, reductions.mean, rows, cache=cache)
+        local = 0.5 * local + 0.5 * apply_weights(stencil, full, reductions.mean, rows, plan_cache=cache)
     return exchange.all_gather(local, dim=1)[0, :n].cpu().numpy()
 
 

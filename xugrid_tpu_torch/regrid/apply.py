@@ -23,6 +23,7 @@ from xugrid_tpu_torch.core.sparse import PaddedCSR
 from xugrid_tpu_torch.regrid import reduce
 from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, window_reduce
 from xugrid_tpu_torch.regrid.select_apply import covers, window_select
+from xugrid_tpu_torch.xdata.variable import torch_dtype
 
 
 def device_weights(weights: PaddedCSR, dtype: torch.dtype, device: torch.device, cache: dict | None = None):
@@ -46,20 +47,31 @@ def apply_weights(
     source,
     reduction,
     target_size: int,
-    cache: dict | None = None,
+    dtype=None,
+    plan_cache: dict | None = None,
 ) -> torch.Tensor:
     """
     Apply regridding weights over the flattened source.
 
     source: (..., m) tensor or array; the leading dims are the extra
-    slices.  Returns (..., n_target) on the source's device, contiguous.
+    slices.  ``dtype`` (numpy or torch) casts the source on its device
+    first: float32 or float64, the two the kernels serve (any other
+    raises TypeError).  An integer source is taken as float64.
+    ``plan_cache`` (owned by the caller, e.g. the regridder) keeps one
+    upload of the weights per (dtype, device).  Returns (..., n_target)
+    on the source's device, contiguous.
     """
     source = torch.as_tensor(source)
     leading = tuple(source.shape[:-1])
     source2d = source.reshape(-1, source.shape[-1])
+    if dtype is not None:
+        dtype = torch_dtype(dtype)
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the regrid kernels take float32 or float64, got dtype={dtype}")
+        source2d = source2d.to(dtype)
     if not source2d.is_floating_point():
         source2d = source2d.to(torch.float64)
-    indices, w = device_weights(weights, source2d.dtype, source2d.device, cache)
+    indices, w = device_weights(weights, source2d.dtype, source2d.device, plan_cache)
     if reduction in METHOD_CODES:
         out = window_reduce(source2d.contiguous(), indices, w, reduction)
     elif covers(reduction):

@@ -42,5 +42,5 @@ class NetworkGridder(BaseRegridder):
         return target
 
     def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
-        source_index, target_index, weight_values = target.intersection_length(source)
+        source_index, target_index, weight_values = target.intersection_length(source, relative=False)
         return MatrixCSR.from_triplet(target_index, source_index, weight_values, n=target.size, m=source.size)

@@ -51,15 +51,15 @@ from xugrid_tpu_torch.xdata.lazy import is_lazy
 APPLY_CHUNK_BYTES = 2_000_000_000
 
 
-def setup_grid(obj):
+def setup_grid(obj, **kwargs):
     """The regridding adapter of a source or target: a raster has ``x``
-    and ``y`` coordinates."""
+    and ``y`` coordinates, or those named by ``name_x`` and ``name_y``."""
     if isinstance(obj, (UnstructuredGrid2d, StructuredGrid2d)):
         return obj
     if isinstance(obj, (Ugrid2d, UgridDataArray, UgridDataset)):
         return UnstructuredGrid2d(obj)
     if isinstance(obj, (xdata.DataArray, xdata.Dataset)):
-        return StructuredGrid2d(obj)
+        return StructuredGrid2d(obj, name_x=kwargs.get("name_x", "x"), name_y=kwargs.get("name_y", "y"))
     raise TypeError(
         "Expected Ugrid2d, UgridDataArray, UgridDataset, DataArray, or "
         f"Dataset; received: {type(obj).__name__}"
@@ -276,7 +276,7 @@ class BaseRegridder(abc.ABC):
         # stream through in slabs of extra slices.
         rows = self._slices_per_chunk(source2d.element_size())
         chunks = [
-            apply_weights(self._padded, source2d[i : i + rows], self._reduction, n, cache=self._device_weights)
+            apply_weights(self._padded, source2d[i : i + rows], self._reduction, n, plan_cache=self._device_weights)
             for i in range(0, source2d.shape[0], rows)
         ]
         return chunks[0] if len(chunks) == 1 else torch.cat(chunks)
@@ -381,12 +381,12 @@ class BaseRegridder(abc.ABC):
 
 
 class BaseOverlapRegridder(BaseRegridder, abc.ABC):
-    def __init__(self, source, target, method, device):
+    def __init__(self, source, target, tolerance: Optional[float] = None, method=None, device=None):
         # Where the exact overlap of faces above the native clips' sizes
         # runs; resolved only if such faces occur.
         self._build_device = device
-        super().__init__(source=source, target=target)
-        self._setup_regrid(method)
+        super().__init__(source, target, tolerance)
+        self._setup_regrid(self._DEFAULT_METHOD if method is None else method)
 
     def _overlap_weights(self, source, target, relative: bool) -> MatrixCSR:
         source, target = convert_to_match(source, target)
@@ -414,7 +414,7 @@ class OverlapRegridder(BaseOverlapRegridder):
     _METHODS = reduce.ABSOLUTE_OVERLAP_METHODS
 
     def __init__(self, source, target, method: Union[str, Callable] = "mean", device=None):
-        super().__init__(source, target, method, device)
+        super().__init__(source, target, method=method, device=device)
 
     def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
         return self._overlap_weights(source, target, relative=False)
@@ -435,7 +435,7 @@ class RelativeOverlapRegridder(BaseOverlapRegridder):
     _DEFAULT_METHOD = "first_order_conservative"
 
     def __init__(self, source, target, method: Union[str, Callable] = "first_order_conservative", device=None):
-        super().__init__(source, target, method, device)
+        super().__init__(source, target, method=method, device=device)
 
     def _compute_weights(self, source, target, tolerance=None) -> MatrixCSR:
         return self._overlap_weights(source, target, relative=True)

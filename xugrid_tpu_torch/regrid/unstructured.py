@@ -21,6 +21,7 @@ from xugrid_tpu_torch.constants import FloatDType
 from xugrid_tpu_torch.ugrid import voronoi
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
+from xugrid_tpu_torch.utils.device import resolve_device
 from xugrid_tpu_torch.utils.profiling import timed
 
 
@@ -157,15 +158,16 @@ class UnstructuredGrid2d:
         tess = Ugrid2d(vertices[:, 0], vertices[:, 1], -1, faces)
         return tess, vertices, node_to_face_index, node_to_node_map
 
-    def barycentric(self, other, tolerance: Optional[float] = None, *, device):
+    def barycentric(self, other, tolerance: Optional[float] = None, *, device=None):
         """
         Smooth-interpolation join: barycentric weights of each target
         centroid within the source's centroidal voronoi tessellation.
         Voronoi nodes ARE source centroids, so a weight on a voronoi
         node is a weight on a source face.  The angle sort and the
         weights in cells above the native kernel's 64 nodes run on
-        ``device``.
+        ``device``: None means the CUDA card, and raises without one.
         """
+        device = resolve_device(None, device)
         points = other.ugrid_topology.centroids
         tess, vertices, node_to_face, node_pairs = self._voronoi_support(device)
 
@@ -198,17 +200,20 @@ class UnstructuredGrid2d:
             table[point_ix, slot],
         )
 
-    def intersection_length(self, other):
+    def intersection_length(self, other, relative: bool):
         """
         Length-of-intersection join with a 1D network: the probes are the
         network edges, the tree holds this grid's faces.  Returns
-        (network_edge_index, face_index, length), sorted by face.
+        (network_edge_index, face_index, length), sorted by face; with
+        ``relative`` each length is divided by its network edge's length.
         """
         edge_ix, face_ix, segs = self.ugrid_topology.celltree.intersect_edges(
             other.ugrid_topology.edge_node_coordinates
         )
         delta = segs[:, 1, :] - segs[:, 0, :]
         length = np.hypot(delta[:, 0], delta[:, 1])
+        if relative:
+            length = length / other.length[edge_ix]
         face_s, edge_s, length_s = _by_target(face_ix, edge_ix, length)
         return edge_s, face_s, length_s
 

@@ -308,6 +308,8 @@ def laplace_interpolate(
     use_weights: bool = True,
     components_labels=None,
     direct_solve: bool = False,
+    delta: float = 0.0,
+    relax: float = 0.0,
     rtol: float = 0.0,
     atol: float = 1.0e-4,
     maxiter: int = 500,
@@ -324,6 +326,8 @@ def laplace_interpolate(
     ``components_labels`` without any known value stay NaN.
     ``precondition_degree`` sets the Chebyshev degree (1 = plain Jacobi).
     ``direct_solve`` solves with scipy's ``spsolve`` on the host.
+    ``delta`` and ``relax`` (the reference's ILU0 knobs) are accepted at
+    the reference's positions and unused.
 
     ``device``: None means the CUDA card, and raises without one;
     ``"cpu"`` runs the solve's plain versions on the CPU.

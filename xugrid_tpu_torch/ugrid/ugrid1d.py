@@ -44,6 +44,7 @@ class Ugrid1d(AbstractUgrid):
     node_x, node_y: ndarray of floats
     fill_value: int
     edge_node_connectivity: ndarray of integers (n_edge, 2)
+        Required: its default None raises TypeError, as in the reference.
     name: str, default "network1d"
         Names the UGRID variables and dimensions: ``{name}_nNodes``,
         ``{name}_nEdges`` by default.
@@ -56,7 +57,7 @@ class Ugrid1d(AbstractUgrid):
         node_x,
         node_y,
         fill_value: int,
-        edge_node_connectivity,
+        edge_node_connectivity=None,
         name: str = "network1d",
         dataset=None,
         indexes: Optional[Dict[str, str]] = None,

@@ -110,7 +110,7 @@ def _trim_padding(ids: np.ndarray) -> np.ndarray:
 
 
 def angle_sort_rows(
-    cand: np.ndarray, coords: np.ndarray, anchors: np.ndarray, device
+    cand: np.ndarray, coords: np.ndarray, anchors: np.ndarray, device=None
 ) -> np.ndarray:
     """
     Sort each row's valid candidates counter-clockwise by polar angle
@@ -163,7 +163,7 @@ def voronoi_topology(
     add_vertices: bool = False,
     skip_concave: bool = False,
     *,
-    device,
+    device=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Optional[np.ndarray]]:
     """
     Centroidal voronoi tessellation of a mesh of convex cells.
@@ -181,7 +181,7 @@ def voronoi_topology(
     skip_concave: with add_vertices, keep the convex substitute where the
         original vertex would create a concave cell.
     device: where the angle sort of a large table runs
-        (``angle_sort_rows``).
+        (``angle_sort_rows``); None means the CUDA card.
 
     Returns
     -------

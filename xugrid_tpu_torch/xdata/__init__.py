@@ -66,8 +66,10 @@ def _vars_equiv(a: Variable, b: Variable) -> bool:
     return a.dims == b.dims and a.shape == b.shape and _array_equiv(a.data, b.data)
 
 
-def concat(objs: Sequence, dim: str):
-    """Concatenate DataArrays or Datasets along ``dim``."""
+def concat(objs: Sequence, dim: str, **kwargs):
+    """Concatenate DataArrays or Datasets along ``dim``; further keyword
+    arguments (xarray's ``join``, ``coords``, ...) are accepted and
+    ignored, as the reference does."""
     objs = list(objs)
     first = objs[0]
     if isinstance(first, DataArray):
@@ -96,7 +98,9 @@ def concat(objs: Sequence, dim: str):
     raise TypeError(f"cannot concatenate {type(first)}")
 
 
-def merge(objs: Sequence, compat: str = "no_conflicts") -> Dataset:
+def merge(objs: Sequence, compat: str = "no_conflicts", **kwargs) -> Dataset:
+    """Merge DataArrays, Datasets and dicts into one Dataset; further
+    keyword arguments are accepted and ignored, as the reference does."""
     out = Dataset()
     for obj in objs:
         if isinstance(obj, DataArray):
@@ -140,8 +144,9 @@ def ones_like(other, dtype=None):
     return full_like(other, 1, dtype=dtype)
 
 
-def where(cond, x, y):
-    """``x`` where ``cond`` holds, else ``y``."""
+def where(cond, x, y, keep_attrs=None):
+    """``x`` where ``cond`` holds, else ``y``.  ``keep_attrs`` is
+    accepted and ignored, as the reference does."""
     if isinstance(x, DataArray):
         return x.where(cond, y)
     if isinstance(cond, DataArray):
