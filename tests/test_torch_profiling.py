@@ -145,3 +145,235 @@ def test_annotate_outside_a_trace_is_transparent():
     with pytest.raises(KeyError):
         with annotate("raises"):
             raise KeyError("propagates")
+
+
+# Spans and the apply layer's copy counter: a CPU regrid of a 6 x 5 quad
+# mesh onto a 3 x 3 raster, three slices applied in three slabs.
+
+SPAN_NAMES = ("regrid", "regrid.apply", "apply_weights", "apply.kernel", "apply.concat")
+
+
+def quad_mesh_uda(nx=6, ny=5, slices=3):
+    import xugrid_tpu_torch as xt
+
+    x, y = np.meshgrid(np.arange(nx + 1, dtype=float), np.arange(ny + 1, dtype=float))
+    nodes = np.column_stack([x.ravel(), y.ravel()])
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny))
+    first = (j * (nx + 1) + i).ravel()
+    faces = np.column_stack([first, first + 1, first + nx + 2, first + nx + 1])
+    grid = xt.Ugrid2d(nodes[:, 0], nodes[:, 1], -1, faces)
+    values = torch.from_numpy(np.random.default_rng(5).normal(size=(slices, len(faces))).astype(np.float32))
+    return xt.UgridDataArray(xt.xdata.DataArray(values, dims=("time", grid.face_dimension), name="head"), grid)
+
+
+def raster_target(nx=3, ny=3, cell=2.0):
+    import xugrid_tpu_torch as xt
+
+    coords = {"y": (np.arange(ny) + 0.5) * cell, "x": (np.arange(nx) + 0.5) * cell, "dx": cell, "dy": cell}
+    return xt.xdata.DataArray(np.zeros((ny, nx)), coords=coords, dims=("y", "x"), name="map")
+
+
+def slab_regrid(monkeypatch, uda, target, per_slab=1):
+    """A regrid call of ``uda`` onto ``target`` in slabs of ``per_slab``
+    slices."""
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid import regridder as torch_regridder
+
+    regridder = xt.OverlapRegridder(uda, target, method="mean")
+    per_slice = 4 * (regridder._weights.m + regridder._weights.n)
+    monkeypatch.setattr(torch_regridder, "APPLY_CHUNK_BYTES", per_slab * per_slice)
+    regridder.regrid(uda, device="cpu")  # the weights uploaded before any recording
+    return lambda: regridder.regrid(uda, device="cpu")
+
+
+@pytest.fixture
+def sliced_regrid(monkeypatch):
+    """A regrid call whose three slices go through three slabs."""
+    return slab_regrid(monkeypatch, quad_mesh_uda(), raster_target())
+
+
+def recorded(call):
+    timings.reset()
+    timings.start_spans()
+    try:
+        out = call()
+    finally:
+        records = timings.stop_spans()
+    return out, records
+
+
+def test_regrid_records_its_span_tree_and_copy_bytes(sliced_regrid):
+    out, records = recorded(sliced_regrid)
+    by_id = {r.id: r for r in records}
+    assert [r.name for r in records] == ["regrid", "regrid.apply"] + ["apply_weights", "apply.kernel"] * 3 + ["apply.concat"]
+    root = records[0]
+    assert root.parent == -1 and {r.root for r in records} == {root.id}
+    for r in records[1:]:
+        parent = by_id[r.parent]
+        assert parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns
+        expected = {"regrid.apply": "regrid", "apply_weights": "regrid.apply", "apply.kernel": "apply_weights",
+                    "apply.concat": "regrid.apply"}[r.name]
+        assert parent.name == expected
+    data = out.data
+    assert out.shape == (3, 3, 3)
+    concat = next(r for r in records if r.name == "apply.concat")
+    assert concat.counts == {"apply.copy_bytes": data.numel() * data.element_size()}
+    assert timings.counters() == {"apply.copy_bytes": 3 * 9 * 4}
+    assert timings.summary() == {}  # spans keep no stage totals
+    timings.reset()
+
+
+def test_apply_counts_a_cast_that_copies_and_not_one_that_does_not():
+    from xugrid_tpu_torch.core.sparse import MatrixCOO, PaddedCSR
+    from xugrid_tpu_torch.regrid import reduce
+    from xugrid_tpu_torch.regrid.apply import apply_weights
+
+    weights = PaddedCSR.from_coo(
+        MatrixCOO.from_triplet(np.array([0, 0, 1]), np.array([0, 1, 2]), np.array([1.0, 1.0, 2.0]), n=2, m=3)
+    )
+    source = torch.arange(12.0, dtype=torch.float32).reshape(4, 3)
+    counted = {}
+    for dtype in ("float32", "float64"):
+        timings.reset()
+        timings.start_spans()
+        out = apply_weights(weights, source, reduce.mean, 2, dtype=dtype)
+        records = timings.stop_spans()
+        counted[dtype] = timings.counters().get("apply.copy_bytes", 0)
+        assert [r.name for r in records] == ["apply_weights", "apply.kernel"]
+        assert sum(r.counts.get("apply.copy_bytes", 0) for r in records) == counted[dtype]
+    # On the CPU the plain kernel returns its (E, n) result as a transposed
+    # view, which the apply copies; float64 adds the cast of the source.
+    assert counted == {"float32": 4 * 2 * 4, "float64": source.numel() * 8 + 4 * 2 * 8}
+    assert out.dtype == torch.float64
+    timings.reset()
+
+
+def test_recording_off_leaves_nothing_and_never_annotates(sliced_regrid, monkeypatch, tmp_path):
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function entered while recording is off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    timings.reset()
+    sliced_regrid()
+    with trace(tmp_path):
+        out = sliced_regrid()
+    assert out.shape == (3, 3, 3)
+    assert not timings.recording
+    assert timings.stop_spans() == []
+    assert timings.summary() == {} and timings.counters() == {}
+
+
+def test_spans_under_a_profiler_are_nested_trace_regions(monkeypatch, tmp_path):
+    # Slabs of 100 slices of 50,000 faces onto as many cells, so that each
+    # span lasts long beside a trace region's own enter and exit.
+    regrid = slab_regrid(monkeypatch, quad_mesh_uda(250, 200, 300), raster_target(250, 200, 1.0), per_slab=100)
+    timings.start_spans()
+    try:
+        with trace(tmp_path / "warm"):  # the process's first regions set up the profiler's ops
+            regrid()
+        timings.start_spans()
+        with trace(tmp_path / "checked"):
+            regrid()
+    finally:
+        records = timings.stop_spans()
+    timings.reset()
+    events = json.loads(next((tmp_path / "checked").glob("*.pt.trace.json")).read_text())["traceEvents"]
+    regions = sorted(
+        (e for e in events if e.get("cat") == "user_annotation" and e.get("name") in SPAN_NAMES), key=lambda e: e["ts"]
+    )
+    assert [e["name"] for e in regions] == [r.name for r in records]
+    assert set(SPAN_NAMES) == {r.name for r in records}
+    for region, record in zip(regions, records):
+        if record.parent >= 0:
+            parent = regions[[r.id for r in records].index(record.parent)]
+            assert parent["ts"] <= region["ts"] and region["ts"] + region["dur"] <= parent["ts"] + parent["dur"]
+        in_memory = (record.end_ns - record.start_ns) * 1e-3
+        assert abs(region["dur"] - in_memory) <= max(0.1 * in_memory, 50.0)
+
+
+def test_span_buffer_stops_at_capacity_and_counts_dropped():
+    # A span is written when it closes: the first three to close are kept.
+    reg = TimingRegistry()
+    reg.start_spans(capacity=3)
+    with reg.span("a"):
+        with reg.span("b"):
+            pass
+        with reg.span("c"):
+            with reg.span("d"):
+                reg.count("n", 2)
+            with reg.span("e"):
+                pass
+    records = reg.stop_spans()
+    assert [r.name for r in records] == ["b", "d", "e"]
+    assert reg.dropped == 2
+    assert reg.counters() == {"n": 2} and records[1].counts == {"n": 2}
+    assert all(r.parent == -1 and r.root == r.id and r.end_ns is not None for r in records)
+
+
+def test_timed_stages_hang_under_the_open_span():
+    reg = TimingRegistry()
+    with reg.timed("stage.before"):
+        pass
+    reg.start_spans()
+    with reg.span("call"):
+        with reg.timed("stage.inner"):
+            reg.count("n", 1)
+    with reg.timed("stage.alone"):
+        pass
+    records = reg.stop_spans()
+    with reg.timed("stage.after"):
+        pass
+    call, inner, alone = records
+    assert (call.name, inner.name, alone.name) == ("call", "stage.inner", "stage.alone")
+    assert inner.parent == call.id and inner.root == call.id and inner.counts == {"n": 1}
+    assert alone.parent == -1 and alone.root == alone.id and call.counts == {}
+    assert {name: stats["count"] for name, stats in reg.summary().items()} == {
+        "stage.before": 1, "stage.inner": 1, "stage.alone": 1, "stage.after": 1
+    }
+    assert reg.stop_spans() == [] and not reg.recording
+
+
+def test_summary_and_report_match_jax_while_recording():
+    reports = []
+    for cls in (JaxTimingRegistry, TimingRegistry):
+        reg = cls()
+        if cls is TimingRegistry:
+            reg.start_spans()
+        for name, seconds in (("stage.b", 0.25), ("stage.a", 1.5), ("stage.b", 0.125), ("stage.c", 1e-7)):
+            reg.record(name, seconds)
+        if cls is TimingRegistry:
+            assert reg.stop_spans() == []
+        reports.append((reg.summary(), reg.report()))
+    assert reports[1] == reports[0]
+
+
+def test_spans_open_when_recording_stops_end_unknown():
+    reg = TimingRegistry()
+    reg.start_spans()
+    outer = reg.span("outer")
+    outer.__enter__()
+    stage = reg.timed("stage")
+    stage.__enter__()
+    records = reg.stop_spans()
+    assert [(r.name, r.end_ns) for r in records] == [("outer", None), ("stage", None)]
+    assert records[1].parent == records[0].id
+    stage.__exit__(None, None, None)  # closed with no recording running: only the totals
+    outer.__exit__(None, None, None)
+    assert reg.stop_spans() == [] and list(reg.summary()) == ["stage"]
+    reg.start_spans()
+    with reg.span("next"):
+        pass
+    stage.__exit__(None, None, None)  # a stage of the last recording leaves this one alone
+    assert [(r.name, r.parent) for r in reg.stop_spans()] == [("next", -1)]
+
+
+def test_centroid_regrid_records_its_apply_span():
+    import xugrid_tpu_torch as xt
+
+    uda = quad_mesh_uda()
+    regridder = xt.CentroidLocatorRegridder(uda, raster_target())
+    out, records = recorded(lambda: regridder.regrid(uda, device="cpu"))
+    timings.reset()
+    assert out.shape == (3, 3, 3)
+    assert [(r.name, r.parent) for r in records] == [("regrid", -1), ("regrid.apply", records[0].id)]

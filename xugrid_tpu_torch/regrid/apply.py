@@ -8,7 +8,10 @@ in one kernel launch with no copy of a contiguous source; only custom
 reductions take a slice-minor copy, (m, E).  Built-in reductions go to
 the Hopper kernels for a CUDA source, or to their plain PyTorch version
 for a CPU source; a custom reduction runs the plain window path on
-either device.  The result is contiguous.
+either device.  The result is contiguous.  Each apply is a span
+``apply_weights`` around a span ``apply.kernel`` (the dispatch and the
+launch); the bytes of each cast, reshape or ``.contiguous()`` that
+copies count as ``apply.copy_bytes`` (``utils.profiling``).
 
 ``apply_coo_gather`` is the apply of ``CentroidLocatorRegridder``: a
 row gather by torch indexing on the source's device, no kernel.
@@ -23,7 +26,18 @@ from xugrid_tpu_torch.core.sparse import PaddedCSR
 from xugrid_tpu_torch.regrid import reduce
 from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, window_reduce
 from xugrid_tpu_torch.regrid.select_apply import covers, window_select
+from xugrid_tpu_torch.utils.profiling import count, span, timings
 from xugrid_tpu_torch.xdata.variable import torch_dtype
+
+
+def _counted(before: torch.Tensor, after: torch.Tensor) -> torch.Tensor:
+    """``after``, made from ``before`` by a cast, a reshape or
+    ``.contiguous()``; while spans are recorded, its bytes count as
+    ``apply.copy_bytes`` where it is a copy: neither ``before`` itself
+    (these return their input where nothing changes) nor a view."""
+    if after is not before and timings.recording and after._base is None:
+        count("apply.copy_bytes", after.numel() * after.element_size())
+    return after
 
 
 def device_weights(weights: PaddedCSR, dtype: torch.dtype, device: torch.device, cache: dict | None = None):
@@ -61,24 +75,27 @@ def apply_weights(
     upload of the weights per (dtype, device).  Returns (..., n_target)
     on the source's device, contiguous.
     """
-    source = torch.as_tensor(source)
-    leading = tuple(source.shape[:-1])
-    source2d = source.reshape(-1, source.shape[-1])
-    if dtype is not None:
-        dtype = torch_dtype(dtype)
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"the regrid kernels take float32 or float64, got dtype={dtype}")
-        source2d = source2d.to(dtype)
-    if not source2d.is_floating_point():
-        source2d = source2d.to(torch.float64)
-    indices, w = device_weights(weights, source2d.dtype, source2d.device, plan_cache)
-    if reduction in METHOD_CODES:
-        out = window_reduce(source2d.contiguous(), indices, w, reduction)
-    elif covers(reduction):
-        out = window_select(source2d.contiguous(), indices, w, reduction)
-    else:
-        out = reduce.reduce_windows(source2d.t().contiguous(), indices, w, reduction).t()
-    return out.reshape(leading + (target_size,)).contiguous()
+    with span("apply_weights"):
+        source = torch.as_tensor(source)
+        leading = tuple(source.shape[:-1])
+        source2d = _counted(source, source.reshape(-1, source.shape[-1]))
+        if dtype is not None:
+            dtype = torch_dtype(dtype)
+            if dtype not in (torch.float32, torch.float64):
+                raise TypeError(f"the regrid kernels take float32 or float64, got dtype={dtype}")
+            source2d = _counted(source2d, source2d.to(dtype))
+        if not source2d.is_floating_point():
+            source2d = _counted(source2d, source2d.to(torch.float64))
+        indices, w = device_weights(weights, source2d.dtype, source2d.device, plan_cache)
+        with span("apply.kernel"):
+            if reduction in METHOD_CODES:
+                out = window_reduce(_counted(source2d, source2d.contiguous()), indices, w, reduction)
+            elif covers(reduction):
+                out = window_select(_counted(source2d, source2d.contiguous()), indices, w, reduction)
+            else:
+                windowed = _counted(source2d, source2d.t().contiguous())
+                out = reduce.reduce_windows(windowed, indices, w, reduction).t()
+        return _counted(out, out.reshape(leading + (target_size,)).contiguous())
 
 
 def apply_coo_gather(row, col, source, target_size: int, cache: dict | None = None) -> torch.Tensor:
@@ -92,9 +109,9 @@ def apply_coo_gather(row, col, source, target_size: int, cache: dict | None = No
     """
     source = torch.as_tensor(source)
     leading = tuple(source.shape[:-1])
-    source2d = source.reshape(-1, source.shape[-1])
+    source2d = _counted(source, source.reshape(-1, source.shape[-1]))
     if not source2d.is_floating_point():
-        source2d = source2d.to(torch.float64)
+        source2d = _counted(source2d, source2d.to(torch.float64))
     device = source2d.device
     if cache is not None and device in cache:
         rows, cols = cache[device]

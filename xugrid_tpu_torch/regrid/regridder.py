@@ -43,7 +43,7 @@ from xugrid_tpu_torch.regrid.unstructured import Network1d, UnstructuredGrid2d
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.utils.device import resolve_device
-from xugrid_tpu_torch.utils.profiling import timed
+from xugrid_tpu_torch.utils.profiling import count, span, timed
 from xugrid_tpu_torch.xdata.lazy import is_lazy
 
 #: Working-set budget per apply chunk (bytes of source plus target):
@@ -274,12 +274,18 @@ class BaseRegridder(abc.ABC):
         n = self._weights.n
         # Bound the device working set: stacks larger than the budget
         # stream through in slabs of extra slices.
-        rows = self._slices_per_chunk(source2d.element_size())
-        chunks = [
-            apply_weights(self._padded, source2d[i : i + rows], self._reduction, n, plan_cache=self._device_weights)
-            for i in range(0, source2d.shape[0], rows)
-        ]
-        return chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        with span("regrid.apply"):
+            rows = self._slices_per_chunk(source2d.element_size())
+            chunks = [
+                apply_weights(self._padded, source2d[i : i + rows], self._reduction, n, plan_cache=self._device_weights)
+                for i in range(0, source2d.shape[0], rows)
+            ]
+            if len(chunks) == 1:
+                return chunks[0]
+            with span("apply.concat"):
+                out = torch.cat(chunks)
+                count("apply.copy_bytes", out.numel() * out.element_size())
+            return out
 
     def _regrid_array(self, source, device=None) -> torch.Tensor:
         if is_lazy(source):
@@ -361,23 +367,24 @@ class BaseRegridder(abc.ABC):
         (``open_dataset(..., lazy=True)``), read from its file in row
         blocks of at most ``APPLY_CHUNK_BYTES`` (``_regrid_lazy``).
         """
-        if isinstance(data, UgridDataArray):
-            obj = data.obj
-            source_dims = (data.grid.core_dimension,)
-        elif isinstance(data, xdata.DataArray):
-            if self._source is None:
-                raise ValueError("a regridder made from weights knows no source grid: pass a UgridDataArray")
-            obj = data
-            source_dims = tuple(self._source.dims)
-        else:
-            return self._regrid_array(data, device)
-        missing_dims = set(source_dims).difference(obj.dims)
-        if missing_dims:
-            raise ValueError(f"data does not contain regridder source dimensions: {missing_dims}")
-        regridded = self.regrid_dataarray(obj, source_dims, device)
-        if isinstance(self._target, StructuredGrid2d):
-            return regridded.assign_coords(self._target.coords)
-        return UgridDataArray(regridded, self._target.ugrid_topology)
+        with span("regrid"):
+            if isinstance(data, UgridDataArray):
+                obj = data.obj
+                source_dims = (data.grid.core_dimension,)
+            elif isinstance(data, xdata.DataArray):
+                if self._source is None:
+                    raise ValueError("a regridder made from weights knows no source grid: pass a UgridDataArray")
+                obj = data
+                source_dims = tuple(self._source.dims)
+            else:
+                return self._regrid_array(data, device)
+            missing_dims = set(source_dims).difference(obj.dims)
+            if missing_dims:
+                raise ValueError(f"data does not contain regridder source dimensions: {missing_dims}")
+            regridded = self.regrid_dataarray(obj, source_dims, device)
+            if isinstance(self._target, StructuredGrid2d):
+                return regridded.assign_coords(self._target.coords)
+            return UgridDataArray(regridded, self._target.ugrid_topology)
 
 
 class BaseOverlapRegridder(BaseRegridder, abc.ABC):
@@ -474,7 +481,8 @@ class CentroidLocatorRegridder(BaseRegridder):
 
     def _apply(self, source2d: torch.Tensor) -> torch.Tensor:
         w = self._weights
-        return apply_coo_gather(w.row, w.col, source2d, w.n, cache=self._device_weights)
+        with span("regrid.apply"):
+            return apply_coo_gather(w.row, w.col, source2d, w.n, cache=self._device_weights)
 
 
 class BarycentricInterpolator(BaseRegridder):
