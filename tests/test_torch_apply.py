@@ -310,7 +310,8 @@ def test_apply_weights_hands_window_select_the_callers_storage(monkeypatch, meth
     source = torch.from_numpy(np.random.default_rng(14).normal(size=leading + (m,)))
     seen = []
 
-    def fake_select(src, idx, wts, reduction):
+    def fake_select(src, idx, wts, reduction, *, out=None):
+        assert out is None  # a plain apply: the kernel makes its own output
         seen.append(src)
         return torch.arange(src.shape[0] * idx.shape[0], dtype=src.dtype).reshape(src.shape[0], idx.shape[0])
 

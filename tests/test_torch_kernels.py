@@ -146,6 +146,88 @@ def test_regrid_on_cuda_matches_cpu(device):
         assert regridder.regrid(data.numpy()).device == device
 
 
+def window_range(values, weights):
+    """A custom reduction: each window's largest value less its smallest
+    (NaN where the window holds none)."""
+    nan = torch.isnan(values)
+    hi = torch.where(nan, -torch.inf, values).amax(-1)
+    lo = torch.where(nan, torch.inf, values).amin(-1)
+    return torch.where(torch.isfinite(hi), hi - lo, torch.nan)
+
+
+@pytest.mark.parametrize("method", ["mean", "median", "custom"])
+def test_slabs_written_in_place_on_the_card(device, monkeypatch, method):
+    """40 float32 slices in slabs of 12, 12, 12, 4: each slab's kernel
+    writes its rows of one output (every slab's ``out`` lies at its rows
+    inside the result's storage), with the bits of the slabs applied one
+    by one and joined, and of the stack applied in one slab; an integer
+    stack comes back float64."""
+    from xugrid_tpu_torch.regrid import regridder as torch_regridder
+    from xugrid_tpu_torch.regrid.apply import apply_weights
+
+    (verts, faces), (tverts, tfaces) = chip_smoke.bench_meshes(30, 17, np.random.default_rng(1))
+    mesh = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
+    raster = xt.Ugrid2d(tverts[:, 0], tverts[:, 1], -1, tfaces)
+    r = xt.OverlapRegridder(mesh, raster, method=window_range if method == "custom" else method)
+    data = np.random.default_rng(3).normal(size=(40, mesh.n_face)).astype(np.float32)
+    data[np.random.default_rng(4).random(data.shape) < 0.05] = np.nan
+    source = torch.from_numpy(data).to(device)
+    whole = r.regrid(source)
+    slabs = []
+
+    def keep_out(*args, **kwargs):
+        slabs.append(kwargs["out"])
+        return apply_weights(*args, **kwargs)
+
+    monkeypatch.setattr(torch_regridder, "apply_weights", keep_out)
+    monkeypatch.setattr(torch_regridder, "APPLY_CHUNK_BYTES", 12 * 4 * (r._weights.m + r._weights.n))
+    got = r.regrid(source)
+    assert got.device == device and got.dtype == torch.float32 and got.is_contiguous()
+    storage = got.untyped_storage()
+    assert len(slabs) == 4
+    for k, out in enumerate(slabs):
+        assert out.data_ptr() == got[12 * k].data_ptr()
+        end = out.data_ptr() + out.numel() * out.element_size()
+        assert storage.data_ptr() <= out.data_ptr() and end <= storage.data_ptr() + storage.nbytes()
+    joined = torch.cat([
+        apply_weights(r._padded, source[i : i + 12], r._reduction, r._weights.n) for i in range(0, 40, 12)
+    ])
+    torch.testing.assert_close(got, joined, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got, whole, rtol=0, atol=0, equal_nan=True)
+    counts = torch.from_numpy(np.round(np.nan_to_num(data) * 4.0).astype(np.int32)).to(device)
+    slabs.clear()
+    as_int = r.regrid(counts)
+    assert as_int.dtype == torch.float64 and len(slabs) == 4
+    torch.testing.assert_close(as_int, r.regrid(counts.double()), rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("fn, kernel", [(reduce.mean, window_reduce), (reduce.median, window_select)],
+                         ids=["window_reduce", "window_select"])
+def test_kernels_write_only_the_rows_of_out(device, windows, fn, kernel):
+    """``out`` a view of rows 2 to E + 1 of a larger buffer: the kernel writes
+    its bits there and the sentinel rows either side stay; a wrong
+    ``out`` raises."""
+    indices, weights, mixed, _ = windows
+    source = torch.from_numpy(mixed).to(device=device, dtype=torch.float32)
+    idx = torch.from_numpy(indices).to(device)
+    w = torch.from_numpy(weights).to(device=device, dtype=torch.float32)
+    E, n = source.shape[0], idx.shape[0]
+    buffer = torch.full((E + 4, n), -7.5, dtype=torch.float32, device=device)
+    before = kernel.launches
+    got = kernel(source, idx, w, fn, out=buffer[2 : 2 + E])
+    assert kernel.launches == before + 1 and got.data_ptr() == buffer[2].data_ptr()
+    torch.testing.assert_close(buffer[2 : 2 + E], kernel(source, idx, w, fn), rtol=0, atol=0, equal_nan=True)
+    assert bool((buffer[:2] == -7.5).all()) and bool((buffer[2 + E :] == -7.5).all())
+    with pytest.raises(ValueError, match="device"):
+        kernel(source, idx, w, fn, out=torch.empty((E, n)))
+    with pytest.raises(TypeError, match="dtype"):
+        kernel(source, idx, w, fn, out=torch.empty((E, n), dtype=torch.float64, device=device))
+    with pytest.raises(ValueError, match="shape"):
+        kernel(source, idx, w, fn, out=torch.empty((E + 1, n), dtype=torch.float32, device=device))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(source, idx, w, fn, out=torch.empty((n, E), dtype=torch.float32, device=device).t())
+
+
 def launch_counts():
     return window_reduce.launches, window_select.launches, csr_matvec.launches
 

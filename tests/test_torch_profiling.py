@@ -147,10 +147,11 @@ def test_annotate_outside_a_trace_is_transparent():
             raise KeyError("propagates")
 
 
-# Spans and the apply layer's copy counter: a CPU regrid of a 6 x 5 quad
-# mesh onto a 3 x 3 raster, three slices applied in three slabs.
+# Spans and the apply layer's counters: a CPU regrid of a 6 x 5 quad
+# mesh onto a 3 x 3 raster, three slices applied in three slabs, each
+# slab written in place into one output.
 
-SPAN_NAMES = ("regrid", "regrid.apply", "apply_weights", "apply.kernel", "apply.concat")
+SPAN_NAMES = ("regrid", "regrid.apply", "apply_weights", "apply.kernel")
 
 
 def quad_mesh_uda(nx=6, ny=5, slices=3):
@@ -202,23 +203,28 @@ def recorded(call):
     return out, records
 
 
-def test_regrid_records_its_span_tree_and_copy_bytes(sliced_regrid):
-    out, records = recorded(sliced_regrid)
+@pytest.mark.parametrize("per_slab, slabs", [(1, 3), (3, 1)], ids=["three_slabs", "one_slab"])
+def test_regrid_records_its_span_tree_and_copy_bytes(monkeypatch, per_slab, slabs):
+    """Three slabs write their rows of one output in place (no
+    concatenation, nothing copied); one slab takes the kernel's own
+    output, counts no slab in place, and on the CPU copies the plain
+    kernel's transposed (3, 9) result as before."""
+    out, records = recorded(slab_regrid(monkeypatch, quad_mesh_uda(), raster_target(), per_slab))
     by_id = {r.id: r for r in records}
-    assert [r.name for r in records] == ["regrid", "regrid.apply"] + ["apply_weights", "apply.kernel"] * 3 + ["apply.concat"]
+    assert [r.name for r in records] == ["regrid", "regrid.apply"] + ["apply_weights", "apply.kernel"] * slabs
     root = records[0]
     assert root.parent == -1 and {r.root for r in records} == {root.id}
     for r in records[1:]:
         parent = by_id[r.parent]
         assert parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns
-        expected = {"regrid.apply": "regrid", "apply_weights": "regrid.apply", "apply.kernel": "apply_weights",
-                    "apply.concat": "regrid.apply"}[r.name]
+        expected = {"regrid.apply": "regrid", "apply_weights": "regrid.apply", "apply.kernel": "apply_weights"}[r.name]
         assert parent.name == expected
-    data = out.data
     assert out.shape == (3, 3, 3)
-    concat = next(r for r in records if r.name == "apply.concat")
-    assert concat.counts == {"apply.copy_bytes": data.numel() * data.element_size()}
-    assert timings.counters() == {"apply.copy_bytes": 3 * 9 * 4}
+    apply = next(r for r in records if r.name == "regrid.apply")
+    assert apply.counts == ({"apply.slabs_in_place": 3} if slabs == 3 else {})
+    copied = [r.counts for r in records if r.name == "apply_weights"]
+    assert copied == ([{}] * 3 if slabs == 3 else [{"apply.copy_bytes": 3 * 9 * 4}])
+    assert timings.counters() == {**apply.counts, **copied[0]}
     assert timings.summary() == {}  # spans keep no stage totals
     timings.reset()
 

@@ -199,3 +199,111 @@ def test_host_fallbacks_match_native(meshes, monkeypatch):
         CellTree2d(source.node_coordinates, source.face_node_connectivity).intersect_faces(
             target.node_coordinates, conn
         )
+
+
+# Slabs written in place: a stack over the apply budget streams through
+# slabs, each written into its rows of one output allocated once.
+
+
+def window_range(values, weights):
+    """A custom reduction: each window's largest value less its smallest
+    (NaN where the window holds none)."""
+    nan = torch.isnan(values)
+    hi = torch.where(nan, -torch.inf, values).amax(-1)
+    lo = torch.where(nan, torch.inf, values).amin(-1)
+    return torch.where(torch.isfinite(hi), hi - lo, torch.nan)
+
+
+IN_PLACE_METHODS = {"mean": "mean", "median": "median", "custom": window_range}
+
+
+def stacked_source(meshes, copies=3):
+    """(3 * copies, n_face) float64: the mesh source and its multiples."""
+    source = meshes["source"]
+    return torch.from_numpy(np.concatenate([source * (k + 1) for k in range(copies)]))
+
+
+def slab_budget(monkeypatch, regridder, itemsize, per_slab):
+    """Make ``regridder`` apply stacks in slabs of ``per_slab`` slices."""
+    per_slice = itemsize * (regridder._weights.m + regridder._weights.n)
+    monkeypatch.setattr(torch_regridder, "APPLY_CHUNK_BYTES", per_slab * per_slice)
+
+
+def in_place_slabs(regrid):
+    """``regrid()`` with spans recorded: (its result, slabs written in place)."""
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    timings.reset()
+    timings.start_spans()
+    try:
+        out = regrid()
+    finally:
+        timings.stop_spans()
+    slabs = timings.counters().get("apply.slabs_in_place", 0)
+    timings.reset()
+    return out, slabs
+
+
+@pytest.mark.parametrize("method", sorted(IN_PLACE_METHODS))
+def test_slabs_written_in_place_equal_one_slab(meshes, monkeypatch, method):
+    """window_reduce (mean), window_select (median) and a custom
+    reduction: 9 slices in slabs of 2, 2, 2, 2, 1, each written in place,
+    give the bits of the stack applied in one slab."""
+    tr = xt.OverlapRegridder(*meshes["torch"], method=IN_PLACE_METHODS[method])
+    source = stacked_source(meshes)
+    whole, slabs = in_place_slabs(lambda: tr.regrid(source))
+    assert slabs == 0
+    slab_budget(monkeypatch, tr, source.element_size(), 2)
+    sliced, slabs = in_place_slabs(lambda: tr.regrid(source))
+    assert slabs == 5
+    assert sliced.shape == (9, T_SIDE * T_SIDE) and sliced.is_contiguous() and sliced.dtype == torch.float64
+    torch.testing.assert_close(sliced, whole, rtol=0, atol=0, equal_nan=True)
+
+
+def test_integer_source_in_slabs_comes_back_float64(meshes, monkeypatch):
+    tr = xt.OverlapRegridder(*meshes["torch"], method="mean")
+    values = np.round(np.nan_to_num(meshes["source"]) * 4.0)
+    source = torch.from_numpy(np.concatenate([values, -values]).astype(np.int32))
+    whole = tr.regrid(source.double())
+    slab_budget(monkeypatch, tr, source.element_size(), 2)
+    sliced, slabs = in_place_slabs(lambda: tr.regrid(source))
+    assert slabs == 3 and sliced.dtype == torch.float64
+    torch.testing.assert_close(sliced, whole, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("method", sorted(IN_PLACE_METHODS))
+def test_apply_weights_writes_only_the_rows_of_out(meshes, method):
+    """``out`` a view of rows 2-4 of a larger buffer: the result lands
+    there, bit-equal to the apply's own output, and the sentinel rows on
+    either side stay as they were."""
+    from xugrid_tpu_torch.regrid.apply import apply_weights
+
+    tr = xt.OverlapRegridder(*meshes["torch"], method=IN_PLACE_METHODS[method])
+    source, n = torch.from_numpy(meshes["source"]), tr._weights.n
+    buffer = torch.full((7, n), -7.5, dtype=torch.float64)
+    view = buffer[2:5]
+    got = apply_weights(tr._padded, source, tr._reduction, n, out=view)
+    assert got.data_ptr() == view.data_ptr() and got.shape == (3, n)
+    want = apply_weights(tr._padded, source, tr._reduction, n)
+    torch.testing.assert_close(view, want, rtol=0, atol=0, equal_nan=True)
+    assert bool((buffer[:2] == -7.5).all()) and bool((buffer[5:] == -7.5).all())
+
+
+OUT_FAULTS = {
+    "shape": (lambda n: torch.empty((4, n), dtype=torch.float64), ValueError, "shape"),
+    "dtype": (lambda n: torch.empty((3, n), dtype=torch.float32), TypeError, "dtype"),
+    "strides": (lambda n: torch.empty((n, 3), dtype=torch.float64).t(), ValueError, "contiguous"),
+    "not_a_tensor": (lambda n: np.empty((3, n)), TypeError, "tensor"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(OUT_FAULTS))
+@pytest.mark.parametrize("method", sorted(IN_PLACE_METHODS))
+def test_apply_weights_rejects_a_wrong_out(meshes, method, fault):
+    from xugrid_tpu_torch.regrid.apply import apply_weights
+
+    tr = xt.OverlapRegridder(*meshes["torch"], method=IN_PLACE_METHODS[method])
+    make, error, match = OUT_FAULTS[fault]
+    source, n = torch.from_numpy(meshes["source"]), tr._weights.n
+    with pytest.raises(error, match=match):
+        apply_weights(tr._padded, source, tr._reduction, n, out=make(n))

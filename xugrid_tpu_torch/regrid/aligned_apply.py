@@ -101,6 +101,22 @@ def check_kernel_args(source, indices, weights):
         raise ValueError(f"window kernels index in 32 bits: source {tuple(source.shape)}, n {indices.shape[0]}")
 
 
+def check_out(out, source, n: int) -> None:
+    """Validate the ``out`` handed to a window kernel: a contiguous (E,
+    n) tensor of the source's dtype on the source's device; raises on
+    anything else."""
+    if not isinstance(out, torch.Tensor):
+        raise TypeError(f"out must be a tensor, got {type(out).__name__}")
+    if out.dtype != source.dtype:
+        raise TypeError(f"out dtype {out.dtype} differs from source dtype {source.dtype}")
+    if out.device != source.device:
+        raise ValueError(f"out must lie on the device of source, {source.device}, got {out.device}")
+    if tuple(out.shape) != (source.shape[0], n):
+        raise ValueError(f"out must have shape {(source.shape[0], n)}, got {tuple(out.shape)}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+
+
 def stage_bytes(target_warps: int, w: int, itemsize: int) -> int:
     """Shared memory of a window-kernel tile of 32 * target_warps
     targets: (tile + 1) rows of w slots of a weight and an int32 index."""
@@ -133,21 +149,37 @@ def reduce_lanes(E: int, w: int, itemsize: int, batch: int = 4) -> tuple[int, in
     return S, G, True
 
 
-def window_reduce(source: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor, reduction) -> torch.Tensor:
+def plain_into(out, source, indices, weights, reduction) -> torch.Tensor:
+    """The plain version of a window kernel: (E, n), written into ``out``
+    where one is given (checked by the caller)."""
+    result = reduce.reduce_windows(source.t(), indices, weights, reduction).t()
+    return result if out is None else out.copy_(result)
+
+
+def window_reduce(
+    source: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor, reduction, *, out: torch.Tensor | None = None
+) -> torch.Tensor:
     """
     ``reduction`` over every target's window.
 
     source: (E, m) source values, slices major.
     indices: (n, w) int32, -1 padded.  weights: (n, w), 0 padded.
-    Returns (E, n) (contiguous on the card).
+    out: None, or the contiguous (E, n) tensor of the source's dtype and
+    device to write the result into (each slab of a stack writes its
+    rows of one output in place); the kernel writes it directly, the
+    plain version copies its result there.
+    Returns (E, n) (contiguous on the card): ``out`` where one is given.
     """
     if reduction not in METHOD_CODES:
         raise ValueError(f"window_reduce does not cover {reduction!r}")
+    if out is not None:
+        check_out(out, source, indices.shape[0])
     if source.device.type == "cpu":
-        return reduce.reduce_windows(source.t(), indices, weights, reduction).t()
+        return plain_into(out, source, indices, weights, reduction)
     check_kernel_args(source, indices, weights)
     (E, m), (n, w) = source.shape, indices.shape
-    out = torch.empty((E, n), dtype=source.dtype, device=source.device)
+    if out is None:
+        out = torch.empty((E, n), dtype=source.dtype, device=source.device)
     if out.numel() == 0:
         return out
     slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size())

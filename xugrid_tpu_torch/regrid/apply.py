@@ -8,10 +8,15 @@ in one kernel launch with no copy of a contiguous source; only custom
 reductions take a slice-minor copy, (m, E).  Built-in reductions go to
 the Hopper kernels for a CUDA source, or to their plain PyTorch version
 for a CPU source; a custom reduction runs the plain window path on
-either device.  The result is contiguous.  Each apply is a span
+either device.  The result is contiguous.  A caller that streams a
+stack in slabs hands each slab ``out=``, its rows of one output
+allocated once, and each slab is written in place: the kernels write
+those rows directly, the plain versions copy their result there, and no
+slab results are joined afterwards.  Each apply is a span
 ``apply_weights`` around a span ``apply.kernel`` (the dispatch and the
 launch); the bytes of each cast, reshape or ``.contiguous()`` that
-copies count as ``apply.copy_bytes`` (``utils.profiling``).
+copies, and of a custom reduction's transposed result copied into
+``out``, count as ``apply.copy_bytes`` (``utils.profiling``).
 
 ``apply_coo_gather`` is the apply of ``CentroidLocatorRegridder``: a
 row gather by torch indexing on the source's device, no kernel.
@@ -24,7 +29,7 @@ import torch
 
 from xugrid_tpu_torch.core.sparse import PaddedCSR
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, window_reduce
+from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, check_out, window_reduce
 from xugrid_tpu_torch.regrid.select_apply import covers, window_select
 from xugrid_tpu_torch.utils.profiling import count, span, timings
 from xugrid_tpu_torch.xdata.variable import torch_dtype
@@ -38,6 +43,12 @@ def _counted(before: torch.Tensor, after: torch.Tensor) -> torch.Tensor:
     if after is not before and timings.recording and after._base is None:
         count("apply.copy_bytes", after.numel() * after.element_size())
     return after
+
+
+def result_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype ``apply_weights`` computes and returns for a source of
+    ``dtype``: a float dtype as it is, any other float64."""
+    return dtype if dtype.is_floating_point else torch.float64
 
 
 def device_weights(weights: PaddedCSR, dtype: torch.dtype, device: torch.device, cache: dict | None = None):
@@ -63,6 +74,8 @@ def apply_weights(
     target_size: int,
     dtype=None,
     plan_cache: dict | None = None,
+    *,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """
     Apply regridding weights over the flattened source.
@@ -70,10 +83,14 @@ def apply_weights(
     source: (..., m) tensor or array; the leading dims are the extra
     slices.  ``dtype`` (numpy or torch) casts the source on its device
     first: float32 or float64, the two the kernels serve (any other
-    raises TypeError).  An integer source is taken as float64.
-    ``plan_cache`` (owned by the caller, e.g. the regridder) keeps one
-    upload of the weights per (dtype, device).  Returns (..., n_target)
-    on the source's device, contiguous.
+    raises TypeError).  An integer source is taken as float64
+    (``result_dtype``).  ``plan_cache`` (owned by the caller, e.g. the
+    regridder) keeps one upload of the weights per (dtype, device).
+    ``out``: None, or a contiguous (E, n_target) tensor, E the product
+    of the leading dims, of that dtype on the source's device, into
+    which the result is written in place (a slab's rows of one output;
+    the window kernels check it).  Returns (..., n_target) on the
+    source's device, contiguous: a view of ``out`` where one is given.
     """
     with span("apply_weights"):
         source = torch.as_tensor(source)
@@ -84,18 +101,25 @@ def apply_weights(
             if dtype not in (torch.float32, torch.float64):
                 raise TypeError(f"the regrid kernels take float32 or float64, got dtype={dtype}")
             source2d = _counted(source2d, source2d.to(dtype))
-        if not source2d.is_floating_point():
-            source2d = _counted(source2d, source2d.to(torch.float64))
+        computed = result_dtype(source2d.dtype)
+        if computed != source2d.dtype:
+            source2d = _counted(source2d, source2d.to(computed))
         indices, w = device_weights(weights, source2d.dtype, source2d.device, plan_cache)
         with span("apply.kernel"):
             if reduction in METHOD_CODES:
-                out = window_reduce(_counted(source2d, source2d.contiguous()), indices, w, reduction)
+                result = window_reduce(_counted(source2d, source2d.contiguous()), indices, w, reduction, out=out)
             elif covers(reduction):
-                out = window_select(_counted(source2d, source2d.contiguous()), indices, w, reduction)
+                result = window_select(_counted(source2d, source2d.contiguous()), indices, w, reduction, out=out)
             else:
+                if out is not None:
+                    check_out(out, source2d, target_size)
                 windowed = _counted(source2d, source2d.t().contiguous())
-                out = reduce.reduce_windows(windowed, indices, w, reduction).t()
-        return _counted(out, out.reshape(leading + (target_size,)).contiguous())
+                result = reduce.reduce_windows(windowed, indices, w, reduction).t()
+                if out is not None:
+                    if not result.is_contiguous():
+                        count("apply.copy_bytes", result.numel() * result.element_size())
+                    result = out.copy_(result)
+        return _counted(result, result.reshape(leading + (target_size,)).contiguous())
 
 
 def apply_coo_gather(row, col, source, target_size: int, cache: dict | None = None) -> torch.Tensor:

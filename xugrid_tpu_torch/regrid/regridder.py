@@ -37,7 +37,7 @@ from xugrid_tpu_torch.constants import IntDType
 from xugrid_tpu_torch.core.sparse import MatrixCOO, MatrixCSR, PaddedCSR
 from xugrid_tpu_torch.core.wrap import UgridDataArray, UgridDataset
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.apply import apply_coo_gather, apply_weights
+from xugrid_tpu_torch.regrid.apply import apply_coo_gather, apply_weights, result_dtype
 from xugrid_tpu_torch.regrid.structured import StructuredGrid2d
 from xugrid_tpu_torch.regrid.unstructured import Network1d, UnstructuredGrid2d
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
@@ -270,21 +270,29 @@ class BaseRegridder(abc.ABC):
         return max(APPLY_CHUNK_BYTES // (itemsize * (self._weights.m + self._weights.n)), 1)
 
     def _apply(self, source2d: torch.Tensor) -> torch.Tensor:
-        """The weights applied to an (E, m) source: (E, n)."""
+        """The weights applied to an (E, m) source: (E, n).  A stack of
+        more than one slab (``_slices_per_chunk``) streams through in
+        slabs, each slab written in place: the (E, n) result is
+        allocated once, of the dtype ``apply_weights`` gives
+        (``result_dtype``), and slab i's kernel writes its contiguous
+        rows ``out[i : i + rows]``; while spans are recorded each such
+        slab counts ``apply.slabs_in_place``.  A single slab takes the
+        kernel's own output."""
         n = self._weights.n
         # Bound the device working set: stacks larger than the budget
         # stream through in slabs of extra slices.
         with span("regrid.apply"):
+            E = source2d.shape[0]
             rows = self._slices_per_chunk(source2d.element_size())
-            chunks = [
-                apply_weights(self._padded, source2d[i : i + rows], self._reduction, n, plan_cache=self._device_weights)
-                for i in range(0, source2d.shape[0], rows)
-            ]
-            if len(chunks) == 1:
-                return chunks[0]
-            with span("apply.concat"):
-                out = torch.cat(chunks)
-                count("apply.copy_bytes", out.numel() * out.element_size())
+            if E <= rows:
+                return apply_weights(self._padded, source2d, self._reduction, n, plan_cache=self._device_weights)
+            out = torch.empty((E, n), dtype=result_dtype(source2d.dtype), device=source2d.device)
+            for i in range(0, E, rows):
+                apply_weights(
+                    self._padded, source2d[i : i + rows], self._reduction, n,
+                    plan_cache=self._device_weights, out=out[i : i + rows],
+                )
+                count("apply.slabs_in_place", 1)
             return out
 
     def _regrid_array(self, source, device=None) -> torch.Tensor:

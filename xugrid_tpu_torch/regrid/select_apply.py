@@ -23,7 +23,9 @@ from __future__ import annotations
 import torch
 
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.aligned_apply import DTYPE_CODES, check_kernel_args, kernel_function, reduce_lanes
+from xugrid_tpu_torch.regrid.aligned_apply import (
+    DTYPE_CODES, check_kernel_args, check_out, kernel_function, plain_into, reduce_lanes,
+)
 
 
 def covers(reduction) -> bool:
@@ -40,21 +42,28 @@ def register_slots(w: int) -> int:
     return 32
 
 
-def window_select(source: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor, reduction) -> torch.Tensor:
+def window_select(
+    source: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor, reduction, *, out: torch.Tensor | None = None
+) -> torch.Tensor:
     """
     Mode or percentile over every target's window.
 
     source: (E, m) source values, slices major.
     indices: (n, w) int32, -1 padded.  weights: (n, w), 0 padded.
-    Returns (E, n) (contiguous on the card).
+    out: None, or the contiguous (E, n) tensor of the source's dtype and
+    device to write the result into, as ``window_reduce`` takes it.
+    Returns (E, n) (contiguous on the card): ``out`` where one is given.
     """
     if not covers(reduction):
         raise ValueError(f"window_select does not cover {reduction!r}")
+    if out is not None:
+        check_out(out, source, indices.shape[0])
     if source.device.type == "cpu":
-        return reduce.reduce_windows(source.t(), indices, weights, reduction).t()
+        return plain_into(out, source, indices, weights, reduction)
     check_kernel_args(source, indices, weights)
     (E, m), (n, w) = source.shape, indices.shape
-    out = torch.empty((E, n), dtype=source.dtype, device=source.device)
+    if out is None:
+        out = torch.empty((E, n), dtype=source.dtype, device=source.device)
     if out.numel() == 0:
         return out
     slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size(), batch=1)
