@@ -201,6 +201,59 @@ def test_slabs_written_in_place_on_the_card(device, monkeypatch, method):
     torch.testing.assert_close(as_int, r.regrid(counts.double()), rtol=0, atol=0, equal_nan=True)
 
 
+@pytest.mark.parametrize("cell, walks", [(1000.0, 0), (2000.0, 1)], ids=["map_1km", "map_2km"])
+def test_labelled_median_in_slabs_on_the_card(device, monkeypatch, cell, walks):
+    """A (time, layer, face) UgridDataArray of 250 m faces on the card,
+    upscaled by the median onto a 1 km map (windows of 16 faces, in
+    registers) and a 2 km one (64 faces: past the 32 register slots, so
+    every launch walks), 15 slices in slabs of 4, 4, 4, 3 written in
+    place: the bits of the slabs applied one by one and joined, within
+    half a float32 ulp of the plain reference
+    (``portbench/reference/select.py``; the median of float32 values is
+    an exact selection and one halving sum), and per launch one
+    ``apply.select`` span counting its E x n windows and ``walks``."""
+    from portbench import inputs
+    from portbench.generators import common
+    from portbench.reference import overlap, select
+    from xugrid_tpu_torch.regrid import regridder as torch_regridder
+    from xugrid_tpu_torch.regrid.apply import apply_weights
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    mesh = inputs.quad_mesh(40, 48, 250.0, (0.0, 300000.0))
+    raster = inputs.raster(mesh.bounds, cell)
+    pool = inputs.payload_pool(15, len(mesh.faces), 0.01, 2147483659, device)
+    grid = common.port_grid(xt, mesh)
+    uda = xt.UgridDataArray(xt.xdata.DataArray(pool.view(5, 3, -1), dims=("time", "layer", grid.face_dimension)), grid)
+    r = xt.OverlapRegridder(uda, common.port_raster(xt, raster), method="median")
+    n, w = r._weights.n, r._padded.indices.shape[1]
+    assert w == (cell / 250.0) ** 2 and (w > register_slots(w)) == bool(walks)
+    monkeypatch.setattr(torch_regridder, "APPLY_CHUNK_BYTES", 4 * 4 * (r._weights.m + n))
+    r.regrid(uda)  # the weights uploaded before the recording
+    timings.reset()
+    timings.start_spans()
+    try:
+        out = r.regrid(uda)
+    finally:
+        records = timings.stop_spans()
+    timings.reset()
+    assert out.dims == ("time", "layer", "y", "x") and out.data.device == device
+    got = out.data.reshape(15, n)
+    joined = torch.cat([apply_weights(r._padded, pool[i : i + 4], r._reduction, n) for i in range(0, 15, 4)])
+    torch.testing.assert_close(got, joined, rtol=0, atol=0, equal_nan=True)
+    window = select.windows(overlap.overlap_triplets(mesh.nodes, mesh.faces, raster, device), raster.size)
+    expected = select.percentile(window, pool, 50.0)
+    assert torch.equal(torch.isnan(got), torch.isnan(expected))
+    valid = ~torch.isnan(expected)
+    ulp = float(np.spacing(np.float32(expected[valid].abs().max().item())))
+    torch.testing.assert_close(got.double()[valid], expected[valid], rtol=0, atol=0.5 * ulp)
+    by_id = {rec.id: rec for rec in records}
+    select_spans = [rec for rec in records if rec.name == "apply.select"]
+    assert [by_id[rec.parent].name for rec in select_spans] == ["apply.kernel"] * 4
+    assert [rec.counts for rec in select_spans] == [
+        {"select.windows": rows * n, "select.walk_launches": walks} for rows in (4, 4, 4, 3)
+    ]
+
+
 @pytest.mark.parametrize("fn, kernel", [(reduce.mean, window_reduce), (reduce.median, window_select)],
                          ids=["window_reduce", "window_select"])
 def test_kernels_write_only_the_rows_of_out(device, windows, fn, kernel):

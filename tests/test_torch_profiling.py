@@ -229,6 +229,33 @@ def test_regrid_records_its_span_tree_and_copy_bytes(monkeypatch, per_slab, slab
     timings.reset()
 
 
+def test_window_select_records_its_span_inside_apply_kernel(monkeypatch):
+    """A median regrid of three slices in three slabs: each slab's
+    ``apply.select`` nests in its ``apply.kernel`` and counts the E x n
+    windows it ranks; on the CPU nothing launches, so no walk is
+    counted; with recording off nothing is left."""
+    import xugrid_tpu_torch as xt
+    from xugrid_tpu_torch.regrid import regridder as torch_regridder
+
+    uda = quad_mesh_uda()
+    regridder = xt.OverlapRegridder(uda, raster_target(), method="median")
+    n = regridder._weights.n
+    monkeypatch.setattr(torch_regridder, "APPLY_CHUNK_BYTES", 4 * (regridder._weights.m + n))
+    out, records = recorded(lambda: regridder.regrid(uda, device="cpu"))
+    by_id = {r.id: r for r in records}
+    assert [r.name for r in records] == ["regrid", "regrid.apply"] + ["apply_weights", "apply.kernel", "apply.select"] * 3
+    for r in records:
+        if r.name == "apply.select":
+            parent = by_id[r.parent]
+            assert parent.name == "apply.kernel" and parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns
+            assert r.counts == {"select.windows": 1 * n}
+    assert timings.counters()["select.windows"] == 3 * n and "select.walk_launches" not in timings.counters()
+    timings.reset()
+    regridder.regrid(uda, device="cpu")
+    assert timings.stop_spans() == [] and timings.counters() == {}
+    torch.testing.assert_close(regridder.regrid(uda, device="cpu").data, out.data, rtol=0, atol=0, equal_nan=True)
+
+
 def test_apply_counts_a_cast_that_copies_and_not_one_that_does_not():
     from xugrid_tpu_torch.core.sparse import MatrixCOO, PaddedCSR
     from xugrid_tpu_torch.regrid import reduce

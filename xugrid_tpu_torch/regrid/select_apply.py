@@ -15,7 +15,13 @@ counterpart.
 ``window_select`` launches the kernel for CUDA tensors and raises on
 what it does not take; for CPU tensors it runs the plain PyTorch
 version, ``reduce.reduce_windows``.  ``window_select.launches`` counts
-kernel launches.
+kernel launches.  Each call is a span ``apply.select`` (the checks, the
+block and register choice and the launch; on the CPU the plain
+version), nested in ``apply_weights``' ``apply.kernel``; it counts
+``select.windows``, the E x n (slice, target) windows it ranks, and, per
+launch, ``select.walk_launches``: 1 where the padded width w exceeds
+``register_slots(w)``, so that the windows longer than the register
+array take the counting walk, else 0 (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from xugrid_tpu_torch.regrid import reduce
 from xugrid_tpu_torch.regrid.aligned_apply import (
     DTYPE_CODES, check_kernel_args, check_out, kernel_function, plain_into, reduce_lanes,
 )
+from xugrid_tpu_torch.utils.profiling import count, span
 
 
 def covers(reduction) -> bool:
@@ -56,28 +63,32 @@ def window_select(
     """
     if not covers(reduction):
         raise ValueError(f"window_select does not cover {reduction!r}")
-    if out is not None:
-        check_out(out, source, indices.shape[0])
-    if source.device.type == "cpu":
-        return plain_into(out, source, indices, weights, reduction)
-    check_kernel_args(source, indices, weights)
-    (E, m), (n, w) = source.shape, indices.shape
-    if out is None:
-        out = torch.empty((E, n), dtype=source.dtype, device=source.device)
-    if out.numel() == 0:
+    with span("apply.select"):
+        if out is not None:
+            check_out(out, source, indices.shape[0])
+        count("select.windows", source.shape[0] * indices.shape[0])
+        if source.device.type == "cpu":
+            return plain_into(out, source, indices, weights, reduction)
+        check_kernel_args(source, indices, weights)
+        (E, m), (n, w) = source.shape, indices.shape
+        if out is None:
+            out = torch.empty((E, n), dtype=source.dtype, device=source.device)
+        if out.numel() == 0:
+            return out
+        slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size(), batch=1)
+        slots = register_slots(w)
+        is_mode = reduction is reduce.mode
+        err = kernel_function("xt_window_select")(
+            DTYPE_CODES[source.dtype], 1 if is_mode else 0, 0.0 if is_mode else float(reduction.p),
+            source.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            n, m, w, E, slice_warps, target_warps, int(staged), slots,
+            torch.cuda.current_stream(source.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"window_select launch failed with CUDA error {err}")
+        window_select.launches += 1
+        count("select.walk_launches", int(w > slots))
         return out
-    slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size(), batch=1)
-    is_mode = reduction is reduce.mode
-    err = kernel_function("xt_window_select")(
-        DTYPE_CODES[source.dtype], 1 if is_mode else 0, 0.0 if is_mode else float(reduction.p),
-        source.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        n, m, w, E, slice_warps, target_warps, int(staged), register_slots(w),
-        torch.cuda.current_stream(source.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"window_select launch failed with CUDA error {err}")
-    window_select.launches += 1
-    return out
 
 
 window_select.launches = 0
