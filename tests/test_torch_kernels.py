@@ -110,26 +110,117 @@ def test_wrappers_check_their_tensors(device):
         window_select(source, idx, w.cpu(), reduce.median)
 
 
+def stress_windows(rng, n, m, w, n_extra):
+    """Windows and a source that stress the percentile's sorting network:
+    source values from a small pool (+-inf, -0 and +0 among them, 10 %
+    NaN), faces [0, 16) NaN in every slice; windows of 0 to w slots (each
+    length up to 32 at every K), 10 % of the slots before the last a -1
+    pad, and a tie of every size (one face repeated in 0 to len slots).
+    Windows 7j draw only from the NaN faces (all NaN), windows 7j + 1 all
+    but one slot (one valid value).  Weights 0, 0.25 or 1, 0 at the
+    pads."""
+    pool = np.array([-np.inf, -2.5, -1.0, -0.0, 0.0, 0.5, 1.0, 3.0, np.inf])
+    source = pool[rng.integers(0, len(pool), size=(n_extra, m))]
+    source[rng.random(source.shape) < 0.10] = np.nan
+    source[:, :16] = np.nan
+    lengths = np.where(np.arange(n) < 33 * 3, np.arange(n) % 33, rng.integers(0, w + 1, size=n))
+    lengths = np.minimum(lengths, w)
+    indices = rng.integers(16, m, size=(n, w))
+    ties = rng.integers(0, lengths + 1)
+    for t in range(n):
+        indices[t, rng.permutation(lengths[t])[: ties[t]]] = indices[t, 0]
+        if t % 7 == 0:
+            indices[t] = rng.integers(0, 16, size=w)
+        elif t % 7 == 1 and lengths[t] > 0:
+            indices[t] = rng.integers(0, 16, size=w)
+            indices[t, rng.integers(0, lengths[t])] = rng.integers(16, m)
+    slots = np.arange(w)[None, :]
+    indices[(slots < lengths[:, None] - 1) & (rng.random((n, w)) < 0.10)] = -1
+    indices[slots >= lengths[:, None]] = -1
+    weights = rng.choice([0.0, 0.25, 1.0], size=(n, w))
+    weights[indices < 0] = 0.0
+    return indices.astype(np.int32), weights, source
+
+
+@pytest.mark.parametrize("data", ["synthetic", "stress"])
 @pytest.mark.parametrize("E", [1, 3, 20, 128])
 @pytest.mark.parametrize("w", [8, 16, 32, 40, 400])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-def test_window_select_register_slots_and_walk_match_plain(device, dtype, w, E):
+def test_window_select_register_slots_and_walk_match_plain(device, dtype, w, E, data):
     """Each register array K (windows cut to 8, 16 and 32 slots) and the
     walk of windows longer than 32 slots (w = 40: 5 % of the windows
     hold 33-40 slots; w = 400: up to 400), in place (E = 1) and staged,
-    bit for bit, NaN in the same places."""
+    bit for bit, NaN in the same places; on ``chip_smoke``'s synthetic
+    windows and on ``stress_windows``."""
     rng = np.random.default_rng(w + E)
-    indices, weights, mixed, _ = chip_smoke.synthetic_windows(
-        rng, n=1001, m=900, w=max(w, 40), n_extra=E
-    )
-    idx = torch.from_numpy(np.ascontiguousarray(indices[:, :w])).to(device)
-    wt = torch.from_numpy(np.ascontiguousarray(weights[:, :w])).to(device=device, dtype=dtype)
+    if data == "synthetic":
+        indices, weights, mixed, _ = chip_smoke.synthetic_windows(
+            rng, n=1001, m=900, w=max(w, 40), n_extra=E
+        )
+        indices, weights = indices[:, :w], weights[:, :w]
+    else:
+        indices, weights, mixed = stress_windows(rng, n=1001, m=900, w=w, n_extra=E)
+    idx = torch.from_numpy(np.ascontiguousarray(indices)).to(device)
+    wt = torch.from_numpy(np.ascontiguousarray(weights)).to(device=device, dtype=dtype)
     source = torch.from_numpy(mixed).to(device=device, dtype=dtype)
     assert register_slots(w) == min(w, 32)
     for fn in (reduce.mode, *PERCENTILES):
         got = window_select(source, idx, wt, fn)
         assert got.shape == (E, 1001) and got.is_contiguous()
         chip_smoke.compare(got, reduce.reduce_windows(source.t(), idx, wt, fn).t(), True, 0.0, 0.0)
+
+
+@pytest.mark.parametrize("K", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_percentile_network_sorts_every_zero_one_window(device, dtype, K):
+    """The 0-1 principle: a comparator network sorts every input if it
+    sorts every input of 0s and 1s.  Every 0/1 window of K = 8 and 16
+    distinct faces (a seeded sample of 65,536 at K = 32), in 8 staged
+    slices (slice e flips the bits of mask e), at every percentile that
+    selects an exact rank, p = 100 r / (K - 1), bit for bit."""
+    rng = np.random.default_rng(K)
+    n = 1 << min(K, 16)
+    patterns = np.arange(n, dtype=np.int64) if K < 32 else rng.integers(0, 1 << 32, size=n, dtype=np.int64)
+    masks = rng.integers(0, 1 << K, size=8, dtype=np.int64)
+    masks[0] = 0
+    bits = (((patterns[None, :] ^ masks[:, None])[..., None] >> np.arange(K)) & 1).reshape(8, n * K)
+    source = torch.from_numpy(bits).to(device=device, dtype=dtype)
+    idx = torch.arange(n * K, dtype=torch.int32, device=device).reshape(n, K)
+    wt = torch.ones((n, K), dtype=dtype, device=device)
+    assert register_slots(K) == K and reduce_lanes(8, K, source.element_size(), batch=1)[2]
+    for r in range(K):
+        fn = reduce.Percentile(100.0 * r / (K - 1))
+        got = window_select(source, idx, wt, fn)
+        chip_smoke.compare(got, reduce.reduce_windows(source.t(), idx, wt, fn).t(), True, 0.0, 0.0)
+
+
+@pytest.mark.parametrize(
+    "fn, w, walks, network",
+    [(reduce.median, 16, 0, 1), (reduce.mode, 16, 0, 0), (reduce.median, 40, 1, 1), (reduce.mode, 40, 1, 0),
+     (reduce.Percentile(0), 16, 0, 0), (reduce.Percentile(100), 16, 0, 0)],
+    ids=["median", "mode", "median_walk", "mode_walk", "p0", "p100"],
+)
+def test_window_select_counts_its_launches_by_path(device, fn, w, walks, network):
+    """Per launch, ``select.walk_launches`` where windows past the register
+    slots walk and ``select.network_launches`` where a percentile's
+    windows are sorted by the network: never the mode, nor p = 0 or 100,
+    which take the extreme value."""
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    indices, weights, mixed, _ = chip_smoke.synthetic_windows(np.random.default_rng(5), n=300, m=400, n_extra=3)
+    idx = torch.from_numpy(np.ascontiguousarray(indices[:, :w])).to(device)
+    wt = torch.from_numpy(np.ascontiguousarray(weights[:, :w])).to(device=device, dtype=torch.float32)
+    source = torch.from_numpy(mixed).to(device=device, dtype=torch.float32)
+    timings.reset()
+    timings.start_spans()
+    try:
+        window_select(source, idx, wt, fn)
+    finally:
+        records = timings.stop_spans()
+    timings.reset()
+    assert [(rec.name, rec.counts) for rec in records] == [
+        ("apply.select", {"select.windows": 3 * 300, "select.walk_launches": walks, "select.network_launches": network})
+    ]
 
 
 def test_regrid_on_cuda_matches_cpu(device):
@@ -211,7 +302,8 @@ def test_labelled_median_in_slabs_on_the_card(device, monkeypatch, cell, walks):
     half a float32 ulp of the plain reference
     (``portbench/reference/select.py``; the median of float32 values is
     an exact selection and one halving sum), and per launch one
-    ``apply.select`` span counting its E x n windows and ``walks``."""
+    ``apply.select`` span counting its E x n windows, ``walks`` and one
+    launch sorted by the network."""
     from portbench import inputs
     from portbench.generators import common
     from portbench.reference import overlap, select
@@ -250,7 +342,8 @@ def test_labelled_median_in_slabs_on_the_card(device, monkeypatch, cell, walks):
     select_spans = [rec for rec in records if rec.name == "apply.select"]
     assert [by_id[rec.parent].name for rec in select_spans] == ["apply.kernel"] * 4
     assert [rec.counts for rec in select_spans] == [
-        {"select.windows": rows * n, "select.walk_launches": walks} for rows in (4, 4, 4, 3)
+        {"select.windows": rows * n, "select.walk_launches": walks, "select.network_launches": 1}
+        for rows in (4, 4, 4, 3)
     ]
 
 

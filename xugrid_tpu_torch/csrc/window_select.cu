@@ -6,17 +6,17 @@
 // src (E, m), as the caller holds it, and writes out (E, n): no transpose
 // pass.  The TPU kernel ranks 32-slot windows held in lanes by an
 // all-pairs pass and splits wider windows into a second plan
-// (MAX_WINDOW = 32); here each thread ranks its own window in registers,
+// (MAX_WINDOW = 32); here each thread orders its own window in registers,
 // and a window longer than the registers hold takes a counting walk over
 // memory in the same launch, so any w_max is taken.
 //
-// What bounds it on the H100: the ranking's pair steps and the latency
-// of the gathers, not the device memory.  A pass moves what window_reduce
-// moves (the window table once, the gathered source, the output once),
-// but an output of a window of len slots takes O(len^2) compares, and a
-// warp waits for its gathers before it can rank.  The design keeps the
-// compares off memory and the registers few, so an SM holds enough warps
-// to hide the gathers:
+// What bounds it on the H100: the instructions that order each window
+// and the latency of the gathers, not the device memory.  A pass moves
+// what window_reduce moves (the window table once, the gathered source,
+// the output once), but each (slice, target) window is ordered in
+// registers before its output is known, and a warp waits for its gathers
+// before it can order them.  The design keeps the ordering off memory and
+// the registers few, so an SM holds enough warps to hide the gathers:
 // - window_reduce's tile layout (window_common.cuh, TileWindow): lane =
 //   target, a warp's 32 consecutive targets of one slice, so its gathers
 //   from source row e fall on neighbouring faces and its stores of
@@ -26,13 +26,18 @@
 // - each thread loads its window's values for its slice once, into a
 //   register array of K slots (8, 16 or 32; the wrapper picks K from
 //   w_max).  NaN and pad slots become the +inf key, with a validity bit.
-//   All O(len^2) work runs in fully unrolled loops over the K slots, so
-//   the arrays stay in registers (no spills, no local memory): the
-//   percentile's rank_k = #{j : key_j < key_k, or key_j == key_k and j <
-//   k} takes one compare per pair j < k < len, the ranks packed four to
-//   a register; the mode's group totals sum_j w_j [v_j == v_k] are added
-//   in slot order, 4 slots at a time up to len.  float32 windows of up to
-//   16 slots fit 64 registers, 4 blocks per SM;
+//   All work on the array runs in fully unrolled loops over the K slots,
+//   so it stays in registers (no spills, no local memory);
+// - a percentile sorts the K keys (slots from len up to K at +inf) by
+//   Batcher's odd-even merge sort: 19 / 63 / 191 min / max pairs at depth
+//   6 / 10 / 15 for K = 8 / 16 / 32, each layer's pairs independent, in
+//   place of 120 counting compares with packed rank adds in long chains
+//   at K = 16.  The sorted keys at the interpolation's two ranks are the
+//   values the counting ranks select, whatever order ties took;
+// - the mode keeps its group totals sum_j w_j [v_j == v_k], added in slot
+//   order, 4 slots at a time up to len: sorting would change the order
+//   of those additions, and so the bits.  float32 windows of up to 16
+//   slots fit 64 registers, 4 blocks per SM;
 // - a target with more than K slots takes a counting walk, which re-reads
 //   its window from shared memory and the source from L1 for every slot;
 // - 32-bit indices, no division per output, no atomics, one owner per
@@ -47,7 +52,8 @@
 // to the largest value, gated on the valid maximum weight.  Pad slots
 // past len change neither (a percentile's ranks below n_valid come from
 // valid slots; a mode total adds +0 for them), so results are the plain
-// version's bits.
+// version's bits, but that a percentile's zero may take the other sign
+// (the network orders a tie of -0 and +0 either way).
 
 #include "window_common.cuh"
 
@@ -134,7 +140,41 @@ __device__ __forceinline__ void load_window(const T* __restrict__ se, const W& w
   }
 }
 
-// The p-th percentile of a window of len <= K slots, ranked in registers.
+__device__ __forceinline__ float xmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double xmin(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float xmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double xmax(double a, double b) { return fmax(a, b); }
+
+// Sorts K keys that hold no NaN ascending, by Batcher's odd-even merge
+// sort: 19 / 63 / 191 compare-exchanges at depth 6 / 10 / 15 for K = 8 /
+// 16 / 32.  Merge p = 1, 2, ..., K / 2, pass k = p, p / 2, ..., 1 compares
+// slot x with x + k where x >= k % p, (x - k % p) mod 2k < k and both lie
+// in one block of 2p slots.  Every loop has a constant trip count and
+// every condition folds once they unroll, so each pair is a fixed
+// min / max on two registers.
+template <typename T, int K>
+__device__ __forceinline__ void sort_network(T (&key)[K]) {
+  static_assert(K == 8 || K == 16 || K == 32, "register slots are 8, 16 or 32");
+  constexpr int L = K == 8 ? 3 : (K == 16 ? 4 : 5);
+#pragma unroll
+  for (int lp = 0; lp < L; ++lp) {
+#pragma unroll
+    for (int lk = L - 1; lk >= 0; --lk) {
+      if (lk > lp) continue;
+      const int p = 1 << lp, k = 1 << lk, r = k % p;
+#pragma unroll
+      for (int x = 0; x < K - 1; ++x) {
+        if (x + k < K && x >= r && (x - r) % (2 * k) < k && x / (2 * p) == (x + k) / (2 * p)) {
+          const T a = key[x], b = key[x + k];
+          key[x] = xmin(a, b);
+          key[x + k] = xmax(a, b);
+        }
+      }
+    }
+  }
+}
+
+// The p-th percentile of a window of len <= K slots, sorted in registers.
 template <typename T, int K, typename W>
 __device__ __forceinline__ T percentile_registers(const T* __restrict__ se, const W& win, int len,
                                                   int w, double p) {
@@ -142,10 +182,11 @@ __device__ __forceinline__ T percentile_registers(const T* __restrict__ se, cons
   load_window<T, K>(se, win, len, key);
   unsigned valid = 0;  // bit k: slot k holds a valid value
   int n_valid = 0;
+  // NaN, pad and unloaded slots (len up to K) become +inf, so the
+  // network sorts all K and the valid values come first.
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    if (k >= len) break;
-    const bool ok = is_valid(key[k]);
+    const bool ok = k < len && is_valid(key[k]);
     valid |= (unsigned)ok << k;
     n_valid += ok ? 1 : 0;
     key[k] = ok ? key[k] : pos_inf<T>();
@@ -165,30 +206,14 @@ __device__ __forceinline__ T percentile_registers(const T* __restrict__ se, cons
     return p == 0.0 ? lo.result() : hi.result();
   }
   const Interpolation<T> at(n_valid, w, p);
-  // Sorted positions by counting: NaN and pad slots sort last (+inf) and
-  // equal keys keep slot order, so the ranks are a permutation of [0,
-  // len).  For j < k: key_j <= key_k puts j before k, else k before j.
-  // Ranks (under 32) are packed 4 to a register, 8 bits each.
-  uint32_t rank4[K / 4];
-#pragma unroll
-  for (int q = 0; q < K / 4; ++q) rank4[q] = 0;
+  // The value at sorted position r of a multiset does not depend on how
+  // ties were ordered, so key[lo] and key[hi] are the counting walk's.
+  sort_network<T, K>(key);
+  T lower = key[0], upper = key[0];
 #pragma unroll
   for (int k = 1; k < K; ++k) {
-    if (k >= len) break;
-#pragma unroll
-    for (int j = 0; j < k; ++j) {
-      const bool before = key[j] <= key[k];
-      rank4[k >> 2] += before ? 1u << (8 * (k & 3)) : 0u;
-      rank4[j >> 2] += before ? 0u : 1u << (8 * (j & 3));
-    }
-  }
-  T lower = qnan<T>(), upper = qnan<T>();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    if (k >= len) break;
-    const int r = (int)((rank4[k >> 2] >> (8 * (k & 3))) & 0xffu);
-    lower = r == at.lo ? key[k] : lower;
-    upper = r == at.hi ? key[k] : upper;
+    lower = k == at.lo ? key[k] : lower;
+    upper = k == at.hi ? key[k] : upper;
   }
   return at(lower, upper);
 }

@@ -21,7 +21,10 @@ version), nested in ``apply_weights``' ``apply.kernel``; it counts
 ``select.windows``, the E x n (slice, target) windows it ranks, and, per
 launch, ``select.walk_launches``: 1 where the padded width w exceeds
 ``register_slots(w)``, so that the windows longer than the register
-array take the counting walk, else 0 (``utils.profiling``).
+array take the counting walk, else 0; and ``select.network_launches``:
+1 where a percentile's windows of up to K slots are sorted by the
+kernel's network, 0 for the mode, which counts group totals, and at p =
+0 or 100, which take the extreme value (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -88,6 +91,7 @@ def window_select(
             raise RuntimeError(f"window_select launch failed with CUDA error {err}")
         window_select.launches += 1
         count("select.walk_launches", int(w > slots))
+        count("select.network_launches", int(not is_mode and 0.0 < reduction.p < 100.0))
         return out
 
 
