@@ -174,13 +174,13 @@ def raster_target(nx=3, ny=3, cell=2.0):
     return xt.xdata.DataArray(np.zeros((ny, nx)), coords=coords, dims=("y", "x"), name="map")
 
 
-def slab_regrid(monkeypatch, uda, target, per_slab=1):
+def slab_regrid(monkeypatch, uda, target, per_slab=1, method="mean"):
     """A regrid call of ``uda`` onto ``target`` in slabs of ``per_slab``
     slices."""
     import xugrid_tpu_torch as xt
     from xugrid_tpu_torch.regrid import regridder as torch_regridder
 
-    regridder = xt.OverlapRegridder(uda, target, method="mean")
+    regridder = xt.OverlapRegridder(uda, target, method=method)
     per_slice = 4 * (regridder._weights.m + regridder._weights.n)
     monkeypatch.setattr(torch_regridder, "APPLY_CHUNK_BYTES", per_slab * per_slice)
     regridder.regrid(uda, device="cpu")  # the weights uploaded before any recording
@@ -203,13 +203,32 @@ def recorded(call):
     return out, records
 
 
-@pytest.mark.parametrize("per_slab, slabs", [(1, 3), (3, 1)], ids=["three_slabs", "one_slab"])
-def test_regrid_records_its_span_tree_and_copy_bytes(monkeypatch, per_slab, slabs):
+def window_sum(values, weights):
+    """A custom reduction: each window's weighted sum."""
+    return torch.nansum(values * weights, dim=-1)
+
+
+#: case -> (method, slices, slices a slab, bytes a slab copies on the CPU)
+SLAB_CASES = {
+    "three_slabs": ("mean", 3, 1, 1 * 9 * 4),
+    "one_slab": ("mean", 3, 3, 3 * 9 * 4),
+    "custom_three_slabs": (window_sum, 6, 2, 30 * 2 * 4 + 2 * 9 * 4),
+}
+
+
+@pytest.mark.parametrize("case", list(SLAB_CASES))
+def test_regrid_records_its_span_tree_and_copy_bytes(monkeypatch, case):
     """Three slabs write their rows of one output in place (no
-    concatenation, nothing copied); one slab takes the kernel's own
-    output, counts no slab in place, and on the CPU copies the plain
-    kernel's transposed (3, 9) result as before."""
-    out, records = recorded(slab_regrid(monkeypatch, quad_mesh_uda(), raster_target(), per_slab))
+    concatenation): on the CPU each copies the plain kernel's (1, 9)
+    result into its rows.  One slab takes the kernel's own output,
+    counts no slab in place, and copies the plain kernel's transposed (3,
+    9) result as before.  A custom reduction in three slabs of two
+    slices copies each slab's (30, 2) slice-minor source and its (2, 9)
+    result into its rows."""
+    method, slices, per_slab, slab_bytes = SLAB_CASES[case]
+    slabs = slices // per_slab
+    uda = quad_mesh_uda(slices=slices)
+    out, records = recorded(slab_regrid(monkeypatch, uda, raster_target(), per_slab, method))
     by_id = {r.id: r for r in records}
     assert [r.name for r in records] == ["regrid", "regrid.apply"] + ["apply_weights", "apply.kernel"] * slabs
     root = records[0]
@@ -219,12 +238,15 @@ def test_regrid_records_its_span_tree_and_copy_bytes(monkeypatch, per_slab, slab
         assert parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns
         expected = {"regrid.apply": "regrid", "apply_weights": "regrid.apply", "apply.kernel": "apply_weights"}[r.name]
         assert parent.name == expected
-    assert out.shape == (3, 3, 3)
+    assert out.shape == (slices, 3, 3)
     apply = next(r for r in records if r.name == "regrid.apply")
-    assert apply.counts == ({"apply.slabs_in_place": 3} if slabs == 3 else {})
-    copied = [r.counts for r in records if r.name == "apply_weights"]
-    assert copied == ([{}] * 3 if slabs == 3 else [{"apply.copy_bytes": 3 * 9 * 4}])
-    assert timings.counters() == {**apply.counts, **copied[0]}
+    assert apply.counts == ({"apply.slabs_in_place": slabs} if slabs > 1 else {})
+    copied = [  # per slab: apply_weights and its apply.kernel
+        outer.counts.get("apply.copy_bytes", 0) + inner.counts.get("apply.copy_bytes", 0)
+        for outer, inner in zip(records[2::2], records[3::2])
+    ]
+    assert copied == [slab_bytes] * slabs
+    assert timings.counters() == {**apply.counts, "apply.copy_bytes": sum(copied)}
     assert timings.summary() == {}  # spans keep no stage totals
     timings.reset()
 
@@ -232,7 +254,8 @@ def test_regrid_records_its_span_tree_and_copy_bytes(monkeypatch, per_slab, slab
 def test_window_select_records_its_span_inside_apply_kernel(monkeypatch):
     """A median regrid of three slices in three slabs: each slab's
     ``apply.select`` nests in its ``apply.kernel`` and counts the E x n
-    windows it ranks; on the CPU nothing launches, so no walk is
+    windows it ranks and the bytes of the plain result it copies into its
+    rows of the output; on the CPU nothing launches, so no walk is
     counted; with recording off nothing is left."""
     import xugrid_tpu_torch as xt
     from xugrid_tpu_torch.regrid import regridder as torch_regridder
@@ -248,7 +271,7 @@ def test_window_select_records_its_span_inside_apply_kernel(monkeypatch):
         if r.name == "apply.select":
             parent = by_id[r.parent]
             assert parent.name == "apply.kernel" and parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns
-            assert r.counts == {"select.windows": 1 * n}
+            assert r.counts == {"select.windows": 1 * n, "apply.copy_bytes": 1 * n * 4}
     assert timings.counters()["select.windows"] == 3 * n and "select.walk_launches" not in timings.counters()
     timings.reset()
     regridder.regrid(uda, device="cpu")

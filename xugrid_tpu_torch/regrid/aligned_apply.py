@@ -17,9 +17,11 @@ the SpMV engines of ``xugrid_tpu/ugrid/interpolate.py:cg_solve``.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what it
 does not take; for CPU tensors it runs the plain PyTorch version
-(``reduce.reduce_windows``, ``csr_matvec_plain``).  ``window_reduce.
-launches`` and ``csr_matvec.launches`` count kernel launches.
-``reduce_lanes`` picks the block shape of both window kernels.
+(``reduce.reduce_windows``, ``csr_matvec_plain``).  Both window kernels
+and ``apply_weights``' custom reductions share ``_window_apply``; every
+launch is one ``_launch``, which counts it on the wrapper's
+``launches``.  ``reduce_lanes`` picks the block shape of both window
+kernels.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import ctypes
 import torch
 
 from xugrid_tpu_torch.regrid import reduce
+from xugrid_tpu_torch.utils.profiling import count
 
 #: reduce.py function -> the kernel's method code (csrc/window_reduce.cu).
 METHOD_CODES = {
@@ -78,18 +81,36 @@ def kernel_function(name: str):
     return fn
 
 
+def _launch(wrapper, name: str, device: torch.device, *args) -> None:
+    """Launch the kernel library's entry point ``name`` on ``args`` and
+    the current stream of ``device``; raises on a CUDA error, else counts
+    the launch on ``wrapper.launches``."""
+    err = kernel_function(name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed with CUDA error {err}")
+    wrapper.launches += 1
+
+
+def _check_tensors(takes: str, anchor: str, values: str, **tensors) -> None:
+    """Raise unless each of ``tensors`` lies contiguous on the CUDA device
+    of ``tensors[anchor]``, whose kernel dtype ``tensors[values]`` shares
+    (the dtype's message opens with ``takes``)."""
+    a, v = tensors[anchor], tensors[values]
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != a.device:
+            raise ValueError(f"{name} must lie on the CUDA device of {anchor}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if a.dtype not in DTYPE_CODES:
+        raise TypeError(f"{takes} float32 or float64, got {a.dtype}")
+    if v.dtype != a.dtype:
+        raise TypeError(f"{values} dtype {v.dtype} differs from {anchor} dtype {a.dtype}")
+
+
 def check_kernel_args(source, indices, weights):
     """Validate the tensors handed to a window kernel; raises on what
     the kernels do not take."""
-    for name, t in (("source", source), ("indices", indices), ("weights", weights)):
-        if t.device.type != "cuda" or t.device != source.device:
-            raise ValueError(f"{name} must lie on the CUDA device of source, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if source.dtype not in DTYPE_CODES:
-        raise TypeError(f"window kernels take float32 or float64, got {source.dtype}")
-    if weights.dtype != source.dtype:
-        raise TypeError(f"weights dtype {weights.dtype} differs from source dtype {source.dtype}")
+    _check_tensors("window kernels take", "source", "weights", source=source, indices=indices, weights=weights)
     if indices.dtype != torch.int32:
         raise TypeError(f"indices must be int32, got {indices.dtype}")
     if source.dim() != 2 or indices.dim() != 2 or weights.shape != indices.shape:
@@ -151,9 +172,35 @@ def reduce_lanes(E: int, w: int, itemsize: int, batch: int = 4) -> tuple[int, in
 
 def plain_into(out, source, indices, weights, reduction) -> torch.Tensor:
     """The plain version of a window kernel: (E, n), written into ``out``
-    where one is given (checked by the caller)."""
+    where one is given (checked by the caller); the bytes copied there
+    count as ``apply.copy_bytes``."""
     result = reduce.reduce_windows(source.t(), indices, weights, reduction).t()
-    return result if out is None else out.copy_(result)
+    if out is None:
+        return result
+    count("apply.copy_bytes", result.numel() * result.element_size())
+    return out.copy_(result)
+
+
+def _window_apply(source, indices, weights, reduction, *, out=None, launch=None, batch: int = 4) -> torch.Tensor:
+    """The body of both window kernels and of a custom reduction (``launch``
+    None): (E, n), into ``out`` where one is given.  The plain version
+    runs for a CPU source or no ``launch``; else ``launch`` gets the
+    windows' pointers, sizes and block (``reduce_lanes`` at ``batch``)."""
+    if out is not None:
+        check_out(out, source, indices.shape[0])
+    if launch is None or source.device.type == "cpu":
+        return plain_into(out, source, indices, weights, reduction)
+    check_kernel_args(source, indices, weights)
+    (E, m), (n, w) = source.shape, indices.shape
+    if out is None:
+        out = torch.empty((E, n), dtype=source.dtype, device=source.device)
+    if out.numel():
+        slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size(), batch)
+        launch(
+            source.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            n, m, w, E, slice_warps, target_warps, int(staged),
+        )
+    return out
 
 
 def window_reduce(
@@ -172,27 +219,9 @@ def window_reduce(
     """
     if reduction not in METHOD_CODES:
         raise ValueError(f"window_reduce does not cover {reduction!r}")
-    if out is not None:
-        check_out(out, source, indices.shape[0])
-    if source.device.type == "cpu":
-        return plain_into(out, source, indices, weights, reduction)
-    check_kernel_args(source, indices, weights)
-    (E, m), (n, w) = source.shape, indices.shape
-    if out is None:
-        out = torch.empty((E, n), dtype=source.dtype, device=source.device)
-    if out.numel() == 0:
-        return out
-    slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size())
-    err = kernel_function("xt_window_reduce")(
-        DTYPE_CODES[source.dtype], METHOD_CODES[reduction],
-        source.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        n, m, w, E, slice_warps, target_warps, int(staged),
-        torch.cuda.current_stream(source.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"window_reduce launch failed with CUDA error {err}")
-    window_reduce.launches += 1
-    return out
+    return _window_apply(source, indices, weights, reduction, out=out, launch=lambda *window: _launch(
+        window_reduce, "xt_window_reduce", source.device, DTYPE_CODES[source.dtype], METHOD_CODES[reduction], *window,
+    ))
 
 
 window_reduce.launches = 0
@@ -224,15 +253,7 @@ def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, 
     """
     if x.device.type == "cpu":
         return csr_matvec_plain(indptr, indices, data, x)
-    for name, t in (("indptr", indptr), ("indices", indices), ("data", data), ("x", x)):
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"{name} must lie on the CUDA device of x, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if x.dtype not in DTYPE_CODES:
-        raise TypeError(f"csr_matvec takes float32 or float64, got {x.dtype}")
-    if data.dtype != x.dtype:
-        raise TypeError(f"data dtype {data.dtype} differs from x dtype {x.dtype}")
+    _check_tensors("csr_matvec takes", "x", "data", indptr=indptr, indices=indices, data=data, x=x)
     if indptr.dtype != torch.int32 or indices.dtype != torch.int32:
         raise TypeError(f"indptr and indices must be int32, got {indptr.dtype}, {indices.dtype}")
     if x.dim() != 2 or indptr.dim() != 1 or indices.shape != data.shape or indices.dim() != 1:
@@ -244,16 +265,9 @@ def csr_matvec(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, 
     if n * x.shape[1] > MAX_INT32 or x.shape[0] > MAX_INT32:
         raise ValueError(f"csr_matvec indexes in 32 bits: n {n}, x {tuple(x.shape)}")
     y = torch.empty((n, x.shape[1]), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    err = kernel_function("xt_csr_matvec")(
-        DTYPE_CODES[x.dtype],
-        indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), x.data_ptr(), y.data_ptr(),
-        n, x.shape[1], torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"csr_matvec launch failed with CUDA error {err}")
-    csr_matvec.launches += 1
+    if y.numel():
+        pointers = indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), x.data_ptr(), y.data_ptr()
+        _launch(csr_matvec, "xt_csr_matvec", x.device, DTYPE_CODES[x.dtype], *pointers, n, x.shape[1])
     return y
 
 

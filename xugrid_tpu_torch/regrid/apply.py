@@ -5,18 +5,19 @@ The source is flattened to (E, m), the extra (time/layer) slices
 major, as the caller holds it.  Both kernels take it so, the eight
 ``window_reduce`` methods and ``window_select``'s mode and percentiles,
 in one kernel launch with no copy of a contiguous source; only custom
-reductions take a slice-minor copy, (m, E).  Built-in reductions go to
-the Hopper kernels for a CUDA source, or to their plain PyTorch version
-for a CPU source; a custom reduction runs the plain window path on
-either device.  The result is contiguous.  A caller that streams a
-stack in slabs hands each slab ``out=``, its rows of one output
-allocated once, and each slab is written in place: the kernels write
-those rows directly, the plain versions copy their result there, and no
-slab results are joined afterwards.  Each apply is a span
+reductions take a slice-minor copy, (m, E), so that the plain window
+path gathers from no strided view.  Built-in reductions go to the
+Hopper kernels for a CUDA source, or to their plain PyTorch version for
+a CPU source; a custom reduction runs the plain window path on either
+device.  The result is contiguous.  A caller that streams a stack in
+slabs hands each slab ``out=``, its rows of one output allocated once,
+and each slab is written in place: the kernels write those rows
+directly, the plain versions copy their result there, and no slab
+results are joined afterwards.  Each apply is a span
 ``apply_weights`` around a span ``apply.kernel`` (the dispatch and the
 launch); the bytes of each cast, reshape or ``.contiguous()`` that
-copies, and of a custom reduction's transposed result copied into
-``out``, count as ``apply.copy_bytes`` (``utils.profiling``).
+copies, and of a plain result copied into ``out``, count as
+``apply.copy_bytes`` (``utils.profiling``).
 
 ``apply_coo_gather`` is the apply of ``CentroidLocatorRegridder``: a
 row gather by torch indexing on the source's device, no kernel.
@@ -28,8 +29,7 @@ import numpy as np
 import torch
 
 from xugrid_tpu_torch.core.sparse import PaddedCSR
-from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, check_out, window_reduce
+from xugrid_tpu_torch.regrid.aligned_apply import DTYPE_CODES, METHOD_CODES, _window_apply, window_reduce
 from xugrid_tpu_torch.regrid.select_apply import covers, window_select
 from xugrid_tpu_torch.utils.profiling import count, span, timings
 from xugrid_tpu_torch.xdata.variable import torch_dtype
@@ -98,7 +98,7 @@ def apply_weights(
         source2d = _counted(source, source.reshape(-1, source.shape[-1]))
         if dtype is not None:
             dtype = torch_dtype(dtype)
-            if dtype not in (torch.float32, torch.float64):
+            if dtype not in DTYPE_CODES:
                 raise TypeError(f"the regrid kernels take float32 or float64, got dtype={dtype}")
             source2d = _counted(source2d, source2d.to(dtype))
         computed = result_dtype(source2d.dtype)
@@ -107,18 +107,12 @@ def apply_weights(
         indices, w = device_weights(weights, source2d.dtype, source2d.device, plan_cache)
         with span("apply.kernel"):
             if reduction in METHOD_CODES:
-                result = window_reduce(_counted(source2d, source2d.contiguous()), indices, w, reduction, out=out)
+                kernel, held = window_reduce, _counted(source2d, source2d.contiguous())
             elif covers(reduction):
-                result = window_select(_counted(source2d, source2d.contiguous()), indices, w, reduction, out=out)
+                kernel, held = window_select, _counted(source2d, source2d.contiguous())
             else:
-                if out is not None:
-                    check_out(out, source2d, target_size)
-                windowed = _counted(source2d, source2d.t().contiguous())
-                result = reduce.reduce_windows(windowed, indices, w, reduction).t()
-                if out is not None:
-                    if not result.is_contiguous():
-                        count("apply.copy_bytes", result.numel() * result.element_size())
-                    result = out.copy_(result)
+                kernel, held = _window_apply, _counted(source2d, source2d.t().contiguous()).t()
+            result = kernel(held, indices, w, reduction, out=out)
         return _counted(result, result.reshape(leading + (target_size,)).contiguous())
 
 

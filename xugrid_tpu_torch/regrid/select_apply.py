@@ -14,17 +14,18 @@ counterpart.
 
 ``window_select`` launches the kernel for CUDA tensors and raises on
 what it does not take; for CPU tensors it runs the plain PyTorch
-version, ``reduce.reduce_windows``.  ``window_select.launches`` counts
-kernel launches.  Each call is a span ``apply.select`` (the checks, the
-block and register choice and the launch; on the CPU the plain
-version), nested in ``apply_weights``' ``apply.kernel``; it counts
-``select.windows``, the E x n (slice, target) windows it ranks, and, per
-launch, ``select.walk_launches``: 1 where the padded width w exceeds
-``register_slots(w)``, so that the windows longer than the register
-array take the counting walk, else 0; and ``select.network_launches``:
-1 where a percentile's windows of up to K slots are sorted by the
-kernel's network, 0 for the mode, which counts group totals, and at p =
-0 or 100, which take the extreme value (``utils.profiling``).
+version, ``reduce.reduce_windows`` (through window_reduce's body).
+``window_select.launches`` counts kernel launches.  Each call is a span
+``apply.select`` (the checks, the block and register choice and the
+launch; on the CPU the plain version), nested in ``apply_weights``'
+``apply.kernel``; it counts ``select.windows``, the E x n (slice,
+target) windows it ranks, and, per launch, ``select.walk_launches``: 1
+where the padded width w exceeds ``register_slots(w)``, so that the
+windows longer than the register array take the counting walk, else 0;
+and ``select.network_launches``: 1 where a percentile's windows of up to
+K slots are sorted by the kernel's network, 0 for the mode, which counts
+group totals, and at p = 0 or 100, which take the extreme value
+(``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -32,9 +33,7 @@ from __future__ import annotations
 import torch
 
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.aligned_apply import (
-    DTYPE_CODES, check_kernel_args, check_out, kernel_function, plain_into, reduce_lanes,
-)
+from xugrid_tpu_torch.regrid.aligned_apply import DTYPE_CODES, _launch, _window_apply
 from xugrid_tpu_torch.utils.profiling import count, span
 
 
@@ -67,32 +66,17 @@ def window_select(
     if not covers(reduction):
         raise ValueError(f"window_select does not cover {reduction!r}")
     with span("apply.select"):
-        if out is not None:
-            check_out(out, source, indices.shape[0])
         count("select.windows", source.shape[0] * indices.shape[0])
-        if source.device.type == "cpu":
-            return plain_into(out, source, indices, weights, reduction)
-        check_kernel_args(source, indices, weights)
-        (E, m), (n, w) = source.shape, indices.shape
-        if out is None:
-            out = torch.empty((E, n), dtype=source.dtype, device=source.device)
-        if out.numel() == 0:
-            return out
-        slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size(), batch=1)
-        slots = register_slots(w)
-        is_mode = reduction is reduce.mode
-        err = kernel_function("xt_window_select")(
-            DTYPE_CODES[source.dtype], 1 if is_mode else 0, 0.0 if is_mode else float(reduction.p),
-            source.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            n, m, w, E, slice_warps, target_warps, int(staged), slots,
-            torch.cuda.current_stream(source.device).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"window_select launch failed with CUDA error {err}")
-        window_select.launches += 1
-        count("select.walk_launches", int(w > slots))
-        count("select.network_launches", int(not is_mode and 0.0 < reduction.p < 100.0))
-        return out
+        w, is_mode = indices.shape[1], reduction is reduce.mode
+        slots, p = register_slots(w), 0.0 if is_mode else float(reduction.p)
+
+        def launch(*window):
+            code = DTYPE_CODES[source.dtype]
+            _launch(window_select, "xt_window_select", source.device, code, int(is_mode), p, *window, slots)
+            count("select.walk_launches", int(w > slots))
+            count("select.network_launches", int(0.0 < p < 100.0))  # the mode has p = 0
+
+        return _window_apply(source, indices, weights, reduction, out=out, launch=launch, batch=1)
 
 
 window_select.launches = 0
