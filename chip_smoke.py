@@ -568,6 +568,11 @@ def phase_build():
     return log
 
 
+#: window_select's kinds in the order of their codes (``SelectKind`` in
+#: csrc/window_select.cu).
+SELECT_KIND_NAMES = ("percentile", "mode", "median")
+
+
 def check_select_registers(log):
     """Every window_select instantiation keeps its window in registers:
     ptxas reports no stack frame and no spill bytes (a register array
@@ -576,17 +581,17 @@ def check_select_registers(log):
     import re
 
     entries = re.findall(
-        r"Function properties for (\S*window_select_kernelI([fd])Lb([01])ELi(\d+)ELb([01])E\S*)\s*\n"
+        r"Function properties for (\S*window_select_kernelI([fd])Li([012])ELi(\d+)ELb([01])E\S*)\s*\n"
         r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\s*\n"
         r".*?Used (\d+) registers",
         log,
     )
-    if len(entries) != 2 * 2 * 3 * 2:
-        raise AssertionError(f"expected 24 window_select instantiations in the ptxas report, found {len(entries)}")
+    if len(entries) != 2 * 3 * 3 * 2:
+        raise AssertionError(f"expected 36 window_select instantiations in the ptxas report, found {len(entries)}")
     bad = []
-    for _, dtype, mode, slots, staged, stack, stores, loads, regs in entries:
+    for _, dtype, kind, slots, staged, stack, stores, loads, regs in entries:
         name = (
-            f"window_select<{'float' if dtype == 'f' else 'double'}, {'mode' if mode == '1' else 'percentile'}, "
+            f"window_select<{'float' if dtype == 'f' else 'double'}, {SELECT_KIND_NAMES[int(kind)]}, "
             f"K={slots}, {'staged' if staged == '1' else 'in place'}>"
         )
         print(f"  {name}: {regs} registers, {stack} bytes stack, {stores} / {loads} bytes spill stores / loads")

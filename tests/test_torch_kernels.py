@@ -194,17 +194,58 @@ def test_percentile_network_sorts_every_zero_one_window(device, dtype, K):
         chip_smoke.compare(got, reduce.reduce_windows(source.t(), idx, wt, fn).t(), True, 0.0, 0.0)
 
 
+@pytest.mark.parametrize("slices", [1, 8], ids=["in_place", "staged"])
+@pytest.mark.parametrize("K", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_median_network_selects_every_zero_one_window(device, dtype, K, slices):
+    """The 0-1 principle for the median's fixed-slot network: every 0/1
+    window of K = 8 and 16 faces (a seeded sample of 65,536 at K = 32),
+    each with j = 0, 1, ..., K invalid slots at seeded positions (NaN
+    faces and -1 pads among the slots, or the last j slots cut off as a
+    shorter window), so every split of the +inf / -inf sentinels is hit;
+    in place (1 slice) and staged (8 slices, slice e flipping the bits of
+    mask e); ``reduce.median`` bit for bit."""
+    rng = np.random.default_rng(100 + K)
+    n = 1 << min(K, 16)
+    patterns = np.arange(n, dtype=np.int64) if K < 32 else rng.integers(0, 1 << 32, size=n, dtype=np.int64)
+    masks = rng.integers(0, 1 << K, size=slices, dtype=np.int64)
+    masks[0] = 0
+    bits = (((patterns[None, :] ^ masks[:, None])[..., None] >> np.arange(K)) & 1).reshape(slices, n * K)
+    nan_face = n * K
+    values = np.concatenate([bits.astype(np.float64), np.full((slices, 1), np.nan)], axis=1)
+    source = torch.from_numpy(values).to(device=device, dtype=dtype)
+    faces = np.arange(n * K, dtype=np.int32).reshape(n, K)
+    assert register_slots(K) == K and reduce_lanes(slices, K, source.element_size(), batch=1)[2] == (slices > 1)
+    for j in range(K + 1):
+        invalid = np.argsort(rng.random((n, K)), axis=1)[:, :j]
+        shorter = rng.random(n) < 1.0 / 3.0
+        invalid[shorter] = np.arange(K - j, K)
+        as_nan = (rng.random((n, j)) < 0.5) & ~shorter[:, None]
+        indices = faces.copy()
+        rows = np.repeat(np.arange(n), j).reshape(n, j)
+        indices[rows, invalid] = np.where(as_nan, nan_face, -1)
+        idx = torch.from_numpy(indices).to(device)
+        wt = torch.from_numpy((indices >= 0).astype(np.float64)).to(device=device, dtype=dtype)
+        before = window_select.launches
+        got = window_select(source, idx, wt, reduce.median)
+        assert window_select.launches == before + 1
+        chip_smoke.compare(got, reduce.reduce_windows(source.t(), idx, wt, reduce.median).t(), True, 0.0, 0.0)
+
+
 @pytest.mark.parametrize(
-    "fn, w, walks, network",
-    [(reduce.median, 16, 0, 1), (reduce.mode, 16, 0, 0), (reduce.median, 40, 1, 1), (reduce.mode, 40, 1, 0),
-     (reduce.Percentile(0), 16, 0, 0), (reduce.Percentile(100), 16, 0, 0)],
-    ids=["median", "mode", "median_walk", "mode_walk", "p0", "p100"],
+    "fn, w, walks, network, median",
+    [(reduce.median, 16, 0, 1, 1), (reduce.mode, 16, 0, 0, 0), (reduce.median, 40, 1, 1, 1),
+     (reduce.mode, 40, 1, 0, 0), (reduce.Percentile(0), 16, 0, 0, 0), (reduce.Percentile(100), 16, 0, 0, 0),
+     (reduce.Percentile(50.0), 16, 0, 1, 1), (reduce.Percentile(10), 16, 0, 1, 0),
+     (reduce.Percentile(33.3), 16, 0, 1, 0), (reduce.Percentile(90), 16, 0, 1, 0)],
+    ids=["median", "mode", "median_walk", "mode_walk", "p0", "p100", "p50", "p10", "p33.3", "p90"],
 )
-def test_window_select_counts_its_launches_by_path(device, fn, w, walks, network):
+def test_window_select_counts_its_launches_by_path(device, fn, w, walks, network, median):
     """Per launch, ``select.walk_launches`` where windows past the register
-    slots walk and ``select.network_launches`` where a percentile's
+    slots walk, ``select.network_launches`` where a percentile's
     windows are sorted by the network: never the mode, nor p = 0 or 100,
-    which take the extreme value."""
+    which take the extreme value; and ``select.median_launches`` where
+    p = 50 takes the fixed-slot median, walking or not."""
     from xugrid_tpu_torch.utils.profiling import timings
 
     indices, weights, mixed, _ = chip_smoke.synthetic_windows(np.random.default_rng(5), n=300, m=400, n_extra=3)
@@ -218,9 +259,11 @@ def test_window_select_counts_its_launches_by_path(device, fn, w, walks, network
     finally:
         records = timings.stop_spans()
     timings.reset()
-    assert [(rec.name, rec.counts) for rec in records] == [
-        ("apply.select", {"select.windows": 3 * 300, "select.walk_launches": walks, "select.network_launches": network})
-    ]
+    counts = {
+        "select.windows": 3 * 300, "select.walk_launches": walks, "select.network_launches": network,
+        "select.median_launches": median,
+    }
+    assert [(rec.name, rec.counts) for rec in records] == [("apply.select", counts)]
 
 
 def test_regrid_on_cuda_matches_cpu(device):
@@ -302,8 +345,8 @@ def test_labelled_median_in_slabs_on_the_card(device, monkeypatch, cell, walks):
     half a float32 ulp of the plain reference
     (``portbench/reference/select.py``; the median of float32 values is
     an exact selection and one halving sum), and per launch one
-    ``apply.select`` span counting its E x n windows, ``walks`` and one
-    launch sorted by the network."""
+    ``apply.select`` span counting its E x n windows, ``walks``, one
+    launch sorted by the network and one by the fixed-slot median."""
     from portbench import inputs
     from portbench.generators import common
     from portbench.reference import overlap, select
@@ -342,7 +385,8 @@ def test_labelled_median_in_slabs_on_the_card(device, monkeypatch, cell, walks):
     select_spans = [rec for rec in records if rec.name == "apply.select"]
     assert [by_id[rec.parent].name for rec in select_spans] == ["apply.kernel"] * 4
     assert [rec.counts for rec in select_spans] == [
-        {"select.windows": rows * n, "select.walk_launches": walks, "select.network_launches": 1}
+        {"select.windows": rows * n, "select.walk_launches": walks, "select.network_launches": 1,
+         "select.median_launches": 1}
         for rows in (4, 4, 4, 3)
     ]
 

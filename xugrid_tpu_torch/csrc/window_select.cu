@@ -34,6 +34,11 @@
 //   place of 120 counting compares with packed rank adds in long chains
 //   at K = 16.  The sorted keys at the interpolation's two ranks are the
 //   values the counting ranks select, whatever order ties took;
+// - the median (p = 50, an instantiation of its own) gives the invalid
+//   slots +inf and -inf in turn, so its two ranks always sort to slots
+//   K / 2 - 1 and K / 2, and runs only the min / max outputs of Batcher's
+//   pairs that feed those two: 28 / 92 / 284 of 38 / 126 / 382, and no
+//   selects by a rank known at run time;
 // - the mode keeps its group totals sum_j w_j [v_j == v_k], added in slot
 //   order, 4 slots at a time up to len: sorting would change the order
 //   of those additions, and so the bits.  float32 windows of up to 16
@@ -58,6 +63,10 @@
 #include "window_common.cuh"
 
 namespace xt {
+
+// What a launch computes: the p-th percentile by the full sort, the mode,
+// or the median (p = 50) by the fixed-slot network.
+enum SelectKind : int { kPercentile = 0, kMode = 1, kMedian = 2 };
 
 // reduce.py minimum (MAX false) and maximum (MAX true): the extreme valid
 // value, NaN unless some valid slot has a positive weight.
@@ -145,26 +154,37 @@ __device__ __forceinline__ double xmin(double a, double b) { return fmin(a, b); 
 __device__ __forceinline__ float xmax(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double xmax(double a, double b) { return fmax(a, b); }
 
+// Batcher's odd-even merge sort of K slots, the one source of its pairs:
+// merge p = 1, 2, ..., K / 2, pass k = p, p / 2, ..., 1 compares slot x
+// with x + k where x >= k % p, (x - k % p) mod 2k < k and both lie in one
+// block of 2p slots.
+__host__ __device__ constexpr bool batcher_pair(int K, int lp, int lk, int x) {
+  const int p = 1 << lp, k = 1 << lk, r = k % p;
+  return lk <= lp && x + k < K && x >= r && (x - r) % (2 * k) < k && x / (2 * p) == (x + k) / (2 * p);
+}
+
+template <int K>
+__host__ __device__ constexpr int network_levels() {
+  static_assert(K == 8 || K == 16 || K == 32, "register slots are 8, 16 or 32");
+  return K == 8 ? 3 : (K == 16 ? 4 : 5);
+}
+
 // Sorts K keys that hold no NaN ascending, by Batcher's odd-even merge
 // sort: 19 / 63 / 191 compare-exchanges at depth 6 / 10 / 15 for K = 8 /
-// 16 / 32.  Merge p = 1, 2, ..., K / 2, pass k = p, p / 2, ..., 1 compares
-// slot x with x + k where x >= k % p, (x - k % p) mod 2k < k and both lie
-// in one block of 2p slots.  Every loop has a constant trip count and
-// every condition folds once they unroll, so each pair is a fixed
-// min / max on two registers.
+// 16 / 32.  Every loop has a constant trip count and every condition
+// folds once they unroll, so each pair is a fixed min / max on two
+// registers.
 template <typename T, int K>
 __device__ __forceinline__ void sort_network(T (&key)[K]) {
-  static_assert(K == 8 || K == 16 || K == 32, "register slots are 8, 16 or 32");
-  constexpr int L = K == 8 ? 3 : (K == 16 ? 4 : 5);
+  constexpr int L = network_levels<K>();
 #pragma unroll
   for (int lp = 0; lp < L; ++lp) {
 #pragma unroll
     for (int lk = L - 1; lk >= 0; --lk) {
-      if (lk > lp) continue;
-      const int p = 1 << lp, k = 1 << lk, r = k % p;
+      const int k = 1 << lk;
 #pragma unroll
       for (int x = 0; x < K - 1; ++x) {
-        if (x + k < K && x >= r && (x - r) % (2 * k) < k && x / (2 * p) == (x + k) / (2 * p)) {
+        if (batcher_pair(K, lp, lk, x)) {
           const T a = key[x], b = key[x + k];
           key[x] = xmin(a, b);
           key[x + k] = xmax(a, b);
@@ -174,8 +194,61 @@ __device__ __forceinline__ void sort_network(T (&key)[K]) {
   }
 }
 
-// The p-th percentile of a window of len <= K slots, sorted in registers.
-template <typename T, int K, typename W>
+// The outputs of Batcher's pairs that feed sorted slots K / 2 - 1 and
+// K / 2: need[lp][lk][x] bit 0 the min (slot x), bit 1 the max (slot
+// x + k), 0 for a pair that feeds neither and where no pair starts.
+// Walked from the last pair back: a pair's inputs are live when one of
+// its outputs is, and a pair of one layer is alone on its slots.  17 / 53 / 157 of the 19 / 63 /
+// 191 pairs run, 28 / 92 / 284 min or max.
+template <int K>
+struct MedianPairs {
+  static constexpr int L = network_levels<K>();
+  unsigned char need[L][L][K] = {};
+
+  __host__ __device__ constexpr MedianPairs() {
+    bool live[K] = {};
+    live[K / 2 - 1] = live[K / 2] = true;
+    for (int lp = L - 1; lp >= 0; --lp) {
+      for (int lk = 0; lk <= lp; ++lk) {
+        for (int x = 0; x < K - 1; ++x) {
+          if (!batcher_pair(K, lp, lk, x)) continue;
+          const int k = 1 << lk;
+          need[lp][lk][x] = (unsigned char)((live[x] ? 1 : 0) | (live[x + k] ? 2 : 0));
+          live[x] = live[x + k] = need[lp][lk][x] != 0;
+        }
+      }
+    }
+  }
+};
+
+// Sorted slots K / 2 - 1 and K / 2 of K keys that hold no NaN, by the
+// pairs of sort_network that feed them; the other slots are left
+// unordered.
+template <typename T, int K>
+__device__ __forceinline__ void median_network(T (&key)[K]) {
+  constexpr MedianPairs<K> pairs{};
+  constexpr int L = MedianPairs<K>::L;
+#pragma unroll
+  for (int lp = 0; lp < L; ++lp) {
+#pragma unroll
+    for (int lk = L - 1; lk >= 0; --lk) {
+      const int k = 1 << lk;
+#pragma unroll
+      for (int x = 0; x < K - 1; ++x) {
+        const int need = pairs.need[lp][lk][x];
+        if (need != 0) {
+          const T a = key[x], b = key[x + k];
+          if (need & 1) key[x] = xmin(a, b);
+          if (need & 2) key[x + k] = xmax(a, b);
+        }
+      }
+    }
+  }
+}
+
+// The p-th percentile of a window of len <= K slots, sorted in registers;
+// with MEDIAN, the median (p = 50) by the fixed-slot network.
+template <typename T, int K, bool MEDIAN, typename W>
 __device__ __forceinline__ T percentile_registers(const T* __restrict__ se, const W& win, int len,
                                                   int w, double p) {
   T key[K];
@@ -183,15 +256,28 @@ __device__ __forceinline__ T percentile_registers(const T* __restrict__ se, cons
   unsigned valid = 0;  // bit k: slot k holds a valid value
   int n_valid = 0;
   // NaN, pad and unloaded slots (len up to K) become +inf, so the
-  // network sorts all K and the valid values come first.
+  // network sorts all K and the valid values come first.  The median's
+  // take +inf and -inf in turn: of j such slots j / 2 (rounded down)
+  // sort first, so the ranks (n_valid - 1) / 2 (rounded down) and one
+  // above it of the valid values land on slots K / 2 - 1 and K / 2 for
+  // either parity of j.  A real +-inf ties with a sentinel, which leaves
+  // the sorted multiset, and so each slot's value, as it was.
+  T sentinel = pos_inf<T>();
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const bool ok = k < len && is_valid(key[k]);
     valid |= (unsigned)ok << k;
     n_valid += ok ? 1 : 0;
-    key[k] = ok ? key[k] : pos_inf<T>();
+    key[k] = ok ? key[k] : sentinel;
+    if constexpr (MEDIAN) sentinel = ok ? sentinel : -sentinel;
   }
   if (n_valid == 0) return qnan<T>();
+  if constexpr (MEDIAN) {
+    const Interpolation<T> at(n_valid, w, 50.0);
+    median_network<T, K>(key);
+    const T lower = key[K / 2 - 1];
+    return at(lower, n_valid > 1 ? key[K / 2] : lower);
+  }
   if (p == 0.0 || p == 100.0) {
     Extreme<T, false> lo;
     Extreme<T, true> hi;
@@ -315,7 +401,7 @@ __device__ __forceinline__ T mode_walk(const T* __restrict__ se, const W& win, i
 // 40, 64, 80 or 128 registers).  float32 windows of up to 16 slots fit
 // 64 registers without spilling, so 4 blocks of 256 threads share an SM;
 // the wider arrays take up to 255 registers in one block.
-template <typename T, bool MODE, int K, bool STAGED>
+template <typename T, int KIND, int K, bool STAGED>
 __global__ void __launch_bounds__(kThreads, (sizeof(T) == 4 && K <= 16) ? 4 : 1)
 window_select_kernel(const T* __restrict__ src, const int32_t* __restrict__ idx,
                      const T* __restrict__ wts, T* __restrict__ out, int n, int m, int w,
@@ -327,7 +413,7 @@ window_select_kernel(const T* __restrict__ src, const int32_t* __restrict__ idx,
   // Percentiles gate on the raw maximum weight over all w slots, which
   // holds for every slice.
   bool gate = true;
-  if constexpr (!MODE) {
+  if constexpr (KIND != kMode) {
     T wraw = -pos_inf<T>();
     for (int k = 0; k < w; ++k) {
       const T wk = win.weight(k);
@@ -338,28 +424,28 @@ window_select_kernel(const T* __restrict__ src, const int32_t* __restrict__ idx,
   for (int e = win.s; e < E; e += slice_warps) {
     const T* se = src + (int64_t)e * m;
     T result = qnan<T>();
-    if constexpr (MODE) {
+    if constexpr (KIND == kMode) {
       result = len <= K ? mode_registers<T, K>(se, win, len) : mode_walk<T>(se, win, len);
     } else if (gate) {
-      result = len <= K ? percentile_registers<T, K>(se, win, len, w, p)
+      result = len <= K ? percentile_registers<T, K, KIND == kMedian>(se, win, len, w, p)
                         : percentile_walk<T>(se, win, len, w, p);
     }
     out[(int64_t)e * n + win.t] = result;
   }
 }
 
-template <typename T, bool MODE, int K>
+template <typename T, int KIND, int K>
 void launch_slots(unsigned blocks, int threads, size_t bytes, cudaStream_t stream, const T* s,
                   const int32_t* i, const T* wt, T* o, int n, int m, int w, int E, int sw, int tw,
                   double p) {
   if (bytes > 0) {
-    window_select_kernel<T, MODE, K, true><<<blocks, threads, bytes, stream>>>(s, i, wt, o, n, m, w, E, sw, tw, p);
+    window_select_kernel<T, KIND, K, true><<<blocks, threads, bytes, stream>>>(s, i, wt, o, n, m, w, E, sw, tw, p);
   } else {
-    window_select_kernel<T, MODE, K, false><<<blocks, threads, 0, stream>>>(s, i, wt, o, n, m, w, E, sw, tw, p);
+    window_select_kernel<T, KIND, K, false><<<blocks, threads, 0, stream>>>(s, i, wt, o, n, m, w, E, sw, tw, p);
   }
 }
 
-template <typename T, bool MODE>
+template <typename T, int KIND>
 cudaError_t launch_select(const void* src, const void* idx, const void* wts, void* out, int n,
                           int m, int w, int E, int slice_warps, int target_warps, int staged,
                           int slots, double p, cudaStream_t stream) {
@@ -378,30 +464,33 @@ cudaError_t launch_select(const void* src, const void* idx, const void* wts, voi
   T* o = static_cast<T*>(out);
   const int threads = 32 * warps;
   switch (slots) {
-    case 8: launch_slots<T, MODE, 8>(blocks, threads, bytes, stream, s, i, wt, o, n, m, w, E, slice_warps, target_warps, p); break;
-    case 16: launch_slots<T, MODE, 16>(blocks, threads, bytes, stream, s, i, wt, o, n, m, w, E, slice_warps, target_warps, p); break;
-    case 32: launch_slots<T, MODE, 32>(blocks, threads, bytes, stream, s, i, wt, o, n, m, w, E, slice_warps, target_warps, p); break;
+    case 8: launch_slots<T, KIND, 8>(blocks, threads, bytes, stream, s, i, wt, o, n, m, w, E, slice_warps, target_warps, p); break;
+    case 16: launch_slots<T, KIND, 16>(blocks, threads, bytes, stream, s, i, wt, o, n, m, w, E, slice_warps, target_warps, p); break;
+    case 32: launch_slots<T, KIND, 32>(blocks, threads, bytes, stream, s, i, wt, o, n, m, w, E, slice_warps, target_warps, p); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
+// The kind from the caller's mode and p: the median at p = 50 exactly,
+// which reduce.median and any Percentile(50) pass.
 template <typename T>
 cudaError_t dispatch_select(int mode, const void* src, const void* idx, const void* wts,
                             void* out, int n, int m, int w, int E, int sw, int tw, int st,
                             int slots, double p, cudaStream_t stream) {
-  if (mode == 1) return launch_select<T, true>(src, idx, wts, out, n, m, w, E, sw, tw, st, slots, p, stream);
-  if (mode == 0) return launch_select<T, false>(src, idx, wts, out, n, m, w, E, sw, tw, st, slots, p, stream);
-  return cudaErrorInvalidValue;
+  if (mode == 1) return launch_select<T, kMode>(src, idx, wts, out, n, m, w, E, sw, tw, st, slots, p, stream);
+  if (mode != 0) return cudaErrorInvalidValue;
+  if (p == 50.0) return launch_select<T, kMedian>(src, idx, wts, out, n, m, w, E, sw, tw, st, slots, p, stream);
+  return launch_select<T, kPercentile>(src, idx, wts, out, n, m, w, E, sw, tw, st, slots, p, stream);
 }
 
 }  // namespace xt
 
 // dtype: 0 float32, 1 float64.  mode: 1 for the mode, 0 for the p-th
-// percentile.  src (E, m), idx and wts (n, w), out (E, n), all contiguous
-// on the current device.  slice_warps S, target_warps G and staged as for
-// xt_window_reduce; slots K: 8, 16 or 32 register slots.  Returns the
-// launch's cudaGetLastError().
+// percentile (the median's kernel at p = 50).  src (E, m), idx and wts
+// (n, w), out (E, n), all contiguous on the current device.  slice_warps
+// S, target_warps G and staged as for xt_window_reduce; slots K: 8, 16 or
+// 32 register slots.  Returns the launch's cudaGetLastError().
 extern "C" int xt_window_select(int dtype, int mode, double p, const void* src, const void* idx,
                                 const void* wts, void* out, int32_t n, int32_t m, int32_t w,
                                 int32_t E, int32_t slice_warps, int32_t target_warps,

@@ -24,8 +24,9 @@ where the padded width w exceeds ``register_slots(w)``, so that the
 windows longer than the register array take the counting walk, else 0;
 and ``select.network_launches``: 1 where a percentile's windows of up to
 K slots are sorted by the kernel's network, 0 for the mode, which counts
-group totals, and at p = 0 or 100, which take the extreme value
-(``utils.profiling``).
+group totals, and at p = 0 or 100, which take the extreme value; and
+``select.median_launches``: 1 where p = 50, whose kernel selects the two
+middle ranks by the fixed-slot network, else 0 (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -75,6 +76,7 @@ def window_select(
             _launch(window_select, "xt_window_select", source.device, code, int(is_mode), p, *window, slots)
             count("select.walk_launches", int(w > slots))
             count("select.network_launches", int(0.0 < p < 100.0))  # the mode has p = 0
+            count("select.median_launches", int(p == 50.0))
 
         return _window_apply(source, indices, weights, reduction, out=out, launch=launch, batch=1)
 
