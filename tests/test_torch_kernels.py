@@ -391,6 +391,46 @@ def test_labelled_median_in_slabs_on_the_card(device, monkeypatch, cell, walks):
     ]
 
 
+@pytest.mark.parametrize("shift, ulps", [((0.0, 0.0), 2), ((125.0, -90.0), 8)], ids=["aligned", "shifted"])
+def test_labelled_raster_to_mesh_in_slabs_on_the_card(device, monkeypatch, shift, ulps):
+    """A (time, y, x) DataArray of 1 km cells on the card, north first,
+    regridded by the mean onto a mesh of 250 m faces (aligned: each face
+    in one cell, windows of 1; moved by a part of a cell: windows of 1,
+    2 or 4), 15 slices in slabs of 4, 4, 4, 3 written in place: a (time,
+    face) UgridDataArray on the card with the bits of the slabs applied
+    one by one and joined, and the CPU result's NaN; its values within
+    twice the bound each path keeps of the float64 mean
+    (``tests/test_torch_forcing.py``: 2 ulps of the largest value
+    aligned, 8 moved)."""
+    from portbench import inputs
+    from portbench.generators import common
+    from xugrid_tpu_torch.regrid import regridder as torch_regridder
+    from xugrid_tpu_torch.regrid.apply import apply_weights
+
+    mesh = inputs.quad_mesh(40, 48, 250.0, (0.0, 300000.0))
+    raster = inputs.raster(mesh.bounds, 1000.0, shift)
+    pool = inputs.payload_pool(15, raster.size, 0.01, 2147483659, device)
+    grid = common.port_grid(xt, mesh)
+    coords = common.port_raster(xt, raster).coords.variables
+    source = xt.xdata.DataArray(pool.view(15, raster.ny, raster.nx), coords=coords, dims=("time", "y", "x"))
+    r = xt.OverlapRegridder(source, grid, method="mean")
+    m, n = r._weights.m, r._weights.n
+    assert (m, n) == (raster.size, grid.n_face) and (r._padded.indices.shape[1] == 1) == (shift == (0.0, 0.0))
+    monkeypatch.setattr(torch_regridder, "APPLY_CHUNK_BYTES", 4 * 4 * (m + n))
+    out = r.regrid(source)
+    assert isinstance(out, xt.UgridDataArray) and out.dims == ("time", grid.face_dimension)
+    assert out.data.device == device and out.shape == (15, grid.n_face)
+    joined = torch.cat([apply_weights(r._padded, pool[i : i + 4], r._reduction, n) for i in range(0, 15, 4)])
+    torch.testing.assert_close(out.data, joined, rtol=0, atol=0, equal_nan=True)
+    on_cpu = r.regrid(source.copy(data=pool.cpu().view(15, raster.ny, raster.nx))).data
+    assert on_cpu.device.type == "cpu"
+    got = out.data.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(on_cpu))
+    valid = ~torch.isnan(on_cpu)
+    ulp = float(np.spacing(np.float32(on_cpu[valid].abs().max())))
+    torch.testing.assert_close(got[valid], on_cpu[valid], rtol=0, atol=2 * ulps * ulp)
+
+
 @pytest.mark.parametrize("fn, kernel", [(reduce.mean, window_reduce), (reduce.median, window_select)],
                          ids=["window_reduce", "window_select"])
 def test_kernels_write_only_the_rows_of_out(device, windows, fn, kernel):

@@ -22,6 +22,7 @@ from xugrid_tpu_torch.ugrid import conventions
 from xugrid_tpu_torch.ugrid.ugrid1d import Ugrid1d
 from xugrid_tpu_torch.ugrid.ugrid2d import Ugrid2d
 from xugrid_tpu_torch.ugrid.ugridbase import AbstractUgrid, align, dim_coordinates
+from xugrid_tpu_torch.utils.profiling import count
 
 
 def get_ugrid_dims(obj, grids) -> set:
@@ -34,11 +35,13 @@ def get_ugrid_dims(obj, grids) -> set:
 
 def assign_ugrid_coords(obj, grids):
     """Position coordinates on the UGRID dims that have none, so that
-    subsetting is observable after forwarded operations."""
+    subsetting is observable after forwarded operations; while spans are
+    recorded, their bytes count as ``wrap.coord_bytes``."""
     ugrid_dims = {dim for grid in grids for dim in grid.dims} & set(obj.dims)
     sizes = obj.sizes
     coords = {dim: np.arange(sizes[dim]) for dim in ugrid_dims if dim not in obj.coords}
     if coords:
+        count("wrap.coord_bytes", sum(index.nbytes for index in coords.values()))
         obj = obj.assign_coords(coords)
     return obj
 

@@ -390,9 +390,10 @@ class BaseRegridder(abc.ABC):
             if missing_dims:
                 raise ValueError(f"data does not contain regridder source dimensions: {missing_dims}")
             regridded = self.regrid_dataarray(obj, source_dims, device)
-            if isinstance(self._target, StructuredGrid2d):
-                return regridded.assign_coords(self._target.coords)
-            return UgridDataArray(regridded, self._target.ugrid_topology)
+            with span("regrid.wrap"):
+                if isinstance(self._target, StructuredGrid2d):
+                    return regridded.assign_coords(self._target.coords)
+                return UgridDataArray(regridded, self._target.ugrid_topology)
 
 
 class BaseOverlapRegridder(BaseRegridder, abc.ABC):
