@@ -16,7 +16,9 @@ With no argument it runs these phases:
    3, 20, 40, 128 and 200 (each slice-warp count and slice batch), on
    windows with NaN, +-inf, zeros, negative values, zero weights, more
    than 32 slots, all-pad rows and a target count that no tile divides,
-   and on windows of up to 400 slots (read in place); window_select's
+   on windows of up to 400 slots (read in place), and on the first 1 to
+   4 slots of each window (row tiles, bit for bit as the tile block);
+   window_select's
    mode and percentiles at the same slice counts, at each register array
    (K = 8, 16, 32) and on the walk of windows longer than 32 slots, bit
    for bit; and csr_matvec on ragged rows (empty rows, rows of more than
@@ -540,6 +542,36 @@ def summation_bound(source, idx, w, fn):
     return idx.shape[1] * unit * magnitude
 
 
+def tile_block_reduce(source, idx, wt, fn):
+    """window_reduce of ``fn`` through ``reduce_lanes``' tile block
+    whatever the window width: the launch that row tiles replace for
+    windows of at most ROW_TILE_SLOTS slots.  Returns a new (E, n)
+    tensor; raises on a CUDA error."""
+    import torch
+
+    from xugrid_tpu_torch.regrid.aligned_apply import DTYPE_CODES, METHOD_CODES, kernel_function, reduce_lanes
+
+    (E, m), (n, w) = source.shape, idx.shape
+    out = torch.empty((E, n), dtype=source.dtype, device=source.device)
+    slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size())
+    err = kernel_function("xt_window_reduce")(
+        DTYPE_CODES[source.dtype], METHOD_CODES[fn], source.data_ptr(), idx.data_ptr(), wt.data_ptr(),
+        out.data_ptr(), n, m, w, E, slice_warps, target_warps, int(staged),
+        torch.cuda.current_stream(source.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"xt_window_reduce failed with CUDA error {err}")
+    return out
+
+
+def same_bits(a, b) -> bool:
+    """True when two float tensors hold the same bits, NaN included."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
 def card_line():
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -610,13 +642,14 @@ REDUCE_METHOD_NAMES = (
 
 
 def check_reduce_registers(log):
-    """Name every instantiation of window_reduce.cu's two kernels,
+    """Name every instantiation of window_reduce.cu's three kernels,
     ``window_reduce_kernel<T, M, STAGED, B>`` (2 types x 8 methods x 4
-    (staged, B) pairs) and ``csr_matvec_kernel<T>`` (2 types), by their
-    mangled names in the ptxas report, and print its registers, stack
-    frame and spill bytes.  Raises only when the report does not hold
-    the 66 instantiations.  Returns {name: (registers, stack, spill
-    stores, spill loads)}."""
+    (staged, B) pairs), ``window_reduce_kernel_rows<T, M, W, VEC>`` (2
+    types x 8 methods x W = 1, 2, 4 x 16-byte or single stores) and
+    ``csr_matvec_kernel<T>`` (2 types), by their mangled names in the
+    ptxas report, and print its registers, stack frame and spill bytes.
+    Raises only when the report does not hold the 162 instantiations.
+    Returns {name: (registers, stack, spill stores, spill loads)}."""
     import re
 
     properties = (
@@ -626,16 +659,25 @@ def check_reduce_registers(log):
     reduce_entries = re.findall(
         r"Function properties for \S*window_reduce_kernelI([fd])Li(\d+)ELb([01])ELi(\d+)E\S*" + properties, log
     )
+    rows_entries = re.findall(
+        r"Function properties for \S*window_reduce_kernel_rowsI([fd])Li(\d+)ELi(\d+)ELb([01])E\S*" + properties, log
+    )
     matvec_entries = re.findall(r"Function properties for \S*csr_matvec_kernelI([fd])E\S*" + properties, log)
-    if len(reduce_entries) != 2 * 8 * 4 or len(matvec_entries) != 2:
+    if len(reduce_entries) != 2 * 8 * 4 or len(rows_entries) != 2 * 8 * 3 * 2 or len(matvec_entries) != 2:
         raise AssertionError(
-            f"expected 64 window_reduce_kernel and 2 csr_matvec_kernel instantiations in the ptxas report, "
-            f"found {len(reduce_entries)} and {len(matvec_entries)}"
+            f"expected 64 window_reduce_kernel, 96 window_reduce_kernel_rows and 2 csr_matvec_kernel "
+            f"instantiations in the ptxas report, found {len(reduce_entries)}, {len(rows_entries)} and "
+            f"{len(matvec_entries)}"
         )
     found = {}
     for dtype, method, staged, batch, stack, stores, loads, regs in reduce_entries:
         name = reduce_build_name(
             "float32" if dtype == "f" else "float64", REDUCE_METHOD_NAMES[int(method)], staged == "1", int(batch)
+        )
+        found[name] = (int(regs), int(stack), int(stores), int(loads))
+    for dtype, method, slots, vec, stack, stores, loads, regs in rows_entries:
+        name = rows_build_name(
+            "float32" if dtype == "f" else "float64", REDUCE_METHOD_NAMES[int(method)], int(slots), vec == "1"
         )
         found[name] = (int(regs), int(stack), int(stores), int(loads))
     for dtype, stack, stores, loads, regs in matvec_entries:
@@ -658,11 +700,20 @@ def reduce_build_name(dtype: str, method: str, staged: bool, batch: int) -> str:
     )
 
 
+def rows_build_name(dtype: str, method: str, slots: int, vec: bool) -> str:
+    """The name ``check_reduce_registers`` gives one
+    window_reduce_kernel_rows instantiation."""
+    return (
+        f"window_reduce_kernel_rows<{'float' if dtype == 'float32' else 'double'}, {method}, W={slots}, "
+        f"{'16-byte' if vec else 'single'} stores>"
+    )
+
+
 def launched_reduce_build(dtype: str, method: str, E: int, w: int) -> str:
     """The window_reduce_kernel instantiation that a launch over E slices
-    and windows of w slots takes: the wrapper's ``reduce_lanes`` block,
-    then launch_batched's B (4 when staged, else from the slices per
-    warp)."""
+    and windows of w > ROW_TILE_SLOTS slots takes: the wrapper's
+    ``reduce_lanes`` block, then launch_batched's B (4 when staged, else
+    from the slices per warp)."""
     from xugrid_tpu_torch.regrid.aligned_apply import reduce_lanes
 
     slice_warps, _, staged = reduce_lanes(E, w, 4 if dtype == "float32" else 8)
@@ -701,6 +752,9 @@ CHECK_EXTRAS = (1, 3, 20, 40, 128, 200)
 #: windows of up to 400 slots, which fit no tile's shared memory and of
 #: which 5 % walk.
 CHECK_WIDTHS = {40: (8, 16, 32, 40), 400: (400,)}
+#: Phase 2's row tiles: the first 1 to 4 slots of the 40-slot windows, on
+#: n = 4001 targets (single stores) and the first 4000 (16-byte stores).
+ROW_WIDTHS = (1, 2, 3, 4)
 
 
 def phase_kernel_checks(device):
@@ -710,7 +764,7 @@ def phase_kernel_checks(device):
     import torch
 
     from xugrid_tpu_torch.regrid import reduce
-    from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, reduce_lanes, window_reduce
+    from xugrid_tpu_torch.regrid.aligned_apply import METHOD_CODES, reduce_lanes, row_tiles, window_reduce
     from xugrid_tpu_torch.regrid.select_apply import register_slots, window_select
 
     percentiles = [reduce.Percentile(p) for p in (0, 5, 25, 50, 75, 95, 100, 33.3)]
@@ -755,6 +809,27 @@ def phase_kernel_checks(device):
                         f"  window_reduce {label} {str(dtype)[6:]} E={E} (slice warps, target warps, "
                         f"staged) {plan}: all methods ok, max |diff| {max(errs):.3e}"
                     )
+                    for width in ROW_WIDTHS if w == 40 else ():
+                        for rows in (n, n - 1):
+                            cut_idx, cut_wt = idx[:rows, :width].contiguous(), wt[:rows, :width].contiguous()
+                            for fn in METHOD_CODES:
+                                if fn is reduce.harmonic_mean and label == "mixed":
+                                    continue
+                                got = window_reduce(source, cut_idx, cut_wt, fn)
+                                if not same_bits(got, tile_block_reduce(source, cut_idx, cut_wt, fn)):
+                                    raise AssertionError(f"row tiles differ from the tile block: {fn.__name__}")
+                                want = reduce.reduce_windows(source.t(), cut_idx, cut_wt, fn).t()
+                                bound = atol
+                                if fn in linear:
+                                    bound = torch.clamp(summation_bound(source, cut_idx, cut_wt, fn), min=atol)
+                                torch.cuda.synchronize()
+                                compare(got, want, fn in exact, rtol, bound)
+                            plans.add(("row tiles", width, rows % 4 == 0))
+                    if w == 40:
+                        print(
+                            f"  window_reduce {label} {str(dtype)[6:]} E={E} w=1-4 row tiles "
+                            f"{row_tiles(E, n, source.element_size())}: all methods ok, bits of the tile block"
+                        )
                     for width in CHECK_WIDTHS[w]:
                         cut_idx, cut_wt = idx[:, :width].contiguous(), wt[:, :width].contiguous()
                         for fn in (reduce.mode, *percentiles):
@@ -770,7 +845,7 @@ def phase_kernel_checks(device):
                             f"{reduce_lanes(E, width, source.element_size(), batch=1)}: mode and "
                             f"{len(percentiles)} percentiles bit-equal"
                         )
-    print(f"  window_reduce mappings checked: {sorted(plans)}")
+    print(f"  window_reduce mappings checked: {sorted(plans, key=str)}")
     return max_err
 
 

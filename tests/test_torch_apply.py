@@ -30,7 +30,9 @@ from xugrid_tpu.regrid.select_apply import apply_windowed_select
 from xugrid_tpu_torch.core.sparse import PaddedCSR
 from xugrid_tpu_torch.regrid import reduce
 from xugrid_tpu_torch.regrid import apply as apply_module
-from xugrid_tpu_torch.regrid.aligned_apply import STAGE_BYTES, reduce_lanes, stage_bytes, window_reduce
+from xugrid_tpu_torch.regrid.aligned_apply import (
+    STAGE_BYTES, reduce_block, reduce_lanes, row_tiles, stage_bytes, window_reduce,
+)
 from xugrid_tpu_torch.regrid.apply import apply_weights, device_weights
 from xugrid_tpu_torch.regrid.select_apply import register_slots, window_select
 
@@ -372,3 +374,37 @@ def test_reduce_lanes_picks_each_branch():
     assert reduce_lanes(20, 124, 8) == (1, 1, True)
     assert reduce_lanes(20, 125, 8) == (1, 8, False)
     assert reduce_lanes(128, 400, 4) == (4, 2, False)
+
+
+@pytest.mark.parametrize(
+    "E, n, w, itemsize, plan",
+    [
+        (261, 1_560_000, 1, 4, (4, 1524, 53)),  # a slab of the daily forcing onto the LHM mesh
+        (301, 1_560_000, 1, 4, (4, 1524, 61)),
+        (261, 1_560_000, 2, 4, (4, 1524, 53)),
+        (261, 1_560_000, 4, 4, (4, 1524, 53)),
+        (20, 1_000_000, 4, 4, (4, 977, 20)),
+        (64, 1001, 1, 4, (4, 1, 64)),
+        (65, 1001, 3, 4, (4, 1, 33)),
+        (1, 1024, 2, 4, (4, 1, 1)),
+        (261, 1_560_000, 1, 8, (2, 3047, 53)),
+        (20, 1001, 4, 8, (2, 2, 20)),
+        (64 * 65535 + 1, 1, 1, 4, (4, 1, 65)),  # past the grid's 65,535 groups
+    ],
+)
+def test_window_reduce_takes_row_tiles_for_narrow_windows(E, n, w, itemsize, plan):
+    """Windows of at most 4 slots take row tiles: 256 threads of V = 16 //
+    itemsize consecutive targets a tile (16-byte stores), the slices cut
+    evenly into groups of at most 64 (more past 65,535 groups)."""
+    assert row_tiles(E, n, itemsize) == plan
+    assert reduce_block(E, n, w, itemsize) == ("xt_window_reduce_rows", (plan[2],))
+
+
+@pytest.mark.parametrize("E", [261, 301])
+@pytest.mark.parametrize("w", [5, 16, 40])
+def test_wider_windows_keep_the_tile_block(E, w):
+    """Windows of more than 4 slots (the mean of a 1 km map cell's 16 faces
+    of 250 m among them) keep ``reduce_lanes``' block: at E = 261 and 301,
+    8 slice warps over a staged tile of 32 targets."""
+    assert reduce_lanes(E, w, 4) == (8, 1, True)
+    assert reduce_block(E, 97_500, w, 4) == ("xt_window_reduce", (8, 1, 1))

@@ -19,7 +19,7 @@ import chip_smoke
 import xugrid_tpu_torch as xt
 from xugrid_tpu_torch.regrid import reduce
 from xugrid_tpu_torch.regrid.aligned_apply import (
-    METHOD_CODES, csr_matvec, csr_matvec_plain, reduce_lanes, window_reduce,
+    METHOD_CODES, ROW_TILE_SLOTS, csr_matvec, csr_matvec_plain, reduce_block, reduce_lanes, window_reduce,
 )
 from xugrid_tpu_torch.regrid.select_apply import register_slots, window_select
 from xugrid_tpu_torch.ugrid import interpolate
@@ -66,24 +66,31 @@ def test_kernel_matches_plain(device, windows, fn, kernel, dtype):
     chip_smoke.compare(got, want, fn in EXACT, rtol, atol)
 
 
-@pytest.mark.parametrize("E", [1, 3, 20, 40, 128, 200])
-@pytest.mark.parametrize("w", [40, 400])
+@pytest.mark.parametrize("n", [1001, 1024])
+@pytest.mark.parametrize("E", [1, 3, 20, 40, 128, 200, 261])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 40, 400])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-def test_window_reduce_lane_mappings_match_plain(device, dtype, w, E):
+def test_window_reduce_lane_mappings_match_plain(device, dtype, w, E, n):
     """Each slice-warp count and slice batch (E), shared-memory tile
     (dtype, w) and the in-place read of windows (E <= 4, or too wide to
-    stage at w = 400), on a target count that no tile divides."""
+    stage at w = 400), on a target count that no tile divides (1001) and
+    one that the row tiles' V does (1024).  Windows of w <= 4 slots (the
+    first w of the 40) take row tiles, scalar stores at n = 1001 and 16-byte
+    stores at 1024, with the bits of the tile block."""
     indices, weights, mixed, positive = chip_smoke.synthetic_windows(
-        np.random.default_rng(E), n=1001, m=900, w=w, n_extra=E
+        np.random.default_rng(E), n=n, m=900, w=max(w, 40), n_extra=E
     )
-    idx = torch.from_numpy(indices).to(device)
-    wt = torch.from_numpy(weights).to(device=device, dtype=dtype)
-    assert reduce_lanes(E, w, wt.element_size())[2] == (w == 40 and E > 4)
+    idx = torch.from_numpy(np.ascontiguousarray(indices[:, :w])).to(device)
+    wt = torch.from_numpy(np.ascontiguousarray(weights[:, :w])).to(device=device, dtype=dtype)
+    rows = w <= ROW_TILE_SLOTS
+    assert (reduce_block(E, n, w, wt.element_size())[0] == "xt_window_reduce_rows") == rows
+    assert rows or reduce_lanes(E, w, wt.element_size())[2] == (w == 40 and E > 4)
     for fn in METHOD_CODES:
         src = positive if fn is reduce.harmonic_mean else mixed
         source = torch.from_numpy(src).to(device=device, dtype=dtype)
         got = window_reduce(source, idx, wt, fn)
-        assert got.shape == (E, 1001) and got.is_contiguous()
+        assert got.shape == (E, n) and got.is_contiguous()
+        assert not rows or chip_smoke.same_bits(got, chip_smoke.tile_block_reduce(source, idx, wt, fn))
         want = reduce.reduce_windows(source.t(), idx, wt, fn).t()
         scale = float(np.nanmax(np.abs(np.where(np.isfinite(src), src, np.nan))))
         rtol, atol = chip_smoke.tolerance(dtype, scale)
@@ -266,6 +273,29 @@ def test_window_select_counts_its_launches_by_path(device, fn, w, walks, network
     assert [(rec.name, rec.counts) for rec in records] == [("apply.select", counts)]
 
 
+@pytest.mark.parametrize("w, rows", [(1, 1), (2, 1), (3, 1), (4, 1), (16, 0)])
+def test_window_reduce_counts_row_tile_launches(device, w, rows):
+    """``apply.row_tile_launches`` adds 1 per window_reduce launch that
+    takes row tiles (windows of at most 4 slots), else 0."""
+    from xugrid_tpu_torch.utils.profiling import timings
+
+    indices, weights, mixed, _ = chip_smoke.synthetic_windows(np.random.default_rng(5), n=300, m=400, n_extra=3)
+    idx = torch.from_numpy(np.ascontiguousarray(indices[:, :w])).to(device)
+    wt = torch.from_numpy(np.ascontiguousarray(weights[:, :w])).to(device=device, dtype=torch.float32)
+    source = torch.from_numpy(mixed).to(device=device, dtype=torch.float32)
+    before = window_reduce.launches
+    timings.reset()
+    timings.start_spans()
+    try:
+        window_reduce(source, idx, wt, reduce.mean)
+        window_reduce(source, idx, wt, reduce.maximum)
+    finally:
+        timings.stop_spans()
+    counters = timings.counters()
+    timings.reset()
+    assert window_reduce.launches == before + 2 and counters == {"apply.row_tile_launches": 2 * rows}
+
+
 def test_regrid_on_cuda_matches_cpu(device):
     (verts, faces), (tverts, tfaces) = chip_smoke.bench_meshes(30, 17, np.random.default_rng(1))
     source = xt.Ugrid2d(verts[:, 0], verts[:, 1], -1, faces)
@@ -396,7 +426,8 @@ def test_labelled_raster_to_mesh_in_slabs_on_the_card(device, monkeypatch, shift
     """A (time, y, x) DataArray of 1 km cells on the card, north first,
     regridded by the mean onto a mesh of 250 m faces (aligned: each face
     in one cell, windows of 1; moved by a part of a cell: windows of 1,
-    2 or 4), 15 slices in slabs of 4, 4, 4, 3 written in place: a (time,
+    2 or 4), 15 slices in slabs of 4, 4, 4, 3 written in place, each slab
+    one row-tile launch: a (time,
     face) UgridDataArray on the card with the bits of the slabs applied
     one by one and joined, and the CPU result's NaN; its values within
     twice the bound each path keeps of the float64 mean
@@ -406,6 +437,7 @@ def test_labelled_raster_to_mesh_in_slabs_on_the_card(device, monkeypatch, shift
     from portbench.generators import common
     from xugrid_tpu_torch.regrid import regridder as torch_regridder
     from xugrid_tpu_torch.regrid.apply import apply_weights
+    from xugrid_tpu_torch.utils.profiling import timings
 
     mesh = inputs.quad_mesh(40, 48, 250.0, (0.0, 300000.0))
     raster = inputs.raster(mesh.bounds, 1000.0, shift)
@@ -417,7 +449,15 @@ def test_labelled_raster_to_mesh_in_slabs_on_the_card(device, monkeypatch, shift
     m, n = r._weights.m, r._weights.n
     assert (m, n) == (raster.size, grid.n_face) and (r._padded.indices.shape[1] == 1) == (shift == (0.0, 0.0))
     monkeypatch.setattr(torch_regridder, "APPLY_CHUNK_BYTES", 4 * 4 * (m + n))
-    out = r.regrid(source)
+    timings.reset()
+    timings.start_spans()
+    try:
+        out = r.regrid(source)
+    finally:
+        timings.stop_spans()
+    row_tile_launches = timings.counters().get("apply.row_tile_launches")
+    timings.reset()
+    assert row_tile_launches == 4  # one a slab: windows of at most 4 slots
     assert isinstance(out, xt.UgridDataArray) and out.dims == ("time", grid.face_dimension)
     assert out.data.device == device and out.shape == (15, grid.n_face)
     joined = torch.cat([apply_weights(r._padded, pool[i : i + 4], r._reduction, n) for i in range(0, 15, 4)])
@@ -431,23 +471,32 @@ def test_labelled_raster_to_mesh_in_slabs_on_the_card(device, monkeypatch, shift
     torch.testing.assert_close(got[valid], on_cpu[valid], rtol=0, atol=2 * ulps * ulp)
 
 
-@pytest.mark.parametrize("fn, kernel", [(reduce.mean, window_reduce), (reduce.median, window_select)],
-                         ids=["window_reduce", "window_select"])
-def test_kernels_write_only_the_rows_of_out(device, windows, fn, kernel):
-    """``out`` a view of rows 2 to E + 1 of a larger buffer: the kernel writes
-    its bits there and the sentinel rows either side stay; a wrong
+@pytest.mark.parametrize(
+    "fn, kernel, width, start",
+    [(reduce.mean, window_reduce, 40, 2 * 1500), (reduce.median, window_select, 40, 2 * 1500),
+     (reduce.mean, window_reduce, 1, 2 * 1500), (reduce.mean, window_reduce, 4, 1)],
+    ids=["window_reduce", "window_select", "window_reduce_rows", "window_reduce_rows_unaligned"],
+)
+def test_kernels_write_only_the_rows_of_out(device, windows, fn, kernel, width, start):
+    """``out`` a view of E rows of a larger buffer from its element
+    ``start`` (rows 2 to E + 1; for row tiles, whose 16-byte stores need
+    16-byte aligned rows, also one element in, so that each result is
+    stored alone), of the first ``width`` slots of each window: the kernel
+    writes its bits there and the sentinels either side stay; a wrong
     ``out`` raises."""
     indices, weights, mixed, _ = windows
     source = torch.from_numpy(mixed).to(device=device, dtype=torch.float32)
-    idx = torch.from_numpy(indices).to(device)
-    w = torch.from_numpy(weights).to(device=device, dtype=torch.float32)
+    idx = torch.from_numpy(np.ascontiguousarray(indices[:, :width])).to(device)
+    w = torch.from_numpy(np.ascontiguousarray(weights[:, :width])).to(device=device, dtype=torch.float32)
     E, n = source.shape[0], idx.shape[0]
-    buffer = torch.full((E + 4, n), -7.5, dtype=torch.float32, device=device)
+    buffer = torch.full(((E + 4) * n,), -7.5, dtype=torch.float32, device=device)
+    rows = buffer[start : start + E * n].view(E, n)
+    assert (rows.data_ptr() % 16 == 0) == (start % 4 == 0)
     before = kernel.launches
-    got = kernel(source, idx, w, fn, out=buffer[2 : 2 + E])
-    assert kernel.launches == before + 1 and got.data_ptr() == buffer[2].data_ptr()
-    torch.testing.assert_close(buffer[2 : 2 + E], kernel(source, idx, w, fn), rtol=0, atol=0, equal_nan=True)
-    assert bool((buffer[:2] == -7.5).all()) and bool((buffer[2 + E :] == -7.5).all())
+    got = kernel(source, idx, w, fn, out=rows)
+    assert kernel.launches == before + 1 and got.data_ptr() == rows.data_ptr()
+    torch.testing.assert_close(rows, kernel(source, idx, w, fn), rtol=0, atol=0, equal_nan=True)
+    assert bool((buffer[:start] == -7.5).all()) and bool((buffer[start + E * n :] == -7.5).all())
     with pytest.raises(ValueError, match="device"):
         kernel(source, idx, w, fn, out=torch.empty((E, n)))
     with pytest.raises(TypeError, match="dtype"):

@@ -38,10 +38,29 @@
 //   each output has one owner that walks its window in slot order, so
 //   results do not depend on scheduling.
 //
+// Windows of at most 4 slots (a raster onto a finer mesh, barycentric
+// weights, bilinear) take row tiles instead (window_reduce_kernel_rows,
+// aligned_apply.row_tiles).  There the output is nearly all the bytes
+// (w = 1 onto the 1.56M-face LHM mesh: 93 % of them), and a warp of the
+// tile above stores 128 B of one slice row at a time, its next store 8
+// rows away.  A row tile is 256 threads of V = 16 / sizeof(T) consecutive
+// targets each: a thread loads its V windows once into registers (no
+// shared memory, no __syncthreads), then walks the slices of its group,
+// gathering U slices of its V targets together (U V W = 16 slots in
+// flight) and writing each slice's V results with one 16-byte evict-first
+// store, so a block writes 4 KB of one row at a time.  Tiles are fastest in the grid,
+// so the blocks in flight cover about a million consecutive targets of the
+// same slices.  Each output still walks its window in slot order through
+// the same Reducer, so both tilings give the same bits.  Where n is no
+// multiple of V or out's rows are not 16-byte aligned (a slab view), the
+// same kernel stores each result alone.
+//
 // Each method is a literal transcription of its formula in
 // xugrid_tpu/regrid/reduce.py (NaN and pad slots, 0 * inf, the
 // geometric-mean gates), so the kernel returns what reduce.py returns for
 // NaN, inf, zero weights and negative values.
+
+#include <type_traits>
 
 #include "window_common.cuh"
 
@@ -238,23 +257,154 @@ cudaError_t launch_reduce(const void* src, const void* idx, const void* wts, voi
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_reduce(int method, const void* src, const void* idx, const void* wts,
-                            void* out, int n, int m, int w, int E, int sw, int tw, int st,
-                            cudaStream_t stream) {
-#define XT_REDUCE(M) launch_reduce<T, M>(src, idx, wts, out, n, m, w, E, sw, tw, st, stream)
+// Widest window a row tile holds in registers (aligned_apply.ROW_TILE_SLOTS).
+constexpr int kRowSlots = 4;
+
+// A row tile's stores are evict-first (st.global.cs): the output streams
+// past the L2, which keeps the source rows and the windows.
+__device__ __forceinline__ void store16(float* p, const float (&r)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(r[0], r[1], r[2], r[3]));
+}
+__device__ __forceinline__ void store16(double* p, const double (&r)[2]) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(r[0], r[1]));
+}
+
+// Row tile [256 V blockIdx.x, ...) of targets over slices [group
+// blockIdx.y, ...), for windows of w <= W slots (W = 1, 2 or 4).  VEC:
+// every row start out + e * n is 16-byte aligned and n a multiple of V.
+template <typename T, int M, int W, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+window_reduce_kernel_rows(const T* __restrict__ src, const int32_t* __restrict__ idx,
+                          const T* __restrict__ wts, T* __restrict__ out, int n, int m, int w,
+                          int E, int group) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int U = 16 / (V * W);
+  const int64_t t0 = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * V;
+  if (t0 >= n) return;
+  // This thread's windows: slots past len (the last non-pad slot) are not
+  // walked; a -1 before it still counts as NaN (TileWindow::length).
+  int32_t ix[V][W];
+  T wk[V][W], norm[V], denom[V];
+  int len[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const int64_t row = (t0 + q) * w;
+    len[q] = 0;
+    norm[q] = 0;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const bool slot = t0 + q < n && k < w;
+      ix[q][k] = slot ? idx[row + k] : -1;
+      wk[q][k] = slot ? wts[row + k] : (T)0;
+      if (ix[q][k] >= 0) len[q] = k + 1;
+      if constexpr (M == kGeometricMean) {
+        if (slot) norm[q] += wk[q][k];
+      }
+    }
+    denom[q] = norm[q] == (T)0 ? (T)1 : norm[q];
+  }
+  const int e_begin = blockIdx.y * group;
+  const int e_end = (int64_t)e_begin + group < E ? e_begin + group : E;
+  for (int e0 = e_begin; e0 < e_end; e0 += U) {
+    T v[U][V][W];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool on = e0 + u < e_end;
+      const T* se = src + (int64_t)(on ? e0 + u : e0) * m;
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          v[u][q][k] = (on && k < len[q] && ix[q][k] >= 0) ? se[ix[q][k]] : qnan<T>();
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (e0 + u >= e_end) break;
+      T r[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        Reducer<T, M> acc;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          if (k < len[q]) acc.add(v[u][q][k], wk[q][k], denom[q]);
+        }
+        r[q] = acc.result(norm[q]);
+      }
+      T* o = out + (int64_t)(e0 + u) * n + t0;
+      if constexpr (VEC) {
+        store16(o, r);
+      } else {
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          if (t0 + q < n) __stcs(o + q, r[q]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int M, int W>
+void launch_rows_vec(dim3 grid, bool vec, cudaStream_t stream, const T* s, const int32_t* i,
+                     const T* wt, T* o, int n, int m, int w, int E, int group) {
+  if (vec) {
+    window_reduce_kernel_rows<T, M, W, true><<<grid, kThreads, 0, stream>>>(s, i, wt, o, n, m, w, E, group);
+  } else {
+    window_reduce_kernel_rows<T, M, W, false><<<grid, kThreads, 0, stream>>>(s, i, wt, o, n, m, w, E, group);
+  }
+}
+
+template <typename T, int M>
+cudaError_t launch_rows(const void* src, const void* idx, const void* wts, void* out, int n,
+                        int m, int w, int E, int group, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  if (n <= 0 || w < 0 || w > kRowSlots || E <= 0 || group <= 0) return cudaErrorInvalidValue;
+  const int64_t tiles = ((int64_t)n + kThreads * V - 1) / (kThreads * V);
+  const int64_t groups = ((int64_t)E + group - 1) / group;
+  if (tiles > 0x7fffffff || groups > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)tiles, (unsigned)groups);
+  const bool vec = n % V == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const T* s = static_cast<const T*>(src);
+  const int32_t* i = static_cast<const int32_t*>(idx);
+  const T* wt = static_cast<const T*>(wts);
+  T* o = static_cast<T*>(out);
+  if (w <= 1) {
+    launch_rows_vec<T, M, 1>(grid, vec, stream, s, i, wt, o, n, m, w, E, group);
+  } else if (w == 2) {
+    launch_rows_vec<T, M, 2>(grid, vec, stream, s, i, wt, o, n, m, w, E, group);
+  } else {
+    launch_rows_vec<T, M, 4>(grid, vec, stream, s, i, wt, o, n, m, w, E, group);
+  }
+  return cudaGetLastError();
+}
+
+// f(T(), std::integral_constant<int, M>()) for the kernel dtype code (0
+// float32, 1 float64) and method code (ReduceMethod); cudaErrorInvalidValue
+// for any other code.
+template <typename T, typename F>
+cudaError_t by_method(int method, F& f) {
+#define XT_METHOD(M) \
+  case M: return f(T(), std::integral_constant<int, M>())
   switch (method) {
-    case kMean: return XT_REDUCE(kMean);
-    case kSum: return XT_REDUCE(kSum);
-    case kFirstOrderConservative: return XT_REDUCE(kFirstOrderConservative);
-    case kHarmonicMean: return XT_REDUCE(kHarmonicMean);
-    case kGeometricMean: return XT_REDUCE(kGeometricMean);
-    case kMinimum: return XT_REDUCE(kMinimum);
-    case kMaximum: return XT_REDUCE(kMaximum);
-    case kMaxOverlap: return XT_REDUCE(kMaxOverlap);
+    XT_METHOD(kMean);
+    XT_METHOD(kSum);
+    XT_METHOD(kFirstOrderConservative);
+    XT_METHOD(kHarmonicMean);
+    XT_METHOD(kGeometricMean);
+    XT_METHOD(kMinimum);
+    XT_METHOD(kMaximum);
+    XT_METHOD(kMaxOverlap);
     default: return cudaErrorInvalidValue;
   }
-#undef XT_REDUCE
+#undef XT_METHOD
+}
+
+template <typename F>
+cudaError_t by_dtype_and_method(int dtype, int method, F f) {
+  if (dtype == 0) return by_method<float>(method, f);
+  if (dtype == 1) return by_method<double>(method, f);
+  return cudaErrorInvalidValue;
 }
 
 // csr_matvec: the SpMV of the Laplace PCG, y[t, e] = sum_k data[k] *
@@ -351,14 +501,21 @@ extern "C" int xt_window_reduce(int dtype, int method, const void* src, const vo
                                 const void* wts, void* out, int32_t n, int32_t m, int32_t w,
                                 int32_t E, int32_t slice_warps, int32_t target_warps,
                                 int32_t staged, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)xt::dispatch_reduce<float>(method, src, idx, wts, out, n, m, w, E, slice_warps,
-                                           target_warps, staged, s);
-  }
-  if (dtype == 1) {
-    return (int)xt::dispatch_reduce<double>(method, src, idx, wts, out, n, m, w, E,
-                                            slice_warps, target_warps, staged, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)xt::by_dtype_and_method(dtype, method, [&](auto t, auto M) {
+    return xt::launch_reduce<decltype(t), decltype(M)::value>(
+        src, idx, wts, out, n, m, w, E, slice_warps, target_warps, staged,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// xt_window_reduce in row tiles (window_reduce_kernel_rows), for windows of
+// w <= 4 slots: each block takes `group` slices of its tile.  Returns the
+// launch's cudaGetLastError().
+extern "C" int xt_window_reduce_rows(int dtype, int method, const void* src, const void* idx,
+                                     const void* wts, void* out, int32_t n, int32_t m, int32_t w,
+                                     int32_t E, int32_t group, void* stream) {
+  return (int)xt::by_dtype_and_method(dtype, method, [&](auto t, auto M) {
+    return xt::launch_rows<decltype(t), decltype(M)::value>(
+        src, idx, wts, out, n, m, w, E, group, static_cast<cudaStream_t>(stream));
+  });
 }

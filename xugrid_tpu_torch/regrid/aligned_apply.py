@@ -21,7 +21,9 @@ does not take; for CPU tensors it runs the plain PyTorch version
 and ``apply_weights``' custom reductions share ``_window_apply``; every
 launch is one ``_launch``, which counts it on the wrapper's
 ``launches``.  ``reduce_lanes`` picks the block shape of both window
-kernels.
+kernels; ``window_reduce`` takes row tiles (``row_tiles``) instead for
+windows of at most ``ROW_TILE_SLOTS`` slots (``reduce_block``) and
+counts each such launch as ``apply.row_tile_launches``.
 """
 
 from __future__ import annotations
@@ -56,11 +58,19 @@ STAGE_BYTES = 48 * 1024
 #: Largest index a kernel takes: they index in 32 bits.
 MAX_INT32 = 2**31 - 1 - 256
 
+#: Widest window ``window_reduce`` reads in row tiles, held in registers
+#: (``kRowSlots`` in csrc/window_reduce.cu).
+ROW_TILE_SLOTS = 4
+
+#: Most slices a row-tile block walks (``row_tiles``).
+ROW_TILE_SLICES = 64
+
 
 #: ctypes signatures of the kernel library's entry points
 #: (csrc/*.cu): pointers and the stream as c_void_p.
 _SIGNATURES = {
     "xt_window_reduce": (ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 4, *[ctypes.c_int32] * 7, ctypes.c_void_p),
+    "xt_window_reduce_rows": (ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 4, *[ctypes.c_int32] * 5, ctypes.c_void_p),
     "xt_csr_matvec": (ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int32] * 2, ctypes.c_void_p),
     "xt_window_select": (
         ctypes.c_int, ctypes.c_int, ctypes.c_double, *[ctypes.c_void_p] * 4, *[ctypes.c_int32] * 8,
@@ -170,6 +180,40 @@ def reduce_lanes(E: int, w: int, itemsize: int, batch: int = 4) -> tuple[int, in
     return S, G, True
 
 
+def row_tiles(E: int, n: int, itemsize: int) -> tuple[int, int, int]:
+    """
+    The row tiles of a ``window_reduce`` launch over E slices and n
+    windows of at most ROW_TILE_SLOTS slots of ``itemsize``-byte values:
+    (V targets a thread, tiles of 256 V targets, slices per group).
+
+    V = 16 // itemsize, so that a thread stores a slice's V results in
+    16 bytes.  Each block reads its tile's windows once and walks one
+    group of slices, the E slices cut evenly into groups of at most
+    ROW_TILE_SLICES (more only past 65,535 groups, the grid's limit).
+    A group of 64 float32 slices writes 256 bytes a
+    target against the 8 bytes of a one-slot window read again for it
+    (3 %), and leaves a deep stack thousands of blocks; a group of all
+    261 slices of a forcing slab ran 7 % slower on an H100 (its ~3
+    waves of blocks), groups of 33-87 slices within 1.5 % of each other
+    at w = 1, 2 and 4, and a stack of 20 fastest as one group
+    (PERF.md).
+    """
+    V = 16 // itemsize
+    groups = min(-(-E // ROW_TILE_SLICES), 65535)
+    return V, -(-n // (256 * V)), -(-E // groups)
+
+
+def reduce_block(E: int, n: int, w: int, itemsize: int) -> tuple[str, tuple[int, ...]]:
+    """``window_reduce``'s entry point and block for E slices and n
+    windows of w slots of ``itemsize``-byte values: row tiles of
+    ``row_tiles``' slices per group where w <= ROW_TILE_SLOTS, else
+    ``reduce_lanes``' block (slice warps, target warps, staged)."""
+    if w <= ROW_TILE_SLOTS:
+        return "xt_window_reduce_rows", (row_tiles(E, n, itemsize)[2],)
+    slice_warps, target_warps, staged = reduce_lanes(E, w, itemsize)
+    return "xt_window_reduce", (slice_warps, target_warps, int(staged))
+
+
 def plain_into(out, source, indices, weights, reduction) -> torch.Tensor:
     """The plain version of a window kernel: (E, n), written into ``out``
     where one is given (checked by the caller); the bytes copied there
@@ -181,11 +225,11 @@ def plain_into(out, source, indices, weights, reduction) -> torch.Tensor:
     return out.copy_(result)
 
 
-def _window_apply(source, indices, weights, reduction, *, out=None, launch=None, batch: int = 4) -> torch.Tensor:
+def _window_apply(source, indices, weights, reduction, *, out=None, launch=None) -> torch.Tensor:
     """The body of both window kernels and of a custom reduction (``launch``
     None): (E, n), into ``out`` where one is given.  The plain version
     runs for a CPU source or no ``launch``; else ``launch`` gets the
-    windows' pointers, sizes and block (``reduce_lanes`` at ``batch``)."""
+    windows' pointers and sizes (n, m, w, E) and picks its block."""
     if out is not None:
         check_out(out, source, indices.shape[0])
     if launch is None or source.device.type == "cpu":
@@ -195,11 +239,7 @@ def _window_apply(source, indices, weights, reduction, *, out=None, launch=None,
     if out is None:
         out = torch.empty((E, n), dtype=source.dtype, device=source.device)
     if out.numel():
-        slice_warps, target_warps, staged = reduce_lanes(E, w, source.element_size(), batch)
-        launch(
-            source.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            n, m, w, E, slice_warps, target_warps, int(staged),
-        )
+        launch(source.data_ptr(), indices.data_ptr(), weights.data_ptr(), out.data_ptr(), n, m, w, E)
     return out
 
 
@@ -219,9 +259,14 @@ def window_reduce(
     """
     if reduction not in METHOD_CODES:
         raise ValueError(f"window_reduce does not cover {reduction!r}")
-    return _window_apply(source, indices, weights, reduction, out=out, launch=lambda *window: _launch(
-        window_reduce, "xt_window_reduce", source.device, DTYPE_CODES[source.dtype], METHOD_CODES[reduction], *window,
-    ))
+
+    def launch(*window):
+        (E, _), (n, w) = source.shape, indices.shape
+        name, block = reduce_block(E, n, w, source.element_size())
+        _launch(window_reduce, name, source.device, DTYPE_CODES[source.dtype], METHOD_CODES[reduction], *window, *block)
+        count("apply.row_tile_launches", int(name == "xt_window_reduce_rows"))
+
+    return _window_apply(source, indices, weights, reduction, out=out, launch=launch)
 
 
 window_reduce.launches = 0

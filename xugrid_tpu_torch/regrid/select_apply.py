@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from xugrid_tpu_torch.regrid import reduce
-from xugrid_tpu_torch.regrid.aligned_apply import DTYPE_CODES, _launch, _window_apply
+from xugrid_tpu_torch.regrid.aligned_apply import DTYPE_CODES, _launch, _window_apply, reduce_lanes
 from xugrid_tpu_torch.utils.profiling import count, span
 
 
@@ -73,12 +73,14 @@ def window_select(
 
         def launch(*window):
             code = DTYPE_CODES[source.dtype]
-            _launch(window_select, "xt_window_select", source.device, code, int(is_mode), p, *window, slots)
+            slice_warps, target_warps, staged = reduce_lanes(source.shape[0], w, source.element_size(), batch=1)
+            block = slice_warps, target_warps, int(staged), slots
+            _launch(window_select, "xt_window_select", source.device, code, int(is_mode), p, *window, *block)
             count("select.walk_launches", int(w > slots))
             count("select.network_launches", int(0.0 < p < 100.0))  # the mode has p = 0
             count("select.median_launches", int(p == 50.0))
 
-        return _window_apply(source, indices, weights, reduction, out=out, launch=launch, batch=1)
+        return _window_apply(source, indices, weights, reduction, out=out, launch=launch)
 
 
 window_select.launches = 0
